@@ -1,0 +1,37 @@
+"""Unified CLI: ``python -m qcmrf_tpu_torch <command> [args]``.
+
+Commands:
+    run       experiment driver (counts JSON), analytic engine
+    eval      evaluation tables, --mode file
+
+The JAX package's whisker, bench, train and infer commands come to the
+port with later slices of ROADMAP.md.
+"""
+
+from __future__ import annotations
+
+import sys
+
+
+def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv or argv[0] in ("-h", "--help"):
+        print(__doc__)
+        return 0
+    cmd, rest = argv[0], argv[1:]
+    if cmd == "run":
+        from qcmrf_tpu_torch.runners.run_experiment import main as m
+
+        m(rest)
+    elif cmd == "eval":
+        from qcmrf_tpu_torch.runners.eval import main as m
+
+        m(rest)
+    else:
+        print(f"unknown command {cmd!r}\n{__doc__}", file=sys.stderr)
+        return 2
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,161 @@
+"""Build and bind the CUDA kernels of ``csrc/qcmrf_kernels.cu``.
+
+At first use on a CUDA tensor, :func:`library` compiles the translation
+unit with ``nvcc`` into ``build/qcmrf_tpu_torch/<hash>/libqcmrf_kernels.so``
+at the repository root, keyed on a hash of the source and the flags, and
+loads it with ``ctypes``. The C entry points take every pointer and the
+stream as ``c_void_p`` and return ``cudaGetLastError()``; :func:`launch`
+raises when that is not 0. Nothing here runs at import time.
+
+The helpers below also check the tensors handed to a kernel and build the
+small per-structure tensors (clique shifts and sizes) the kernels read.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import subprocess
+import time
+from pathlib import Path
+from typing import Tuple
+
+import torch
+
+from qcmrf_tpu_torch.sim.analytic import _moebius_layout
+
+SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "qcmrf_kernels.cu"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "qcmrf_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: dynamic shared memory a launch may ask for without opting in to more
+SHARED_BYTES_LIMIT = 48 * 1024
+
+_P, _I, _I64, _U32, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                          ctypes.c_uint32, ctypes.c_float)
+_SIGNATURES = {
+    # coef, shifts, sizes, B, K, cmax, n, shots, seed, stream0, mode,
+    # x_out, a_out, count_out, stream
+    "qcmrf_sample": (_P, _P, _P, _I, _I, _I, _I, _I64, _U32, _U32, _I,
+                     _P, _P, _P, _P),
+    # coef, shifts, sizes, B, K, cmax, num_states, beta, fuse_amp,
+    # amp_scale, out, stream
+    "qcmrf_logpot": (_P, _P, _P, _I, _I, _I, _I64, _F, _I, _F, _P, _P),
+    # coef, shifts, sizes, B, K, cmax, num_states, per_block, parts, beta,
+    # m_out, s_out, stream
+    "qcmrf_lse": (_P, _P, _P, _I, _I, _I, _I64, _I64, _I, _F, _P, _P, _P),
+}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if not CUDA_HOME:
+        raise RuntimeError("no CUDA toolkit found: set CUDA_HOME or put "
+                           "nvcc on PATH")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def library_path() -> Path:
+    """Where the built library lives for the current source and flags."""
+    h = hashlib.sha256(SOURCE.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_ROOT / h.hexdigest()[:16] / "libqcmrf_kernels.so"
+
+
+def build() -> Tuple[Path, float]:
+    """Compile the kernels unless this source is built already; returns the
+    library's path and the seconds ``nvcc`` took (0.0 when cached). The
+    compiler's register and shared-memory report lands in ``nvcc.log``
+    beside the library."""
+    out = library_path()
+    if out.is_file():
+        return out, 0.0
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                           str(SOURCE)], capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    (out.parent / "nvcc.log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
+                           f"{proc.stderr}")
+    os.replace(tmp, out)
+    return out, seconds
+
+
+@functools.lru_cache(maxsize=1)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    path, _ = build()
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    lib.qcmrf_error_string.argtypes = [ctypes.c_int]
+    lib.qcmrf_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call entry point ``name`` on ``device``'s current stream; raise if
+    the launch reports a CUDA error."""
+    lib = library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = getattr(lib, name)(*args, stream)
+    if code != 0:
+        msg = lib.qcmrf_error_string(code).decode()
+        raise RuntimeError(f"{name}: CUDA error {code} ({msg})")
+
+
+def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape,
+          device: torch.device) -> None:
+    """Raise unless ``t`` has the device, dtype, shape and contiguity a
+    kernel takes."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def structure_args(cliques: tuple, n: int, coef: torch.Tensor):
+    """Checked kernel arguments of a structure and its ``(B, K << cmax)``
+    coefficient rows: ``(shifts, sizes, B, K, cmax)``. Raises when the
+    rows would not fit the kernels' shared memory."""
+    K = len(cliques)
+    cmax = max(len(C) for C in cliques)
+    B = coef.shape[0]
+    check(coef, "coef", torch.float32, (B, K << cmax), coef.device)
+    need = ((K << cmax) + K * (cmax + 1)) * 4
+    if need > SHARED_BYTES_LIMIT:
+        raise ValueError(f"structure tables need {need} bytes of shared "
+                         f"memory; the kernels take at most "
+                         f"{SHARED_BYTES_LIMIT}")
+    if not 1 <= B <= 65535:
+        raise ValueError(f"{B} coefficient rows; the kernels take 1..65535")
+    shifts, sizes = _device_layout(cliques, n, coef.device)
+    return shifts, sizes, B, K, cmax
+
+
+@functools.lru_cache(maxsize=256)
+def _device_layout(cliques: tuple, n: int, device: torch.device):
+    """(shifts (K, cmax) int32, sizes (K,) int32) on ``device``."""
+    _, shifts, _ = _moebius_layout(cliques, n)
+    sizes = [len(C) for C in cliques]
+    return (torch.from_numpy(shifts.T.copy()).to(device),
+            torch.tensor(sizes, dtype=torch.int32, device=device))

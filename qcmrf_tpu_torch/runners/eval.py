@@ -1,0 +1,87 @@
+"""Evaluation CLI (port of :mod:`qcmrf_tpu.runners.eval`, ``--mode file``)::
+
+    python -m qcmrf_tpu_torch eval --results result_analytic_0.1.json \\
+        --scale 0.1 --res-root <dir holding res_0.1/> [--kl] [--platform gpu]
+
+Prints the fidelity / success-rate table and returns the per-graph
+results.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+from typing import List, Optional
+
+from qcmrf_tpu_torch.evaluation.harness import (
+    GraphResult,
+    evaluate_suite,
+    load_result_dists,
+    results_table,
+)
+from qcmrf_tpu_torch.models.suite import generate_suite, load_suite
+
+
+def main(argv: Optional[List[str]] = None) -> List[GraphResult]:
+    parser = argparse.ArgumentParser(
+        prog="QCMRF result evaluation (PyTorch / CUDA).",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter,
+    )
+    parser.add_argument("--results", type=str,
+                        default="result_ehningen.json",
+                        help="Result file as downloaded from backend.")
+    parser.add_argument("--scale", type=str, default="0.1",
+                        help="Variance of parameter prior.")
+    parser.add_argument("--mode", type=str, default="file",
+                        help="file (gibbs and pam are not ported yet).")
+    parser.add_argument("--native", action="store_true",
+                        help="Use the C++ engine for gibbs/pam sampling "
+                             "(not ported yet).")
+    parser.add_argument("--res-root", type=str, default=".",
+                        help="Directory containing res_{scale}/ folders.")
+    parser.add_argument("--kl", action="store_true",
+                        help="Also report mean KL divergence.")
+    parser.add_argument("--norm", type=float, default=None,
+                        help="Override the counts normalization (10000 "
+                             "for raw counts); pass the actual shot count "
+                             "for files produced with --shots != 10000.")
+    parser.add_argument("--platform", type=str, default="cpu",
+                        choices=["cpu", "gpu", "default"],
+                        help="Device for the exact Gibbs tables and lnZ; "
+                             "'default' means 'gpu'.")
+    parser.add_argument("--num-samples", type=int, default=10_000,
+                        help="gibbs/pam modes: samples to histogram (not "
+                             "ported yet).")
+    from qcmrf_tpu_torch.utils.config import (
+        parse_with_config,
+        resolve_platform,
+    )
+
+    args = parse_with_config(parser, argv)
+    device = resolve_platform(args.platform)
+
+    # suite: prefer the stored models file, else regenerate
+    res_dir = os.path.join(args.res_root, f"res_{args.scale}")
+    suite = None
+    for name in (f"models_{args.scale}.json", "models.json"):
+        p = os.path.join(res_dir, name)
+        if os.path.isfile(p):
+            suite = load_suite(p, float(args.scale))
+            break
+    if suite is None:
+        suite = generate_suite(float(args.scale))
+
+    dists, norm = (None, 10_000)
+    if args.mode == "file":
+        dists, norm = load_result_dists(os.path.join(res_dir, args.results))
+    if args.norm is not None:
+        norm = args.norm
+
+    results = evaluate_suite(suite, dists=dists, norm=norm, mode=args.mode,
+                             native=args.native, device=device)
+    print(results_table(results, with_kl=args.kl))
+    return results
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,131 @@
+"""Experiment driver: generate/load a suite, sample it, dump counts JSON
+(port of :mod:`qcmrf_tpu.runners.run_experiment`, ``analytic`` engine).
+
+Builds the 70 circuits of a suite, samples each at ``--shots`` shots from
+the closed-form outcome law, and writes ``result_analytic_{scale}.json``: a
+JSON list of 70 ``{bitstring: count}`` dicts, the schema of the stored
+result files, so either package's evaluation harness reads it.
+
+The shots of one graph's reps are drawn by one launch of the fused sampler
+(on the CPU, its plain version); circuit ``i`` of the suite draws from
+Philox key ``(--sample-seed, i)``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+from typing import Dict, List, Optional
+
+from qcmrf_tpu_torch.models.suite import (
+    SHOTS,
+    ModelSuite,
+    generate_suite,
+    load_suite,
+    reference_models_path,
+)
+from qcmrf_tpu_torch.sim import batch as sbatch
+from qcmrf_tpu_torch.sim import sampler
+
+_NOT_PORTED = {
+    "statevector": "slice 2 (circuits and the gate-level engine)",
+    "noisy": "slice 5 (noise emulation)",
+    "calibrated": "slice 5 (noise emulation)",
+}
+
+
+def run_suite(
+    suite: ModelSuite,
+    shots: int = SHOTS,
+    engine: str = "analytic",
+    seed: int = 0,
+    device="cpu",
+) -> List[Dict[str, int]]:
+    """Sample every circuit of the suite; returns counts dicts in order."""
+    family = engine.split(":", 1)[0]
+    if family in _NOT_PORTED:
+        raise NotImplementedError(
+            f"engine {engine!r} comes to the port with "
+            f"{_NOT_PORTED[family]} of ROADMAP.md")
+    if engine != "analytic":
+        raise ValueError(f"unknown engine {engine!r}")
+    counts_list: List[Dict[str, int]] = []
+    for j, C in enumerate(suite.graphs):
+        n = max(v for c in C for v in c) + 1
+        width = n + len(C) + 1
+        keys = sbatch.batched_sample_outcomes(
+            C, suite.thetas[j], seed, shots, stream0=len(counts_list),
+            device=device).cpu().numpy()
+        for row in keys:
+            counts_list.append(sampler.counts_from_samples(row, width))
+    return counts_list
+
+
+def main(argv: Optional[List[str]] = None) -> str:
+    parser = argparse.ArgumentParser(
+        prog="QCMRF experiment driver (PyTorch / CUDA).",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter,
+    )
+    parser.add_argument("--scale", type=str, default="0.5",
+                        help="Variance of parameter prior.")
+    parser.add_argument("--shots", type=int, default=SHOTS)
+    parser.add_argument("--engine", type=str, default="analytic",
+                        help="analytic (statevector | noisy:<preset> | "
+                             "calibrated:<hw backend> are not ported yet)")
+    parser.add_argument("--res-root", type=str, default=".",
+                        help="Root holding res_{scale}/models_{scale}.json; "
+                             "the stored suite there is used when present.")
+    parser.add_argument("--models", type=str, default=None,
+                        help="Load suite from this models_*.json instead of "
+                             "regenerating from seed 1984.")
+    parser.add_argument("--outdir", type=str, default=".")
+    parser.add_argument("--sample-seed", "--seed", dest="sample_seed",
+                        type=int, default=0)
+    parser.add_argument("--platform", type=str, default="default",
+                        choices=["cpu", "gpu", "default"],
+                        help="Device for sampling; 'default' means 'gpu', "
+                             "and a GPU that is not there raises.")
+    from qcmrf_tpu_torch.utils.config import (
+        dump_effective_config,
+        parse_with_config,
+        resolve_platform,
+    )
+
+    args = parse_with_config(parser, argv)
+    device = resolve_platform(args.platform)
+
+    if args.models:
+        suite = load_suite(args.models, float(args.scale))
+    else:
+        ref = reference_models_path(float(args.scale), args.res_root)
+        if os.path.isfile(ref):
+            suite = load_suite(ref, float(args.scale))
+        else:
+            suite = generate_suite(float(args.scale))
+
+    os.makedirs(args.outdir, exist_ok=True)
+    suite.save(os.path.join(args.outdir, f"models_{args.scale}.json"))
+    dump_effective_config(
+        args, os.path.join(args.outdir, f"config_run_{args.scale}.json")
+    )
+
+    from qcmrf_tpu_torch.utils import profiling
+
+    ctr = profiling.Counter()
+    with profiling.stopwatch(ctr, device=device):
+        counts = run_suite(suite, shots=args.shots, engine=args.engine,
+                           seed=args.sample_seed, device=device)
+    tag = args.engine.replace(":", "_")
+    out_path = os.path.join(args.outdir, f"result_{tag}_{args.scale}.json")
+    with open(out_path, "w") as f:
+        f.write(json.dumps(counts, indent=4))
+    ctr.add(items=float(len(counts)) * args.shots)
+    print(f"wrote {out_path} ({len(counts)} circuits, {args.shots} shots on "
+          f"{device}; {ctr.seconds:.1f}s, {ctr.items_per_sec:,.0f} "
+          "shots/sec end-to-end)")
+    return out_path
+
+
+if __name__ == "__main__":
+    main()

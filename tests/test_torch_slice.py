@@ -1,0 +1,158 @@
+"""The port's slice end to end on the CPU: ``run`` writes counts that the
+JAX package's harness scores, the port's ``eval`` scores them the same,
+and the platform choices behave as documented."""
+
+import json
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+from qcmrf_tpu.evaluation import harness as jharness  # noqa: E402
+from qcmrf_tpu.models import suite as jsuite  # noqa: E402
+from qcmrf_tpu.models.mrf import MRF as JMRF  # noqa: E402
+
+from qcmrf_tpu_torch import __main__ as cli  # noqa: E402
+from qcmrf_tpu_torch.evaluation import harness  # noqa: E402
+from qcmrf_tpu_torch.models.suite import generate_suite  # noqa: E402
+from qcmrf_tpu_torch.runners import eval as run_eval  # noqa: E402
+from qcmrf_tpu_torch.runners import run_experiment  # noqa: E402
+
+SHOTS = 2000
+
+
+@pytest.fixture(scope="module")
+def run_dir(tmp_path_factory):
+    root = tmp_path_factory.mktemp("port_run")
+    out = run_experiment.main([
+        "--platform", "cpu", "--shots", str(SHOTS), "--scale", "0.1",
+        "--outdir", str(root / "res_0.1")])
+    assert out.endswith("result_analytic_0.1.json")
+    return root
+
+
+def test_run_file_scores_under_jax_harness(run_dir):
+    path = run_dir / "res_0.1" / "result_analytic_0.1.json"
+    dists, norm = jharness.load_result_dists(str(path))
+    assert len(dists) == 70
+    assert all(sum(d.values()) == SHOTS for d in dists)
+    suite = jsuite.generate_suite(0.1)
+    for d, (j, C) in zip(dists, [(j, C) for j, C in enumerate(suite.graphs)
+                                 for _ in range(10)]):
+        n = max(v for c in C for v in c) + 1
+        assert all(len(k) == n + len(C) + 1 for k in d)
+    results = jharness.evaluate_suite(suite, dists=dists, norm=SHOTS)
+    for r in results:
+        assert r.mean_f >= 0.97, (r.graph, r.mean_f)
+
+
+def test_port_eval_matches_jax_field_by_field(run_dir, capsys):
+    results = run_eval.main([
+        "--results", "result_analytic_0.1.json", "--scale", "0.1",
+        "--res-root", str(run_dir), "--norm", str(SHOTS), "--kl"])
+    table = capsys.readouterr().out
+    path = run_dir / "res_0.1" / "result_analytic_0.1.json"
+    dists, _ = jharness.load_result_dists(str(path))
+    jsuite_ = jsuite.generate_suite(0.1)
+    want = jharness.evaluate_suite(jsuite_, dists=dists, norm=SHOTS)
+    assert len(results) == len(want) == 7
+    for r, w in zip(results, want):
+        assert r.graph == w.graph
+        for field in ("fidelities", "successes", "kls"):
+            np.testing.assert_allclose(getattr(r, field), getattr(w, field),
+                                       rtol=0, atol=1e-6)
+        j = jsuite_.graphs.index(w.graph)
+        exact = [float(JMRF.create(w.graph, theta=t).success_rate())
+                 for t in jsuite_.thetas[j]]
+        np.testing.assert_allclose(r.exact_deltas, exact, rtol=1e-5)
+        # shot noise of 2000 shots
+        assert max(abs(a - b) for a, b in
+                   zip(r.successes, r.exact_deltas)) < 0.05
+    assert table.strip() == jharness.results_table(want, with_kl=True)
+    # the models file the run wrote is the suite's, byte for byte
+    models = run_dir / "res_0.1" / "models_0.1.json"
+    assert json.loads(models.read_text()) == jsuite_.to_json_dict()
+
+
+def test_run_reads_stored_models_under_res_root(run_dir, tmp_path):
+    out = run_experiment.main([
+        "--platform", "cpu", "--shots", "64", "--scale", "0.1",
+        "--res-root", str(run_dir), "--outdir", str(tmp_path),
+        "--sample-seed", "3"])
+    counts = json.loads(open(out).read())
+    assert len(counts) == 70 and all(sum(c.values()) == 64 for c in counts)
+    cfg = json.loads((tmp_path / "config_run_0.1.json").read_text())
+    assert cfg["sample_seed"] == 3 and cfg["platform"] == "cpu"
+
+
+def test_run_is_deterministic_per_seed():
+    suite = generate_suite(0.1)
+    a = run_experiment.run_suite(suite, shots=300, seed=5)
+    b = run_experiment.run_suite(suite, shots=300, seed=5)
+    c = run_experiment.run_suite(suite, shots=300, seed=6)
+    assert a == b and a != c
+
+
+@pytest.mark.parametrize("platform", ["gpu", "default"])
+def test_gpu_platform_raises_without_cuda(platform, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_experiment.main(["--platform", platform, "--shots", "10",
+                             "--scale", "0.1", "--outdir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_eval.main(["--platform", platform, "--res-root", str(tmp_path)])
+    assert not (tmp_path / "models_0.1.json").exists()
+
+
+def test_unported_options_name_their_slice(run_dir, tmp_path):
+    suite = generate_suite(0.1)
+    for engine, slice_ in (("statevector", "slice 2"),
+                           ("noisy:torino", "slice 5"),
+                           ("calibrated:torino", "slice 5")):
+        with pytest.raises(NotImplementedError, match=slice_):
+            run_experiment.run_suite(suite, shots=10, engine=engine)
+    for argv in (["--mode", "gibbs"], ["--mode", "pam"], ["--native"]):
+        with pytest.raises(NotImplementedError, match="slice 3"):
+            run_eval.main(["--results", "result_analytic_0.1.json",
+                           "--scale", "0.1", "--res-root", str(run_dir)]
+                          + argv)
+    with pytest.raises(NotImplementedError):
+        harness.evaluate_suite(suite, dists=[{}] * 70, mode="pam")
+
+
+def test_cli_dispatch_and_config(tmp_path, capsys):
+    assert cli.main([]) == 0
+    assert cli.main(["bench"]) == 2
+    cfg = tmp_path / "cfg.json"
+    cfg.write_text(json.dumps({"shots": 32, "platform": "cpu",
+                               "mesh_shape": [4, 2]}))
+    assert cli.main(["run", "--config", str(cfg), "--scale", "0.1",
+                     "--outdir", str(tmp_path / "res_0.1")]) == 0
+    assert "['mesh_shape']" in capsys.readouterr().err
+    counts = json.loads(
+        (tmp_path / "res_0.1" / "result_analytic_0.1.json").read_text())
+    assert all(sum(c.values()) == 32 for c in counts)
+    assert cli.main(["eval", "--results", "result_analytic_0.1.json",
+                     "--scale", "0.1", "--res-root", str(tmp_path),
+                     "--norm", "32"]) == 0
+    assert "success rate" in capsys.readouterr().out
+    cfg.write_text(json.dumps({"shots": 32, "shot_count": 4}))
+    with pytest.raises(SystemExit, match="shot_count"):
+        cli.main(["run", "--config", str(cfg)])
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    code = ("import sys\n"
+            "import qcmrf_tpu_torch.__main__, qcmrf_tpu_torch.runners.eval\n"
+            "import qcmrf_tpu_torch.runners.run_experiment\n"
+            "import qcmrf_tpu_torch.circuits.params\n"
+            "bad = [m for m in sys.modules if m == 'jax' "
+            "or m.startswith(('jax.', 'qcmrf_tpu.')) or m == 'qcmrf_tpu']\n"
+            "assert not bad, bad\n"
+            "assert 'triton' not in sys.modules\n")
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
