@@ -1,7 +1,7 @@
 """Unified CLI: ``python -m qcmrf_tpu_torch <command> [args]``.
 
 Commands:
-    run       experiment driver (counts JSON), analytic engine
+    run       experiment driver (counts JSON), analytic and statevector engines
     eval      evaluation tables, --mode file
 
 The JAX package's whisker, bench, train and infer commands come to the

@@ -1,11 +1,13 @@
-"""Build and bind the CUDA kernels of ``csrc/qcmrf_kernels.cu``.
+"""Build and bind the CUDA kernels of ``csrc/*.cu``.
 
-At first use on a CUDA tensor, :func:`library` compiles the translation
-unit with ``nvcc`` into ``build/qcmrf_tpu_torch/<hash>/libqcmrf_kernels.so``
-at the repository root, keyed on a hash of the source and the flags, and
-loads it with ``ctypes``. The C entry points take every pointer and the
-stream as ``c_void_p`` and return ``cudaGetLastError()``; :func:`launch`
-raises when that is not 0. Nothing here runs at import time.
+At first use on a CUDA tensor, :func:`library` compiles every source under
+``csrc/`` with its own ``nvcc`` process, all started together, and links
+the objects into ``build/qcmrf_tpu_torch/<hash>/libqcmrf_kernels.so`` at
+the repository root, keyed on a hash of the sources and the flags; it
+loads the library with ``ctypes``. The C entry points take every pointer
+and the stream as ``c_void_p`` and return ``cudaGetLastError()``;
+:func:`launch` raises when that is not 0. Nothing here runs at import
+time.
 
 The helpers below also check the tensors handed to a kernel and build the
 small per-structure tensors (clique shifts and sizes) the kernels read.
@@ -26,16 +28,17 @@ import torch
 
 from qcmrf_tpu_torch.sim.analytic import _moebius_layout
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "qcmrf_kernels.cu"
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "qcmrf_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: dynamic shared memory a launch may ask for without opting in to more
 SHARED_BYTES_LIMIT = 48 * 1024
 
-_P, _I, _I64, _U32, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
-                          ctypes.c_uint32, ctypes.c_float)
+_P, _I, _I64, _U32, _U64, _F = (ctypes.c_void_p, ctypes.c_int,
+                                ctypes.c_int64, ctypes.c_uint32,
+                                ctypes.c_uint64, ctypes.c_float)
 _SIGNATURES = {
     # coef, shifts, sizes, B, K, cmax, n, shots, seed, stream0, mode,
     # x_out, a_out, count_out, stream
@@ -47,6 +50,13 @@ _SIGNATURES = {
     # coef, shifts, sizes, B, K, cmax, num_states, per_block, parts, beta,
     # m_out, s_out, stream
     "qcmrf_lse": (_P, _P, _P, _I, _I, _I, _I64, _I64, _I, _F, _P, _P, _P),
+    # table, n_terms, k, re, im, num_anchors, a_lo, stream
+    "qcmrf_hdh_multi": (_P, _I, _I, _P, _P, _I64, _I, _P),
+    # table, n_terms, k, re, im, num_anchors, a_lo, comp, amp, stream
+    "qcmrf_hdh_multi_uniform": (_P, _I, _I, _P, _P, _I64, _I, _U64, _F, _P),
+    # trig, qubits, sizes, B, n, K, cmax, d, width, amp, scratch, out,
+    # stream
+    "qcmrf_circuit": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P),
 }
 
 
@@ -59,31 +69,59 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
+def sources() -> Tuple[Path, ...]:
+    """Every CUDA source of the library, in name order."""
+    return tuple(sorted(CSRC.glob("*.cu")))
+
+
 def library_path() -> Path:
-    """Where the built library lives for the current source and flags."""
-    h = hashlib.sha256(SOURCE.read_bytes())
+    """Where the built library lives for the current sources and flags."""
+    h = hashlib.sha256()
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_ROOT / h.hexdigest()[:16] / "libqcmrf_kernels.so"
 
 
 def build() -> Tuple[Path, float]:
-    """Compile the kernels unless this source is built already; returns the
-    library's path and the seconds ``nvcc`` took (0.0 when cached). The
-    compiler's register and shared-memory report lands in ``nvcc.log``
+    """Compile the kernels unless these sources are built already; returns
+    the library's path and the seconds the build took (0.0 when cached).
+    One ``nvcc`` per source runs at once, then one links them. The
+    compilers' register and shared-memory reports land in ``nvcc.log``
     beside the library."""
     out = library_path()
     if out.is_file():
         return out, 0.0
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(SOURCE)], capture_output=True, text=True)
+    objs, procs = [], []
+    for src in sources():
+        obj = out.parent / f"{src.stem}.{tag}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = [(src.name, p.communicate()[0], p.returncode)
+            for src, p in zip(sources(), procs)]
+    tmp = out.with_name(f"{out.name}.{tag}")
+    link = None
+    if all(code == 0 for _, _, code in logs):
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
     seconds = time.perf_counter() - t0
-    (out.parent / "nvcc.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                           f"{proc.stderr}")
+    text = "".join(f"== {name} (exit {code})\n{log}"
+                   for name, log, code in logs)
+    if link is not None:
+        text += f"== link (exit {link.returncode})\n{link.stdout}{link.stderr}"
+    (out.parent / "nvcc.log").write_text(text)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if link is None or link.returncode != 0:
+        raise RuntimeError(f"nvcc failed:\n{text}")
     os.replace(tmp, out)
     return out, seconds
 

@@ -1,5 +1,5 @@
-"""Log-potential table and streaming logsumexp (the slice-1 part of
-:mod:`qcmrf_tpu.ops.kernels`).
+"""Log-potential table, streaming logsumexp and the H·D·H sandwich passes
+of the plane engine (the ported part of :mod:`qcmrf_tpu.ops.kernels`).
 
 Both evaluate ``beta * theta^T phi(x)`` per state id from the per-clique
 Moebius coefficients of :func:`moebius_coefficients`, clique by clique in
@@ -14,21 +14,43 @@ On a CUDA tensor each launches its kernel of ``csrc/qcmrf_kernels.cu``; on a
 CPU tensor it runs its plain PyTorch version (``*_reference``), which any
 device can run. Rows of a coefficient batch are separate models of one
 structure, evaluated in one launch.
+
+The sandwich passes (kernels of ``csrc/circuit_kernels.cu``) act on a
+statevector held as two float32 planes, real and imaginary, of ``2**nq``
+values each (any shape, contiguous; qubit 0 is the least significant bit
+of the flat index):
+
+* :func:`apply_hdh_sandwich_multi`: k <= 7 H(a)·D·H(a) on adjacent
+  ancillas (``hdh_multi_kernel``); :func:`apply_hdh_sandwich`,
+  :func:`apply_hdh_sandwich_pair` and :func:`apply_hdh_sandwich_quad` are
+  its k = 1, 2 and 4 calls;
+* :func:`apply_hdh_sandwich_multi_uniform`: the same k sandwiches on the
+  folded uniform H-wall state, write-only (``hdh_multi_uniform_kernel``).
+
+They update the planes **in place** and return them: the JAX versions
+alias their inputs to their outputs, and at 32 qubits two planes take 32
+GiB, which the card does not hold twice. A profile (``mu`` or a ``nu``) is
+``base + sum_t angles[t] * [terms[t] holds]``, a term being a tuple of
+``(qubit, wanted bit)`` conditions; no term may condition on a pass's
+ancillas.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
+import numpy as np
 import torch
 
 from qcmrf_tpu_torch.models.mrf import MRF
 from qcmrf_tpu_torch.ops import _build
 from qcmrf_tpu_torch.sim.analytic import _moebius_layout
 from qcmrf_tpu_torch.utils import moebius
+from qcmrf_tpu_torch.utils.config import resolve_device
 
 #: launches of the CUDA kernels, bumped where each is launched
-LAUNCHES = {"logpot": 0, "lse": 0}
+LAUNCHES = {"logpot": 0, "lse": 0, "hdh_multi": 0, "hdh_multi_uniform": 0}
 
 #: the streaming logsumexp writes at most this many partial pairs a row
 MAX_LSE_PARTS = 4096
@@ -162,3 +184,340 @@ def log_partition(mrf: MRF) -> torch.Tensor:
     """``ln Z`` by the streaming logsumexp (no table)."""
     coef = moebius_coefficients(mrf)[None]
     return combine_lse(*lse_partials(mrf.cliques, mrf.n, coef, mrf.beta))[0]
+
+
+# --------------------------------------------------------------------------
+# H·D·H sandwich passes on real/imaginary planes
+# --------------------------------------------------------------------------
+
+#: most ancillas one sandwich pass takes
+_MAX_SANDWICH_K = 7
+#: most terms (all profiles of one pass together) the kernels' shared-memory
+#: table holds: 24 bytes each
+MAX_SANDWICH_TERMS = 1024
+
+_PROFILE_DTYPE = np.dtype([("c", "<f4"), ("s", "<f4"), ("begin", "<i4"),
+                           ("end", "<i4")])
+_TERM_DTYPE = np.dtype([("care", "<u8"), ("want", "<u8"), ("c", "<f4"),
+                        ("s", "<f4")])
+
+
+def _lane_gate_matrix(U: np.ndarray, q: int) -> np.ndarray:
+    """Embed a 2x2 gate on lane-qubit q (< 7) as a 128x128 matrix:
+    I_{2^(6-q)} ⊗ U ⊗ I_{2^q} (the planner's ``lane`` op)."""
+    return np.kron(
+        np.kron(np.eye(1 << (6 - q)), U), np.eye(1 << q)
+    ).astype(U.dtype)
+
+
+def _canon_terms(ts):
+    return tuple(
+        tuple((int(p), int(w)) for p, w in conds) for conds in ts
+    )
+
+
+def _profile(terms, angles, base):
+    terms = _canon_terms(terms)
+    angles = tuple(float(a) for a in angles)
+    if len(terms) != len(angles):
+        raise ValueError(f"{len(terms)} terms but {len(angles)} angles")
+    return terms, angles, float(base)
+
+
+def plane_qubits(re: torch.Tensor, im: torch.Tensor) -> int:
+    """Qubit count of a pair of planes; raises unless both are contiguous
+    float32 tensors of one shape, on one device, with 2**nq values."""
+    if re.shape != im.shape or re.device != im.device:
+        raise ValueError("re and im planes differ in shape or device")
+    for t, name in ((re, "re"), (im, "im")):
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} plane has dtype {t.dtype}, expected "
+                             "torch.float32")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} plane is not contiguous")
+    size = re.numel()
+    if size < 2 or size & (size - 1):
+        raise ValueError(f"planes hold {size} values, not a power of two")
+    return size.bit_length() - 1
+
+
+def _check_pass(nq: int, a_lo: int, k: int, profiles) -> None:
+    if not 1 <= k <= _MAX_SANDWICH_K:
+        raise ValueError(f"{k} ancillas; a sandwich pass takes 1.."
+                         f"{_MAX_SANDWICH_K}")
+    if a_lo < 0 or a_lo + k > nq:
+        raise ValueError(f"ancillas {a_lo}..{a_lo + k - 1} outside "
+                         f"{nq} qubits")
+    n_terms = sum(len(terms) for terms, _, _ in profiles)
+    if n_terms > MAX_SANDWICH_TERMS:
+        raise ValueError(f"{n_terms} terms in one pass; the kernels take "
+                         f"at most {MAX_SANDWICH_TERMS}")
+    for terms, _, _ in profiles:
+        for conds in terms:
+            for p, w in conds:
+                if not 0 <= p < nq or w not in (0, 1):
+                    raise ValueError(f"condition ({p}, {w}) outside {nq} "
+                                     "qubits or not a bit")
+                if a_lo <= p < a_lo + k:
+                    raise ValueError(f"a term conditions on ancilla {p} "
+                                     "of its own pass")
+
+
+def _profile_table(profiles, device: torch.device):
+    """``(table, n_terms)``: the profiles as the kernels read them (the
+    record layout of ``csrc/circuit_kernels.cu``), on ``device``. The
+    trig of every base and angle is taken in float64 on the host."""
+    prof = np.zeros(len(profiles), _PROFILE_DTYPE)
+    rows = []
+    for i, (terms, angles, base) in enumerate(profiles):
+        prof[i] = (math.cos(base), math.sin(base), len(rows),
+                   len(rows) + len(terms))
+        for conds, a in zip(terms, angles):
+            care = want = 0
+            dead = False
+            for p, w in conds:
+                bit = 1 << p
+                dead |= bool(care & bit) and bool(want & bit) != bool(w)
+                care |= bit
+                want |= bit if w else 0
+            if dead:  # contradictory conditions: never holds
+                care, want = 0, 1
+            rows.append((care, want, math.cos(a), math.sin(a)))
+    terms = np.array(rows, _TERM_DTYPE)
+    blob = prof.tobytes() + terms.tobytes()
+    return _device_bytes(blob, device), len(rows)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_bytes(blob: bytes, device: torch.device) -> torch.Tensor:
+    """A read-only device copy of ``blob``, kept so that a repeated pass
+    does not copy (and synchronise) again."""
+    return torch.frombuffer(bytearray(blob), dtype=torch.uint8).to(device)
+
+
+def _anchor_ids(nq: int, a_lo: int, k: int, device) -> torch.Tensor:
+    """Indices with the k ancilla bits zero, shaped (hi, 2**a_lo)."""
+    hi = torch.arange(1 << (nq - a_lo - k), dtype=torch.int64,
+                      device=device)
+    lo = torch.arange(1 << a_lo, dtype=torch.int64, device=device)
+    return (hi[:, None] << (a_lo + k)) | lo[None, :]
+
+
+def _profile_cos_sin(profile, x: torch.Tensor):
+    """(cos, sin) of a profile at ids ``x``, angle summed in float64."""
+    terms, angles, base = profile
+    ang = torch.full(x.shape, base, dtype=torch.float64, device=x.device)
+    for conds, a in zip(terms, angles):
+        hold = torch.ones(x.shape, dtype=torch.bool, device=x.device)
+        for p, w in conds:
+            hold &= ((x >> p) & 1) == w
+        ang += a * hold
+    return torch.cos(ang).float(), torch.sin(ang).float()
+
+
+def _multi_reference(re, im, a_lo: int, nus, mu):
+    """Plain PyTorch form of every sandwich pass: e^{i mu} prod_t
+    e^{-i nu_t X_{a_lo+t}} on the planes, in place."""
+    nq = plane_qubits(re, im)
+    k = len(nus)
+    x0 = _anchor_ids(nq, a_lo, k, re.device)
+    hi, S = x0.shape
+    v = torch.complex(re.reshape(hi, 1 << k, S), im.reshape(hi, 1 << k, S))
+    for b, nu in enumerate(nus):
+        c, s = _profile_cos_sin(nu, x0)
+        c = c[:, None, None, :]
+        s = s[:, None, None, :]
+        v = v.reshape(hi, 1 << (k - 1 - b), 2, 1 << b, S)
+        v0, v1 = v[:, :, 0], v[:, :, 1]
+        v = torch.stack((c * v0 - 1j * s * v1, c * v1 - 1j * s * v0), dim=2)
+    cm, sm = _profile_cos_sin(mu, x0)
+    v = v.reshape(hi, 1 << k, S) * torch.complex(cm, sm)[:, None, :]
+    re.copy_(v.real.reshape(re.shape))
+    im.copy_(v.imag.reshape(im.shape))
+    return re, im
+
+
+def apply_hdh_sandwich_reference(re, im, anc: int, nu_terms, nu_angles,
+                                 nu_base: float = 0.0, mu_terms=(),
+                                 mu_angles=(), mu_base: float = 0.0):
+    """Plain PyTorch version of :func:`apply_hdh_sandwich`, any device."""
+    nu = _profile(nu_terms, nu_angles, nu_base)
+    mu = _profile(mu_terms, mu_angles, mu_base)
+    _check_pass(plane_qubits(re, im), anc, 1, (nu, mu))
+    return _multi_reference(re, im, anc, (nu,), mu)
+
+
+def apply_hdh_sandwich(re, im, anc: int, nu_terms, nu_angles,
+                       nu_base: float = 0.0, mu_terms=(), mu_angles=(),
+                       mu_base: float = 0.0):
+    """Apply H(anc)·D·H(anc) in one pass, **in place**; returns the planes.
+
+    ``D`` is given by its half-sum / half-difference phase profiles:
+    ``mu(x) = mu_base + sum_t mu_angles[t] * [mu_terms[t] holds]`` (the
+    common phase) and ``nu(x)`` likewise (the anc=1 minus anc=0
+    half-difference), so the pass is ``e^{i mu} e^{-i nu X_anc}``: the
+    multi pass at k = 1.
+    """
+    return apply_hdh_sandwich_multi(re, im, anc, (nu_terms,), (nu_angles,),
+                                    (nu_base,), mu_terms, mu_angles, mu_base)
+
+
+def _multi_profiles(nu_terms_k, nu_angles_k, nu_bases_k, mu_terms,
+                    mu_angles, mu_base):
+    if not len(nu_terms_k) == len(nu_angles_k) == len(nu_bases_k):
+        raise ValueError("nu terms, angles and bases differ in count")
+    nus = tuple(_profile(t, a, b) for t, a, b in
+                zip(nu_terms_k, nu_angles_k, nu_bases_k))
+    return nus, _profile(mu_terms, mu_angles, mu_base)
+
+
+def apply_hdh_sandwich_multi_reference(re, im, anc_lo: int, nu_terms_k,
+                                       nu_angles_k, nu_bases_k,
+                                       mu_terms=(), mu_angles=(),
+                                       mu_base=0.0):
+    """Plain PyTorch version of :func:`apply_hdh_sandwich_multi`."""
+    nus, mu = _multi_profiles(nu_terms_k, nu_angles_k, nu_bases_k,
+                              mu_terms, mu_angles, mu_base)
+    _check_pass(plane_qubits(re, im), anc_lo, len(nus), nus + (mu,))
+    return _multi_reference(re, im, anc_lo, nus, mu)
+
+
+def apply_hdh_sandwich_multi(re, im, anc_lo: int, nu_terms_k, nu_angles_k,
+                             nu_bases_k, mu_terms=(), mu_angles=(),
+                             mu_base=0.0):
+    """Apply k H(a+t)·D_t·H(a+t) blocks (t = 0..k-1, a = anc_lo) in one
+    pass, **in place**; returns the planes.
+
+    ``nu_terms_k[t]`` / ``nu_angles_k[t]`` / ``nu_bases_k[t]`` describe
+    ancilla ``anc_lo + t``'s half-difference profile; ``mu`` is the
+    combined common-phase profile of all k sandwiches. No term may
+    condition on any of the k ancillas; ``k <= 7``.
+    """
+    nus, mu = _multi_profiles(nu_terms_k, nu_angles_k, nu_bases_k,
+                              mu_terms, mu_angles, mu_base)
+    nq = plane_qubits(re, im)
+    k = len(nus)
+    _check_pass(nq, anc_lo, k, nus + (mu,))
+    if re.device.type == "cpu":
+        return _multi_reference(re, im, anc_lo, nus, mu)
+    table, n_terms = _profile_table((mu,) + nus, re.device)
+    _build.launch("qcmrf_hdh_multi", re.device, _build.ptr(table), n_terms,
+                  k, _build.ptr(re), _build.ptr(im), (1 << nq) >> k,
+                  int(anc_lo))
+    LAUNCHES["hdh_multi"] += 1
+    return re, im
+
+
+def apply_hdh_sandwich_pair(re, im, anc_lo: int,
+                            nu1_terms, nu1_angles, nu1_base,
+                            nu2_terms, nu2_angles, nu2_base,
+                            mu_terms=(), mu_angles=(), mu_base=0.0):
+    """H(a)·D1·H(a) and H(a+1)·D2·H(a+1) in one pass (a = anc_lo), in
+    place: the multi pass at k = 2. ``mu`` is the combined common-phase
+    profile of both sandwiches."""
+    return apply_hdh_sandwich_multi(
+        re, im, anc_lo, (nu1_terms, nu2_terms), (nu1_angles, nu2_angles),
+        (nu1_base, nu2_base), mu_terms, mu_angles, mu_base)
+
+
+def apply_hdh_sandwich_quad(re, im, anc_lo: int, nu_terms4, nu_angles4,
+                            nu_bases4, mu_terms=(), mu_angles=(),
+                            mu_base=0.0):
+    """Four adjacent-ancilla sandwiches in one pass, in place: the multi
+    pass at k = 4."""
+    if len(nu_terms4) != 4:
+        raise ValueError(f"{len(nu_terms4)} profiles; a quad takes 4")
+    return apply_hdh_sandwich_multi(re, im, anc_lo, nu_terms4, nu_angles4,
+                                    nu_bases4, mu_terms, mu_angles,
+                                    mu_base)
+
+
+def plane_shape(num_qubits: int):
+    """Shape of a plane of ``2**num_qubits`` values: ``(2**nq / 128,
+    128)`` from 7 qubits on, the JAX package's layout."""
+    if num_qubits >= 7:
+        return ((1 << num_qubits) // 128, 128)
+    return (1, 1 << num_qubits)
+
+
+def uniform_planes(num_qubits: int, folded, out=None, device=None):
+    """Planes of ``H^{folded}|0...0>``: amplitude ``2^{-|folded|/2}`` where
+    every bit outside ``folded`` is 0, else 0. Written into ``out`` (a
+    pair of planes) in place when given, else into new planes on
+    ``device`` (the current CUDA device unless one is named)."""
+    re, im = _output_planes(num_qubits, out, device)
+    re.zero_()
+    im.zero_()
+    idx = torch.zeros(1, dtype=torch.int64, device=re.device)
+    for q in sorted(set(folded)):
+        idx = torch.cat([idx, idx + (1 << q)])
+    re.view(-1)[idx] = float(np.float32(2.0 ** (-0.5 * len(folded))))
+    return re, im
+
+
+def _uniform_args(num_qubits, folded, anc_lo, nu_terms_k, nu_angles_k,
+                  nu_bases_k, mu_terms, mu_angles, mu_base):
+    nus, mu = _multi_profiles(nu_terms_k, nu_angles_k, nu_bases_k,
+                              mu_terms, mu_angles, mu_base)
+    k = len(nus)
+    _check_pass(num_qubits, anc_lo, k, nus + (mu,))
+    folded = tuple(int(q) for q in folded)
+    if any(anc_lo <= q < anc_lo + k for q in folded):
+        raise ValueError("the folded qubits hold one of the pass's ancillas")
+    if any(not 0 <= q < num_qubits for q in folded):
+        raise ValueError(f"folded qubits {folded} outside {num_qubits}")
+    return nus, mu, folded
+
+
+def _output_planes(num_qubits, out, device):
+    if out is None:
+        shape = plane_shape(num_qubits)
+        device = resolve_device(device)
+        return (torch.empty(shape, dtype=torch.float32, device=device),
+                torch.empty(shape, dtype=torch.float32, device=device))
+    if plane_qubits(*out) != num_qubits:
+        raise ValueError(f"output planes do not hold {num_qubits} qubits")
+    return out
+
+
+def apply_hdh_sandwich_multi_uniform_reference(
+        num_qubits: int, folded, anc_lo: int, nu_terms_k, nu_angles_k,
+        nu_bases_k, mu_terms=(), mu_angles=(), mu_base=0.0, out=None,
+        device=None):
+    """Plain PyTorch version of :func:`apply_hdh_sandwich_multi_uniform`:
+    the uniform planes, then the read-write pass."""
+    nus, mu, folded = _uniform_args(num_qubits, folded, anc_lo, nu_terms_k,
+                                    nu_angles_k, nu_bases_k, mu_terms,
+                                    mu_angles, mu_base)
+    re, im = uniform_planes(num_qubits, folded,
+                            _output_planes(num_qubits, out, device))
+    return _multi_reference(re, im, anc_lo, nus, mu)
+
+
+def apply_hdh_sandwich_multi_uniform(num_qubits: int, folded, anc_lo: int,
+                                     nu_terms_k, nu_angles_k, nu_bases_k,
+                                     mu_terms=(), mu_angles=(), mu_base=0.0,
+                                     out=None, device=None):
+    """k sandwiches applied to the uniform H-wall state ``H^{folded}|0>``
+    (the planner's ``fold_uniform_prefix`` fold followed by
+    :func:`apply_hdh_sandwich_multi`) in one write-only pass, without
+    making the uniform planes. Writes into ``out`` (a pair of planes,
+    whatever they hold) when given, else into new planes on ``device``
+    (the current CUDA device unless one is named); returns the planes.
+    ``folded`` must not hold any of the k ancillas."""
+    nus, mu, folded = _uniform_args(num_qubits, folded, anc_lo, nu_terms_k,
+                                    nu_angles_k, nu_bases_k, mu_terms,
+                                    mu_angles, mu_base)
+    re, im = _output_planes(num_qubits, out, device)
+    if re.device.type == "cpu":
+        re, im = uniform_planes(num_qubits, folded, (re, im))
+        return _multi_reference(re, im, anc_lo, nus, mu)
+    k = len(nus)
+    comp = ((1 << num_qubits) - 1) ^ sum(1 << q for q in set(folded))
+    amp = float(np.float32(2.0 ** (-0.5 * len(folded))))
+    table, n_terms = _profile_table((mu,) + nus, re.device)
+    _build.launch("qcmrf_hdh_multi_uniform", re.device, _build.ptr(table),
+                  n_terms, k, _build.ptr(re), _build.ptr(im),
+                  (1 << num_qubits) >> k, int(anc_lo), comp, amp)
+    LAUNCHES["hdh_multi_uniform"] += 1
+    return re, im

@@ -1,14 +1,23 @@
 """Experiment driver: generate/load a suite, sample it, dump counts JSON
-(port of :mod:`qcmrf_tpu.runners.run_experiment`, ``analytic`` engine).
+(port of :mod:`qcmrf_tpu.runners.run_experiment`, engines ``analytic`` and
+``statevector``).
 
-Builds the 70 circuits of a suite, samples each at ``--shots`` shots from
-the closed-form outcome law, and writes ``result_analytic_{scale}.json``: a
-JSON list of 70 ``{bitstring: count}`` dicts, the schema of the stored
-result files, so either package's evaluation harness reads it.
+Builds the 70 circuits of a suite, samples each at ``--shots`` shots, and
+writes ``result_{engine}_{scale}.json``: a JSON list of 70 ``{bitstring:
+count}`` dicts, the schema of the stored result files, so either
+package's evaluation harness reads it.
 
-The shots of one graph's reps are drawn by one launch of the fused sampler
-(on the CPU, its plain version); circuit ``i`` of the suite draws from
-Philox key ``(--sample-seed, i)``.
+* ``analytic``: the shots of one graph's reps are drawn from the
+  closed-form outcome law by one launch of the fused sampler (on the CPU,
+  its plain version); circuit ``i`` of the suite draws from Philox key
+  ``(--sample-seed, i)``.
+* ``statevector``: the gate-level circuits of one graph's reps run as one
+  launch of the whole-circuit kernel (on the CPU, its plain version, the
+  dense engine), and circuit ``i`` of the suite draws its shots from its
+  ``|psi|^2`` by inverse CDF with a ``torch.Generator`` on the run's
+  device seeded with ``--sample-seed * 65536 + i``. The probabilities are
+  those of the JAX package's dense engine; the counts are not its counts,
+  since ``jax.random`` and ``torch`` draw different numbers.
 """
 
 from __future__ import annotations
@@ -25,11 +34,12 @@ from qcmrf_tpu_torch.models.suite import (
     load_suite,
     reference_models_path,
 )
+from qcmrf_tpu_torch.ops import circuit_kernel
 from qcmrf_tpu_torch.sim import batch as sbatch
 from qcmrf_tpu_torch.sim import sampler
+from qcmrf_tpu_torch.utils.config import resolve_device
 
 _NOT_PORTED = {
-    "statevector": "slice 2 (circuits and the gate-level engine)",
     "noisy": "slice 5 (noise emulation)",
     "calibrated": "slice 5 (noise emulation)",
 }
@@ -40,26 +50,41 @@ def run_suite(
     shots: int = SHOTS,
     engine: str = "analytic",
     seed: int = 0,
-    device="cpu",
+    device=None,
 ) -> List[Dict[str, int]]:
-    """Sample every circuit of the suite; returns counts dicts in order."""
+    """Sample every circuit of the suite on ``device`` (the current CUDA
+    device unless the caller names one); returns counts dicts in order."""
     family = engine.split(":", 1)[0]
     if family in _NOT_PORTED:
         raise NotImplementedError(
             f"engine {engine!r} comes to the port with "
             f"{_NOT_PORTED[family]} of ROADMAP.md")
-    if engine != "analytic":
+    if engine not in ("analytic", "statevector"):
         raise ValueError(f"unknown engine {engine!r}")
+    device = resolve_device(device)
     counts_list: List[Dict[str, int]] = []
     for j, C in enumerate(suite.graphs):
         n = max(v for c in C for v in c) + 1
         width = n + len(C) + 1
-        keys = sbatch.batched_sample_outcomes(
-            C, suite.thetas[j], seed, shots, stream0=len(counts_list),
-            device=device).cpu().numpy()
-        for row in keys:
-            counts_list.append(sampler.counts_from_samples(row, width))
+        if engine == "analytic":
+            keys = sbatch.batched_sample_outcomes(
+                C, suite.thetas[j], seed, shots, stream0=len(counts_list),
+                device=device).cpu().numpy()
+            for row in keys:
+                counts_list.append(sampler.counts_from_samples(row, width))
+        else:
+            probs = circuit_kernel.batched_circuit_probs(
+                C, suite.thetas[j], device=device)
+            for row in probs:
+                counts_list.append(sampler.sample_counts(
+                    circuit_seed(seed, len(counts_list)), row, shots,
+                    width))
     return counts_list
+
+
+def circuit_seed(seed: int, i: int) -> int:
+    """Generator seed of suite circuit ``i`` under the statevector engine."""
+    return seed * 65536 + i
 
 
 def main(argv: Optional[List[str]] = None) -> str:
@@ -71,7 +96,7 @@ def main(argv: Optional[List[str]] = None) -> str:
                         help="Variance of parameter prior.")
     parser.add_argument("--shots", type=int, default=SHOTS)
     parser.add_argument("--engine", type=str, default="analytic",
-                        help="analytic (statevector | noisy:<preset> | "
+                        help="analytic | statevector (noisy:<preset> | "
                              "calibrated:<hw backend> are not ported yet)")
     parser.add_argument("--res-root", type=str, default=".",
                         help="Root holding res_{scale}/models_{scale}.json; "

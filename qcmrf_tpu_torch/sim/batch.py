@@ -4,7 +4,9 @@
 The JAX package ``vmap``s over the thetas of one graph; here the batch
 dimension is written out: the thetas of a graph's reps become ``(B, K <<
 cmax)`` coefficient rows, and the sampler, the log-potential table and
-the streaming logsumexp each take all rows in one launch.
+the streaming logsumexp each take all rows in one launch. Each function
+runs on ``device``: the current CUDA device unless the caller names one
+(``device="cpu"`` runs the plain versions).
 """
 
 from __future__ import annotations
@@ -17,13 +19,14 @@ import torch
 from qcmrf_tpu_torch.models.mrf import MRF
 from qcmrf_tpu_torch.ops import kernels, sampler_kernel
 from qcmrf_tpu_torch.sim import analytic
+from qcmrf_tpu_torch.utils.config import resolve_device
 
 
 def _prepare(cliques, thetas, device):
     cliques = tuple(tuple(int(v) for v in C) for C in cliques)
     n = max(v for C in cliques for v in C) + 1
     thetas = torch.as_tensor(np.asarray(thetas, dtype=np.float32),
-                             device=device)
+                             device=resolve_device(device))
     return cliques, n, thetas
 
 
@@ -35,9 +38,10 @@ def _moebius_rows(cliques, thetas, device):
 
 
 def batched_joint_probs(cliques, thetas, beta: float = 1.0,
-                        device="cpu") -> torch.Tensor:
+                        device=None) -> torch.Tensor:
     """Joint outcome distributions for a stack of thetas on one graph,
     ``(B, 2**(n+K+1))``."""
+    device = resolve_device(device)
     return torch.stack([
         analytic.joint_outcome_probs(
             MRF.create(cliques, theta=t, beta=beta, device=device))
@@ -47,7 +51,7 @@ def batched_joint_probs(cliques, thetas, beta: float = 1.0,
 
 def batched_sample_outcomes(cliques, thetas, seed: int, shots: int,
                             stream0: int = 0,
-                            device="cpu") -> torch.Tensor:
+                            device=None) -> torch.Tensor:
     """Shot-sampled measurement keys for a stack of thetas, int32
     ``(B, shots)`` (layout of :func:`analytic.joint_outcome_probs`); row
     ``b`` draws from Philox stream ``stream0 + b``. One sampler launch."""
@@ -62,7 +66,7 @@ def batched_sample_outcomes(cliques, thetas, seed: int, shots: int,
 
 
 def batched_gibbs_probs(cliques, thetas, beta: float = 1.0,
-                        device="cpu") -> torch.Tensor:
+                        device=None) -> torch.Tensor:
     """Exact Gibbs distributions for a stack of thetas on one graph,
     ``(B, 2**n)``, from one log-potential launch."""
     cliques, n, coef = _moebius_rows(cliques, thetas, device)
@@ -70,7 +74,7 @@ def batched_gibbs_probs(cliques, thetas, beta: float = 1.0,
 
 
 def batched_gibbs_log_partition(cliques, thetas, beta: float = 1.0,
-                                device="cpu"):
+                                device=None):
     """``(p, lnz)``: the exact Gibbs distributions ``(B, 2**n)`` and ``ln
     Z`` ``(B,)`` for a stack of thetas on one graph, from one coefficient
     table, one log-potential launch and one streaming-logsumexp launch."""
@@ -80,9 +84,10 @@ def batched_gibbs_log_partition(cliques, thetas, beta: float = 1.0,
     return p, lnz
 
 
-def run_suite_probs(suite, device="cpu") -> List[np.ndarray]:
+def run_suite_probs(suite, device=None) -> List[np.ndarray]:
     """Exact joint distributions for every circuit of a suite, suite
     order."""
+    device = resolve_device(device)
     out: List[np.ndarray] = []
     for j, C in enumerate(suite.graphs):
         probs = batched_joint_probs(C, suite.thetas[j], device=device)

@@ -1,0 +1,462 @@
+"""Gate-level statevector engine on real/imaginary float32 planes (port of
+:mod:`qcmrf_tpu.sim.tpu`).
+
+Amplitudes live as two float32 planes of ``2**Q`` values, shaped ``(2**Q
+/ 128, 128)`` like the JAX package's; qubit 0 is the least significant bit
+of the flat index. A circuit runs as a stream of fused passes:
+
+* **planner** (plain Python, the same op stream as the JAX package's on
+  every circuit): :func:`circuit_primitives` lowers the gates with X gates
+  deferred, :func:`fuse_primitives` fuses runs into ``diag`` / ``lane`` /
+  ``rowq`` / ``row2`` / ``sandwich`` / ``sandwichk`` passes, and
+  :func:`fuse_ops` folds the leading Hadamard wall into a closed-form
+  ``init_uniform`` or into a write-only first sandwich group
+  (``sandwichku``);
+* **executor** :func:`apply_ops`: ``init_uniform`` is plain PyTorch; the
+  sandwich passes go to the CUDA kernels of
+  :mod:`qcmrf_tpu_torch.ops.kernels` (their plain versions on the CPU),
+  updating the planes in place. ``diag``, ``lane``, ``rowq`` and ``row2``
+  come with slice 2b of ROADMAP.md and raise until then.
+
+A QCMRF circuit whose ancillas all sit at qubit 7 or above (``n >= 6``)
+fuses into sandwich passes only: at 32 qubits, one write-only and two
+read-write passes over 32 GiB of planes. Requires ``Q >= 7``; measurements
+are deferred as in the dense engine.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from qcmrf_tpu_torch.circuits.ir import Circuit, Gate
+from qcmrf_tpu_torch.ops import kernels as K
+from qcmrf_tpu_torch.sim.dense import GATES_1Q
+from qcmrf_tpu_torch.utils.config import resolve_device
+
+_ROW_GATE_SLICE = ("slice 2b of ROADMAP.md (the lane, row, row-pair, "
+                   "masked-rotation and diagonal-profile kernels, rows 8-12)")
+
+
+def zero_planes(num_qubits: int,
+                device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Planes of ``|0...0>`` on ``device`` (the current CUDA device unless
+    one is named)."""
+    shape = K.plane_shape(num_qubits)
+    re = torch.zeros(shape, dtype=torch.float32,
+                     device=resolve_device(device))
+    re.view(-1)[0] = 1.0
+    return re, torch.zeros_like(re)
+
+
+def _diag_conds_and_angles(g: Gate):
+    """(conds, base, masked) for a diagonal gate."""
+    if g.name == "rz":
+        lam = g.params[0]
+        return ((g.qubits[0], 1),), -lam / 2.0, lam
+    if g.name == "cp":
+        lam = g.params[0]
+        c, t = g.qubits
+        return ((c, 1), (t, 1)), 0.0, lam
+    if g.name == "flags_phase":
+        *pattern, ctrl = g.qubits
+        conds = [(ctrl, 1)]
+        for q, f in zip(pattern, g.flags):
+            conds.append((q, (f + 1) // 2))
+        return tuple(conds), 0.0, g.params[0]
+    raise ValueError(f"not diagonal: {g.name}")
+
+
+_MAX_DIAG_TERMS = 64  # cap per fused diagonal pass
+
+
+def _try_sandwich(h1, dg, h2):
+    """Recognize [rowq H on a] [diag] [rowq H on a] and rewrite it as one
+    ('sandwich', a, nu_terms, nu_angles, nu_base, mu_terms, mu_angles,
+    mu_base) op (see kernels.apply_hdh_sandwich for the algebra). Returns
+    None when the triple does not match (non-H matrices, lane-qubit
+    ancilla a < 7, or a term conditioning on a twice)."""
+    if h1[0] != "rowq" or h2[0] != "rowq" or dg[0] != "diag":
+        return None
+    _, U1, q1 = h1
+    _, U2, q2 = h2
+    if q1 != q2 or q1 < 7:
+        return None
+    H = np.asarray(GATES_1Q["h"], np.complex64)
+    if not (np.allclose(U1, H, atol=1e-6)
+            and np.allclose(U2, H, atol=1e-6)):
+        return None
+    _, terms, angles, base = dg
+    mu = {}
+    nu = {}
+
+    def add(d, conds, val):
+        d[conds] = d.get(conds, 0.0) + val
+
+    for conds, t in zip(terms, angles):
+        want_a = [w for p, w in conds if p == q1]
+        if len(want_a) > 1:
+            return None  # inconsistent / duplicated anc condition
+        rest = tuple(sorted((p, w) for p, w in conds if p != q1))
+        if not want_a:
+            add(mu, rest, t)  # phases both anc branches equally
+        else:
+            add(mu, rest, t / 2.0)
+            add(nu, rest, t / 2.0 if want_a[0] else -t / 2.0)
+
+    mu_base = base + mu.pop((), 0.0)
+    nu_base = nu.pop((), 0.0)
+    mu = {k: v for k, v in mu.items() if abs(v) > 1e-12}
+    nu = {k: v for k, v in nu.items() if abs(v) > 1e-12}
+    return ("sandwich", q1, tuple(nu.keys()), tuple(nu.values()),
+            nu_base, tuple(mu.keys()), tuple(mu.values()), mu_base)
+
+
+def circuit_primitives(circuit: Circuit) -> list:
+    """Lower the gate stream to ('1q', U, q) / ('diag', conds, base, angle)
+    primitives with X gates DEFERRED (X·D·X is D with the bit condition
+    flipped, so a clique's whole H·cU·X·cU†·X·H sandwich collapses to
+    H · [one fused diagonal] · H); cx decomposes as H_t · cp(pi) · H_t so
+    the sandwich post-pass of :func:`fuse_primitives` later collapses it
+    to one pass too."""
+    X = np.asarray(GATES_1Q["x"], np.complex64)
+    flips = {}  # qubit -> pending deferred X (0/1)
+
+    prim = []
+
+    def push_1q(name, q):
+        U = np.asarray(GATES_1Q[name], np.complex64)
+        if name == "x":
+            flips[q] = flips.get(q, 0) ^ 1
+            return
+        if flips.get(q):
+            U = U @ X  # the deferred X acted first
+            flips[q] = 0
+        prim.append(("1q", U, q))
+
+    def push_diag(conds, base, masked):
+        conds = tuple(
+            (pos, want ^ flips.get(pos, 0)) for pos, want in conds
+        )
+        prim.append(("diag", conds, base, masked))
+
+    for g in circuit.gates:
+        if g.name in ("barrier", "measure", "id"):
+            continue
+        if g.name == "cx":
+            c, t = g.qubits
+            push_1q("h", t)
+            push_diag(((c, 1), (t, 1)), 0.0, math.pi)
+            push_1q("h", t)
+        elif g.name in ("h", "x", "sx", "sxdg"):
+            push_1q(g.name, g.qubits[0])
+        elif g.name in ("rz", "cp", "flags_phase"):
+            conds, base, masked = _diag_conds_and_angles(g)
+            push_diag(conds, base, masked)
+        else:
+            raise ValueError(f"unsupported gate {g.name}")
+    for q in sorted(flips):
+        if flips[q]:
+            flips[q] = 0
+            prim.append(("1q", X, q))
+    return prim
+
+
+def fuse_primitives(prim: list) -> list:
+    """Peephole fusion of a primitive stream into few full-plane passes.
+
+    * a RUN of consecutive diagonal primitives (rz/cp/flags_phase, incl.
+      the cp inside the cx decomposition) -> ONE ``('diag', terms, angles,
+      base)`` pass;
+    * consecutive non-diagonal 1q gates on LANE qubits (q < 7) compose
+      into one 128x128 matrix -> ONE ``lane`` pass;
+    * consecutive 1q gates on the SAME row qubit compose their 2x2s, and
+      consecutive 1q gates on ADJACENT row qubits merge into one 4x4
+      two-qubit ``row2`` pass;
+    * H(a)·[diag]·H(a) triples collapse into ONE sandwich pass, and runs
+      of adjacent-ancilla sandwiches into one ``sandwichk`` pass.
+
+    Angles are handled generically (only +, unary -, /, and abs are
+    used).
+    """
+    ops = []
+    for p in prim:
+        if p[0] == "diag":
+            _, conds, base, a = p
+            if (ops and ops[-1][0] == "diag"
+                    and len(ops[-1][1]) < _MAX_DIAG_TERMS):
+                _, terms, angles, b0 = ops[-1]
+                ops[-1] = ("diag", terms + (conds,), angles + (a,),
+                           b0 + base)
+            else:
+                ops.append(("diag", (conds,), (a,), base))
+        else:
+            _, U, q = p
+            if q < 7:
+                M = K._lane_gate_matrix(U, q)
+                if ops and ops[-1][0] == "lane":
+                    ops[-1] = ("lane", M @ ops[-1][1])
+                else:
+                    ops.append(("lane", M))
+            else:
+                if ops and ops[-1][0] == "rowq" and ops[-1][2] == q:
+                    ops[-1] = ("rowq", U @ ops[-1][1], q)
+                else:
+                    ops.append(("rowq", U, q))
+
+    # post-pass 1: collapse H(a)·[diag]·H(a) triples on a row qubit into
+    # ONE sandwich pass: each clique's whole real-part-extraction block
+    # becomes a single sweep over the planes (3 passes -> 1)
+    fused = []
+    i = 0
+    while i < len(ops):
+        s = (_try_sandwich(ops[i], ops[i + 1], ops[i + 2])
+             if i + 2 < len(ops) else None)
+        if s is not None:
+            fused.append(s)
+            i += 3
+        else:
+            fused.append(ops[i])
+            i += 1
+    ops = fused
+
+    # post-pass 1b: group runs of consecutive-ancilla sandwiches into ONE
+    # multi pass, up to kernels._MAX_SANDWICH_K ancillas per pass. QCMRF
+    # emits one sandwich per clique on consecutive ancilla qubits and no
+    # clique's profile mentions another clique's ancilla, so neighbours
+    # commute and compose as a position-dependent Rx tensor power.
+    grouped = []   # each group: [list of sandwich ops sorted by ancilla]
+    out1b = []
+    for op in ops:
+        g = grouped[-1] if grouped else None
+        if (op[0] == "sandwich" and g is not None
+                and len(g) < K._MAX_SANDWICH_K
+                and (op[1] == g[-1][1] + 1 or op[1] == g[0][1] - 1)
+                and _sandwich_group_independent(g, op)):
+            g.append(op) if op[1] == g[-1][1] + 1 else g.insert(0, op)
+        elif op[0] == "sandwich":
+            grouped.append([op])
+            out1b.append(grouped[-1])
+        else:
+            grouped.append(None)
+            out1b.append(op)
+    ops = []
+    for item in out1b:
+        if not isinstance(item, list) or len(item) == 1:
+            ops.append(item[0] if isinstance(item, list) else item)
+            continue
+        mt = sum((s[5] for s in item), ())
+        ma = sum((tuple(s[6]) for s in item), ())
+        mb = item[0][7]
+        for s in item[1:]:
+            mb = mb + s[7]
+        ops.append(("sandwichk", item[0][1],
+                    tuple(s[2] for s in item),
+                    tuple(s[3] for s in item),
+                    tuple(s[4] for s in item),
+                    mt, ma, mb))
+
+    # post-pass 2: merge 1q ops on ADJACENT row qubits into one 4x4 pass
+    # (matrix index = bit(q_lo+1)*2 + bit(q_lo) -> kron(U_hi, U_lo))
+    merged = []
+    for op in ops:
+        if (op[0] == "rowq" and merged and merged[-1][0] == "rowq"
+                and abs(merged[-1][2] - op[2]) == 1):
+            _, U_prev, q_prev = merged[-1]
+            _, U, q = op
+            if q > q_prev:
+                merged[-1] = ("row2", np.kron(U, U_prev), q_prev)
+            else:
+                merged[-1] = ("row2", np.kron(U_prev, U), q)
+        else:
+            merged.append(op)
+    return merged
+
+
+def _sandwich_group_independent(group, op) -> bool:
+    """True when no profile in ``group + [op]`` conditions on any of the
+    combined ancilla set (the commutation requirement for multi fusion).
+    Each element is a ('sandwich', a, nt, na, nb, mt, ma, mb) op."""
+    ancs = {s[1] for s in group} | {op[1]}
+    for s in list(group) + [op]:
+        for terms in (s[2], s[5]):  # nu terms, mu terms
+            for conds in terms:
+                if any(p in ancs for p, _ in conds):
+                    return False
+    return True
+
+
+def fold_uniform_prefix(prim: list):
+    """Detect the H-wall prefix and fold it into a closed-form init.
+
+    Every leading ``('1q', H, q)`` on a distinct qubit acts on |0...0>, so
+    the state after the prefix is the uniform real superposition over the
+    folded qubits tensored with |0> elsewhere: a masked constant that one
+    write-only pass produces. A qubit is folded only if it has NO LATER
+    1q primitive: ancilla H's must stay in the stream so the H·D·H
+    sandwich fusion still sees its triples.
+
+    Returns ``(folded_qubits, rest)``; ``folded_qubits`` is () when
+    nothing folds (no leading H's, e.g. lowered basis-gate streams).
+    """
+    H = np.asarray(GATES_1Q["h"], np.complex64)
+    last_1q = {}
+    for k, p in enumerate(prim):
+        if p[0] == "1q":
+            last_1q[p[2]] = k
+    folded = []
+    k = 0
+    while k < len(prim):
+        p = prim[k]
+        if p[0] != "1q":
+            break
+        _, U, q = p
+        if (q in folded or last_1q[q] != k
+                or not np.allclose(U, H, atol=1e-9)):
+            break
+        folded.append(q)
+        k += 1
+    if len(folded) < 2:  # a lone H saves nothing over its own pass
+        return (), prim
+    return tuple(sorted(folded)), prim[k:]
+
+
+def sandwich_fold_parts(first_op, folded_locals):
+    """If a fused stream's first op is a sandwich group whose ancillas
+    avoid ``folded_locals``, return its ``(a, nts, nas, nbs, mt, ma,
+    mb)`` normalized to the multi (k-tuple) layout so a write-only
+    uniform-init fold can absorb it; else None."""
+    if first_op[0] in ("sandwichk", "sandwich4"):
+        _, a, nts, nas, nbs, mt, ma, mb = first_op
+        if any(a <= q < a + len(nts) for q in folded_locals):
+            return None
+        return a, nts, nas, nbs, mt, ma, mb
+    if first_op[0] == "sandwich":
+        _, a, nt, na, nb, mt, ma, mb = first_op
+        if a in folded_locals:
+            return None
+        return a, (nt,), (na,), (nb,), mt, ma, mb
+    return None
+
+
+def fuse_ops(circuit: Circuit) -> list:
+    """Fused op stream of a circuit: :func:`circuit_primitives` (X-deferred
+    lowering) composed with :func:`fuse_primitives` (peephole fusion). The
+    H-wall prefix folds into a closed-form ``('init_uniform', qubits)``
+    first op, or into the first sandwich group as a write-only
+    ``sandwichku`` (see :func:`fold_uniform_prefix`)."""
+    prim = circuit_primitives(circuit)
+    folded, rest = fold_uniform_prefix(prim)
+    if not folded:
+        return fuse_primitives(prim)
+    ops = fuse_primitives(rest)
+    # the uniform state's ancilla bits are 0, so the first multi
+    # sandwich's output on it has a closed form: one write-only pass
+    # replaces a write pass plus a read+write pass (ancillas are never
+    # folded, see fold_uniform_prefix)
+    if ops:
+        parts = sandwich_fold_parts(ops[0], folded)
+        if parts is not None:
+            return [("sandwichku", folded) + parts] + ops[1:]
+    return [("init_uniform", folded)] + ops
+
+
+def apply_ops(re, im, ops, num_qubits: int):
+    """Run a fused op stream on the planes, updating them in place;
+    returns them."""
+    for op in ops:
+        kind = op[0]
+        if kind == "init_uniform":
+            K.uniform_planes(num_qubits, op[1], out=(re, im))
+        elif kind == "sandwich":
+            _, a, nt, na, nb, mt, ma, mb = op
+            K.apply_hdh_sandwich(re, im, a, nt, na, nb, mt, ma, mb)
+        elif kind == "sandwich2":
+            _, a, nt1, na1, nb1, nt2, na2, nb2, mt, ma, mb = op
+            K.apply_hdh_sandwich_pair(re, im, a, nt1, na1, nb1, nt2, na2,
+                                      nb2, mt, ma, mb)
+        elif kind == "sandwich4":
+            _, a, nts, nas, nbs, mt, ma, mb = op
+            K.apply_hdh_sandwich_quad(re, im, a, nts, nas, nbs, mt, ma, mb)
+        elif kind == "sandwichk":
+            _, a, nts, nas, nbs, mt, ma, mb = op
+            K.apply_hdh_sandwich_multi(re, im, a, nts, nas, nbs, mt, ma,
+                                       mb)
+        elif kind == "sandwichku":
+            _, folded, a, nts, nas, nbs, mt, ma, mb = op
+            K.apply_hdh_sandwich_multi_uniform(
+                num_qubits, folded, a, nts, nas, nbs, mt, ma, mb,
+                out=(re, im))
+        elif kind in ("diag", "lane", "rowq", "row2"):
+            raise NotImplementedError(
+                f"the {kind!r} pass comes to the port with "
+                f"{_ROW_GATE_SLICE}")
+        else:
+            raise ValueError(f"unknown op {kind!r}")
+    return re, im
+
+
+def run_ops(ops, num_qubits: int, device=None):
+    """Planes of ``|0...0>`` after a fused op stream, on ``device`` (the
+    current CUDA device unless one is named; raises when there is none).
+    When the stream starts with a write-only op the planes are not zeroed
+    first."""
+    device = resolve_device(device)
+    if ops and ops[0][0] in ("init_uniform", "sandwichku"):
+        shape = K.plane_shape(num_qubits)
+        re = torch.empty(shape, dtype=torch.float32, device=device)
+        im = torch.empty(shape, dtype=torch.float32, device=device)
+    else:
+        re, im = zero_planes(num_qubits, device)
+    return apply_ops(re, im, ops, num_qubits)
+
+
+def run_statevector(circuit: Circuit, device=None):
+    """Final statevector planes ``(2**Q / 128, 128)`` with measurements
+    deferred (fused ops), on ``device``: the current CUDA device unless
+    the caller names one (``device="cpu"`` runs the plain versions)."""
+    nq = circuit.num_qubits
+    if nq < 7:
+        raise ValueError(
+            "the plane engine needs >= 7 qubits; use sim.dense below that"
+        )
+    re, im = run_ops(fuse_ops(circuit), nq, device)
+    if circuit.global_phase:
+        c = float(np.cos(circuit.global_phase))
+        s = float(np.sin(circuit.global_phase))
+        re, im = re * c - im * s, re * s + im * c
+    return re, im
+
+
+def outcome_probs(circuit: Circuit, re, im) -> torch.Tensor:
+    """Joint clbit-value distribution (QCMRF wiring: identity key map)."""
+    probs = (re * re + im * im).reshape(-1)
+    pairs = circuit.measured_pairs
+    # the identity shortcut holds only when EVERY qubit is measured to its
+    # own clbit AND the clbit register is exactly the qubit register;
+    # otherwise the mass is marginalised onto keys with unmeasured clbits
+    # zero (dense semantics)
+    if not pairs or (
+        len(pairs) == circuit.num_qubits
+        and circuit.num_clbits == circuit.num_qubits
+        and all(q == c for q, c in pairs)
+    ):
+        return probs
+    idx = torch.arange(probs.shape[0], dtype=torch.int64,
+                       device=probs.device)
+    keys = torch.zeros_like(idx)
+    for q, c in pairs:
+        keys = keys | (((idx >> q) & 1) << c)
+    out = torch.zeros((1 << circuit.num_clbits,), dtype=probs.dtype,
+                      device=probs.device)
+    return out.index_add_(0, keys, probs)
+
+
+def simulate_probs(circuit: Circuit, device=None) -> torch.Tensor:
+    """Run + outcome distribution, on ``device`` as for
+    :func:`run_statevector`."""
+    re, im = run_statevector(circuit, device)
+    return outcome_probs(circuit, re, im)

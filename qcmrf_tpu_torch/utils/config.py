@@ -75,5 +75,15 @@ def resolve_platform(platform: str) -> torch.device:
     if not torch.cuda.is_available():
         raise RuntimeError(
             f"--platform {platform} needs a CUDA device and PyTorch sees "
-            "none; pass --platform cpu to run on the CPU")
+            "none; pass --platform cpu (device='cpu' from Python) to run "
+            "on the CPU")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``device`` when the caller names
+    one, else the current CUDA device, as for ``--platform default``
+    (raising when there is none)."""
+    if device is None:
+        return resolve_platform("default")
+    return torch.device(device)

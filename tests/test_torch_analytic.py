@@ -81,7 +81,8 @@ def test_theta_domain_guard():
     with pytest.raises(ValueError):
         analytic.sample_outcome_parts(0, m, 128)
     with pytest.raises(ValueError):
-        batch.batched_sample_outcomes([[0, 1]], [[0.1, 0, 0, 0]], 0, 16)
+        batch.batched_sample_outcomes([[0, 1]], [[0.1, 0, 0, 0]], 0, 16,
+                                      device="cpu")
 
 
 def _two_edge_model(seed, scale=0.4):
@@ -180,20 +181,22 @@ def test_batch_helpers_match_jax():
     s = jsuite.generate_suite(0.25)
     C, thetas = s.graphs[2], s.thetas[2]
     np.testing.assert_allclose(
-        batch.batched_joint_probs(C, thetas).numpy(),
+        batch.batched_joint_probs(C, thetas, device="cpu").numpy(),
         np.asarray(jbatch.batched_joint_probs(C, np.asarray(thetas))),
         rtol=0, atol=1e-7)
     np.testing.assert_allclose(
-        batch.batched_gibbs_probs(C, thetas, beta=1.5).numpy(),
+        batch.batched_gibbs_probs(C, thetas, beta=1.5, device="cpu").numpy(),
         np.asarray(jbatch.batched_gibbs_probs(C, np.asarray(thetas), 1.5)),
         rtol=1e-5, atol=1e-8)
-    p, lnz = batch.batched_gibbs_log_partition(C, thetas, beta=1.5)
+    p, lnz = batch.batched_gibbs_log_partition(C, thetas, beta=1.5,
+                                               device="cpu")
     np.testing.assert_array_equal(
-        p.numpy(), batch.batched_gibbs_probs(C, thetas, beta=1.5).numpy())
+        p.numpy(),
+        batch.batched_gibbs_probs(C, thetas, beta=1.5, device="cpu").numpy())
     want = [float(JMRF.create(C, theta=t, beta=1.5).log_partition())
             for t in thetas]
     np.testing.assert_allclose(lnz.numpy(), want, rtol=1e-6)
-    got = batch.run_suite_probs(s)
+    got = batch.run_suite_probs(s, device="cpu")
     ref = jbatch.run_suite_probs(s)
     assert len(got) == len(ref) == 70
     for g, r in zip(got[::9], ref[::9]):

@@ -10,9 +10,13 @@ import torch
 
 torch.set_num_threads(1)
 
+from qcmrf_tpu_torch.circuits.compiler import compile_qcmrf  # noqa: E402
 from qcmrf_tpu_torch.models.mrf import MRF, grid_mrf  # noqa: E402
+from qcmrf_tpu_torch.models.suite import generate_suite  # noqa: E402
+from qcmrf_tpu_torch.ops import circuit_kernel  # noqa: E402
 from qcmrf_tpu_torch.ops import kernels, sampler_kernel  # noqa: E402
-from qcmrf_tpu_torch.sim import analytic, batch  # noqa: E402
+from qcmrf_tpu_torch.runners import run_experiment  # noqa: E402
+from qcmrf_tpu_torch.sim import analytic, batch, dense, planes  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -90,3 +94,98 @@ def test_wrappers_raise_on_bad_inputs(dev):
                                                 device=dev), 1.0)
     with pytest.raises(ValueError):  # not contiguous
         kernels.lse_partials(cl, n, torch.zeros(4, 2, device=dev).T, 1.0)
+
+
+def test_circuit_kernel_matches_plain_version(dev):
+    suite = generate_suite(0.1)
+    cases = [(C, np.asarray(suite.thetas[j], np.float32))
+             for j, C in enumerate(suite.graphs)]
+    rng = np.random.RandomState(3)
+    for nn in (7, 8):  # widths 14 (shared memory) and 16 (global scratch)
+        C = [[i, i + 1] for i in range(nn - 1)]
+        cases.append((C, -np.abs(rng.randn(2, 4 * (nn - 1))) * 0.4))
+    cases.append(([[0, 1, 2], [2, 3], [3, 4, 5]], -np.abs(
+        rng.randn(3, 20)) * 0.5))  # width 10, mixed sizes (cmax 3)
+    for C, thetas in cases:
+        before = circuit_kernel.LAUNCHES["circuit"]
+        got = circuit_kernel.batched_circuit_probs(C, thetas, device=dev)
+        assert circuit_kernel.LAUNCHES["circuit"] == before + 1
+        want = circuit_kernel.batched_circuit_probs_reference(C, thetas,
+                                                              device=dev)
+        assert got.is_cuda and got.shape == want.shape
+        # 2e-5 at the suite's widths (<= 10, values ~1e-3); at widths 14
+        # and 16 the values average 2^-13 and 2^-15, so 1e-6 there
+        atol = 2e-5 if got.shape[1] <= 1 << 10 else 1e-6
+        torch.testing.assert_close(got, want, rtol=0, atol=atol)
+
+
+def rand_planes(nq, seed, dev):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    re = torch.randn(1 << nq, generator=g).reshape(-1, 128)
+    im = torch.randn(1 << nq, generator=g).reshape(-1, 128)
+    return re.to(dev), im.to(dev)
+
+
+def rand_profiles(nq, a_lo, k, seed):
+    rng = np.random.RandomState(seed)
+    free = [q for q in range(nq) if not a_lo <= q < a_lo + k]
+    nts, nas = [], []
+    for _ in range(k):
+        terms = tuple(
+            tuple((int(p), int(rng.randint(2))) for p in
+                  rng.choice(free, rng.randint(1, 4), replace=False))
+            for _ in range(rng.randint(0, 5)))
+        nts.append(terms)
+        nas.append(tuple(rng.randn(len(terms))))
+    nbs = tuple(rng.randn(k))
+    mu = ((((free[0], 1),), ((free[1], 0), (free[2], 1))), (0.4, -0.8), 0.3)
+    return tuple(nts), tuple(nas), nbs, mu
+
+
+@pytest.mark.parametrize("with_mu", [True, False])
+def test_sandwich_kernels_match_plain_versions(dev, with_mu):
+    nq = 14
+    for k, a_lo in ((1, 13), (1, 0), (2, 7), (3, 2), (4, 9), (5, 7),
+                    (6, 3), (7, 7), (7, 0)):
+        nts, nas, nbs, mu = rand_profiles(nq, a_lo, k, 10 * k + a_lo)
+        if not with_mu:
+            mu = ((), (), 0.0)
+        before = dict(kernels.LAUNCHES)
+        planes_in = rand_planes(nq, k, dev)
+        got = kernels.apply_hdh_sandwich_multi(*planes_in, a_lo, nts, nas,
+                                               nbs, *mu)
+        assert got[0] is planes_in[0]  # in place
+        want = kernels.apply_hdh_sandwich_multi_reference(
+            *rand_planes(nq, k, dev), a_lo, nts, nas, nbs, *mu)
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+        folded = tuple(q for q in range(nq)
+                       if q % 3 and not a_lo <= q < a_lo + k)
+        got = kernels.apply_hdh_sandwich_multi_uniform(
+            nq, folded, a_lo, nts, nas, nbs, *mu, device=dev)
+        want = kernels.apply_hdh_sandwich_multi_uniform_reference(
+            nq, folded, a_lo, nts, nas, nbs, *mu, device=dev)
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+        assert kernels.LAUNCHES["hdh_multi"] == before["hdh_multi"] + 1
+        assert (kernels.LAUNCHES["hdh_multi_uniform"]
+                == before["hdh_multi_uniform"] + 1)
+
+
+def test_plane_engine_matches_dense_on_card(dev):
+    for nn in (6, 8):  # widths 12 and 16
+        rng = np.random.RandomState(nn)
+        m = MRF.create([[i, i + 1] for i in range(nn - 1)],
+                       theta=-np.abs(rng.randn(4 * (nn - 1))) * 0.3)
+        circ = compile_qcmrf(m, with_measurements=False)
+        re, im = planes.run_statevector(circ, device=dev)
+        want = dense.run_statevector(circ, device=dev)
+        torch.testing.assert_close(torch.complex(re, im).reshape(-1), want,
+                                   rtol=0, atol=1e-5)
+
+
+def test_statevector_engine_on_card(dev):
+    suite = generate_suite(0.1)
+    before = circuit_kernel.LAUNCHES["circuit"]
+    counts = run_experiment.run_suite(suite, shots=500,
+                                      engine="statevector", device=dev)
+    assert circuit_kernel.LAUNCHES["circuit"] == before + 7
+    assert len(counts) == 70 and all(sum(c.values()) == 500 for c in counts)

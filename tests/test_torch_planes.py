@@ -1,0 +1,306 @@
+"""Port parity of the plane engine: the fusion planner's op streams, the
+sandwich passes' plain versions against the JAX package's Pallas kernels
+(interpret mode), and whole QCMRF circuits against the JAX plane engine
+and both dense engines. On the CPU every sandwich wrapper runs its plain
+version; tests/test_torch_gpu.py holds the CUDA kernels against them."""
+
+import numbers
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+import jax.numpy as jnp  # noqa: E402
+
+from qcmrf_tpu.circuits.compiler import compile_qcmrf as jcompile  # noqa: E402
+from qcmrf_tpu.models.mrf import MRF as JMRF  # noqa: E402
+from qcmrf_tpu.ops import kernels as jkernels  # noqa: E402
+from qcmrf_tpu.sim import dense as jdense  # noqa: E402
+from qcmrf_tpu.sim import tpu as jtpu  # noqa: E402
+
+from qcmrf_tpu_torch.circuits.compiler import compile_qcmrf  # noqa: E402
+from qcmrf_tpu_torch.circuits.ir import Circuit  # noqa: E402
+from qcmrf_tpu_torch.models.mrf import MRF  # noqa: E402
+from qcmrf_tpu_torch.ops import kernels  # noqa: E402
+from qcmrf_tpu_torch.sim import dense, planes  # noqa: E402
+
+
+def models(cliques, seed, scale=0.5):
+    rng = np.random.RandomState(seed)
+    dim = sum(1 << len(C) for C in cliques)
+    theta = (-np.abs(rng.randn(dim)) * scale).astype(np.float32)
+    return (JMRF.create(cliques, theta=jnp.asarray(theta)),
+            MRF.create(cliques, theta=theta))
+
+
+def circuits(cliques, seed, scale=0.5, **kw):
+    jm, m = models(cliques, seed, scale)
+    return jcompile(jm, **kw), compile_qcmrf(m, **kw)
+
+
+def assert_same(got, want, path="op"):
+    """Structural equality of two op streams: ints and strings exactly,
+    floats and matrices to 1e-9."""
+    if isinstance(want, np.ndarray) or isinstance(got, np.ndarray):
+        got, want = np.asarray(got), np.asarray(want)
+        assert got.shape == want.shape, path
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-9,
+                                   err_msg=path)
+    elif isinstance(want, (tuple, list)):
+        assert isinstance(got, (tuple, list)), path
+        assert len(got) == len(want), path
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert_same(g, w, f"{path}[{i}]")
+    elif isinstance(want, numbers.Integral) and isinstance(
+            got, numbers.Integral):
+        assert int(got) == int(want), path
+    elif isinstance(want, numbers.Real):
+        assert abs(float(got) - float(want)) <= 1e-9, path
+    else:
+        assert got == want, path
+
+
+def chain(nn):
+    return [[i, i + 1] for i in range(nn - 1)]
+
+
+@pytest.mark.parametrize("nn", range(6, 17))
+def test_fuse_ops_matches_on_bench_chains(nn):
+    """Chains of 6-16 variables (widths 12-32), theta as bench.py draws
+    it: the port's stream equals the JAX package's."""
+    theta = -np.abs(np.random.RandomState(0).randn(4 * (nn - 1))) * 0.3
+    jc = jcompile(JMRF.create(chain(nn), theta=theta),
+                  with_measurements=False)
+    c = compile_qcmrf(MRF.create(chain(nn), theta=theta),
+                      with_measurements=False)
+    got, want = planes.fuse_ops(c), jtpu.fuse_ops(jc)
+    assert_same(got, want)
+    assert all(op[0] in ("sandwichku", "sandwichk", "sandwich")
+               for op in got)
+    if nn == 16:  # width 32: the stream holds all three sandwich forms
+        assert [op[0] for op in got] == ["sandwichku", "sandwichk",
+                                         "sandwich"]
+        assert [op[2] if op[0] == "sandwichku" else op[1]
+                for op in got] == [17, 24, 31]
+
+
+def test_fuse_ops_matches_on_mixed_and_lane_cases():
+    # width 15: one write-only pass holds the whole circuit
+    jc, c = circuits([[i, i + 1] for i in range(6)], 1,
+                     with_measurements=False)
+    ops = planes.fuse_ops(c)
+    assert_same(ops, jtpu.fuse_ops(jc))
+    assert [o[0] for o in ops] == ["sandwichku"]
+    assert ops[0][1] == tuple(range(7)) and len(ops[0][3]) == 6
+    # width 10: the a=6 block stays unfused (lane and diag passes)
+    jc, c = circuits([[0, 1], [1, 2], [2, 3], [3, 4]], 2,
+                     with_measurements=False)
+    ops = planes.fuse_ops(c)
+    assert_same(ops, jtpu.fuse_ops(jc))
+    kinds = [o[0] for o in ops]
+    assert kinds[0] == "init_uniform" and kinds.count("sandwichk") == 1
+    assert kinds.count("diag") == 1 and "lane" in kinds
+    # mixed clique sizes, measurements and a lowered-style cx stream
+    jc, c = circuits([[0, 1, 2], [2, 3], [3, 4, 5, 6]], 4)
+    assert_same(planes.fuse_ops(c), jtpu.fuse_ops(jc))
+    probe = Circuit(9)
+    probe.h(7).cx(7, 8).rz(0.3, 8).x(2).sx(8).sxdg(7).cp(0.2, 1, 8).x(2)
+    from qcmrf_tpu.circuits.ir import Circuit as JCircuit
+
+    jprobe = JCircuit(9)
+    jprobe.h(7).cx(7, 8).rz(0.3, 8).x(2).sx(8).sxdg(7).cp(0.2, 1, 8).x(2)
+    assert_same(planes.fuse_ops(probe), jtpu.fuse_ops(jprobe))
+    assert_same(planes.circuit_primitives(probe),
+                jtpu.circuit_primitives(jprobe))
+
+
+def to_complex(re, im):
+    return (np.asarray(re).reshape(-1).astype(np.complex64)
+            + 1j * np.asarray(im).reshape(-1))
+
+
+def planes_pair(nq, seed):
+    rng = np.random.RandomState(seed)
+    re = rng.randn(1 << nq).astype(np.float32)
+    im = rng.randn(1 << nq).astype(np.float32)
+    return re, im
+
+
+def port_planes(re, im):
+    return (torch.from_numpy(re.copy()).reshape(-1, 128),
+            torch.from_numpy(im.copy()).reshape(-1, 128))
+
+
+def jax_planes(re, im):
+    return jnp.asarray(re.reshape(-1, 128)), jnp.asarray(im.reshape(-1, 128))
+
+
+SINGLE = dict(nu_terms=(((0, 1), (3, 0)), ((1, 1),)), nu_angles=(0.7, -0.4),
+              nu_base=0.2, mu_terms=(((2, 1),),), mu_angles=(0.3,),
+              mu_base=-0.1)
+
+
+@pytest.mark.parametrize("with_mu", [True, False])
+def test_single_sandwich_matches_pallas(with_mu):
+    nq, anc = 9, 7
+    re, im = planes_pair(nq, 7)
+    args = dict(SINGLE) if with_mu else {
+        k: v for k, v in SINGLE.items() if k.startswith("nu")}
+    want = jkernels.apply_hdh_sandwich(*jax_planes(re, im), anc, **args)
+    pr, pi = port_planes(re, im)
+    got = kernels.apply_hdh_sandwich(pr, pi, anc, **args)
+    assert got[0] is pr and got[1] is pi  # updated in place
+    np.testing.assert_allclose(to_complex(*got), to_complex(*want),
+                               atol=1e-5)
+    ref = kernels.apply_hdh_sandwich_reference(*port_planes(re, im), anc,
+                                               **args)
+    assert torch.equal(ref[0], pr) and torch.equal(ref[1], pi)
+
+
+PAIR = ((((0, 1),), ((2, 0), (4, 1))), (0.7, -0.3), 0.15,
+        (((1, 1), (3, 1)),), (-0.9,), 0.0)
+PAIR_MU = ((((5, 1),), ((0, 0),)), (0.4, -0.6), -0.1)
+
+
+@pytest.mark.parametrize("with_mu", [True, False])
+def test_pair_sandwich_matches_pallas(with_mu):
+    nq, a_lo = 10, 7
+    re, im = planes_pair(nq, 8)
+    mu = PAIR_MU if with_mu else ((), (), 0.0)
+    want = jkernels.apply_hdh_sandwich_pair(*jax_planes(re, im), a_lo,
+                                            *PAIR, *mu)
+    got = kernels.apply_hdh_sandwich_pair(*port_planes(re, im), a_lo,
+                                          *PAIR, *mu)
+    np.testing.assert_allclose(to_complex(*got), to_complex(*want),
+                               atol=1e-5)
+
+
+QUAD = ((((0, 1),), ((2, 0), (4, 1))), (((1, 1), (3, 1)),),
+        (((5, 0),), ((6, 1),)), (((11, 1), (0, 0)),))
+QUAD_ANGLES = ((0.7, -0.3), (-0.9,), (0.25, 1.1), (0.6,))
+QUAD_BASES = (0.15, 0.0, -0.4, 0.05)
+QUAD_MU = ((((5, 1),), ((2, 1),)), (0.4, -0.7), -0.2)
+
+
+@pytest.mark.parametrize("with_mu", [True, False])
+def test_quad_and_multi_sandwich_match_pallas(with_mu):
+    nq, a_lo = 12, 7
+    re, im = planes_pair(nq, 9)
+    mu = QUAD_MU if with_mu else ((), (), 0.0)
+    want = jkernels.apply_hdh_sandwich_quad(
+        *jax_planes(re, im), a_lo, QUAD, QUAD_ANGLES, QUAD_BASES, *mu)
+    got = kernels.apply_hdh_sandwich_quad(
+        *port_planes(re, im), a_lo, QUAD, QUAD_ANGLES, QUAD_BASES, *mu)
+    np.testing.assert_allclose(to_complex(*got), to_complex(*want),
+                               atol=1e-5)
+    # k = 3 (the width-10 chain's group) against the JAX multi kernel
+    want = jkernels.apply_hdh_sandwich_multi(
+        *jax_planes(re, im), 8, QUAD[:3], QUAD_ANGLES[:3], QUAD_BASES[:3],
+        *mu)
+    got = kernels.apply_hdh_sandwich_multi(
+        *port_planes(re, im), 8, QUAD[:3], QUAD_ANGLES[:3],
+        QUAD_BASES[:3], *mu)
+    np.testing.assert_allclose(to_complex(*got), to_complex(*want),
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("with_mu", [True, False])
+def test_multi_uniform_matches_pallas(with_mu):
+    nq, a_lo = 11, 7
+    folded = (0, 1, 2, 3, 4, 5)
+    nts, nas, nbs = QUAD[:3], QUAD_ANGLES[:3], QUAD_BASES[:3]
+    nts = nts[:2] + ((((5, 0),), ((6, 1),)),)
+    mu = QUAD_MU if with_mu else ((), (), 0.0)
+    want = jkernels.apply_hdh_sandwich_multi_uniform(
+        nq, folded, a_lo, nts, nas, nbs, *mu)
+    got = kernels.apply_hdh_sandwich_multi_uniform(
+        nq, folded, a_lo, nts, nas, nbs, *mu, device="cpu")
+    assert got[0].shape == (1 << (nq - 7), 128)
+    np.testing.assert_allclose(to_complex(*got), to_complex(*want),
+                               atol=1e-5)
+    # into given planes, whatever they held
+    out = (torch.full((16, 128), 3.0), torch.full((16, 128), -2.0))
+    into = kernels.apply_hdh_sandwich_multi_uniform(
+        nq, folded, a_lo, nts, nas, nbs, *mu, out=out)
+    assert into[0] is out[0]
+    np.testing.assert_allclose(to_complex(*into), to_complex(*want),
+                               atol=1e-5)
+
+
+def test_sandwich_guards_raise():
+    pr, pi = port_planes(*planes_pair(9, 1))
+    with pytest.raises(ValueError, match="ancilla 7"):
+        kernels.apply_hdh_sandwich(pr, pi, 7, (((7, 1),),), (0.1,))
+    with pytest.raises(ValueError, match="1..7"):
+        kernels.apply_hdh_sandwich_multi(pr, pi, 0, ((),) * 8, ((),) * 8,
+                                         (0.0,) * 8)
+    with pytest.raises(ValueError, match="outside"):
+        kernels.apply_hdh_sandwich_multi(pr, pi, 8, ((), ()), ((), ()),
+                                         (0.0, 0.0))
+    with pytest.raises(ValueError, match="folded"):
+        kernels.apply_hdh_sandwich_multi_uniform(9, (0, 7), 7, ((),), ((),),
+                                                 (0.0,))
+    with pytest.raises(ValueError, match="float32"):
+        kernels.apply_hdh_sandwich(pr.double(), pi.double(), 7, (), ())
+    with pytest.raises(ValueError, match="terms"):
+        kernels.apply_hdh_sandwich(pr, pi, 8, ((((0, 1),),) * 1025),
+                                   (0.1,) * 1025)
+
+
+@pytest.mark.parametrize("cliques", [
+    [[i, i + 1] for i in range(5)],                  # width 12
+    [[0, 1, 2], [2, 3], [3, 4], [4, 5], [5, 6]],     # width 13
+])
+def test_run_statevector_matches_jax_and_dense(cliques):
+    jc, c = circuits(cliques, 7, with_measurements=False)
+    got = to_complex(*planes.run_statevector(c, device="cpu"))
+    want = to_complex(*jtpu.run_statevector(jc))
+    np.testing.assert_allclose(got, want, atol=1e-5)
+    np.testing.assert_allclose(got, np.asarray(jdense.run_statevector(jc)),
+                               atol=1e-5)
+    np.testing.assert_allclose(got, dense.run_statevector(c, device="cpu")
+                               .numpy(),
+                               atol=1e-5)
+
+
+def test_outcome_probs_marginalise_like_dense():
+    jc, c = circuits([[i, i + 1] for i in range(5)], 3)
+    probs = planes.simulate_probs(c, device="cpu")
+    np.testing.assert_allclose(
+        probs.numpy(), dense.simulate_probs(c, device="cpu").numpy(),
+        atol=1e-6)
+    # only the ancillas measured, onto a narrower register
+    part = Circuit(c.num_qubits, 6, gates=[
+        g for g in c.gates if g.name != "measure"])
+    for i, q in enumerate(range(7, 12)):
+        part.measure(q, i)
+    re, im = planes.run_statevector(part, device="cpu")
+    np.testing.assert_allclose(
+        planes.outcome_probs(part, re, im).numpy(),
+        dense.outcome_probs(part, dense.run_statevector(
+            part, device="cpu")).numpy(),
+        atol=1e-6)
+
+
+def test_unported_passes_raise():
+    _, c = circuits([[0, 1], [1, 2], [2, 3], [3, 4]], 2)  # width 10
+    with pytest.raises(NotImplementedError, match="slice 2b"):
+        planes.run_statevector(c, device="cpu")
+    for op in (("diag", ((((0, 1),),)), (0.1,), 0.0),
+               ("lane", np.eye(128)), ("rowq", np.eye(2), 8),
+               ("row2", np.eye(4), 7)):
+        with pytest.raises(NotImplementedError, match="slice 2b"):
+            planes.apply_ops(*planes.zero_planes(9, "cpu"), [op], 9)
+    with pytest.raises(ValueError, match=">= 7"):
+        planes.run_statevector(Circuit(3), device="cpu")
+
+
+def test_init_uniform_matches_jax():
+    for nq, folded in ((8, (0, 1, 2)), (9, (1, 4, 8))):
+        got = kernels.uniform_planes(nq, folded, device="cpu")
+        want = jtpu.uniform_planes(nq, folded)
+        np.testing.assert_array_equal(to_complex(*got), to_complex(*want))
+    re, im = planes.run_ops([("init_uniform", (0, 1, 2))], 8, "cpu")
+    assert float(re.sum()) == pytest.approx(8 * 2 ** -1.5)

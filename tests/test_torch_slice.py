@@ -1,6 +1,7 @@
-"""The port's slice end to end on the CPU: ``run`` writes counts that the
-JAX package's harness scores, the port's ``eval`` scores them the same,
-and the platform choices behave as documented."""
+"""The port's slices end to end on the CPU: ``run`` (analytic and
+statevector engines) writes counts that the JAX package's harness scores,
+the port's ``eval`` scores them the same, and the platform choices behave
+as documented."""
 
 import json
 import subprocess
@@ -12,13 +13,16 @@ import torch
 
 torch.set_num_threads(1)
 
+from qcmrf_tpu.circuits.compiler import compile_qcmrf as jcompile  # noqa: E402
 from qcmrf_tpu.evaluation import harness as jharness  # noqa: E402
 from qcmrf_tpu.models import suite as jsuite  # noqa: E402
 from qcmrf_tpu.models.mrf import MRF as JMRF  # noqa: E402
+from qcmrf_tpu.sim import dense as jdense  # noqa: E402
 
 from qcmrf_tpu_torch import __main__ as cli  # noqa: E402
 from qcmrf_tpu_torch.evaluation import harness  # noqa: E402
 from qcmrf_tpu_torch.models.suite import generate_suite  # noqa: E402
+from qcmrf_tpu_torch.ops import circuit_kernel  # noqa: E402
 from qcmrf_tpu_torch.runners import eval as run_eval  # noqa: E402
 from qcmrf_tpu_torch.runners import run_experiment  # noqa: E402
 
@@ -91,9 +95,12 @@ def test_run_reads_stored_models_under_res_root(run_dir, tmp_path):
 
 def test_run_is_deterministic_per_seed():
     suite = generate_suite(0.1)
-    a = run_experiment.run_suite(suite, shots=300, seed=5)
-    b = run_experiment.run_suite(suite, shots=300, seed=5)
-    c = run_experiment.run_suite(suite, shots=300, seed=6)
+    a = run_experiment.run_suite(suite, shots=300, seed=5,
+                                 device="cpu")
+    b = run_experiment.run_suite(suite, shots=300, seed=5,
+                                 device="cpu")
+    c = run_experiment.run_suite(suite, shots=300, seed=6,
+                                 device="cpu")
     assert a == b and a != c
 
 
@@ -109,10 +116,54 @@ def test_gpu_platform_raises_without_cuda(platform, tmp_path):
     assert not (tmp_path / "models_0.1.json").exists()
 
 
+def _chain12():
+    from qcmrf_tpu_torch.circuits.compiler import compile_qcmrf
+    from qcmrf_tpu_torch.models.mrf import MRF
+
+    mrf = MRF.create([[i, i + 1] for i in range(5)], theta=-0.2 * np.ones(20))
+    return compile_qcmrf(mrf, with_measurements=False)
+
+
+def _default_device_calls():
+    from qcmrf_tpu_torch.ops import kernels
+    from qcmrf_tpu_torch.sim import batch, dense, planes
+
+    return {
+        "planes.run_statevector": lambda: planes.run_statevector(_chain12()),
+        "planes.simulate_probs": lambda: planes.simulate_probs(_chain12()),
+        "planes.run_ops": lambda: planes.run_ops(
+            planes.fuse_ops(_chain12()), 12),
+        "dense.run_statevector": lambda: dense.run_statevector(_chain12()),
+        "circuit_kernel.batched_circuit_probs":
+            lambda: circuit_kernel.batched_circuit_probs(
+                [[0, 1]], [[-0.1] * 4]),
+        "kernels.apply_hdh_sandwich_multi_uniform":
+            lambda: kernels.apply_hdh_sandwich_multi_uniform(
+                9, (0, 1), 7, ((),), ((),), (0.1,)),
+        "batch.batched_joint_probs":
+            lambda: batch.batched_joint_probs([[0, 1]], [[-0.1] * 4]),
+        "run_experiment.run_suite": lambda: run_experiment.run_suite(
+            generate_suite(0.1), shots=10, engine="statevector"),
+    }
+
+
+@pytest.mark.parametrize("entry", sorted(_default_device_calls()))
+def test_entry_points_default_to_the_card(entry):
+    """Called without a device, an entry point runs on the current CUDA
+    device, and raises where there is none: never a silent CPU run."""
+    call = _default_device_calls()[entry]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+        return
+    out = call()
+    first = out[0] if isinstance(out, (tuple, list)) else out
+    assert not isinstance(first, torch.Tensor) or first.is_cuda
+
+
 def test_unported_options_name_their_slice(run_dir, tmp_path):
     suite = generate_suite(0.1)
-    for engine, slice_ in (("statevector", "slice 2"),
-                           ("noisy:torino", "slice 5"),
+    for engine, slice_ in (("noisy:torino", "slice 5"),
                            ("calibrated:torino", "slice 5")):
         with pytest.raises(NotImplementedError, match=slice_):
             run_experiment.run_suite(suite, shots=10, engine=engine)
@@ -151,8 +202,73 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "import qcmrf_tpu_torch.__main__, qcmrf_tpu_torch.runners.eval\n"
             "import qcmrf_tpu_torch.runners.run_experiment\n"
             "import qcmrf_tpu_torch.circuits.params\n"
+            "import qcmrf_tpu_torch.sim.planes, qcmrf_tpu_torch.sim.dense\n"
+            "import qcmrf_tpu_torch.ops.circuit_kernel\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'qcmrf_tpu.')) or m == 'qcmrf_tpu']\n"
             "assert not bad, bad\n"
             "assert 'triton' not in sys.modules\n")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+
+
+SV_SHOTS = 10_000
+
+
+@pytest.fixture(scope="module")
+def sv_dir(tmp_path_factory):
+    root = tmp_path_factory.mktemp("port_sv")
+    out = run_experiment.main([
+        "--platform", "cpu", "--engine", "statevector", "--shots",
+        str(SV_SHOTS), "--scale", "0.1", "--outdir", str(root / "res_0.1")])
+    assert out.endswith("result_statevector_0.1.json")
+    return root
+
+
+def test_statevector_run_follows_jax_dense_probabilities(sv_dir):
+    """70 counts dicts, drawn from probabilities that equal the JAX
+    package's dense engine on every circuit (atol 2e-5)."""
+    path = sv_dir / "res_0.1" / "result_statevector_0.1.json"
+    counts = json.loads(path.read_text())
+    assert len(counts) == 70
+    assert all(sum(c.values()) == SV_SHOTS for c in counts)
+    suite = jsuite.generate_suite(0.1)
+    i = 0
+    for j, C in enumerate(suite.graphs):
+        width = max(v for c in C for v in c) + 1 + len(C) + 1
+        probs = circuit_kernel.batched_circuit_probs(C, suite.thetas[j],
+                                                     device="cpu")
+        for theta, p in zip(suite.thetas[j], probs.numpy()):
+            want = np.asarray(jdense.simulate_probs(
+                jcompile(JMRF.create(C, theta=np.float32(theta)))))
+            np.testing.assert_allclose(p, want, atol=2e-5)
+            assert all(len(k) == width for k in counts[i])
+            # the accepted share (all ancillas 0) within 5 binomial sigma
+            n = max(v for c in C for v in c) + 1
+            delta = want[: 1 << n].sum()
+            acc = sum(v for k, v in counts[i].items() if int(k, 2) < 1 << n)
+            sigma = np.sqrt(delta * (1 - delta) / SV_SHOTS)
+            assert abs(acc / SV_SHOTS - delta) <= 5 * sigma + 1e-9
+            i += 1
+
+
+def test_statevector_run_evaluates(sv_dir):
+    results = run_eval.main([
+        "--results", "result_statevector_0.1.json", "--scale", "0.1",
+        "--res-root", str(sv_dir), "--kl"])
+    assert len(results) == 7
+    for r in results:
+        assert r.mean_f >= 0.99, (r.graph, r.mean_f)
+        assert max(abs(a - b) for a, b in
+                   zip(r.successes, r.exact_deltas)) <= 0.02
+
+
+def test_statevector_run_is_deterministic_per_seed():
+    suite = generate_suite(0.1)
+    a = run_experiment.run_suite(suite, shots=200, engine="statevector",
+                                 seed=5, device="cpu")
+    b = run_experiment.run_suite(suite, shots=200, engine="statevector",
+                                 seed=5, device="cpu")
+    c = run_experiment.run_suite(suite, shots=200, engine="statevector",
+                                 seed=6, device="cpu")
+    assert a == b and a != c
+    assert run_experiment.circuit_seed(5, 3) == 5 * 65536 + 3
