@@ -4,13 +4,18 @@
 
 Builds the port's CUDA kernels from ``qcmrf_tpu_torch/csrc/``, holds each
 kernel against its plain PyTorch version on the card at the main paths'
-shapes, times both, and drives the port's three main paths, each with the
+shapes, times both, and drives the port's four main paths, each with the
 kernels' launch counters reset just before it and read just after:
 
 * ``run`` (analytic engine) samples the 70-circuit suite (scale 0.1,
   10 000 shots) and ``eval`` scores it, both on the GPU;
 * ``run --engine statevector`` runs the 70 gate-level circuits through the
   whole-circuit kernel (one launch per graph) and ``eval`` scores them;
+* ``infer`` answers a batch of lnz, prob, map, mmap and marginals queries,
+  with and without evidence, on bench.py's K27 complete graph (every
+  query through the streaming lse, map and moments kernels), checked
+  against the log-potential table on the card; a 32-variable chain's
+  streaming MAP and lnZ (ids past 2^31) are held against elimination;
 * the plane engine runs the 16-variable QCMRF chain at 32 qubits (three
   fused sandwich passes over 32 GiB of planes, in place), checked against
   the post-selected amplitudes of the log-potential kernel.
@@ -49,6 +54,7 @@ H100_F32_PER_S = 67e12
 
 GATE_WIDTHS = (20, 24, 26, 28, 30, 32)   # bench.py's chains, and 32
 SANDWICH_WIDTH = 24
+INFER_N = 27                             # bench.py's wide model, K27
 
 
 def bound(nbytes: float, flops: float) -> dict:
@@ -654,17 +660,399 @@ def check_width32(mrf, re, im, dev) -> None:
                                       "1e-4 of 1 (float64 over chunks)")
 
 
+def complete_cliques(n: int):
+    return [[i, j] for i in range(n) for j in range(i + 1, n)]
+
+
+def k27_theta() -> np.ndarray:
+    """bench.py's wide model: theta = -|randn(RandomState(11))| * 0.02,
+    in float32 as bench.py rounds it."""
+    d = 4 * len(complete_cliques(INFER_N))
+    return -np.abs(np.random.RandomState(11).randn(d)).astype(
+        np.float32) * np.float32(0.02)
+
+
+def mixed_cliques(n: int):
+    """A ring of 3-, 4- and 5-variable cliques over n variables."""
+    cl, v, i = [], 0, 0
+    while v < n - 1:
+        c = (3, 4, 5)[i % 3]
+        cl.append([u % n for u in range(v, v + c)])
+        v, i = v + c - 1, i + 1
+    return cl
+
+
+def random_cliques(n: int, draws: int, size: int, seed: int):
+    """Distinct random ``size``-variable cliques over n variables: at n =
+    20, 700 draws of 4 give tables past 48 KB of shared memory and about
+    1900 monomials."""
+    rng = np.random.RandomState(seed)
+    return [list(C) for C in sorted(
+        {tuple(sorted(rng.choice(n, size, replace=False).tolist()))
+         for _ in range(draws)})]
+
+
+def seeded_model(cliques, seed, scale, dev, n=None):
+    from qcmrf_tpu_torch.models.mrf import MRF
+
+    d = sum(1 << len(C) for C in cliques)
+    theta = -np.abs(np.random.RandomState(seed).randn(d)) * scale
+    return MRF.create(cliques, theta=theta, n=n, device=dev)
+
+
+def tie_chain(n: int, dev):
+    """Chain rewarding unequal neighbours with dyadic theta: the two
+    alternating states tie exactly at 0; the earliest is 0101..."""
+    from qcmrf_tpu_torch.models.mrf import chain_mrf
+
+    return chain_mrf(n, theta=np.tile([-0.5, 0.0, 0.0, -0.5], n - 1),
+                     device=dev)
+
+
+def infer_kernel_args(mrf):
+    """(cliques, n, coef, beta, lnz, masks) of the two sweeps."""
+    from qcmrf_tpu_torch.models import moments
+    from qcmrf_tpu_torch.ops import kernels
+
+    coef = kernels.moebius_coefficients(mrf)[None]
+    lnz = kernels.log_partition(mrf).reshape(1)
+    masks = torch.from_numpy(moments._monomial_masks(mrf.cliques, mrf.n)).to(
+        mrf.device)
+    return mrf.cliques, mrf.n, coef, mrf.beta, lnz, masks
+
+
+def timed_once(fn):
+    """(result, milliseconds) of one call of ``fn``, by CUDA events."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def check_map_and_moments(mrf, what: str, times=None) -> dict:
+    """The map and moments kernels against their plain versions on one
+    model; returns the largest differences. With ``times`` (a dict), also
+    times each kernel (CUDA events over 5 calls after a warm-up) and each
+    plain version (the one call that the check makes)."""
+    from qcmrf_tpu_torch.ops import kernels
+
+    args = infer_kernel_args(mrf)
+    cl, n, coef, beta, lnz, masks = args
+    (wv, wx), plain_map = timed_once(
+        lambda: kernels.map_partials_reference(*args[:4]))
+    v, x = kernels.map_partials(*args[:4])
+    map_err = float((v - wv).abs().max())
+    rel = float(((v - wv).abs() / wv.abs().clamp(min=1e-30)).max())
+    require(torch.equal(x, wx) and rel <= 1e-6,
+            f"{what}: map kernel == plain version: the same ids in all "
+            f"{x.shape[1]} blocks, values within 1e-6 relative ({rel:.2e})")
+    want, plain_mom = timed_once(
+        lambda: kernels.monomial_moments_reference(*args))
+    got = kernels.monomial_moments(*args)
+    mom_err = float((got - want).abs().max())
+    require(mom_err <= 1e-6,
+            f"{what}: moments kernel == plain version within 1e-6 "
+            f"absolute ({mom_err:.2e}, {masks.numel()} monomials)")
+    del wv, wx, got, want
+    torch.cuda.empty_cache()
+    if times is not None:
+        times["map"] = (cuda_ms(lambda: kernels.map_partials(*args[:4]),
+                                reps=5), plain_map)
+        times["moments"] = (cuda_ms(lambda: kernels.monomial_moments(*args),
+                                    reps=5), plain_mom)
+    return dict(map=map_err, moments=mom_err)
+
+
+def oracle_pair_moments(t, lnz, n: int, sel=None, chunk=1 << 20):
+    """E[x_i x_j] (E[x_i] on the diagonal) from the float64 table ``t`` by
+    masked sums, in chunks of states: the streaming kernels' oracle."""
+    dev = t.device
+    shifts = (n - 1) - torch.arange(n, device=dev)
+    M = torch.zeros((n, n), dtype=torch.float64, device=dev)
+    for s in range(0, t.numel(), chunk):
+        xs = torch.arange(s, min(s + chunk, t.numel()), device=dev)
+        B = ((xs[:, None] >> shifts) & 1).double()
+        p = torch.exp(t[s:s + chunk] - lnz)
+        if sel is not None:
+            p = p * sel[s:s + chunk]
+        M += B.T @ (B * p[:, None])
+    return M
+
+
+def pairwise_marginals(M, cliques) -> torch.Tensor:
+    """Theta-layout clique marginals of a pairwise model from E[x_i x_j]:
+    entries (x_i, x_j) = 00, 01, 10, 11, x_i slowest."""
+    rows = []
+    for i, j in cliques:
+        mi, mj, mij = M[i, i], M[j, j], M[i, j]
+        rows.append(torch.stack([1 - mi - mj + mij, mj - mij, mi - mij,
+                                 mij]))
+    return torch.cat(rows)
+
+
+INFER_QUERIES = (
+    {"query": "lnz"},
+    {"query": "lnz", "evidence": "0=1,5=0"},
+    {"query": "prob", "of": "3=1", "evidence": "0=1"},
+    {"query": "map"},
+    {"query": "map", "evidence": "0=1,5=0"},
+    {"query": "marginals"},
+    {"query": "marginals", "evidence": "0=1"},
+    {"query": "mmap", "max_vars": "0,1,2"},
+)
+
+
+def phase_infer(dev, report) -> dict:
+    """``infer`` on the K27 complete graph (width 27 > 25: every query goes
+    to the streaming sweeps) against the table of the log-potential kernel;
+    the kernels against their plain versions at n = 20 and at K27; a
+    32-variable chain (state ids past 2^31) against elimination. Returns
+    the launch counts of the K27 batch."""
+    import contextlib
+    import io
+
+    from qcmrf_tpu_torch.models import moments
+    from qcmrf_tpu_torch.models.mrf import MRF
+    from qcmrf_tpu_torch.ops import kernels
+    from qcmrf_tpu_torch.runners import infer_cli
+
+    n = INFER_N
+    print("[infer] kernels vs plain versions at n=20")
+    err = dict(map=0.0, moments=0.0)
+    for what, mrf in (
+            ("K20", seeded_model(complete_cliques(20), 20, 0.05, dev)),
+            ("3/4/5-variable ring n=20",
+             seeded_model(mixed_cliques(20), 5, 0.3, dev)),
+            ("wide 4-variable cliques n=20",
+             seeded_model(random_cliques(20, 700, 4, 4), 5, 0.05, dev)),
+            ("tie chain n=20", tie_chain(20, dev))):
+        for k, e in check_map_and_moments(mrf, what).items():
+            err[k] = max(err[k], e)
+    v, x = kernels.combine_map(*kernels.map_partials(
+        *infer_kernel_args(tie_chain(20, dev))[:4]))
+    require(int(x[0]) == int("01" * 10, 2) and float(v[0]) == 0.0,
+            "tie: the earliest of the two maxima (0101...) wins")
+
+    cliques = complete_cliques(n)
+    theta = k27_theta()
+    with tempfile.TemporaryDirectory() as tmp:
+        graph = os.path.join(tmp, "k27.json")
+        theta_path = os.path.join(tmp, "theta.json")
+        queries = os.path.join(tmp, "queries.jsonl")
+        with open(graph, "w") as f:
+            json.dump(cliques, f)
+        with open(theta_path, "w") as f:
+            json.dump(theta.tolist(), f)
+        with open(queries, "w") as f:
+            f.write("\n".join(json.dumps(q) for q in INFER_QUERIES))
+        argv = ["--graph", graph, "--theta", theta_path, "--queries",
+                queries, "--platform", "gpu"]
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+        explain = subprocess.run(
+            [sys.executable, "-m", "qcmrf_tpu_torch", "infer", *argv[:4],
+             "--query", "marginals", "--explain"], env=env,
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=300, check=True)
+        rep = json.loads(explain.stdout.strip().splitlines()[-1])
+        require(rep["selected"] == "streaming" and rep["induced_width"] == n,
+                "--explain answers with no CUDA device visible: K27, width "
+                f"{rep['induced_width']}, selects {rep['selected']}")
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            results = infer_cli.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_counts()
+    require(len(out.getvalue().splitlines()) == len(INFER_QUERIES),
+            f"{len(INFER_QUERIES)} JSON lines printed")
+    print(f"  K27 batch of {len(INFER_QUERIES)} queries through infer_cli: "
+          f"{seconds:.3f} s; launches lse {launches['lse']}, map "
+          f"{launches['map']}, moments {launches['moments']}")
+    for k in ("lse", "map", "moments"):
+        require(launches[k] > 0, f"kernel {k} launched {launches[k]} times "
+                                 "in the K27 batch")
+    require(all(r["backend"] == "streaming" for r in results),
+            "every K27 query went to the streaming sweeps")
+    check_k27_answers(results, cliques, theta, dev)
+    report["infer_k27_query_s"] = time_k27_queries(cliques, theta, dev)
+
+    print("[infer] K27 kernels and plain versions at the batch's shape")
+    mrf = MRF.create(cliques, theta=theta, device=dev)
+    times = {}
+    for k, e in check_map_and_moments(mrf, "K27", times).items():
+        err[k] = max(err[k], e)
+    cl = mrf.cliques
+    m = moments._monomial_layout(cl).m
+    parts = kernels.lse_geometry(1 << n)[0]
+    # per state: the chains and beta; then a compare (map), or the exp of
+    # lp - lnZ and a mask test and an add per monomial (moments). Bytes:
+    # the partials written (and the masks read)
+    b = dict(map=bound(12 * parts, (chain_flops(cl) + 2) << n),
+             moments=bound(4 * parts * m + 8 * m,
+                           (chain_flops(cl) + 3 + 2 * m) << n))
+    for k in ("map", "moments"):
+        ms, plain_ms = times[k]
+        print(f"  {k}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{b[k]['bound_ms']:.3f} ms ({b[k]['bound_by']}) at 2^{n} "
+              f"states, K={len(cl)}" + (f", {m} monomials"
+                                        if k == "moments" else ""))
+        report[k] = dict(max_abs_err=err[k], ms=ms, plain_ms=plain_ms,
+                         **b[k], shape=f"K{n} pairwise, 2^{n} states"
+                         + (f", {m} monomials" if k == "moments" else ""))
+    report["infer_k27_batch_s"] = seconds
+    phase_chain32(dev)
+    return launches
+
+
+def time_k27_queries(cliques, theta, dev) -> list:
+    """Host seconds of each batch query alone (answered as the batch
+    answers it, ending in a synchronise): where the batch's time goes."""
+    import argparse
+
+    from qcmrf_tpu_torch.models.mrf import MRF
+    from qcmrf_tpu_torch.runners import infer_cli
+
+    mrf = MRF.create(cliques, theta=theta, device=dev)
+    rows = []
+    for q in INFER_QUERIES:
+        args = argparse.Namespace(query=q["query"],
+                                  evidence=q.get("evidence", ""),
+                                  of=q.get("of"), max_vars=q.get("max_vars"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        infer_cli._answer(mrf, args, 1.0)
+        torch.cuda.synchronize()
+        rows.append(dict(query=q, seconds=time.perf_counter() - t0))
+        print(f"  {json.dumps(q)}: {rows[-1]['seconds']:.4f} s")
+    return rows
+
+
+def check_k27_answers(results, cliques, theta, dev) -> None:
+    """Every K27 answer against the log-potential table (2^27 float32,
+    held in float64): lnZ and log masses by logsumexp (1e-4), MAP ids by
+    argmax (equal), the probability and the marginals by masked sums
+    (1e-5 absolute; evidence-inconsistent rows exactly 0)."""
+    from qcmrf_tpu_torch.models.mrf import MRF
+    from qcmrf_tpu_torch.ops import kernels
+
+    n = INFER_N
+    mrf = MRF.create(cliques, theta=theta, device=dev)
+    t = kernels.all_log_potentials(mrf).double()
+    x = torch.arange(1 << n, device=dev)
+
+    def bit(v):
+        return (x >> (n - 1 - v)) & 1
+
+    def lse(sel=None):
+        return torch.logsumexp(t if sel is None else
+                               torch.where(sel, t, -math.inf), dim=0)
+
+    by = {(r["query"], json.dumps(r["evidence"], sort_keys=True)): r
+          for r in results}
+    lnz = lse()
+    e05 = (bit(0) == 1) & (bit(5) == 0)
+    e0 = bit(0) == 1
+    cases = [
+        (by["lnz", "{}"]["lnz"], float(lnz), "lnZ"),
+        (by["lnz", '{"0": 1, "5": 0}']["log_mass"], float(lse(e05)),
+         "log mass of 0=1,5=0"),
+    ]
+    for got, want, what in cases:
+        require(abs(got - want) <= 1e-4, f"K27 {what}: {got:.6f} vs table "
+                                         f"{want:.6f} (1e-4)")
+    p = float(torch.exp(lse(e0 & (bit(3) == 1)) - lse(e0)))
+    got = by["prob", '{"0": 1}']["prob"]
+    require(abs(got - p) <= 1e-5, f"K27 P(x3=1 | x0=1) {got:.8f} vs table "
+                                  f"{p:.8f} (1e-5)")
+    for ev, sel in (("{}", None), ('{"0": 1, "5": 0}', e05)):
+        r = by["map", ev]
+        want = int(torch.argmax(t if sel is None else
+                                torch.where(sel, t, -math.inf)))
+        require(r["state_id"] == want and abs(r["beta_logpot"]
+                                              - float(t[want])) <= 1e-4,
+                f"K27 MAP {ev}: state {r['state_id']} == table argmax "
+                f"{want}, value within 1e-4")
+    for ev, sel, lz in (("{}", None, lnz), ('{"0": 1}', e0, lse(e0))):
+        got = torch.tensor(by["marginals", ev]["marginals"],
+                           dtype=torch.float64, device=dev)
+        want = pairwise_marginals(
+            oracle_pair_moments(t, lz, n, None if sel is None
+                                else sel.double()), cliques)
+        e = float((got - want).abs().max())
+        require(e <= 1e-5, f"K27 marginals {ev}: within 1e-5 of the table's "
+                           f"masked sums (max |diff| {e:.2e})")
+        if sel is not None:
+            zero = [4 * k + (2 * a + b) for k, (i, j) in enumerate(cliques)
+                    for a in (0, 1) for b in (0, 1)
+                    if (i == 0 and a == 0) or (j == 0 and b == 0)]
+            require(bool((got[zero] == 0).all()),
+                    f"K27 marginals {ev}: the {len(zero)} evidence-"
+                    "inconsistent entries are exactly 0")
+    masses = []
+    for a in range(8):
+        sel = ((bit(0) == (a >> 2)) & (bit(1) == ((a >> 1) & 1))
+               & (bit(2) == (a & 1)))
+        masses.append(float(lse(sel)))
+    best = int(np.argmax(masses))
+    r = by["mmap", "{}"]
+    want = {"0": best >> 2, "1": (best >> 1) & 1, "2": best & 1}
+    require(r["max_vars"] == want and abs(r["log_mass"] - masses[best])
+            <= 1e-4, f"K27 mmap over 0,1,2: {r['max_vars']} == {want}, "
+                     f"log mass within 1e-4")
+    del t, x
+    torch.cuda.empty_cache()
+
+
+def phase_chain32(dev) -> None:
+    """State ids past 2^31: the streaming MAP and lnZ of a 32-variable
+    chain against variable elimination on the card."""
+    from qcmrf_tpu_torch.models import elimination
+    from qcmrf_tpu_torch.ops import kernels
+    from qcmrf_tpu_torch.runners.infer_cli import _logpot_from_bits
+
+    mrf = seeded_model([[i, i + 1] for i in range(31)], 32, 0.3, dev)
+    # clique (0, 1) penalises x_0 = 0: the top id bit of the MAP is 1
+    mrf = mrf.with_theta(mrf.theta - torch.tensor(
+        [2.0, 2.0] + [0.0] * (mrf.dimension - 2), device=dev))
+    t0 = time.perf_counter()
+    sid, val = kernels.map_state_streaming(mrf)
+    lnz = float(kernels.log_partition(mrf))
+    seconds = time.perf_counter() - t0
+    bits = [(sid >> (31 - v)) & 1 for v in range(32)]
+    want = elimination.map_state_bits(mrf).cpu().tolist()
+    lnz_e = float(elimination.log_partition(mrf))
+    print(f"[chain32] 2^32 states: MAP id {sid} ({sid / 2**31:.3f} x 2^31), "
+          f"lnZ {lnz:.6f} vs elimination {lnz_e:.6f}; both sweeps "
+          f"{seconds:.3f} s")
+    require(sid >= 1 << 31, "chain32: the MAP id lies past 2^31")
+    require(bits == want, "chain32: streaming MAP bits == elimination's")
+    host = _logpot_from_bits(mrf, bits)
+    require(abs(val - host) <= 1e-4, f"chain32: MAP value {val:.6f} == "
+                                     f"theta^T phi of its bits {host:.6f}")
+    require(abs(lnz - lnz_e) <= 1e-4, "chain32: lnZ within 1e-4 of "
+                                      "elimination")
+
+
 REPLACES = {
     "sampler": "qcmrf_tpu/ops/sampler_kernel.py:37",
     "logpot": "qcmrf_tpu/ops/kernels.py:239",
     "lse": "qcmrf_tpu/ops/kernels.py:514",
+    "map": "qcmrf_tpu/ops/kernels.py:570",
+    "moments": "qcmrf_tpu/ops/kernels.py:817",
     "hdh_multi": "qcmrf_tpu/ops/kernels.py:1895",
     "hdh_multi_uniform": "qcmrf_tpu/ops/kernels.py:1895",
     "circuit": "qcmrf_tpu/ops/circuit_kernel.py:108",
 }
 SOURCES = {
     "sampler": "qcmrf_kernels.cu", "logpot": "qcmrf_kernels.cu",
-    "lse": "qcmrf_kernels.cu",
+    "lse": "qcmrf_kernels.cu", "map": "qcmrf_kernels.cu",
+    "moments": "qcmrf_kernels.cu",
     "hdh_multi": "circuit_kernels.cu",
     "hdh_multi_uniform": "circuit_kernels.cu",
     "circuit": "circuit_kernels.cu",
@@ -705,8 +1093,8 @@ def sandwich_entry(name, report) -> dict:
 
 
 KERNEL_NAMES = ("sampler_kernel", "logpot_kernel", "lse_kernel",
-                "hdh_multi_kernel", "hdh_multi_uniform_kernel",
-                "circuit_kernel")
+                "map_kernel", "moments_kernel", "hdh_multi_kernel",
+                "hdh_multi_uniform_kernel", "circuit_kernel")
 
 
 def print_ptxas(path) -> None:
@@ -758,6 +1146,7 @@ def main() -> int:
     phase_circuit_kernel(dev, report)
     sv = phase_main_path(dev, "statevector", {
         "circuit": 7, "logpot": None, "lse": None})
+    infer = phase_infer(dev, report)
     phase_sandwich_kernels(dev, report)
     phase_gate_level(dev, report)
     gate = report["main_gate_level"]
@@ -771,8 +1160,12 @@ def main() -> int:
                                  **sandwich_entry(k, report)))
     kernels_line.append(dict(launches=sv["circuit"], library_ms=None,
                              **report["circuit"]))
+    for k in ("map", "moments"):
+        kernels_line.append(dict(launches=infer[k], library_ms=None,
+                                 **report[k]))
     for k, entry in zip(("sampler", "logpot", "lse", "hdh_multi",
-                         "hdh_multi_uniform", "circuit"), kernels_line):
+                         "hdh_multi_uniform", "circuit", "map", "moments"),
+                        kernels_line):
         entry.update(name=k, route="cuda",
                      source=f"qcmrf_tpu_torch/csrc/{SOURCES[k]}",
                      replaces=REPLACES[k])
@@ -785,7 +1178,9 @@ def main() -> int:
         json.dump(dict(card=smi, kernels=kernels_line, **{
             k: v for k, v in report.items()
             if k in ("gate_level", "gate_plain_width", "sandwich_w24",
-                     "pass_w32")}), f, indent=1, default=str)
+                     "pass_w32", "infer_k27_batch_s",
+                     "infer_k27_query_s")}), f, indent=1,
+                  default=str)
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(f"[card] {smi}")
     print(json.dumps({"kernels": kernels_line}))

@@ -3,9 +3,10 @@
 Commands:
     run       experiment driver (counts JSON), analytic and statevector engines
     eval      evaluation tables, --mode file
+    infer     exact inference queries: lnz, prob, map, mmap, marginals
 
-The JAX package's whisker, bench, train and infer commands come to the
-port with later slices of ROADMAP.md.
+The JAX package's whisker, bench and train commands, and infer's sample
+query, come to the port with later slices of ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -25,6 +26,10 @@ def main(argv=None) -> int:
         m(rest)
     elif cmd == "eval":
         from qcmrf_tpu_torch.runners.eval import main as m
+
+        m(rest)
+    elif cmd == "infer":
+        from qcmrf_tpu_torch.runners.infer_cli import main as m
 
         m(rest)
     else:

@@ -67,7 +67,7 @@ class QCMRF:
         """``init_key`` (a ``torch.Generator``) draws the U(-5, 0) default
         theta when neither ``theta`` nor ``gamma`` is given; without it
         numpy's global generator draws it."""
-        probe = MRF.create(cliques)
+        probe = MRF.create(cliques, device="cpu")
         dim = probe.dimension
         if gamma is not None:
             gamma = np.asarray(gamma, dtype=np.float64)
@@ -99,7 +99,7 @@ class QCMRF:
                 )
             cparams.validate_theta_domain(theta)
 
-        mrf = MRF.create(cliques, theta=theta, beta=beta)
+        mrf = MRF.create(cliques, theta=theta, beta=beta, device="cpu")
         circuit = compile_qcmrf(
             mrf,
             with_measurements=with_measurements,

@@ -1,7 +1,8 @@
 // Hand-written Hopper (sm_90a) kernels of the closed-form QCMRF sampling
-// path: the fused outcome sampler, the log-potential table and the
-// streaming logsumexp. All three evaluate a clique's multilinear (Moebius)
-// form with one shared device function, moebius_chain.
+// path and of exact inference: the fused outcome sampler, the log-potential
+// table, and the streaming logsumexp, argmax and monomial-moment sweeps. All
+// evaluate a clique's multilinear (Moebius) form with one shared device
+// function, moebius_chain.
 //
 // Built by qcmrf_tpu_torch/ops/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -9,7 +10,7 @@
 // and bound with ctypes. Each extern "C" entry point launches on the
 // caller's stream, allocates nothing, and returns cudaGetLastError().
 //
-// Structure arguments, shared by the three kernels:
+// Structure arguments, shared by the kernels:
 //   coef   float32 (B, K << cmax)  per-row Moebius coefficients, clique-major;
 //                                  subset s of clique k at k * 2^cmax + s
 //   shifts int32   (K, cmax)       state-id right-shift of clique k's slot i
@@ -307,9 +308,160 @@ lse_kernel(const float* __restrict__ coef, const int* __restrict__ shifts,
   }
 }
 
+// ---------------------------------------------------------------------------
+// 4. Streaming argmax
+// ---------------------------------------------------------------------------
+// Replaces qcmrf_tpu/ops/kernels.py::_build_map_loop_kernel.
+// Block p sweeps the int64 ids [p * per_block, (p + 1) * per_block), each
+// thread carrying its best (value, id) in registers. A thread's ids rise, so
+// a strict > keeps the earliest of equal values; the block merges its
+// threads' pairs in shared memory (the larger value, and of equal values the
+// smaller id) and writes one partial pair. combine_map (plain torch) merges
+// the blocks by the same rule, so the earliest state id of the maxima wins.
+// Ids are int64 end to end: the TPU kernel's float-encoded block and row
+// coordinates are not needed.
+// Bound on this card: float ALU work of the chains (as the lse kernel, with a
+// compare in place of the exp); device memory sees only the partials.
+constexpr int64_t kNoState = INT64_MAX;
+
+__device__ __forceinline__ bool map_better(float v, int64_t x, float bv,
+                                           int64_t bx) {
+  return v > bv || (v == bv && x < bx);
+}
+
+__global__ void __launch_bounds__(kThreads)
+map_kernel(const float* __restrict__ coef, const int* __restrict__ shifts,
+           const int* __restrict__ sizes, int K, int cmax, int64_t num_states,
+           int64_t per_block, float beta, float* __restrict__ v_out,
+           int64_t* __restrict__ x_out) {
+  extern __shared__ float smem[];
+  const int b = blockIdx.y;
+  const SharedStructure st =
+      load_structure(smem, coef, shifts, sizes, K, cmax, b);
+  const int64_t begin = static_cast<int64_t>(blockIdx.x) * per_block;
+  const int64_t end =
+      begin + per_block < num_states ? begin + per_block : num_states;
+  float best = neg_inf();
+  int64_t best_x = kNoState;
+  for (int64_t x = begin + threadIdx.x; x < end; x += blockDim.x) {
+    const float v = __fmul_rn(
+        beta, log_potential(x, st.coef, st.shifts, st.sizes, K, cmax));
+    if (v > best || best_x == kNoState) {
+      best = v;
+      best_x = x;
+    }
+  }
+  __shared__ float sv[kThreads];
+  __shared__ int64_t sx[kThreads];
+  sv[threadIdx.x] = best;
+  sx[threadIdx.x] = best_x;
+  __syncthreads();
+  for (int h = kThreads / 2; h > 0; h >>= 1) {
+    if (static_cast<int>(threadIdx.x) < h &&
+        map_better(sv[threadIdx.x + h], sx[threadIdx.x + h], sv[threadIdx.x],
+                   sx[threadIdx.x])) {
+      sv[threadIdx.x] = sv[threadIdx.x + h];
+      sx[threadIdx.x] = sx[threadIdx.x + h];
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) {
+    const int64_t o = static_cast<int64_t>(b) * gridDim.x + blockIdx.x;
+    v_out[o] = sv[0];
+    x_out[o] = sx[0];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 5. Streaming monomial moments
+// ---------------------------------------------------------------------------
+// Replaces qcmrf_tpu/ops/kernels.py::_build_gram_loop_kernel (and the XLA
+// sweep qcmrf_tpu/models/moments.py::_chunk_mono_partials, which covers
+// cliques of more than 4 variables there).
+// For every monomial g (a set of variables, given as the state-id bit mask
+// mask_g) it sums w(x) = exp(beta * lp(x) - lnZ) over the states x with
+// (x & mask_g) == mask_g. Block p sweeps [p * per_block, (p + 1) *
+// per_block) in tiles of kThreads states: each thread evaluates one state's
+// w through moebius_chain into shared memory beside its id (w = 0 past the
+// end), then each thread adds the tile's matching weights to the shared-
+// memory sums of the monomials it owns (g = tid, tid + kThreads, ...). One
+// float32 partial per (block, monomial); the wrapper adds them in float64.
+// The masks and sums of a launch live in shared memory, so the wrapper
+// splits a mask list longer than what 227 KB holds over several launches.
+// Bound on this card: float ALU work: the chains and one exp per state, then
+// a 64-bit mask test and an add per (state, monomial); device memory sees
+// only the partials. The TPU kernel's lane packing, selector matrices and
+// bf16 operand splits served the MXU and have no counterpart here.
+__global__ void __launch_bounds__(kThreads)
+moments_kernel(const float* __restrict__ coef, const int* __restrict__ shifts,
+               const int* __restrict__ sizes, int K, int cmax,
+               int64_t num_states, int64_t per_block, float beta,
+               const float* __restrict__ lnz,
+               const unsigned long long* __restrict__ masks, int m,
+               float* __restrict__ out) {
+  // layout: masks (m), tile ids (kThreads), tile weights (kThreads),
+  // sums (m), then the structure tables of load_structure
+  extern __shared__ unsigned long long smem64[];
+  unsigned long long* s_mask = smem64;
+  unsigned long long* s_x = s_mask + m;
+  float* s_w = reinterpret_cast<float*>(s_x + kThreads);
+  float* s_acc = s_w + kThreads;
+  const int b = blockIdx.y;
+  for (int g = threadIdx.x; g < m; g += blockDim.x) {
+    s_mask[g] = masks[g];
+    s_acc[g] = 0.0f;
+  }
+  const SharedStructure st =
+      load_structure(s_acc + m, coef, shifts, sizes, K, cmax, b);
+  const float lz = lnz[b];
+  const int64_t begin = static_cast<int64_t>(blockIdx.x) * per_block;
+  const int64_t end =
+      begin + per_block < num_states ? begin + per_block : num_states;
+  for (int64_t t0 = begin; t0 < end; t0 += kThreads) {
+    const int64_t x = t0 + threadIdx.x;
+    float w = 0.0f;
+    if (x < end) {
+      const float v = __fmul_rn(
+          beta, log_potential(x, st.coef, st.shifts, st.sizes, K, cmax));
+      w = expf(v - lz);
+    }
+    s_x[threadIdx.x] = static_cast<unsigned long long>(x);
+    s_w[threadIdx.x] = w;
+    __syncthreads();
+    for (int g = threadIdx.x; g < m; g += kThreads) {
+      const unsigned long long mask = s_mask[g];
+      float a = 0.0f;
+#pragma unroll 8
+      for (int t = 0; t < kThreads; ++t) {
+        a += (s_x[t] & mask) == mask ? s_w[t] : 0.0f;
+      }
+      s_acc[g] += a;
+    }
+    __syncthreads();
+  }
+  float* row = out + (static_cast<int64_t>(b) * gridDim.x + blockIdx.x) * m;
+  for (int g = threadIdx.x; g < m; g += blockDim.x) row[g] = s_acc[g];
+}
+
 size_t structure_smem_bytes(int K, int cmax) {
   return (static_cast<size_t>(K) << cmax) * sizeof(float) +
          static_cast<size_t>(K) * (cmax + 1) * sizeof(int);
+}
+
+size_t moments_smem_bytes(int K, int cmax, int m) {
+  return static_cast<size_t>(m + kThreads) *
+             (sizeof(unsigned long long) + sizeof(float)) +
+         structure_smem_bytes(K, cmax);
+}
+
+// Lets `kernel` take `bytes` of dynamic shared memory. Past 48 KB, static
+// and dynamic together, a launch must opt in; the wrappers keep the sum
+// within sm_90's 227 KB. Set on every launch: it is a host-side attribute.
+template <typename Kernel>
+cudaError_t allow_shared(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
 }
 
 unsigned grid_blocks(int64_t items, int64_t cap) {
@@ -327,8 +479,10 @@ int qcmrf_sample(const float* coef, const int* shifts, const int* sizes,
                  uint32_t stream0, int mode, int32_t* x_out, int32_t* a_out,
                  unsigned long long* count_out, void* stream) {
   const dim3 grid(grid_blocks(shots, INT64_C(0x7fffffff)), B);
-  sampler_kernel<<<grid, kThreads, structure_smem_bytes(K, cmax),
-                   static_cast<cudaStream_t>(stream)>>>(
+  const size_t smem = structure_smem_bytes(K, cmax);
+  const cudaError_t err = allow_shared(sampler_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  sampler_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       coef, shifts, sizes, K, cmax, n, shots, seed, stream0, mode, x_out,
       a_out, count_out);
   return static_cast<int>(cudaGetLastError());
@@ -339,8 +493,10 @@ int qcmrf_logpot(const float* coef, const int* shifts, const int* sizes,
                  int fuse_amp, float amp_scale, float* out, void* stream) {
   // grid-stride: enough blocks to fill 132 SMs many times over
   const dim3 grid(grid_blocks(num_states, 132 * 64), B);
-  logpot_kernel<<<grid, kThreads, structure_smem_bytes(K, cmax),
-                  static_cast<cudaStream_t>(stream)>>>(
+  const size_t smem = structure_smem_bytes(K, cmax);
+  const cudaError_t err = allow_shared(logpot_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  logpot_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       coef, shifts, sizes, K, cmax, num_states, beta, fuse_amp, amp_scale,
       out);
   return static_cast<int>(cudaGetLastError());
@@ -351,10 +507,42 @@ int qcmrf_lse(const float* coef, const int* shifts, const int* sizes, int B,
               int parts, float beta, float* m_out, float* s_out,
               void* stream) {
   const dim3 grid(parts, B);
-  lse_kernel<<<grid, kThreads, structure_smem_bytes(K, cmax),
-               static_cast<cudaStream_t>(stream)>>>(
+  const size_t smem = structure_smem_bytes(K, cmax);
+  const cudaError_t err = allow_shared(lse_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  lse_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       coef, shifts, sizes, K, cmax, num_states, per_block, beta, m_out,
       s_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int qcmrf_map(const float* coef, const int* shifts, const int* sizes, int B,
+              int K, int cmax, int64_t num_states, int64_t per_block,
+              int parts, float beta, float* v_out, int64_t* x_out,
+              void* stream) {
+  const dim3 grid(parts, B);
+  const size_t smem = structure_smem_bytes(K, cmax);
+  const cudaError_t err = allow_shared(map_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  map_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      coef, shifts, sizes, K, cmax, num_states, per_block, beta, v_out,
+      x_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int qcmrf_moments(const float* coef, const int* shifts, const int* sizes,
+                  int B, int K, int cmax, int64_t num_states,
+                  int64_t per_block, int parts, float beta, const float* lnz,
+                  const unsigned long long* masks, int m, float* out,
+                  void* stream) {
+  const dim3 grid(parts, B);
+  const size_t smem = moments_smem_bytes(K, cmax, m);
+  const cudaError_t err = allow_shared(moments_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  moments_kernel<<<grid, kThreads, smem,
+                   static_cast<cudaStream_t>(stream)>>>(
+      coef, shifts, sizes, K, cmax, num_states, per_block, beta, lnz, masks,
+      m, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -93,11 +93,11 @@ def evaluate_suite(
     if native:
         raise NotImplementedError(
             "--native binds the C++ engine, which the port brings with "
-            "slice 3 (exact inference) of ROADMAP.md")
+            "slice 3b (sampling) of ROADMAP.md")
     if mode in ("gibbs", "pam"):
         raise NotImplementedError(
             f"mode {mode!r} needs the classical samplers, which the port "
-            "brings with slice 3 (exact inference) of ROADMAP.md")
+            "brings with slice 3b (sampling) of ROADMAP.md")
     if mode != "file":
         raise ValueError(f"unknown mode {mode!r}")
     if dists is None:

@@ -25,6 +25,8 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from qcmrf_tpu_torch.utils.config import resolve_device
+
 
 def _normalize_cliques(cliques) -> Tuple[Tuple[int, ...], ...]:
     if (
@@ -60,11 +62,15 @@ class MRF:
         theta=None,
         beta: float = 1.0,
         n: int = None,
-        device="cpu",
+        device=None,
     ) -> "MRF":
         """``n`` defaults to ``max clique variable + 1``; pass it
-        explicitly when trailing variables appear in no clique."""
+        explicitly when trailing variables appear in no clique. ``theta``
+        lives on ``device``: the current CUDA device unless one is named
+        (raising where there is none), as the JAX package puts it on the
+        default device."""
         cliques = _normalize_cliques(cliques)
+        device = resolve_device(device)
         n_min = max(v for C in cliques for v in C) + 1
         if n is None:
             n = n_min
@@ -88,7 +94,7 @@ class MRF:
 
     @staticmethod
     def from_numpy(cliques, theta: np.ndarray, beta: float = 1.0,
-                   n: int = None, device="cpu") -> "MRF":
+                   n: int = None, device=None) -> "MRF":
         """Carry a model across from its numpy parameters, e.g.
         ``MRF.from_numpy(m.cliques, np.asarray(m.theta), float(m.beta),
         m.n)`` for a :mod:`qcmrf_tpu` model ``m``."""
@@ -220,15 +226,14 @@ class MRF:
                                         device=self.device))
 
 
-def chain_mrf(n: int, theta=None, beta: float = 1.0, device="cpu") -> MRF:
+def chain_mrf(n: int, theta=None, beta: float = 1.0, device=None) -> MRF:
     """n-variable chain with edges (i, i+1)."""
     return MRF.create([[i, i + 1] for i in range(n - 1)], theta=theta,
                       beta=beta, device=device)
 
 
-def grid_mrf(rows: int, cols: int, theta=None, beta: float = 1.0,
-             device="cpu") -> MRF:
-    """rows x cols grid MRF, edges in the JAX package's order."""
+def grid_cliques(rows: int, cols: int):
+    """Edges of the rows x cols grid, in the JAX package's order."""
     def vid(r, c):
         return r * cols + c
 
@@ -239,4 +244,11 @@ def grid_mrf(rows: int, cols: int, theta=None, beta: float = 1.0,
                 cliques.append([vid(r, c), vid(r, c + 1)])
             if r + 1 < rows:
                 cliques.append([vid(r, c), vid(r + 1, c)])
-    return MRF.create(cliques, theta=theta, beta=beta, device=device)
+    return cliques
+
+
+def grid_mrf(rows: int, cols: int, theta=None, beta: float = 1.0,
+             device=None) -> MRF:
+    """rows x cols grid MRF, edges in the JAX package's order."""
+    return MRF.create(grid_cliques(rows, cols), theta=theta, beta=beta,
+                      device=device)

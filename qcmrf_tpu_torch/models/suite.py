@@ -52,8 +52,9 @@ class ModelSuite:
     def num_circuits(self) -> int:
         return sum(len(v) for v in self.thetas.values())
 
-    def mrfs(self, device="cpu") -> List[MRF]:
-        """All (graph, rep) models in suite order (graph-major)."""
+    def mrfs(self, device=None) -> List[MRF]:
+        """All (graph, rep) models in suite order (graph-major), on
+        ``device`` (the current CUDA device unless one is named)."""
         out = []
         for j, C in enumerate(self.graphs):
             for theta in self.thetas[j]:

@@ -33,8 +33,9 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "qcmrf_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-#: dynamic shared memory a launch may ask for without opting in to more
-SHARED_BYTES_LIMIT = 48 * 1024
+#: shared memory (static and dynamic) one block may hold on sm_90; the
+#: entry points opt in past the default 48 KB
+SHARED_BYTES_LIMIT = 227 * 1024
 
 _P, _I, _I64, _U32, _U64, _F = (ctypes.c_void_p, ctypes.c_int,
                                 ctypes.c_int64, ctypes.c_uint32,
@@ -50,6 +51,13 @@ _SIGNATURES = {
     # coef, shifts, sizes, B, K, cmax, num_states, per_block, parts, beta,
     # m_out, s_out, stream
     "qcmrf_lse": (_P, _P, _P, _I, _I, _I, _I64, _I64, _I, _F, _P, _P, _P),
+    # coef, shifts, sizes, B, K, cmax, num_states, per_block, parts, beta,
+    # v_out, x_out, stream
+    "qcmrf_map": (_P, _P, _P, _I, _I, _I, _I64, _I64, _I, _F, _P, _P, _P),
+    # coef, shifts, sizes, B, K, cmax, num_states, per_block, parts, beta,
+    # lnz, masks, m, out, stream
+    "qcmrf_moments": (_P, _P, _P, _I, _I, _I, _I64, _I64, _I, _F, _P, _P,
+                      _I, _P, _P),
     # table, n_terms, k, re, im, num_anchors, a_lo, stream
     "qcmrf_hdh_multi": (_P, _I, _I, _P, _P, _I64, _I, _P),
     # table, n_terms, k, re, im, num_anchors, a_lo, comp, amp, stream
@@ -171,18 +179,26 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def structure_args(cliques: tuple, n: int, coef: torch.Tensor):
+def structure_bytes(K: int, cmax: int) -> int:
+    """Shared memory of the structure tables a block loads: one row of
+    coefficients, the shifts and the sizes."""
+    return ((K << cmax) + K * (cmax + 1)) * 4
+
+
+def structure_args(cliques: tuple, n: int, coef: torch.Tensor,
+                   extra: int = 0):
     """Checked kernel arguments of a structure and its ``(B, K << cmax)``
     coefficient rows: ``(shifts, sizes, B, K, cmax)``. Raises when the
-    rows would not fit the kernels' shared memory."""
+    tables and ``extra`` bytes (the kernel's own shared memory) would not
+    fit a block's shared memory."""
     K = len(cliques)
     cmax = max(len(C) for C in cliques)
     B = coef.shape[0]
     check(coef, "coef", torch.float32, (B, K << cmax), coef.device)
-    need = ((K << cmax) + K * (cmax + 1)) * 4
+    need = structure_bytes(K, cmax) + extra
     if need > SHARED_BYTES_LIMIT:
-        raise ValueError(f"structure tables need {need} bytes of shared "
-                         f"memory; the kernels take at most "
+        raise ValueError(f"structure tables and kernel need {need} bytes of "
+                         f"shared memory; a block holds at most "
                          f"{SHARED_BYTES_LIMIT}")
     if not 1 <= B <= 65535:
         raise ValueError(f"{B} coefficient rows; the kernels take 1..65535")

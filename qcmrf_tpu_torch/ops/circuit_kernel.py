@@ -68,7 +68,7 @@ def batched_circuit_probs_reference(cliques, thetas, beta: float = 1.0,
     device = resolve_device(device)
     rows = []
     for theta in _thetas64(thetas):
-        mrf = MRF.create(cliques, theta=theta, beta=beta)
+        mrf = MRF.create(cliques, theta=theta, beta=beta, device=device)
         state = dense.run_statevector(
             compile_qcmrf(mrf, with_measurements=False), device=device)
         rows.append((state.abs() ** 2).to(torch.float32))

@@ -1,14 +1,20 @@
-"""Log-potential table, streaming logsumexp and the H·D·H sandwich passes
-of the plane engine (the ported part of :mod:`qcmrf_tpu.ops.kernels`).
+"""Log-potential table, the streaming sweeps (logsumexp, argmax, monomial
+moments) and the H·D·H sandwich passes of the plane engine (the ported
+part of :mod:`qcmrf_tpu.ops.kernels`).
 
-Both evaluate ``beta * theta^T phi(x)`` per state id from the per-clique
-Moebius coefficients of :func:`moebius_coefficients`, clique by clique in
-the order of ``_logpot_block``, with ``beta`` applied after the clique sum.
+The table and the sweeps evaluate ``beta * theta^T phi(x)`` per state id
+from the per-clique Moebius coefficients of :func:`moebius_coefficients`,
+clique by clique in the order of ``_logpot_block``, with ``beta`` applied
+after the clique sum.
 
 * :func:`logpot_table` writes the ``(B, 2**n)`` table (``logpot_kernel``);
 * :func:`lse_partials` sweeps the states without a table and returns one
   (max, scaled sum) pair per block of states (``lse_kernel``);
-  :func:`combine_lse` finishes the logsumexp.
+  :func:`combine_lse` finishes the logsumexp;
+* :func:`map_partials` returns one (best value, earliest id) pair per
+  block (``map_kernel``); :func:`combine_map` finishes the argmax;
+* :func:`monomial_moments` sums ``p(x)`` over the states of each monomial
+  (``moments_kernel``).
 
 On a CUDA tensor each launches its kernel of ``csrc/qcmrf_kernels.cu``; on a
 CPU tensor it runs its plain PyTorch version (``*_reference``), which any
@@ -50,12 +56,23 @@ from qcmrf_tpu_torch.utils import moebius
 from qcmrf_tpu_torch.utils.config import resolve_device
 
 #: launches of the CUDA kernels, bumped where each is launched
-LAUNCHES = {"logpot": 0, "lse": 0, "hdh_multi": 0, "hdh_multi_uniform": 0}
+LAUNCHES = {"logpot": 0, "lse": 0, "map": 0, "moments": 0, "hdh_multi": 0,
+            "hdh_multi_uniform": 0}
 
 #: the streaming logsumexp writes at most this many partial pairs a row
 MAX_LSE_PARTS = 4096
 #: and gives each block at least this many states
 MIN_LSE_BLOCK_STATES = 1024
+
+#: threads a block of the streaming kernels (kThreads of the CUDA source)
+_BLOCK_THREADS = 256
+#: static shared memory of the lse and map kernels' block reductions: a
+#: float32 max and sum, or a float32 value and int64 id, per thread
+_LSE_STATIC_BYTES = _BLOCK_THREADS * 8
+_MAP_STATIC_BYTES = _BLOCK_THREADS * 12
+#: the moments kernel's shared memory per monomial (int64 mask, float32
+#: sum) and per thread (int64 tile id, float32 weight)
+_MOMENT_BYTES = 12
 
 
 def coefficient_table(cliques: tuple, n: int,
@@ -124,15 +141,20 @@ def lse_geometry(num_states: int):
     return -(-num_states // per_part), per_part
 
 
+def _padded_table(cliques: tuple, n: int, coef: torch.Tensor, beta: float):
+    """The plain table cut into the sweeps' blocks, ``-inf`` past the
+    last state: ((B, parts, per_part), per_part)."""
+    parts, per_part = lse_geometry(1 << n)
+    lp = logpot_table_reference(cliques, n, coef, beta)
+    lp = torch.nn.functional.pad(lp, (0, parts * per_part - (1 << n)),
+                                 value=-math.inf)
+    return lp.reshape(coef.shape[0], parts, per_part), per_part
+
+
 def lse_partials_reference(cliques: tuple, n: int, coef: torch.Tensor,
                            beta: float):
     """Plain PyTorch version of :func:`lse_partials`, on any device."""
-    N = 1 << n
-    parts, per_part = lse_geometry(N)
-    lp = logpot_table_reference(cliques, n, coef, beta)
-    pad = parts * per_part - N
-    lp = torch.nn.functional.pad(lp, (0, pad), value=-math.inf)
-    lp = lp.reshape(coef.shape[0], parts, per_part)
+    lp, _ = _padded_table(cliques, n, coef, beta)
     m = lp.amax(dim=-1)
     return m, torch.exp(lp - m[..., None]).sum(dim=-1)
 
@@ -144,7 +166,8 @@ def lse_partials(cliques: tuple, n: int, coef: torch.Tensor, beta: float):
     if coef.device.type == "cpu":
         return lse_partials_reference(cliques, n, coef, beta)
     dev = coef.device
-    shifts, sizes, B, K, cmax = _build.structure_args(cliques, n, coef)
+    shifts, sizes, B, K, cmax = _build.structure_args(
+        cliques, n, coef, extra=_LSE_STATIC_BYTES)
     parts, per_part = lse_geometry(1 << n)
     m = torch.empty((B, parts), dtype=torch.float32, device=dev)
     s = torch.empty((B, parts), dtype=torch.float32, device=dev)
@@ -184,6 +207,128 @@ def log_partition(mrf: MRF) -> torch.Tensor:
     """``ln Z`` by the streaming logsumexp (no table)."""
     coef = moebius_coefficients(mrf)[None]
     return combine_lse(*lse_partials(mrf.cliques, mrf.n, coef, mrf.beta))[0]
+
+
+# --------------------------------------------------------------------------
+# Streaming argmax and streaming monomial moments
+# --------------------------------------------------------------------------
+
+#: below this many variables map_state_streaming takes the dense argmax of
+#: the table (the JAX package's kernel floor)
+MIN_KERNEL_N = 10
+_NO_STATE = torch.iinfo(torch.int64).max
+
+
+def map_partials_reference(cliques: tuple, n: int, coef: torch.Tensor,
+                           beta: float):
+    """Plain PyTorch version of :func:`map_partials`, on any device."""
+    lp, per_part = _padded_table(cliques, n, coef, beta)
+    best = lp.amax(dim=-1)
+    ids = torch.arange(lp.shape[1] * per_part, dtype=torch.int64,
+                       device=coef.device).reshape(lp.shape[1:])
+    hit = torch.where(lp == best[..., None], ids, _NO_STATE)
+    return best, hit.amin(dim=-1)
+
+
+def map_partials(cliques: tuple, n: int, coef: torch.Tensor, beta: float):
+    """Per-block best value of ``beta * theta^T phi(x)`` over all ``2**n``
+    states and the earliest state id that holds it, for every row of
+    ``coef``: float32 and int64 (B, parts) tensors (``lse_geometry`` gives
+    ``parts``). :func:`combine_map` finishes. No table is written."""
+    if coef.device.type == "cpu":
+        return map_partials_reference(cliques, n, coef, beta)
+    dev = coef.device
+    shifts, sizes, B, K, cmax = _build.structure_args(
+        cliques, n, coef, extra=_MAP_STATIC_BYTES)
+    parts, per_part = lse_geometry(1 << n)
+    v = torch.empty((B, parts), dtype=torch.float32, device=dev)
+    x = torch.empty((B, parts), dtype=torch.int64, device=dev)
+    _build.launch("qcmrf_map", dev, _build.ptr(coef), _build.ptr(shifts),
+                  _build.ptr(sizes), B, K, cmax, 1 << n, per_part, parts,
+                  beta, _build.ptr(v), _build.ptr(x))
+    LAUNCHES["map"] += 1
+    return v, x
+
+
+def combine_map(v: torch.Tensor, x: torch.Tensor):
+    """(best value, earliest id holding it) along the last axis of the
+    per-block partials."""
+    best = v.amax(dim=-1, keepdim=True)
+    return best[..., 0], torch.where(v == best, x, _NO_STATE).amin(dim=-1)
+
+
+def map_state_streaming(mrf: MRF):
+    """Exact MAP state by the streaming argmax, no table: ``(state_id,
+    beta * theta^T phi(x))`` as host numbers, the earliest id of equal
+    maxima. Below ``MIN_KERNEL_N`` variables it takes the dense argmax of
+    the table (which also keeps the first maximum)."""
+    if mrf.n < MIN_KERNEL_N:
+        lp = mrf.beta * mrf.all_log_potentials()
+        i = int(torch.argmax(lp))
+        return i, float(lp[i])
+    coef = moebius_coefficients(mrf)[None]
+    v, x = combine_map(*map_partials(mrf.cliques, mrf.n, coef, mrf.beta))
+    return int(x[0]), float(v[0])
+
+
+def monomial_moments_reference(cliques: tuple, n: int, coef: torch.Tensor,
+                               beta: float, lnz: torch.Tensor,
+                               masks: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`monomial_moments`, on any device:
+    the table's weights summed in float64 over each monomial's states."""
+    x = torch.arange(1 << n, dtype=torch.int64, device=coef.device)
+    lp = logpot_table_reference(cliques, n, coef, beta)
+    w = torch.exp(lp - lnz[:, None]).double()
+    chunk = max(1, (1 << 24) >> n)
+    out = []
+    for s in range(0, masks.numel(), chunk):
+        mk = masks[s:s + chunk]
+        out.append(w @ ((x[:, None] & mk) == mk).double())
+    return torch.cat(out, dim=-1)
+
+
+def moments_per_launch(K: int, cmax: int) -> int:
+    """Most monomials one moments launch takes: as many masks and sums as
+    a block's shared memory holds beside the structure tables and the tile
+    of states."""
+    free = _build.SHARED_BYTES_LIMIT - _build.structure_bytes(K, cmax)
+    return free // _MOMENT_BYTES - _BLOCK_THREADS
+
+
+def monomial_moments(cliques: tuple, n: int, coef: torch.Tensor,
+                     beta: float, lnz: torch.Tensor,
+                     masks: torch.Tensor) -> torch.Tensor:
+    """``E_p[prod_{v in S} x_v]`` for every monomial ``S`` and every row of
+    ``coef``, with ``p(x) = exp(beta * theta^T phi(x) - lnz)``: float64
+    (B, m). ``lnz`` is float32 (B,); ``masks`` int64 (m,), monomial ``S``
+    as the state-id bits of its variables (it holds at ``x`` iff ``(x &
+    mask) == mask``). One sweep of the states for every
+    :func:`moments_per_launch` monomials, no table; the float32 per-block
+    partials are added in float64."""
+    if coef.device.type == "cpu":
+        return monomial_moments_reference(cliques, n, coef, beta, lnz,
+                                          masks)
+    dev = coef.device
+    # extra: the tile of states and at least one monomial
+    shifts, sizes, B, K, cmax = _build.structure_args(
+        cliques, n, coef, extra=(_BLOCK_THREADS + 1) * _MOMENT_BYTES)
+    m = masks.numel()
+    _build.check(lnz, "lnz", torch.float32, (B,), dev)
+    _build.check(masks, "masks", torch.int64, (m,), dev)
+    step = moments_per_launch(K, cmax)
+    parts, per_part = lse_geometry(1 << n)
+    out = torch.empty((B, m), dtype=torch.float64, device=dev)
+    for lo in range(0, m, step):
+        hi = min(m, lo + step)
+        part = torch.empty((B, parts, hi - lo), dtype=torch.float32,
+                           device=dev)
+        _build.launch("qcmrf_moments", dev, _build.ptr(coef),
+                      _build.ptr(shifts), _build.ptr(sizes), B, K, cmax,
+                      1 << n, per_part, parts, beta, _build.ptr(lnz),
+                      _build.ptr(masks[lo:hi]), hi - lo, _build.ptr(part))
+        LAUNCHES["moments"] += 1
+        out[:, lo:hi] = part.sum(dim=1, dtype=torch.float64)
+    return out
 
 
 # --------------------------------------------------------------------------

@@ -127,7 +127,9 @@ def sample_call(seed: int, cliques: tuple, n: int, coef: torch.Tensor,
                                      stream0)
     _check_shape(cliques, n, shots, mode)
     dev = coef.device
-    shifts, sizes, B, K, cmax = _build.structure_args(cliques, n, coef)
+    # extra: the count mode's eight int32 warp sums
+    shifts, sizes, B, K, cmax = _build.structure_args(cliques, n, coef,
+                                                      extra=32)
     x = a = count = None
     if mode in ("parts", "flags_x"):
         x = torch.empty((B, shots), dtype=torch.int32, device=dev)

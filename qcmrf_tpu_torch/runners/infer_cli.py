@@ -1,0 +1,412 @@
+"""``python -m qcmrf_tpu_torch infer``: serve exact inference queries on a
+model (port of :mod:`qcmrf_tpu.runners.infer_cli`, same flags and JSON).
+
+Load a model (a ``{'cliques', 'theta'}`` JSON such as the train CLI's
+``fitted_model.json``, or ``--graph``) and answer:
+
+    lnz        log-partition (or the evidence's log-mass with --evidence)
+    prob       P(x_v = b | evidence)         (--of v=b)
+    map        evidence-constrained MAP state
+    mmap       marginal MAP over --max-vars (the rest summed out)
+    marginals  clique-marginal tables E[phi | evidence] (theta layout)
+
+Backends route by structure: induced width up to
+``capability.ELIM_WIDTH_CAP`` goes through variable elimination (any n);
+wider structures go through the streaming sweeps (n <= 47): the
+streaming logsumexp, argmax and monomial-moments kernels. ``--explain``
+prints the capability matrix instead of answering, on the host only.
+Output is one JSON object on stdout (and ``--out``); ``--queries
+file.jsonl`` answers a batch of per-query overrides in one process (JSONL
+out, ``index`` echoes the line order).
+
+``--platform default`` means the card, as for ``run``: the JAX package's
+``default`` serves n <= 26 on the host, the port does not. ``--query
+sample`` and ``--method gibbs|pam`` come with slice 3b, ``--method ais``
+with slice 4 and ``--mesh`` with slice 6 of ROADMAP.md.
+"""
+
+from __future__ import annotations
+
+import argparse
+import copy
+import json
+import sys
+from typing import List, Optional
+
+import numpy as np
+
+from qcmrf_tpu_torch.utils.config import parse_with_config, resolve_platform
+
+
+def _parse_assignments(spec: str) -> dict:
+    """'0=1,5=0' -> {0: 1, 5: 0} (also accepts ';' separators). A
+    variable assigned two values is rejected."""
+    out = {}
+    for part in spec.replace(";", ",").split(","):
+        part = part.strip()
+        if not part:
+            continue
+        v, _, b = part.partition("=")
+        try:
+            v, b = int(v), int(b)
+        except ValueError:
+            raise SystemExit(
+                f"bad assignment {part!r}: expected var=bit, e.g. 0=1")
+        if v in out and out[v] != b:
+            raise SystemExit(
+                f"variable {v} assigned twice ({out[v]} and {b})")
+        out[v] = b
+    return out
+
+
+def _bits_to_id(bits) -> int:
+    """Variable-0-as-MSB state id from a bit row (any width)."""
+    x = 0
+    for b in bits:
+        x = (x << 1) | int(b)
+    return x
+
+
+def _logpot_from_bits(mrf, bits) -> float:
+    """beta * theta^T phi(bits) on the host, in float64."""
+    total, off = 0.0, 0
+    theta = mrf.theta.detach().cpu().double().numpy()
+    for C in mrf.cliques:
+        c = len(C)
+        y = 0
+        for s, v in enumerate(C):
+            y |= int(bits[int(v)]) << (c - 1 - s)
+        total += theta[off + y]
+        off += 1 << c
+    return float(mrf.beta) * total
+
+
+def _validate_method(query: str, method: str, where: str = "") -> None:
+    """Reject method/query combinations up front (the JAX CLI's rules)."""
+    if method == "ais" and query not in ("lnz", "marginals", "prob"):
+        raise SystemExit(
+            f"{where}--method ais serves --query lnz, marginals and "
+            f"prob only (the stochastic no-cap estimator has no "
+            f"{query!r} form); drop --method or change --query")
+    if method in ("gibbs", "pam") and query != "sample":
+        raise SystemExit(
+            f"{where}--method {method} applies to --query sample only "
+            f"(--query {query} is answered by its exact backend)")
+
+
+def _check_ported(query: str, method: str, where: str = "") -> None:
+    """Exit, naming the slice, on what the port does not serve yet."""
+    if query == "sample":
+        raise SystemExit(
+            f"{where}--query sample comes to the port with slice 3b "
+            "(sampling) of ROADMAP.md")
+    if method == "ais":
+        raise SystemExit(
+            f"{where}--method ais comes to the port with slice 4 (AIS and "
+            "training) of ROADMAP.md")
+
+
+def _floats(t) -> list:
+    return t.detach().cpu().double().numpy().tolist()
+
+
+def main(argv: Optional[List[str]] = None):
+    parser = argparse.ArgumentParser(prog="qcmrf_tpu_torch infer")
+    parser.add_argument("--model", type=str, default=None,
+                        help="model JSON with {'cliques', 'theta'}: the "
+                             "train CLI's fitted_model.json loads directly")
+    parser.add_argument("--graph", type=str, default=None,
+                        help="alternative to --model: 'chain:N' | "
+                             "'grid:RxC' | clique-list JSON (theta "
+                             "defaults to zeros unless --theta is given)")
+    parser.add_argument("--theta", type=str, default=None,
+                        help="theta for --graph: an inline JSON list "
+                             "('[-0.5, -0.1, ...]') or the path of a "
+                             "JSON file holding one")
+    parser.add_argument("--theta-scale", type=float, default=None,
+                        help="with --graph and no --theta: draw theta ~ "
+                             "-|N(0,1)| * scale (seeded by --theta-seed) "
+                             "instead of zeros")
+    parser.add_argument("--theta-seed", type=int, default=0)
+    parser.add_argument("--beta", type=float, default=None,
+                        help="inverse temperature (default: model file's "
+                             "value or 1.0)")
+    parser.add_argument("--query", type=str, default="lnz",
+                        choices=["lnz", "prob", "map", "mmap",
+                                 "marginals", "sample"])
+    parser.add_argument("--evidence", type=str, default="",
+                        help="clamped variables, e.g. '0=1,5=0'")
+    parser.add_argument("--of", type=str, default=None,
+                        help="the queried assignment for --query prob, "
+                             "e.g. '3=1'")
+    parser.add_argument("--max-vars", type=str, default=None,
+                        help="comma-separated variables maximized over "
+                             "for --query mmap (the rest are summed out)")
+    parser.add_argument("--num-samples", type=int, default=100)
+    parser.add_argument("--method", type=str, default="exact",
+                        choices=["exact", "gibbs", "pam", "ais"],
+                        help="sampler for --query sample (slice 3b); 'ais' "
+                             "comes with slice 4")
+    parser.add_argument("--ais-chains", type=int, default=256)
+    parser.add_argument("--ais-temps", type=int, default=128)
+    parser.add_argument("--sample-seed", type=int, default=0)
+    parser.add_argument("--mesh", type=str, default=None,
+                        help="AxB device mesh (slice 6)")
+    parser.add_argument("--queries", type=str, default=None,
+                        help="JSONL file of per-query overrides (keys: "
+                             "query/evidence/of/max_vars/num_samples/"
+                             "method/sample_seed) answered in one process")
+    parser.add_argument("--out", type=str, default=None,
+                        help="also write the result JSON to this path "
+                             "(JSONL with --queries)")
+    parser.add_argument("--explain", action="store_true",
+                        help="print the capability matrix (which backends "
+                             "can answer this structure, evidence and "
+                             "query, and why) instead of answering; host "
+                             "only, never touches a device")
+    parser.add_argument("--platform", type=str, default="default",
+                        choices=["cpu", "gpu", "default"],
+                        help="'default' means 'gpu'; both raise where "
+                             "PyTorch sees no CUDA device")
+    args = parse_with_config(parser, argv)
+
+    from qcmrf_tpu_torch.runners.train_cli import parse_graph
+
+    # ---- model spec: host-side JSON and numpy only, before any device --
+    beta = args.beta
+    if args.model:
+        with open(args.model) as f:
+            spec = json.load(f)
+        cliques = spec["cliques"]
+        theta = np.asarray(spec["theta"], np.float64)
+        if beta is None:
+            beta = float(spec.get("beta", 1.0))
+    elif args.graph:
+        cliques = parse_graph(args.graph)
+        dim = sum(1 << len(C) for C in cliques)
+        if args.theta:
+            # inline JSON list or a file path holding one (sniff the '[')
+            s = args.theta.strip()
+            try:
+                if s.startswith("["):
+                    theta = np.asarray(json.loads(s), np.float64)
+                else:
+                    with open(args.theta) as f:
+                        theta = np.asarray(json.load(f), np.float64)
+            except (OSError, json.JSONDecodeError) as e:
+                raise SystemExit(
+                    f"--theta {args.theta!r}: not a readable JSON file "
+                    f"nor an inline JSON list ({e})")
+        elif args.theta_scale is not None:
+            rng = np.random.RandomState(args.theta_seed)
+            theta = -np.abs(rng.randn(dim)) * float(args.theta_scale)
+        else:
+            theta = np.zeros((dim,))
+        if beta is None:
+            beta = 1.0
+    else:
+        raise SystemExit("pass --model fitted_model.json or --graph ...")
+
+    _validate_method(args.query, args.method)
+    batch_specs = []
+    if args.queries:
+        # validate every batch line before answering any
+        with open(args.queries) as f:
+            batch_specs = [json.loads(line) for line in f if line.strip()]
+        allowed = {"query", "evidence", "of", "max_vars", "num_samples",
+                   "method", "sample_seed"}
+        for i, spec in enumerate(batch_specs):
+            bad = set(spec) - allowed
+            if bad:
+                raise SystemExit(
+                    f"--queries line {i + 1}: unknown keys {sorted(bad)} "
+                    f"(allowed: {sorted(allowed)})")
+            _validate_method(spec.get("query", args.query),
+                             spec.get("method", args.method),
+                             where=f"--queries line {i + 1}: ")
+
+    n_vars = 1 + max(v for C in cliques for v in C)
+
+    if args.explain:
+        from qcmrf_tpu_torch.models import capability
+
+        mv = None
+        if args.max_vars:
+            mv = [int(v) for v in
+                  args.max_vars.replace(";", ",").split(",") if v.strip()]
+        report = capability.explain(
+            cliques, n_vars, evidence=_parse_assignments(args.evidence),
+            query=args.query, max_vars=mv, mesh=args.mesh is not None)
+        _emit([report], args.out)
+        return report
+
+    if args.mesh is not None:
+        raise SystemExit("--mesh comes to the port with slice 6 (the "
+                         "multi-device layer) of ROADMAP.md")
+    if args.queries:
+        for i, spec in enumerate(batch_specs):
+            _check_ported(spec.get("query", args.query),
+                          spec.get("method", args.method),
+                          where=f"--queries line {i + 1}: ")
+    else:
+        _check_ported(args.query, args.method)
+
+    device = resolve_platform(args.platform)
+    from qcmrf_tpu_torch.models.mrf import MRF
+
+    mrf = MRF.create(cliques, theta=theta, beta=beta, device=device)
+
+    if not args.queries:
+        result = _answer(mrf, args, beta)
+        _emit([result], args.out)
+        return result
+    results = []
+    for i, spec in enumerate(batch_specs):
+        qargs = copy.copy(args)
+        for k, v in spec.items():
+            # JSON-native forms coerce to the flag formats:
+            # evidence {"0": 1} -> "0=1", max_vars [1, 2] -> "1,2"
+            if k == "evidence" and isinstance(v, dict):
+                v = ",".join(f"{u}={b}" for u, b in v.items())
+            elif k in ("max_vars", "of") and isinstance(v, (list, dict)):
+                v = (",".join(f"{u}={b}" for u, b in v.items())
+                     if isinstance(v, dict)
+                     else ",".join(str(u) for u in v))
+            setattr(qargs, k, v)
+        res = _answer(mrf, qargs, beta)
+        res["index"] = i
+        results.append(res)
+    _emit(results, args.out)
+    return results
+
+
+def _emit(results, out) -> None:
+    """One JSON line per result on stdout, and into ``out`` when given."""
+    lines = [json.dumps(r) for r in results]
+    for line in lines:
+        print(line)
+    if out:
+        with open(out, "w") as f:
+            f.write("".join(line + "\n" for line in lines))
+
+
+def _answer(mrf, args, beta) -> dict:
+    """Answer one query namespace against a loaded model. The caps are
+    read from :mod:`capability` at call time."""
+    from qcmrf_tpu_torch.models import capability, elimination, moments
+    from qcmrf_tpu_torch.models import sample as msample
+
+    evidence = _parse_assignments(args.evidence)
+    elimination._validate_evidence(mrf.n, evidence)
+
+    # ---- backend routing ------------------------------------------------
+    cap = capability.ELIM_WIDTH_CAP
+    max_n = capability.STREAMING_MAX_N
+    width = elimination.induced_width(mrf.cliques, mrf.n)
+    use_streaming = width > cap
+    if use_streaming and mrf.n > max_n and args.query != "mmap":
+        # mmap routes on its own (constrained) width below
+        raise SystemExit(
+            f"n={mrf.n} needs the streaming sweep (induced width {width} "
+            f"> elimination cap {cap}, or --mesh), which caps at "
+            f"n={max_n}")
+
+    result = {"query": args.query, "n": mrf.n,
+              "num_cliques": mrf.num_cliques, "beta": float(beta),
+              "evidence": {str(v): b for v, b in evidence.items()},
+              "backend": "streaming" if use_streaming else "elimination"}
+
+    if args.query == "lnz":
+        if use_streaming:
+            val = moments.log_partition_clamped_streaming(mrf, evidence)
+        else:
+            val = elimination.log_partition_clamped(mrf, evidence)
+        result["lnz" if not evidence else "log_mass"] = float(val)
+    elif args.query == "prob":
+        if not args.of:
+            raise SystemExit("--query prob needs --of v=b")
+        of = _parse_assignments(args.of)
+        if len(of) != 1:
+            raise SystemExit("--of takes exactly one assignment")
+        (v, b), = of.items()
+        fn = (moments.conditional_prob_streaming if use_streaming
+              else elimination.conditional_prob)
+        result["of"] = f"{v}={b}"
+        result["prob"] = float(fn(mrf, v, b, evidence))
+    elif args.query == "map":
+        if use_streaming:
+            sid, val = msample.map_state_clamped(mrf, evidence)
+            bits = [(sid >> (mrf.n - 1 - v)) & 1 for v in range(mrf.n)]
+        else:
+            red, _ = moments.reduce_evidence(mrf, evidence)
+            bits = [0] * mrf.n
+            for v, b in evidence.items():
+                bits[int(v)] = int(b)
+            if red is not None:
+                free = [v for v in range(mrf.n) if v not in
+                        {int(u) for u in evidence}]
+                rbits = elimination.map_state_bits(red).cpu().numpy()
+                for j, v in enumerate(free):
+                    bits[v] = int(rbits[j])
+            sid, val = _bits_to_id(bits), _logpot_from_bits(mrf, bits)
+        result["state_id"] = sid
+        result["state_bits"] = bits
+        result["beta_logpot"] = float(val)
+    elif args.query == "mmap":
+        if not args.max_vars:
+            raise SystemExit("--query mmap needs --max-vars v1,v2,...")
+        try:
+            req = sorted({int(v) for v in
+                          args.max_vars.replace(";", ",").split(",")
+                          if v.strip()})
+        except ValueError:
+            raise SystemExit(
+                f"bad --max-vars {args.max_vars!r}: expected "
+                "comma-separated variable indices")
+        # mmap routes on the constrained (sum-first, max-last) width, not
+        # the plain induced width: deferring the max variables can blow it
+        # up (a star: 2 unconstrained, |leaves| + 1 constrained)
+        M = [v for v in req if v not in evidence]
+        cw = elimination.mmap_width(mrf.cliques, mrf.n, M, evidence)
+        if cw <= cap:
+            result["backend"] = "elimination"
+            assignment, val = elimination.marginal_map(mrf, req, evidence)
+        else:
+            # 2^|M| clamped sweeps, each over n - |ev| - |M| variables
+            swept = mrf.n - len(evidence) - len(M)
+            if swept > max_n:
+                raise SystemExit(
+                    f"mmap constrained elimination width {cw} > cap "
+                    f"{cap} and each clamped sweep covers {swept} free "
+                    f"variables > streaming cap {max_n}: no exact "
+                    "backend; reduce --max-vars or add evidence")
+            enum_cap = capability.MMAP_ENUM_MAX_VARS
+            if len(M) > enum_cap:
+                raise SystemExit(
+                    f"mmap constrained elimination width {cw} > cap "
+                    f"{cap}, and streaming mmap enumerates 2^{len(M)} "
+                    f"clamped sweeps (cap 2^{enum_cap}) — reduce "
+                    "--max-vars")
+            result["backend"] = "streaming"
+            assignment, val = moments.marginal_map_streaming(mrf, req,
+                                                             evidence)
+        result["max_vars"] = {str(v): b for v, b in assignment.items()}
+        result["log_mass"] = float(val)
+    elif args.query == "marginals":
+        if use_streaming:
+            mu = moments.clique_marginals_clamped_streaming(mrf, evidence)
+        elif evidence:
+            # clamp exactly, then bounded-width marginals on the reduced
+            # model, re-embedded the same way
+            red, _ = moments.reduce_evidence(mrf, evidence)
+            rmom = (elimination.clique_marginals(red) if red is not None
+                    else np.zeros((0,)))
+            mu = moments.embed_clamped_marginals(mrf, evidence, rmom)
+        else:
+            mu = elimination.clique_marginals(mrf)
+        result["marginals"] = _floats(mu)
+    return result
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

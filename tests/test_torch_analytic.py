@@ -24,7 +24,7 @@ from qcmrf_tpu_torch.sim import analytic, batch  # noqa: E402
 
 def port(jm) -> MRF:
     return MRF.from_numpy(jm.cliques, np.asarray(jm.theta), float(jm.beta),
-                          jm.n)
+                          jm.n, device="cpu")
 
 
 @functools.lru_cache(maxsize=None)
@@ -74,7 +74,7 @@ def test_keep_probs_and_fast_log_potentials_match():
 
 
 def test_theta_domain_guard():
-    m = MRF.create([[0, 1]], theta=[0.1, -0.2, -0.3, -0.4])
+    m = MRF.create([[0, 1]], theta=[0.1, -0.2, -0.3, -0.4], device="cpu")
     for fn in (analytic.postselected_probs, analytic.joint_outcome_probs):
         with pytest.raises(ValueError):
             fn(m)
@@ -87,7 +87,8 @@ def test_theta_domain_guard():
 
 def _two_edge_model(seed, scale=0.4):
     rng = np.random.RandomState(seed)
-    return MRF.create([[0, 1], [1, 2]], theta=-np.abs(rng.randn(8)) * scale)
+    return MRF.create([[0, 1], [1, 2]], theta=-np.abs(rng.randn(8)) * scale,
+                      device="cpu")
 
 
 def test_sampler_statistics():
@@ -111,7 +112,7 @@ def test_sampler_statistics():
 
 
 def test_sampler_deterministic_per_seed_and_stream():
-    mrf = MRF.create([[0, 1]], theta=[-0.3] * 4)
+    mrf = MRF.create([[0, 1]], theta=[-0.3] * 4, device="cpu")
     x1, a1 = analytic.sample_outcome_parts(42, mrf, 512)
     x2, a2 = analytic.sample_outcome_parts(42, mrf, 512)
     assert torch.equal(x1, x2) and torch.equal(a1, a2)
@@ -122,7 +123,7 @@ def test_sampler_deterministic_per_seed_and_stream():
 
 def test_sampler_seed_streams_disjoint():
     """No shot range of one seed repeats a shot range of the next."""
-    mrf = MRF.create([[0, 1]], theta=[-0.3] * 4)
+    mrf = MRF.create([[0, 1]], theta=[-0.3] * 4, device="cpu")
     shots = 1 << 14
     x0, _ = analytic.sample_outcome_parts(0, mrf, shots)
     x1, _ = analytic.sample_outcome_parts(1, mrf, shots)
@@ -143,7 +144,7 @@ def test_accept_flags_match_postselected():
 @pytest.mark.parametrize("shots", [1 << 14, (1 << 14) - 128, 384, 1000, 1])
 def test_accept_count_matches_flags_sum(shots):
     rng = np.random.RandomState(3)
-    mrf = grid_mrf(3, 3).with_theta(
+    mrf = grid_mrf(3, 3, device="cpu").with_theta(
         -np.abs(rng.randn(48)).astype(np.float32) * 0.3)
     flags = sampler_kernel.sample_accept_flags(11, mrf, shots)
     cnt = sampler_kernel.sample_accept_count(11, mrf, shots)
@@ -156,7 +157,7 @@ def test_mask_bit_31_reads_unsigned():
     cliques = [[i] for i in range(31)] + [[0]]
     theta = np.full(64, -0.05, np.float32)
     theta[62:] = -3.0  # clique 31 fires ~95% of shots
-    mrf = MRF.create(cliques, theta=theta)
+    mrf = MRF.create(cliques, theta=theta, device="cpu")
     x, a = analytic.sample_outcome_parts(5, mrf, 4096)
     bit31 = (a.numpy().view(np.uint32) >> 31) & 1
     assert 0.9 < bit31.mean() < 0.99
@@ -165,7 +166,8 @@ def test_mask_bit_31_reads_unsigned():
 
 def test_sample_outcomes_follow_joint_law():
     rng = np.random.RandomState(4)
-    mrf = MRF.create([[0, 1], [1, 2]], theta=-np.abs(rng.randn(8)) * 0.8)
+    mrf = MRF.create([[0, 1], [1, 2]], theta=-np.abs(rng.randn(8)) * 0.8,
+                     device="cpu")
     keys = analytic.sample_outcomes(9, mrf, 1 << 16).numpy()
     x, a = analytic.sample_outcome_parts(9, mrf, 1 << 16)
     np.testing.assert_array_equal(keys, (x + (a << 4)).numpy())

@@ -102,7 +102,7 @@ def jmodel(cliques, theta, beta=1.0):
 
 def pmodel(cliques, theta, beta=1.0):
     return MRF.create(cliques, theta=np.asarray(theta, np.float32),
-                      beta=beta)
+                      beta=beta, device="cpu")
 
 
 @pytest.mark.parametrize("j", range(7))

@@ -28,7 +28,7 @@ from qcmrf_tpu_torch.utils import bits, moebius  # noqa: E402
 def port(jm) -> MRF:
     """The port's model carrying a JAX model's parameters."""
     return MRF.from_numpy(jm.cliques, np.asarray(jm.theta), float(jm.beta),
-                          jm.n)
+                          jm.n, device="cpu")
 
 
 def test_bits_match():
@@ -123,7 +123,7 @@ def test_load_suite_scale_from_name(tmp_path):
     assert suite.load_suite(str(p)).scale == 0.25
     assert (suite.reference_models_path(0.25, str(tmp_path))
             == str(tmp_path / "res_0.25" / "models.json"))
-    mrfs = s.mrfs()
+    mrfs = s.mrfs(device="cpu")
     assert len(mrfs) == 70 and mrfs[10].cliques == ((0, 1),)
     np.testing.assert_array_equal(mrfs[10].theta.numpy(),
                                   np.float32(s.thetas[1][0]))
@@ -170,17 +170,17 @@ def test_mrf_matches_jax(idx):
 
 
 def test_mrf_constructors():
-    m = grid_mrf(2, 3)
+    m = grid_mrf(2, 3, device="cpu")
     assert m.cliques == jgrid_mrf(2, 3).cliques
     assert m.theta.dtype == torch.float32 and m.device.type == "cpu"
-    assert chain_mrf(4).cliques == ((0, 1), (1, 2), (2, 3))
+    assert chain_mrf(4, device="cpu").cliques == ((0, 1), (1, 2), (2, 3))
     with pytest.raises(ValueError):
-        MRF.create([[0, 1]], theta=[0.0] * 3)
+        MRF.create([[0, 1]], theta=[0.0] * 3, device="cpu")
     with pytest.raises(ValueError):
-        MRF.create([[0, 3]], n=2)
+        MRF.create([[0, 3]], n=2, device="cpu")
     with pytest.raises(ValueError):
-        MRF.create([0, 1])
-    m2 = MRF.create([[0, 1]], n=4)
+        MRF.create([0, 1], device="cpu")
+    m2 = MRF.create([[0, 1]], n=4, device="cpu")
     assert m2.num_states == 16 and m2.num_nodes == 4
     m3 = m2.with_theta(np.full(4, -0.5))
     assert float(m2.theta.sum()) == 0.0 and float(m3.theta.sum()) == -2.0

@@ -11,7 +11,7 @@ import torch
 torch.set_num_threads(1)
 
 from qcmrf_tpu_torch.circuits.compiler import compile_qcmrf  # noqa: E402
-from qcmrf_tpu_torch.models.mrf import MRF, grid_mrf  # noqa: E402
+from qcmrf_tpu_torch.models.mrf import MRF, chain_mrf, grid_mrf  # noqa: E402
 from qcmrf_tpu_torch.models.suite import generate_suite  # noqa: E402
 from qcmrf_tpu_torch.ops import circuit_kernel  # noqa: E402
 from qcmrf_tpu_torch.ops import kernels, sampler_kernel  # noqa: E402
@@ -79,7 +79,7 @@ def test_cuda_models_go_through_the_kernels(dev):
     assert kernels.LAUNCHES["logpot"] == counts["logpot"] + 1
     assert kernels.LAUNCHES["lse"] == counts["lse"] + 1
     assert p.is_cuda and abs(float(p.sum()) - 1.0) < 1e-5
-    cpu = MRF.create(m.cliques, theta=m.theta.cpu())
+    cpu = MRF.create(m.cliques, theta=m.theta.cpu(), device="cpu")
     assert abs(float(delta) - float(cpu.success_rate())) < 1e-6
     keys = batch.batched_sample_outcomes([[0, 1], [1, 2]],
                                          [[-0.1] * 8] * 4, 0, 300,
@@ -189,3 +189,151 @@ def test_statevector_engine_on_card(dev):
                                       engine="statevector", device=dev)
     assert circuit_kernel.LAUNCHES["circuit"] == before + 7
     assert len(counts) == 70 and all(sum(c.values()) == 500 for c in counts)
+
+
+def complete_model(n, dev, seed=11, scale=0.02):
+    """K_n pairwise, theta = -|randn(RandomState(seed))| * scale."""
+    cl = [[i, j] for i in range(n) for j in range(i + 1, n)]
+    theta = -np.abs(np.random.RandomState(seed).randn(4 * len(cl))) * scale
+    return MRF.create(cl, theta=theta, device=dev)
+
+
+def mixed_model(n, dev, seed=5, scale=0.3):
+    """A ring of 3-, 4- and 5-variable cliques over n variables."""
+    cl, v, i = [], 0, 0
+    while v < n - 1:
+        c = (3, 4, 5)[i % 3]
+        cl.append([u % n for u in range(v, v + c)])
+        v, i = v + c - 1, i + 1
+    d = sum(1 << len(C) for C in cl)
+    theta = -np.abs(np.random.RandomState(seed).randn(d)) * scale
+    return MRF.create(cl, theta=theta, device=dev)
+
+
+def tie_model(n, dev):
+    """Chain whose cliques reward unequal neighbours; in float32 the two
+    alternating states tie exactly at 0, the earliest being 0101..."""
+    return chain_mrf(n, theta=np.tile([-0.5, 0.0, 0.0, -0.5], n - 1),
+                     device=dev)
+
+
+@pytest.mark.parametrize("n", [16, 20])
+def test_map_kernel_matches_plain_version(dev, n):
+    for m in (complete_model(n, dev), mixed_model(n, dev), tie_model(n, dev)):
+        coef = kernels.moebius_coefficients(m)[None]
+        before = kernels.LAUNCHES["map"]
+        v, x = kernels.map_partials(m.cliques, n, coef, m.beta)
+        assert kernels.LAUNCHES["map"] == before + 1
+        wv, wx = kernels.map_partials_reference(m.cliques, n, coef, m.beta)
+        assert torch.equal(x, wx)
+        torch.testing.assert_close(v, wv, rtol=1e-6, atol=0)
+    best, sid = kernels.combine_map(v, x)
+    alternating = int("01" * (n // 2), 2)
+    assert int(sid[0]) == alternating and float(best[0]) == 0.0
+
+
+@pytest.mark.parametrize("n", [16, 20])
+def test_moments_kernel_matches_plain_version(dev, n):
+    from qcmrf_tpu_torch.models import moments
+
+    for m in (complete_model(n, dev), mixed_model(n, dev)):
+        coef = kernels.moebius_coefficients(m)[None]
+        lnz = kernels.log_partition(m).reshape(1)
+        masks = torch.from_numpy(
+            moments._monomial_masks(m.cliques, n)).to(dev)
+        before = kernels.LAUNCHES["moments"]
+        got = kernels.monomial_moments(m.cliques, n, coef, m.beta, lnz, masks)
+        assert kernels.LAUNCHES["moments"] == before + 1
+        want = kernels.monomial_moments_reference(m.cliques, n, coef, m.beta,
+                                                  lnz, masks)
+        # float32 per-block sums of p(x) against float64 sums: 1e-6
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+        assert abs(float(got[0, 0]) - 1.0) < 1e-5  # the empty monomial
+
+
+def wide_model(n, dev, draws=700, seed=4, scale=0.05):
+    """Random 4-variable cliques over n variables: at n = 20, about 650
+    cliques, whose tables pass the default 48 KB of shared memory, and
+    about 1900 monomials."""
+    rng = np.random.RandomState(seed)
+    cl = sorted({tuple(sorted(rng.choice(n, 4, replace=False).tolist()))
+                 for _ in range(draws)})
+    theta = -np.abs(np.random.RandomState(seed + 1).randn(16 * len(cl)))
+    return MRF.create([list(C) for C in cl], theta=theta * scale, n=n,
+                      device=dev)
+
+
+def test_wide_structure_kernels_match_plain_versions(dev, monkeypatch):
+    """Every streaming kernel opts in to more than 48 KB of shared memory,
+    and a monomial list longer than one launch takes is split over
+    launches with the same result."""
+    from qcmrf_tpu_torch.models import moments
+    from qcmrf_tpu_torch.ops import _build
+
+    n = 20
+    m = wide_model(n, dev)
+    cl, beta = m.cliques, m.beta
+    assert _build.structure_bytes(len(cl), 4) > 48 * 1024
+    coef = kernels.moebius_coefficients(m)[None]
+    torch.testing.assert_close(
+        kernels.logpot_table(cl, n, coef, beta),
+        kernels.logpot_table_reference(cl, n, coef, beta),
+        rtol=1e-6, atol=1e-6)
+    lnz = kernels.combine_lse(*kernels.lse_partials(cl, n, coef, beta))
+    torch.testing.assert_close(lnz, kernels.combine_lse(
+        *kernels.lse_partials_reference(cl, n, coef, beta)), rtol=0,
+        atol=1e-5)
+    v, x = kernels.map_partials(cl, n, coef, beta)
+    wv, wx = kernels.map_partials_reference(cl, n, coef, beta)
+    assert torch.equal(x, wx)
+    torch.testing.assert_close(v, wv, rtol=1e-6, atol=0)
+    masks = torch.from_numpy(moments._monomial_masks(cl, n)).to(dev)
+    assert masks.numel() > 1500
+    want = kernels.monomial_moments_reference(cl, n, coef, beta, lnz, masks)
+    before = kernels.LAUNCHES["moments"]
+    got = kernels.monomial_moments(cl, n, coef, beta, lnz, masks)
+    assert kernels.LAUNCHES["moments"] == before + 1
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    monkeypatch.setattr(kernels, "moments_per_launch", lambda K, cmax: 500)
+    got = kernels.monomial_moments(cl, n, coef, beta, lnz, masks)
+    assert (kernels.LAUNCHES["moments"]
+            == before + 1 + -(-masks.numel() // 500))
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+
+
+def test_infer_k16_streaming_matches_elimination(dev, tmp_path, monkeypatch):
+    """K16 through the lse, map and moments kernels (the streaming route,
+    forced by the width cap) against variable elimination on the card."""
+    import json
+
+    from qcmrf_tpu_torch.models import capability
+    from qcmrf_tpu_torch.runners import infer_cli
+
+    graph = tmp_path / "k16.json"
+    graph.write_text(json.dumps(
+        [[i, j] for i in range(16) for j in range(i + 1, 16)]))
+    queries = tmp_path / "q.jsonl"
+    queries.write_text("\n".join(json.dumps(q) for q in (
+        {"query": "lnz"}, {"query": "lnz", "evidence": "0=1,5=0"},
+        {"query": "prob", "of": "3=1", "evidence": "0=1"},
+        {"query": "map"}, {"query": "map", "evidence": "0=1,5=0"},
+        {"query": "marginals"}, {"query": "marginals", "evidence": "0=1"},
+        {"query": "mmap", "max_vars": "0,1,2"})))
+    argv = ["--graph", str(graph), "--theta-scale", "0.3", "--theta-seed",
+            "11", "--queries", str(queries), "--platform", "gpu"]
+    want = infer_cli.main(argv)
+    monkeypatch.setattr(capability, "ELIM_WIDTH_CAP", 1)
+    before = dict(kernels.LAUNCHES)
+    got = infer_cli.main(argv)
+    for k in ("lse", "map", "moments"):
+        assert kernels.LAUNCHES[k] > before[k], k
+    for g, w in zip(got, want):
+        assert g["backend"] == "streaming" and w["backend"] == "elimination"
+        for k in ("lnz", "log_mass", "prob", "beta_logpot"):
+            if k in w:
+                assert abs(g[k] - w[k]) <= 1e-4, (w["query"], k)
+        for k in ("state_id", "state_bits", "max_vars"):
+            assert g.get(k) == w.get(k), (w["query"], k)
+        if "marginals" in w:
+            np.testing.assert_allclose(g["marginals"], w["marginals"],
+                                       rtol=0, atol=1e-5)

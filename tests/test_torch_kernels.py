@@ -135,7 +135,7 @@ def test_batch_rows_are_independent_models():
     table = kernels.logpot_table(cl, n, coef, 1.5)
     lnz = kernels.combine_lse(*kernels.lse_partials(cl, n, coef, 1.5))
     for b in range(3):
-        m = MRF.create(cl, theta=thetas[b], beta=1.5)
+        m = MRF.create(cl, theta=thetas[b], beta=1.5, device="cpu")
         torch.testing.assert_close(table[b], kernels.all_log_potentials(m),
                                    rtol=0, atol=0)
         torch.testing.assert_close(lnz[b], kernels.log_partition(m),
@@ -172,5 +172,22 @@ def test_wrappers_check_inputs_before_launch():
     with pytest.raises(ValueError):  # shape mismatch
         _build.structure_args(cl, n, torch.zeros(1, 6))
     with pytest.raises(ValueError):  # beyond the shared-memory tables
-        _build.structure_args(tuple((i,) for i in range(4000)), 4000,
-                              torch.zeros(1, 8000))
+        _build.structure_args(tuple((i,) for i in range(16000)), 16000,
+                              torch.zeros(1, 32000))
+    with pytest.raises(ValueError):  # the tables fit, the kernel's own not
+        _build.structure_args(tuple((i,) for i in range(14000)), 14000,
+                              torch.zeros(1, 28000), extra=16384)
+    _build.structure_args(tuple((i,) for i in range(14000)), 14000,
+                          torch.zeros(1, 28000))  # past 48 KB: fits
+
+
+@pytest.mark.parametrize("K,cmax", [(351, 2), (600, 4), (1000, 5)])
+def test_moments_launch_fills_shared_memory(K, cmax):
+    """A moments launch takes as many monomials as fit beside the
+    structure tables and the tile of states, and not one more."""
+    from qcmrf_tpu_torch.ops import _build
+
+    step = kernels.moments_per_launch(K, cmax)
+    need = _build.structure_bytes(K, cmax) + (step + 256) * 12
+    assert step > 0
+    assert need <= _build.SHARED_BYTES_LIMIT < need + 12

@@ -32,7 +32,7 @@ def models(cliques, seed, scale=0.5):
     dim = sum(1 << len(C) for C in cliques)
     theta = (-np.abs(rng.randn(dim)) * scale).astype(np.float32)
     return (JMRF.create(cliques, theta=jnp.asarray(theta)),
-            MRF.create(cliques, theta=theta))
+            MRF.create(cliques, theta=theta, device="cpu"))
 
 
 def circuits(cliques, seed, scale=0.5, **kw):
@@ -73,7 +73,7 @@ def test_fuse_ops_matches_on_bench_chains(nn):
     theta = -np.abs(np.random.RandomState(0).randn(4 * (nn - 1))) * 0.3
     jc = jcompile(JMRF.create(chain(nn), theta=theta),
                   with_measurements=False)
-    c = compile_qcmrf(MRF.create(chain(nn), theta=theta),
+    c = compile_qcmrf(MRF.create(chain(nn), theta=theta, device="cpu"),
                       with_measurements=False)
     got, want = planes.fuse_ops(c), jtpu.fuse_ops(jc)
     assert_same(got, want)

@@ -120,15 +120,24 @@ def _chain12():
     from qcmrf_tpu_torch.circuits.compiler import compile_qcmrf
     from qcmrf_tpu_torch.models.mrf import MRF
 
-    mrf = MRF.create([[i, i + 1] for i in range(5)], theta=-0.2 * np.ones(20))
+    mrf = MRF.create([[i, i + 1] for i in range(5)], theta=-0.2 * np.ones(20),
+                     device="cpu")
     return compile_qcmrf(mrf, with_measurements=False)
 
 
 def _default_device_calls():
+    from qcmrf_tpu_torch.models.mrf import MRF, chain_mrf, grid_mrf
     from qcmrf_tpu_torch.ops import kernels
     from qcmrf_tpu_torch.sim import batch, dense, planes
 
     return {
+        "MRF.create": lambda: MRF.create([[0, 1]], theta=[-0.1] * 4).theta,
+        "MRF.from_numpy": lambda: MRF.from_numpy(
+            [[0, 1]], np.full(4, -0.1)).theta,
+        "chain_mrf": lambda: chain_mrf(3).theta,
+        "grid_mrf": lambda: grid_mrf(2, 2).theta,
+        "ModelSuite.mrfs": lambda: [m.theta for m in
+                                    generate_suite(0.1, reps=1).mrfs()],
         "planes.run_statevector": lambda: planes.run_statevector(_chain12()),
         "planes.simulate_probs": lambda: planes.simulate_probs(_chain12()),
         "planes.run_ops": lambda: planes.run_ops(
@@ -168,7 +177,7 @@ def test_unported_options_name_their_slice(run_dir, tmp_path):
         with pytest.raises(NotImplementedError, match=slice_):
             run_experiment.run_suite(suite, shots=10, engine=engine)
     for argv in (["--mode", "gibbs"], ["--mode", "pam"], ["--native"]):
-        with pytest.raises(NotImplementedError, match="slice 3"):
+        with pytest.raises(NotImplementedError, match="slice 3b"):
             run_eval.main(["--results", "result_analytic_0.1.json",
                            "--scale", "0.1", "--res-root", str(run_dir)]
                           + argv)
@@ -204,6 +213,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "import qcmrf_tpu_torch.circuits.params\n"
             "import qcmrf_tpu_torch.sim.planes, qcmrf_tpu_torch.sim.dense\n"
             "import qcmrf_tpu_torch.ops.circuit_kernel\n"
+            "import qcmrf_tpu_torch.runners.infer_cli\n"
+            "import qcmrf_tpu_torch.models.elimination\n"
+            "import qcmrf_tpu_torch.models.moments\n"
+            "import qcmrf_tpu_torch.models.sample\n"
+            "import qcmrf_tpu_torch.models.capability\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'qcmrf_tpu.')) or m == 'qcmrf_tpu']\n"
             "assert not bad, bad\n"
