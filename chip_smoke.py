@@ -4,7 +4,7 @@
 
 Builds the port's CUDA kernels from ``qcmrf_tpu_torch/csrc/``, holds each
 kernel against its plain PyTorch version on the card at the main paths'
-shapes, times both, and drives the port's four main paths, each with the
+shapes, times both, and drives the port's main paths, each with the
 kernels' launch counters reset just before it and read just after:
 
 * ``run`` (analytic engine) samples the 70-circuit suite (scale 0.1,
@@ -18,7 +18,14 @@ kernels' launch counters reset just before it and read just after:
   streaming MAP and lnZ (ids past 2^31) are held against elimination;
 * the plane engine runs the 16-variable QCMRF chain at 32 qubits (three
   fused sandwich passes over 32 GiB of planes, in place), checked against
-  the post-selected amplitudes of the log-potential kernel.
+  the post-selected amplitudes of the log-potential kernel;
+* the plane engine runs bench.py's 14-variable chain at 28 qubits lowered
+  to the ``[cx, id, rz, sx, x]`` basis (``QCMRF.lowered``): about 2500
+  diag, lane, row and sandwich passes, checked against the unlowered
+  chain's state, global phase included; the unfused per-gate path and
+  random circuits over the whole gate set are held against the fused
+  stream and the dense engine at 20 qubits;
+* the copy and gate-pass rates at 28 qubits (``runners/bench.py``).
 
 Every failed check raises, so the exit code is non-zero. The
 second-to-last line is a JSON object with one entry per kernel (its time,
@@ -55,6 +62,9 @@ H100_F32_PER_S = 67e12
 GATE_WIDTHS = (20, 24, 26, 28, 30, 32)   # bench.py's chains, and 32
 SANDWICH_WIDTH = 24
 INFER_N = 27                             # bench.py's wide model, K27
+GATE_PASS_WIDTH = 24     # the generic gate kernels against plain versions
+LOWERED_WIDTH = 28       # bench.py's qcmrf28 chain, lowered: the main run
+SMALL_WIDTH = 20         # the per-gate path and the random-circuit fuzz
 
 
 def bound(nbytes: float, flops: float) -> dict:
@@ -524,13 +534,43 @@ def pass_bytes(ops, nq) -> int:
     return sum((8 if op[0] == "sandwichku" else 16) << nq for op in ops)
 
 
+def diag_flops(terms, nq) -> int:
+    """A diagonal pass: the phase's complex product per value, and a rotor
+    composed (8 operations) at every state where a term holds."""
+    total = 6 << nq
+    for conds in terms:
+        held = {}
+        if all(held.setdefault(p, w) == w for p, w in conds):
+            total += 8 << (nq - len(held))
+    return total
+
+
 def pass_flops(ops, nq) -> int:
+    """Float operations of the fused passes: a complex multiply-add is 8;
+    the lane pass does 128 a value, a row pass 2^K, a sandwich 6 per
+    ancilla level plus its phase."""
     total = 0
     for op in ops:
-        k = (len(op[3]) if op[0] == "sandwichku" else
-             1 if op[0] == "sandwich" else len(op[2]))
-        total += (6 * k + 6) << nq
+        if op[0] == "lane":
+            total += 1024 << nq
+        elif op[0] in ("rowq", "row2"):
+            total += (16 if op[0] == "rowq" else 32) << nq
+        elif op[0] == "diag":
+            total += diag_flops(op[1], nq)
+        else:
+            k = (len(op[3]) if op[0] == "sandwichku" else
+                 1 if op[0] == "sandwich" else len(op[2]))
+            total += (6 * k + 6) << nq
     return total
+
+
+def stream_bound(ops, nq) -> dict:
+    """The least time of a stream of passes: each pass bound by its bytes
+    or its operations, summed; ``bound_by`` says which bound them."""
+    each = [bound(pass_bytes([op], nq), pass_flops([op], nq)) for op in ops]
+    by = {b["bound_by"] for b in each}
+    return dict(bound_ms=sum(b["bound_ms"] for b in each),
+                bound_by=by.pop() if len(by) == 1 else "bytes and operations")
 
 
 def plain_gate_width(dev) -> int:
@@ -1039,6 +1079,484 @@ def phase_chain32(dev) -> None:
                                       "elimination")
 
 
+#: generic gate kernel -> the op kinds of the planner that launch it
+GATE_KERNEL_OPS = {"lane": ("lane",), "row_gate": ("rowq", "row2"),
+                   "diag": ("diag",), "hdh_multi": ("sandwich", "sandwichk")}
+
+
+def unit_planes(nq, seed, dev):
+    """Random planes of a unit-norm state."""
+    re, im = random_planes(nq, seed, dev)
+    scale = math.sqrt(norm_float64(re, im))
+    return re.div_(scale), im.div_(scale)
+
+
+def hadamard_wall():
+    """The planner's composed lane op of H on qubits 0-6."""
+    from qcmrf_tpu_torch.ops import kernels as K
+    from qcmrf_tpu_torch.sim.dense import GATES_1Q
+
+    H = np.asarray(GATES_1Q["h"], np.complex64)
+    M = np.eye(128, dtype=np.complex64)
+    for q in range(7):
+        M = K._lane_gate_matrix(H, q) @ M
+    return M
+
+
+def gate_cases(nq):
+    """(kernel, label, wrapper, plain version, arguments after the planes)
+    of every generic gate case held at width ``nq``."""
+    from qcmrf_tpu_torch.ops import kernels as K
+    from qcmrf_tpu_torch.sim.dense import GATES_1Q
+
+    rng = np.random.RandomState(nq)
+    cases = []
+    # a condition on the top bit, and a term with no condition
+    special = (((nq - 1, 1), (4, 0)), ())
+    for count in (1, 12, 64):
+        terms = special[:1] if count == 1 else tuple(
+            tuple((int(p), int(rng.randint(2))) for p in
+                  rng.choice(nq, rng.randint(1, 4), replace=False))
+            for _ in range(count - 2)) + special
+        angles = tuple(rng.uniform(-np.pi, np.pi, count))
+        cases.append(("diag", f"diag, {count} terms",
+                      K.apply_diagonal_profile,
+                      K.apply_diagonal_profile_reference,
+                      (terms, angles, 0.3)))
+    cases.append(("diag", "masked rotation", K.apply_masked_rotation,
+                  K.apply_masked_rotation_reference,
+                  (((nq - 1, 1), (7, 0)), -0.2, 1.3)))
+    U = (rng.randn(2, 2) + 1j * rng.randn(2, 2)).astype(np.complex64) / 2
+    for q in (7, 15, nq - 1):
+        cases.append(("row_gate", f"rowq q={q}", K.apply_1q,
+                      K.apply_1q_reference, (U, q, nq)))
+    U4 = (rng.randn(4, 4) + 1j * rng.randn(4, 4)).astype(np.complex64) / 3
+    for q_lo in (7, nq - 2):
+        cases.append(("row_gate", f"row2 q_lo={q_lo}", K.apply_2q_row_pair,
+                      K.apply_2q_row_pair_reference, (U4, q_lo)))
+    M = ((rng.randn(128, 128) + 1j * rng.randn(128, 128)) / 16).astype(
+        np.complex64)
+    H = np.asarray(GATES_1Q["h"], np.complex64)
+    for label, lane_op in (("lane, H on qubit 3", K._lane_gate_matrix(H, 3)),
+                           ("lane, the 7-H wall", hadamard_wall()),
+                           ("lane, random complex M", M)):
+        cases.append(("lane", label, K.apply_lane, K.apply_lane_reference,
+                      (lane_op,)))
+    return cases
+
+
+def stream_cases(ops):
+    """(kernel, label, wrapper, plain version, arguments after the planes)
+    of the lowered width-28 chain's own passes: the first diag pass of
+    each term count and the first with a condition on the top bit, the
+    rowq passes on the stream's lowest and highest qubit, every row2 pass,
+    the first and last lane pass and the one with the most nonzeros."""
+    from qcmrf_tpu_torch.ops import kernels as K
+
+    nq = LOWERED_WIDTH
+    calls = {
+        "diag": ("diag", K.apply_diagonal_profile,
+                 K.apply_diagonal_profile_reference, lambda op: op[1:]),
+        "rowq": ("row_gate", K.apply_1q, K.apply_1q_reference,
+                 lambda op: (op[1], op[2], nq)),
+        "row2": ("row_gate", K.apply_2q_row_pair,
+                 K.apply_2q_row_pair_reference, lambda op: op[1:]),
+        "lane": ("lane", K.apply_lane, K.apply_lane_reference,
+                 lambda op: op[1:]),
+    }
+    rowq = [op[2] for op in ops if op[0] == "rowq"]
+    lanes = [i for i, op in enumerate(ops) if op[0] == "lane"]
+    densest = max(lanes, key=lambda i: np.count_nonzero(ops[i][1]))
+    picked = {}
+    for i, op in enumerate(ops):
+        if op[0] == "diag":
+            picked.setdefault(f"diag, {len(op[1])} terms", i)
+            if any(p == nq - 1 for conds in op[1] for p, _ in conds):
+                picked.setdefault(f"diag on bit {nq - 1}", i)
+        elif op[0] == "rowq" and op[2] in (min(rowq), max(rowq)):
+            picked.setdefault(f"rowq q={op[2]}", i)
+        elif op[0] == "row2":
+            picked[f"row2 q_lo={op[2]}, pass {i}"] = i
+        elif i in (lanes[0], lanes[-1], densest):
+            picked[f"lane, {np.count_nonzero(op[1])} nonzeros, pass {i}"] = i
+    cases = []
+    for label, i in picked.items():
+        kind, fn, ref, args = calls[ops[i][0]]
+        cases.append((kind, f"stream: {label}", fn, ref, args(ops[i])))
+    return cases
+
+
+#: the case of each kernel whose plain version is timed at width 24
+TIMED_CASE = {"diag": "diag, 12 terms", "row_gate": "rowq q=15",
+              "lane": "lane, the 7-H wall"}
+
+
+def lane_library(M, nq, dev):
+    """One float32 torch.matmul (no TF32) computing the lane op on planes
+    stacked as (rows, 256): [re, im] @ [[Mr^T, Mi^T], [-Mi^T, Mr^T]].
+    Returns (run, the stacked planes, its output, split): split turns a
+    stacked tensor back into a pair of planes."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mr = torch.from_numpy(np.ascontiguousarray(M.real)).to(dev)
+    mi = torch.from_numpy(np.ascontiguousarray(M.imag)).to(dev)
+    W = torch.cat([torch.cat([mr.T, mi.T], 1), torch.cat([-mi.T, mr.T], 1)])
+    X = torch.cat(unit_planes(nq, 9, dev), 1)
+    out = torch.empty_like(X)
+
+    def split(T):
+        return T[:, :128].contiguous(), T[:, 128:].contiguous()
+    return (lambda: torch.matmul(X, W, out=out)), X, out, split
+
+
+def row_library(U, q_lo, k, nq, dev):
+    """One float32 torch.matmul (no TF32) computing a row pass on planes
+    stacked as (g, [re, im] x 2^k, 2^q_lo): the real block [[Ur, -Ui],
+    [Ui, Ur]] times every group. Returns (run, the stacked planes, its
+    output, split), as :func:`lane_library`."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n, S = 1 << k, 1 << q_lo
+    U = np.asarray(U, np.complex64)
+    W = torch.from_numpy(np.block([[U.real, -U.imag], [U.imag, U.real]])
+                         .astype(np.float32)).to(dev)
+    re, im = unit_planes(nq, 9, dev)
+    shape = re.shape
+    X = torch.cat([re.view(-1, n, S), im.view(-1, n, S)], 1)
+    del re, im
+    out = torch.empty_like(X)
+
+    def split(T):
+        return (T[:, :n].contiguous().view(shape),
+                T[:, n:].contiguous().view(shape))
+    return (lambda: torch.matmul(W, X, out=out)), X, out, split
+
+
+def hold_library(label, library, apply) -> float:
+    """Runs a library call and the kernel (``apply``, in place on the
+    same input split into planes) and requires them within 1e-5; returns
+    the library call's mean ms."""
+    run, X, out, split = library
+    run()
+    planes_ = split(X)
+    apply(*planes_)
+    e = max(float((a - b).abs().max()) for a, b in zip(planes_, split(out)))
+    require(e <= 1e-5, f"{label}: torch.matmul (float32, no TF32) == kernel "
+                       f"within 1e-5 (max |diff| {e:.2e})")
+    del planes_
+    return cuda_ms(run, reps=3)
+
+
+def phase_library_calls(dev, ops, report) -> None:
+    """At the main run's width 28: the lane kernel against torch.matmul on
+    the random M, and the row kernel against torch.matmul on every (K,
+    qubit) of the lowered chain's row passes; each library call timed, the
+    row call's time weighted by the stream's passes."""
+    from qcmrf_tpu_torch.ops import kernels as K
+
+    nq = LOWERED_WIDTH
+    M = gate_cases(GATE_PASS_WIDTH)[-1][4][0]
+    report["lane_library_ms"] = hold_library(
+        f"lane at width {nq}, random complex M", lane_library(M, nq, dev),
+        lambda re, im: K.apply_lane(re, im, M))
+    rows = [op for op in ops if op[0] in ("rowq", "row2")]
+    by_key = {}
+    for op in rows:
+        key = (1 if op[0] == "rowq" else 2, op[2])
+        if key not in by_key:
+            k, q = key
+            by_key[key] = hold_library(
+                f"row K={k} at qubit {q}, width {nq}",
+                row_library(op[1], q, k, nq, dev),
+                lambda re, im: (K.apply_1q(re, im, op[1], q) if k == 1 else
+                                K.apply_2q_row_pair(re, im, op[1], q)))
+            torch.cuda.empty_cache()
+    lib = sum(by_key[(1 if op[0] == "rowq" else 2, op[2])]
+              for op in rows) / len(rows)
+    print(f"  library calls at 2^{nq} values: lane "
+          f"{report['lane_library_ms']:.4f} ms; row {lib:.4f} ms a pass "
+          f"(mean over the stream's "
+          f"{len(rows)} row passes; by (K, qubit): "
+          + ", ".join(f"{k}:{ms:.3f}" for k, ms in sorted(by_key.items()))
+          + ")")
+    report["row_gate_library_ms"] = lib
+    report["row_library_by_qubit"] = {f"K={k} q={q}": ms for (k, q), ms
+                                      in sorted(by_key.items())}
+    torch.cuda.empty_cache()
+
+
+def phase_gate_kernels(dev, report):
+    """Each generic gate kernel against its plain version on unit-norm
+    planes (copies: the passes work in place), atol 1e-5: at width 24,
+    where the plain versions are timed, and at the main run's width 28,
+    with the lowered chain's own passes; then the library calls at 28."""
+    from qcmrf_tpu_torch.ops import kernels as K
+    from qcmrf_tpu_torch.sim import planes
+
+    ops = planes.fuse_ops(lowered_chain(LOWERED_WIDTH // 2)[1])
+    err = {w: dict(diag=0.0, row_gate=0.0, lane=0.0, copy=0.0)
+           for w in (GATE_PASS_WIDTH, LOWERED_WIDTH)}
+    plain = {}
+    for nq in (GATE_PASS_WIDTH, LOWERED_WIDTH):
+        cases = gate_cases(nq)
+        if nq == LOWERED_WIDTH:
+            cases += stream_cases(ops)
+        print(f"[gate kernels] width {nq}: {len(cases) + 1} cases, kernel vs "
+              "plain version on unit-norm planes")
+        for kind, label, fn, ref, args in cases:
+            got = fn(*unit_planes(nq, 2, dev), *args)
+            want = ref(*unit_planes(nq, 2, dev), *args)
+            e = max(float((g - w).abs().max()) for g, w in zip(got, want))
+            err[nq][kind] = max(err[nq][kind], e)
+            require(e <= 1e-5, f"{label}: kernel == plain version within "
+                               f"1e-5 (max |diff| {e:.2e})")
+            del got, want
+            torch.cuda.empty_cache()
+            if nq == GATE_PASS_WIDTH and TIMED_CASE[kind] == label:
+                planes_ = unit_planes(nq, 3, dev)
+                plain[kind] = dict(
+                    plain_ms=cuda_ms(lambda: ref(*planes_, *args), reps=3),
+                    ms_at_plain_shape=cuda_ms(lambda: fn(*planes_, *args),
+                                              reps=10),
+                    plain_shape=f"2^{nq} values, {label}")
+                del planes_
+        src = unit_planes(nq, 4, dev)
+        out = (torch.empty_like(src[0]), torch.empty_like(src[1]))
+        K.copy_planes(*src, out=out)
+        err[nq]["copy"] = max(float((o - s).abs().max())
+                              for o, s in zip(out, src))
+        require(torch.equal(out[0], src[0]) and torch.equal(out[1], src[1]),
+                f"copy kernel at width {nq}: both planes copied exactly")
+        if nq == GATE_PASS_WIDTH:
+            plain["copy"] = dict(
+                plain_ms=cuda_ms(lambda: K.copy_planes_reference(
+                    *src, out=out), reps=10),
+                ms_at_plain_shape=cuda_ms(lambda: K.copy_planes(
+                    *src, out=out), reps=10),
+                plain_shape=f"2^{nq} values, both planes")
+        del src, out
+        torch.cuda.empty_cache()
+    for kind, row in plain.items():
+        by_width = {w: err[w][kind] for w in err}
+        print(f"  {kind}: max |kernel - plain| {by_width}; plain "
+              f"{row['plain_ms']:.3f} ms, kernel "
+              f"{row['ms_at_plain_shape']:.4f} ms ({row['plain_shape']})")
+        report.setdefault("gate_w24", {})[kind] = dict(
+            max_abs_err=max(by_width.values()),
+            err_shape=f"max over widths {GATE_PASS_WIDTH} and "
+                      f"{LOWERED_WIDTH}: {by_width}", **row)
+    phase_library_calls(dev, ops, report)
+
+
+def lowered_chain(nn):
+    """bench.py's chain of nn variables as a QCMRF, with its lowering to
+    the [cx, id, rz, sx, x] basis (fused style)."""
+    from qcmrf_tpu_torch.circuits.compiler import QCMRF
+
+    theta = -np.abs(np.random.RandomState(0).randn(4 * (nn - 1))) * 0.3
+    q = QCMRF.build([[i, i + 1] for i in range(nn - 1)], theta=theta,
+                    with_measurements=False)
+    return q, q.lowered(style="fused")
+
+
+def diff_norm(a, b, chunk=1 << 26) -> float:
+    """2-norm of the difference of two pairs of planes, in float64 over
+    chunks."""
+    total = 0.0
+    for x, y in zip(a, b):
+        fx, fy = x.view(-1), y.view(-1)
+        for s in range(0, fx.numel(), chunk):
+            total += float(((fx[s:s + chunk] - fy[s:s + chunk]).double()
+                            ** 2).sum())
+    return math.sqrt(total)
+
+
+def phase_lowered_chain(dev, report) -> dict:
+    """The main run: bench.py's width-28 chain lowered to basis gates
+    through planes.run_statevector, each kernel's launches equal to its op
+    kind's count in the stream, the state against the unlowered chain's.
+    Then each kernel's ops of that stream alone, timed. Returns the launch
+    counts."""
+    from qcmrf_tpu_torch.sim import planes
+
+    nq = LOWERED_WIDTH
+    q, low = lowered_chain(nq // 2)
+    t0 = time.perf_counter()
+    ops = planes.fuse_ops(low)
+    plan_ms = (time.perf_counter() - t0) * 1e3
+    kinds = {}
+    for op in ops:
+        kinds[op[0]] = kinds.get(op[0], 0) + 1
+    print(f"[lowered chain] qcmrf{nq} lowered: {len(low.gates)} basis gates "
+          f"-> {len(ops)} passes {kinds}; planner {plan_ms:.1f} ms")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    re, im = planes.run_statevector(low, device=dev)
+    end.record()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    ms = start.elapsed_time(end)
+    b_ms = stream_bound(ops, nq)["bound_ms"]
+    lane_ms = sum(bound(0, pass_flops([op], nq))["bound_ms"]
+                  for op in ops if op[0] == "lane")
+    print(f"  qcmrf{nq}_lowered_gate_level_ms {ms:.1f} ({seconds:.3f} s on "
+          f"the host clock, planner included); {len(ops)} passes; bound "
+          f"{b_ms:.1f} ms ({b_ms - lane_ms:.1f} of bytes, {lane_ms:.1f} of "
+          f"lane operations); peak memory {peak / 2**30:.3f} GiB; launches "
+          f"{launches}")
+    for k, op_kinds in GATE_KERNEL_OPS.items():
+        want = sum(kinds.get(o, 0) for o in op_kinds)
+        require(launches[k] == want,
+                f"kernel {k} launched {launches[k]} times, the stream's "
+                f"{'+'.join(op_kinds)} ops: {want}")
+    want = planes.run_statevector(q.circuit, device=dev)
+    d = diff_norm((re, im), want)
+    norm = norm_float64(re, im)
+    require(d <= 1e-4, f"width {nq}: lowered state == unlowered chain's "
+                       f"(global phase included) within 1e-4 in 2-norm "
+                       f"({d:.2e}); norm {norm:.7f}")
+    del want
+    torch.cuda.empty_cache()
+    per_kind = {}
+    for k, op_kinds in GATE_KERNEL_OPS.items():
+        sub = [op for op in ops if op[0] in op_kinds]
+        total = cuda_ms(lambda: planes.apply_ops(re, im, sub, nq), reps=1)
+        b = stream_bound(sub, nq)
+        per_kind[k] = dict(ms=total / len(sub),
+                           bound_ms=b["bound_ms"] / len(sub),
+                           bound_by=b["bound_by"], total_ms=total,
+                           passes=len(sub))
+        print(f"  {k}: {len(sub)} passes {total:.1f} ms, "
+              f"{per_kind[k]['ms']:.4f} ms a pass, bound "
+              f"{per_kind[k]['bound_ms']:.4f} ms")
+    del re, im
+    torch.cuda.empty_cache()
+    report["lowered"] = dict(
+        qcmrf28_lowered_gate_level_ms=ms, host_seconds=seconds,
+        passes=len(ops), kinds=kinds, gates=len(low.gates), plan_ms=plan_ms,
+        bound_ms=b_ms, lane_bound_ms=lane_ms, peak_bytes=peak,
+        diff_norm=d, launches=launches, per_kernel=per_kind)
+    return launches
+
+
+def phase_small_circuits(dev) -> None:
+    """At width 20: the per-gate path (apply_gate, one launch a gate) over
+    the lowered chain against the fused stream within 1e-5, and random
+    circuits over the whole gate set (tests/test_engine_fuzz.py's mix)
+    through the fused kernels against the dense engine on the card within
+    5e-5."""
+    from qcmrf_tpu_torch.circuits.ir import Circuit
+    from qcmrf_tpu_torch.sim import dense, planes
+
+    nq = SMALL_WIDTH
+    _, low = lowered_chain(nq // 2)
+    re, im = planes.zero_planes(nq, dev)
+    for g in low.gates:
+        planes.apply_gate(re, im, g, nq)
+    fused = planes.run_ops(planes.fuse_ops(low), nq, dev)
+    e = max(float((a - b).abs().max()) for a, b in zip((re, im), fused))
+    require(e <= 1e-5, f"width {nq}: apply_gate over the {len(low.gates)} "
+                       f"lowered gates == the fused stream within 1e-5 "
+                       f"(max |diff| {e:.2e})")
+    del re, im, fused
+    for seed in range(3):
+        rng = np.random.RandomState(400 + seed)
+        c = Circuit(nq)
+        for _ in range(80):
+            kind = rng.randint(0, 8)
+            if kind == 0:
+                c.h(rng.randint(nq))
+            elif kind == 1:
+                c.x(rng.randint(nq))
+            elif kind == 2:
+                c.sx(rng.randint(nq))
+            elif kind == 3:
+                c.rz(float(rng.uniform(-np.pi, np.pi)), rng.randint(nq))
+            elif kind == 4:
+                a, b = rng.choice(nq, 2, replace=False)
+                c.cx(int(a), int(b))
+            elif kind == 5:
+                a, b = rng.choice(nq, 2, replace=False)
+                c.cp(float(rng.uniform(-np.pi, np.pi)), int(a), int(b))
+            elif kind == 6:
+                c.sxdg(rng.randint(nq))
+            else:
+                m = rng.randint(1, 4)
+                qs = rng.choice(nq, m + 1, replace=False)
+                flags = [int(f) * 2 - 1 for f in rng.randint(0, 2, m)]
+                c.flags_phase([int(x) for x in qs[:m]], flags,
+                              float(rng.uniform(-np.pi, np.pi)), int(qs[m]))
+        kinds = sorted({op[0] for op in planes.fuse_ops(c)})
+        got = torch.complex(*planes.run_statevector(c, device=dev))
+        want = dense.run_statevector(c, device=dev)
+        e = float((got.reshape(-1) - want).abs().max())
+        require(e <= 5e-5, f"fuzz seed {400 + seed} (width {nq}, 80 gates, "
+                           f"passes {kinds}): fused kernels == dense engine "
+                           f"within 5e-5 (max |diff| {e:.2e})")
+    torch.cuda.empty_cache()
+
+
+def phase_rates(dev, report) -> dict:
+    """copy_kernel_gbps and gate_apply_gbps at n = 28: the copy kernel's
+    path. Returns the launch counts of these chains."""
+    from qcmrf_tpu_torch.ops import kernels as K
+    from qcmrf_tpu_torch.runners import bench
+
+    n = LOWERED_WIDTH
+    reset_counts()
+    copy = bench.copy_kernel_gbps(n, dev)
+    lane, row = bench.gate_apply_gbps(n, dev)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    require(launches["copy"] > 0, f"kernel copy launched {launches['copy']} "
+                                  "times by copy_kernel_gbps")
+    rates = dict(copy_kernel_gbps=copy, gate_lane_gbps=lane,
+                 gate_row_gbps=row, gate_row_copy_ratio=row / copy,
+                 gate_lane_copy_ratio=lane / copy)
+    print(f"[rates] n={n}: " + ", ".join(f"{k} {v:.4f}"
+                                          for k, v in rates.items()))
+    # the copy kernel and its library call at the rates' shape
+    src = unit_planes(n, 5, dev)
+    out = (torch.empty_like(src[0]), torch.empty_like(src[1]))
+    ms = cuda_ms(lambda: K.copy_planes(*src, out=out), reps=10)
+    lib = cuda_ms(lambda: (out[0].copy_(src[0]), out[1].copy_(src[1])),
+                  reps=10)
+    del src, out
+    torch.cuda.empty_cache()
+    print(f"  copy kernel {ms:.4f} ms, planes' copy_ {lib:.4f} ms at 2^{n} "
+          "values")
+    report["rates"] = rates
+    report["copy_w28"] = dict(ms=ms, library_ms=lib,
+                              **bound(16 << n, 0))
+    return launches
+
+
+def gate_entry(kind, report, launches) -> dict:
+    """A generic gate kernel's line: its mean time and bound per launch in
+    the lowered width-28 main run (the copy: at the rates' width 28), its
+    plain version at width 24."""
+    w24 = report["gate_w24"][kind]
+    if kind == "copy":
+        row = report["copy_w28"]
+        return dict(launches=launches, ms=row["ms"], bound_ms=row["bound_ms"],
+                    bound_by=row["bound_by"], library_ms=row["library_ms"],
+                    shape=f"2^{LOWERED_WIDTH} values, both planes", **w24)
+    run = report["lowered"]["per_kernel"][kind]
+    return dict(launches=launches, ms=run["ms"], bound_ms=run["bound_ms"],
+                bound_by=run["bound_by"],
+                library_ms=report[f"{kind}_library_ms"]
+                if kind in ("lane", "row_gate") else None,
+                shape=f"mean per launch over the {run['passes']} passes of "
+                      f"the lowered width-{LOWERED_WIDTH} chain "
+                      f"({run['total_ms']:.1f} ms in all)", **w24)
+
+
 REPLACES = {
     "sampler": "qcmrf_tpu/ops/sampler_kernel.py:37",
     "logpot": "qcmrf_tpu/ops/kernels.py:239",
@@ -1048,6 +1566,16 @@ REPLACES = {
     "hdh_multi": "qcmrf_tpu/ops/kernels.py:1895",
     "hdh_multi_uniform": "qcmrf_tpu/ops/kernels.py:1895",
     "circuit": "qcmrf_tpu/ops/circuit_kernel.py:108",
+    "lane": "qcmrf_tpu/ops/kernels.py:1046",
+    "row_gate": "qcmrf_tpu/ops/kernels.py:1128",
+    "diag": "qcmrf_tpu/ops/kernels.py:1340",
+    "copy": "qcmrf_tpu/runners/bench.py:177",
+}
+ALSO_REPLACES = {
+    "hdh_multi": ["qcmrf_tpu/ops/kernels.py:1477 (at k=1)",
+                  "qcmrf_tpu/ops/kernels.py:1675 (at k=2)"],
+    "row_gate": ["qcmrf_tpu/ops/kernels.py:1176 (at K=2)"],
+    "diag": ["qcmrf_tpu/ops/kernels.py:1275 (at one term)"],
 }
 SOURCES = {
     "sampler": "qcmrf_kernels.cu", "logpot": "qcmrf_kernels.cu",
@@ -1056,6 +1584,8 @@ SOURCES = {
     "hdh_multi": "circuit_kernels.cu",
     "hdh_multi_uniform": "circuit_kernels.cu",
     "circuit": "circuit_kernels.cu",
+    "lane": "gate_kernels.cu", "row_gate": "gate_kernels.cu",
+    "diag": "gate_kernels.cu", "copy": "gate_kernels.cu",
 }
 
 
@@ -1094,7 +1624,8 @@ def sandwich_entry(name, report) -> dict:
 
 KERNEL_NAMES = ("sampler_kernel", "logpot_kernel", "lse_kernel",
                 "map_kernel", "moments_kernel", "hdh_multi_kernel",
-                "hdh_multi_uniform_kernel", "circuit_kernel")
+                "hdh_multi_uniform_kernel", "circuit_kernel", "diag_kernel",
+                "row_gate_kernel", "lane_kernel", "copy_kernel")
 
 
 def print_ptxas(path) -> None:
@@ -1150,6 +1681,10 @@ def main() -> int:
     phase_sandwich_kernels(dev, report)
     phase_gate_level(dev, report)
     gate = report["main_gate_level"]
+    phase_gate_kernels(dev, report)
+    lowered = phase_lowered_chain(dev, report)
+    phase_small_circuits(dev)
+    rates = phase_rates(dev, report)
 
     kernels_line = []
     for k in ("sampler", "logpot", "lse"):
@@ -1163,15 +1698,17 @@ def main() -> int:
     for k in ("map", "moments"):
         kernels_line.append(dict(launches=infer[k], library_ms=None,
                                  **report[k]))
+    for k in ("lane", "row_gate", "diag"):
+        kernels_line.append(gate_entry(k, report, lowered[k]))
+    kernels_line.append(gate_entry("copy", report, rates["copy"]))
     for k, entry in zip(("sampler", "logpot", "lse", "hdh_multi",
-                         "hdh_multi_uniform", "circuit", "map", "moments"),
-                        kernels_line):
+                         "hdh_multi_uniform", "circuit", "map", "moments",
+                         "lane", "row_gate", "diag", "copy"), kernels_line):
         entry.update(name=k, route="cuda",
                      source=f"qcmrf_tpu_torch/csrc/{SOURCES[k]}",
                      replaces=REPLACES[k])
-    kernels_line[3]["also_replaces"] = [
-        "qcmrf_tpu/ops/kernels.py:1477 (at k=1)",
-        "qcmrf_tpu/ops/kernels.py:1675 (at k=2)"]
+        if k in ALSO_REPLACES:
+            entry["also_replaces"] = ALSO_REPLACES[k]
     out_dir = os.path.join(root, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke_report.json"), "w") as f:
@@ -1179,7 +1716,9 @@ def main() -> int:
             k: v for k, v in report.items()
             if k in ("gate_level", "gate_plain_width", "sandwich_w24",
                      "pass_w32", "infer_k27_batch_s",
-                     "infer_k27_query_s")}), f, indent=1,
+                     "infer_k27_query_s", "gate_w24", "lowered", "rates",
+                     "copy_w28", "lane_library_ms", "row_gate_library_ms",
+                     "row_library_by_qubit")}), f, indent=1,
                   default=str)
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(f"[card] {smi}")

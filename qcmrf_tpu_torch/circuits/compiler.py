@@ -25,10 +25,9 @@ import torch
 
 from qcmrf_tpu_torch.circuits import params as cparams
 from qcmrf_tpu_torch.circuits.ir import Circuit
+from qcmrf_tpu_torch.circuits.lower import lower
+from qcmrf_tpu_torch.models import pauli
 from qcmrf_tpu_torch.models.mrf import MRF
-
-_LOWERING_SLICE = ("slice 2b of ROADMAP.md (circuits/lower.py and "
-                   "models/pauli.py)")
 
 
 def _theta64(mrf: MRF) -> np.ndarray:
@@ -152,24 +151,34 @@ class QCMRF:
         return self.circuit.num_qubits
 
     def lowered(self, style: str = "fused", optimize: int = 0) -> Circuit:
-        raise NotImplementedError(
-            f"QCMRF.lowered comes to the port with {_LOWERING_SLICE}")
+        """The circuit lowered to ``self.basis_gates`` (only the default
+        basis is implemented; another raises). ``optimize=1`` merges each
+        clique's run of phases into one exact diagonal synthesis."""
+        if set(self.basis_gates) != set(self.DEFAULT_BASIS_GATES):
+            raise ValueError(
+                f"unsupported basis {self.basis_gates!r}; the lowering "
+                f"pass targets {self.DEFAULT_BASIS_GATES!r}"
+            )
+        # the workspace is qubit n of the compiler's layout, which the IR
+        # alone does not know
+        return lower(self.circuit, style=style, workspace=self.mrf.n,
+                     optimize=optimize)
 
     # ---- operator-level helpers -------------------------------------------
 
-    def sufficient_statistic(self, C, y):
-        raise NotImplementedError(
-            "QCMRF.sufficient_statistic comes to the port with "
-            f"{_LOWERING_SLICE}")
+    def sufficient_statistic(self, C, y) -> pauli.PauliSum:
+        """Pauli-Markov sufficient statistic ``phi_{C,y}`` as a Z-string
+        sum."""
+        return pauli.sufficient_statistic(self.mrf.n, C, y)
 
-    def Hamiltonian(self):
-        raise NotImplementedError(
-            f"QCMRF.Hamiltonian comes to the port with {_LOWERING_SLICE}")
+    def Hamiltonian(self) -> pauli.PauliSum:
+        """Diagonal MRF Hamiltonian ``H = sum_i -theta_i phi_i``."""
+        return pauli.hamiltonian(self.mrf.n, self.mrf.cliques,
+                                 _theta64(self.mrf))
 
-    def _conjugate_blocks(self, A):
-        raise NotImplementedError(
-            "QCMRF._conjugate_blocks comes to the port with "
-            f"{_LOWERING_SLICE}")
+    def _conjugate_blocks(self, A: pauli.PauliSum) -> pauli.PauliSum:
+        """Block operator ``diag(A, A-dagger)`` on one more qubit."""
+        return pauli.conjugate_blocks(A)
 
     # ---- layout -----------------------------------------------------------
 

@@ -1,0 +1,379 @@
+// Hand-written Hopper (sm_90a) kernels of the plane engine's generic gate
+// passes: the diagonal profile (also the masked rotation), the 2x2 / 4x4
+// row-qubit gates, the 128x128 lane-qubit product, and the plane copy that
+// normalises the gate passes' rates.
+//
+// Built with the other sources of csrc/ into one library by
+// qcmrf_tpu_torch/ops/_build.py (nvcc -gencode arch=compute_90a,code=sm_90a
+// -std=c++17 -O3) and bound with ctypes. Each extern "C" entry point
+// launches on the caller's stream, allocates nothing, and returns
+// cudaGetLastError().
+//
+// State layout: two float32 planes (real, imaginary) of 2^w values, qubit 0
+// the least significant bit of the index, updated in place. All index
+// arithmetic is 64-bit (a condition or a partner qubit may sit at bit 31 or
+// above). Every pass moves 4-value groups as float4: the planes hold 2^w
+// values with w >= 7, and the row passes' qubits are >= 7, so the four
+// values of a group are consecutive in every plane the pass touches.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+// A gate's matrix, row-major (out, in): 2x2 in the first 4 entries, or 4x4
+// with index bit(q_lo + 1) * 2 + bit(q_lo). Passed by value; at namespace
+// scope, since the exported qcmrf_row_gate takes it.
+struct GateMatrix {
+  float re[16];
+  float im[16];
+};
+
+namespace {
+
+constexpr int kThreads = 256;
+// grid-stride passes keep at most this many blocks per SM in flight
+constexpr int kBlocksPerSm = 16;
+
+struct Profile {
+  float c, s;
+  int begin, end;
+};
+struct Term {
+  unsigned long long care, want;
+  float c, s;
+};
+static_assert(sizeof(Profile) == 16, "profile record is 16 bytes");
+static_assert(sizeof(Term) == 24, "term record is 24 bytes");
+
+unsigned grid_blocks(int64_t items, int per_block) {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess) {
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  int64_t blocks = (items + per_block - 1) / per_block;
+  const int64_t cap = int64_t(sms) * kBlocksPerSm;
+  if (blocks > cap) blocks = cap;
+  return static_cast<unsigned>(blocks < 1 ? 1 : blocks);
+}
+
+__device__ __forceinline__ float4 load4(const float* p, uint64_t i) {
+  return *reinterpret_cast<const float4*>(p + i);
+}
+
+__device__ __forceinline__ void store4(float* p, uint64_t i, float4 v) {
+  *reinterpret_cast<float4*>(p + i) = v;
+}
+
+__device__ __forceinline__ float& lane4(float4& v, int i) {
+  return (&v.x)[i];
+}
+
+// ---------------------------------------------------------------------------
+// 1. Diagonal profile: e^{i (base + sum_t a_t [term t holds])}
+// ---------------------------------------------------------------------------
+// Replaces qcmrf_tpu/ops/kernels.py::_build_diag_profile_kernel
+// (_diag_profile_call) and, at one term, _build_masked_rotation_kernel
+// (_masked_rotation_call). The profile is the host-made table of the
+// sandwich kernels (circuit_kernels.cu): one Profile record, then its
+// terms; a term holds at x iff (x & care) == want, with 64-bit masks. The
+// phase is composed as rotors in float32 from (cos a_t, sin a_t) taken in
+// float64 on the host: no transcendental on the card and no angle summed in
+// float32 (a 64-term run can reach ~200 rad), so the error stays at a few
+// float32 ulps per holding term. One compiled kernel serves every term
+// structure: the block copies the table into shared memory once.
+// Bound on this card: device memory, 16 bytes read and written per value
+// against 6 float operations per value and 8 per holding term. Each thread
+// takes groups of 4 consecutive values (float4 loads); the term table is
+// read by all threads of a warp at one address (a broadcast).
+__global__ void __launch_bounds__(kThreads)
+diag_kernel(const unsigned char* __restrict__ table, int n_terms,
+            float* __restrict__ re, float* __restrict__ im,
+            int64_t num_groups) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int bytes = sizeof(Profile) + n_terms * sizeof(Term);
+  {
+    uint32_t* d = reinterpret_cast<uint32_t*>(smem);
+    const uint32_t* s = reinterpret_cast<const uint32_t*>(table);
+    for (int i = threadIdx.x; i < bytes / 4; i += blockDim.x) d[i] = s[i];
+  }
+  __syncthreads();
+  const Profile P = *reinterpret_cast<const Profile*>(smem);
+  const Term* terms = reinterpret_cast<const Term*>(smem + sizeof(Profile));
+  const int64_t stride = int64_t(gridDim.x) * blockDim.x;
+  for (int64_t g = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
+       g < num_groups; g += stride) {
+    const uint64_t x0 = uint64_t(g) << 2;
+    float c[4], s[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      c[i] = P.c;
+      s[i] = P.s;
+    }
+    for (int t = P.begin; t < P.end; ++t) {
+      const Term T = terms[t];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (((x0 + i) & T.care) == T.want) {
+          const float nc = c[i] * T.c - s[i] * T.s;
+          s[i] = s[i] * T.c + c[i] * T.s;
+          c[i] = nc;
+        }
+      }
+    }
+    float4 r = load4(re, x0);
+    float4 m = load4(im, x0);
+    float4 orr, om;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      lane4(orr, i) = lane4(r, i) * c[i] - lane4(m, i) * s[i];
+      lane4(om, i) = lane4(r, i) * s[i] + lane4(m, i) * c[i];
+    }
+    store4(re, x0, orr);
+    store4(im, x0, om);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 2. A gate on K adjacent row qubits q_lo .. q_lo + K - 1 (K = 1, 2)
+// ---------------------------------------------------------------------------
+// Replaces qcmrf_tpu/ops/kernels.py::_row_gate_kernel (_row_gate_call) at
+// K = 1 and _row_pair_kernel (_row_pair_call) at K = 2. The TPU's (groups,
+// 2^K, stride, 128) block tiling is not carried over: one kernel serves
+// every stride. A thread owns 4 consecutive anchors (indices with the K
+// target bits zero); with q_lo >= 7 their values are 4 consecutive floats
+// in each of the 2^K partner rows, so consecutive threads read and write
+// consecutive 16-byte words in every partner row, at any stride up to
+// 2^(w-1).
+// Bound on this card: device memory, 16 bytes read and written per value
+// against 8 * 2^K float operations per value.
+template <int K>
+__global__ void __launch_bounds__(kThreads)
+row_gate_kernel(GateMatrix u, float* __restrict__ re, float* __restrict__ im,
+                int64_t num_quads, int q_lo) {
+  constexpr int NJ = 1 << K;
+  const uint64_t S = uint64_t(1) << q_lo;
+  const uint64_t lo_mask = S - 1;
+  const int64_t stride = int64_t(gridDim.x) * blockDim.x;
+  for (int64_t t = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
+       t < num_quads; t += stride) {
+    const uint64_t A = uint64_t(t) << 2;
+    const uint64_t x0 = ((A & ~lo_mask) << K) | (A & lo_mask);
+    float4 vr[NJ], vi[NJ];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      vr[j] = load4(re, x0 + j * S);
+      vi[j] = load4(im, x0 + j * S);
+    }
+#pragma unroll
+    for (int o = 0; o < NJ; ++o) {
+      float4 ar, ai;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float sr = 0.0f, si = 0.0f;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const float ur = u.re[o * NJ + j], ui = u.im[o * NJ + j];
+          sr += ur * lane4(vr[j], i) - ui * lane4(vi[j], i);
+          si += ur * lane4(vi[j], i) + ui * lane4(vr[j], i);
+        }
+        lane4(ar, i) = sr;
+        lane4(ai, i) = si;
+      }
+      store4(re, x0 + o * S, ar);
+      store4(im, x0 + o * S, ai);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 3. Lane pass: out = state . M^T on every 128-value row, M complex 128x128
+// ---------------------------------------------------------------------------
+// Replaces qcmrf_tpu/ops/kernels.py::_build_matmul_pair_kernel
+// (_lane_matmul_call): composed 1q gates on qubits 0-6. Full float32 FMAs,
+// no tensor cores and no TF32 (the TPU kernel's bf16-pass emulation is not
+// carried over).
+// Bound on this card: float operations, 128 complex multiply-adds (1024
+// float operations) per value against 16 bytes moved, so the pass is
+// compute-bound at 67 TFLOP/s. Design: one block per SM (about 192 KB of
+// shared memory) holds M^T as two float32 planes (m[l][j] = M[j][l], 128 KB)
+// for all its tiles, and a tile of kLaneRows rows of the state. Warp w owns
+// kWarpRows rows of the tile; lane t owns columns 4t .. 4t+3. Per step of 4
+// l values a thread reads 8 float4 of M^T (consecutive lanes on consecutive
+// 16-byte words: no bank conflict) and, per row, 2 float4 of the state (one
+// address across the warp: a broadcast), then issues 4 * 4 * kWarpRows
+// complex multiply-adds into 2 * 4 * kWarpRows register accumulators. The
+// block reads its whole tile before any thread writes it back, so the
+// update is in place.
+constexpr int kWarpRows = 8;
+constexpr int kLaneRows = (kThreads / 32) * kWarpRows;  // 64
+constexpr int kLaneShared = (2 * 128 * 128 + 2 * kLaneRows * 128) * 4;
+
+__global__ void __launch_bounds__(kThreads, 1)
+lane_kernel(const float* __restrict__ mt, float* __restrict__ re,
+            float* __restrict__ im, int64_t rows) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* m_re = reinterpret_cast<float*>(smem_raw);
+  float* m_im = m_re + 128 * 128;
+  float* v_re = m_im + 128 * 128;
+  float* v_im = v_re + kLaneRows * 128;
+  {
+    const float4* src = reinterpret_cast<const float4*>(mt);
+    float4* dst = reinterpret_cast<float4*>(m_re);
+    for (int i = threadIdx.x; i < 2 * 128 * 128 / 4; i += blockDim.x) {
+      dst[i] = src[i];
+    }
+  }
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int64_t num_tiles = (rows + kLaneRows - 1) / kLaneRows;
+  for (int64_t tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
+    const int64_t row0 = tile * kLaneRows;
+    __syncthreads();  // M is loaded; the last tile's reads are done
+    for (int i = threadIdx.x; i < kLaneRows * 32; i += blockDim.x) {
+      const int64_t row = row0 + i / 32;
+      float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
+      if (row < rows) {
+        a = load4(re, uint64_t(row) * 128 + (i % 32) * 4);
+        b = load4(im, uint64_t(row) * 128 + (i % 32) * 4);
+      }
+      reinterpret_cast<float4*>(v_re)[i] = a;
+      reinterpret_cast<float4*>(v_im)[i] = b;
+    }
+    __syncthreads();
+    float acc_re[kWarpRows][4], acc_im[kWarpRows][4];
+#pragma unroll
+    for (int r = 0; r < kWarpRows; ++r) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        acc_re[r][c] = 0.0f;
+        acc_im[r][c] = 0.0f;
+      }
+    }
+    const float* wr = v_re + warp * kWarpRows * 128;
+    const float* wi = v_im + warp * kWarpRows * 128;
+#pragma unroll 1
+    for (int l = 0; l < 128; l += 4) {
+      float4 mr[4], mi[4];
+#pragma unroll
+      for (int d = 0; d < 4; ++d) {
+        mr[d] = load4(m_re, (l + d) * 128 + 4 * lane);
+        mi[d] = load4(m_im, (l + d) * 128 + 4 * lane);
+      }
+#pragma unroll
+      for (int r = 0; r < kWarpRows; ++r) {
+        float4 xr = load4(wr, r * 128 + l);
+        float4 xi = load4(wi, r * 128 + l);
+#pragma unroll
+        for (int d = 0; d < 4; ++d) {
+          const float a = lane4(xr, d), b = lane4(xi, d);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const float p = lane4(mr[d], c), q = lane4(mi[d], c);
+            acc_re[r][c] = fmaf(p, a, acc_re[r][c]);
+            acc_re[r][c] = fmaf(-q, b, acc_re[r][c]);
+            acc_im[r][c] = fmaf(p, b, acc_im[r][c]);
+            acc_im[r][c] = fmaf(q, a, acc_im[r][c]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kWarpRows; ++r) {
+      const int64_t row = row0 + warp * kWarpRows + r;
+      if (row < rows) {
+        store4(re, uint64_t(row) * 128 + 4 * lane,
+               make_float4(acc_re[r][0], acc_re[r][1], acc_re[r][2],
+                           acc_re[r][3]));
+        store4(im, uint64_t(row) * 128 + 4 * lane,
+               make_float4(acc_im[r][0], acc_im[r][1], acc_im[r][2],
+                           acc_im[r][3]));
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 4. Plane copy: the same bytes as a gate pass, no arithmetic
+// ---------------------------------------------------------------------------
+// Replaces qcmrf_tpu/runners/bench.py::copy_kernel_gbps's kernel: reads both
+// planes and writes both (16 bytes a value), the same-run rate the gate
+// passes are held against. Bound on this card: device memory.
+__global__ void __launch_bounds__(kThreads)
+copy_kernel(const float* __restrict__ src_re, const float* __restrict__ src_im,
+            float* __restrict__ dst_re, float* __restrict__ dst_im,
+            int64_t num_groups) {
+  const int64_t stride = int64_t(gridDim.x) * blockDim.x;
+  for (int64_t g = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
+       g < num_groups; g += stride) {
+    const uint64_t x = uint64_t(g) << 2;
+    store4(dst_re, x, load4(src_re, x));
+    store4(dst_im, x, load4(src_im, x));
+  }
+}
+
+template <typename Kernel>
+cudaError_t allow_shared(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+template <int K>
+cudaError_t launch_row(GateMatrix u, float* re, float* im, int64_t num_quads,
+                       int q_lo, cudaStream_t stream) {
+  row_gate_kernel<K><<<grid_blocks(num_quads, kThreads), kThreads, 0,
+                       stream>>>(u, re, im, num_quads, q_lo);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+int qcmrf_diag(const unsigned char* table, int n_terms, float* re, float* im,
+               int64_t num_groups, void* stream) {
+  const size_t bytes = sizeof(Profile) + size_t(n_terms) * sizeof(Term);
+  cudaError_t err = allow_shared(diag_kernel, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  diag_kernel<<<grid_blocks(num_groups, kThreads), kThreads, bytes,
+                static_cast<cudaStream_t>(stream)>>>(table, n_terms, re, im,
+                                                     num_groups);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int qcmrf_row_gate(GateMatrix u, int k, float* re, float* im,
+                   int64_t num_quads, int q_lo, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (k) {
+    case 1: err = launch_row<1>(u, re, im, num_quads, q_lo, s); break;
+    case 2: err = launch_row<2>(u, re, im, num_quads, q_lo, s); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+int qcmrf_lane(const float* mt, float* re, float* im, int64_t rows,
+               void* stream) {
+  cudaError_t err = allow_shared(lane_kernel, kLaneShared);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t tiles = (rows + kLaneRows - 1) / kLaneRows;
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess) {
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  const unsigned blocks = static_cast<unsigned>(tiles < sms ? tiles : sms);
+  lane_kernel<<<blocks, kThreads, kLaneShared,
+                static_cast<cudaStream_t>(stream)>>>(mt, re, im, rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int qcmrf_copy(const float* src_re, const float* src_im, float* dst_re,
+               float* dst_im, int64_t num_groups, void* stream) {
+  copy_kernel<<<grid_blocks(num_groups, kThreads), kThreads, 0,
+                static_cast<cudaStream_t>(stream)>>>(src_re, src_im, dst_re,
+                                                     dst_im, num_groups);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

@@ -40,6 +40,15 @@ SHARED_BYTES_LIMIT = 227 * 1024
 _P, _I, _I64, _U32, _U64, _F = (ctypes.c_void_p, ctypes.c_int,
                                 ctypes.c_int64, ctypes.c_uint32,
                                 ctypes.c_uint64, ctypes.c_float)
+
+
+class GateMatrix(ctypes.Structure):
+    """A row gate's matrix as ``gate_kernels.cu`` takes it by value:
+    row-major (out, in), 2x2 in the first 4 entries or 4x4."""
+
+    _fields_ = [("re", ctypes.c_float * 16), ("im", ctypes.c_float * 16)]
+
+
 _SIGNATURES = {
     # coef, shifts, sizes, B, K, cmax, n, shots, seed, stream0, mode,
     # x_out, a_out, count_out, stream
@@ -65,6 +74,14 @@ _SIGNATURES = {
     # trig, qubits, sizes, B, n, K, cmax, d, width, amp, scratch, out,
     # stream
     "qcmrf_circuit": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P),
+    # table, n_terms, re, im, num_groups, stream
+    "qcmrf_diag": (_P, _I, _P, _P, _I64, _P),
+    # matrix, k, re, im, num_quads, q_lo, stream
+    "qcmrf_row_gate": (GateMatrix, _I, _P, _P, _I64, _I, _P),
+    # m^T planes, re, im, rows, stream
+    "qcmrf_lane": (_P, _P, _P, _I64, _P),
+    # src_re, src_im, dst_re, dst_im, num_groups, stream
+    "qcmrf_copy": (_P, _P, _P, _P, _I64, _P),
 }
 
 

@@ -1,6 +1,6 @@
 """Log-potential table, the streaming sweeps (logsumexp, argmax, monomial
-moments) and the H·D·H sandwich passes of the plane engine (the ported
-part of :mod:`qcmrf_tpu.ops.kernels`).
+moments), the H·D·H sandwich passes and the generic gate passes of the
+plane engine (the port of :mod:`qcmrf_tpu.ops.kernels`).
 
 The table and the sweeps evaluate ``beta * theta^T phi(x)`` per state id
 from the per-clique Moebius coefficients of :func:`moebius_coefficients`,
@@ -33,12 +33,26 @@ of the flat index):
 * :func:`apply_hdh_sandwich_multi_uniform`: the same k sandwiches on the
   folded uniform H-wall state, write-only (``hdh_multi_uniform_kernel``).
 
-They update the planes **in place** and return them: the JAX versions
-alias their inputs to their outputs, and at 32 qubits two planes take 32
-GiB, which the card does not hold twice. A profile (``mu`` or a ``nu``) is
-``base + sum_t angles[t] * [terms[t] holds]``, a term being a tuple of
-``(qubit, wanted bit)`` conditions; no term may condition on a pass's
-ancillas.
+The generic gate passes (kernels of ``csrc/gate_kernels.cu``) take planes
+of at least 7 qubits:
+
+* :func:`apply_diagonal_profile`: a run of diagonal gates as one phase
+  profile; :func:`apply_masked_rotation` is its one-term call
+  (``diag_kernel``);
+* :func:`apply_1q` on a row qubit (q >= 7) and :func:`apply_2q_row_pair`
+  on two adjacent row qubits (``row_gate_kernel<K>``, K = 1, 2);
+* :func:`apply_lane`: ``out = state · Mᵀ`` per 128-value row for a complex
+  128x128 ``M``, the planner's ``lane`` op and :func:`apply_1q` on a lane
+  qubit (``lane_kernel``);
+* :func:`copy_planes`: both planes copied, the bytes of a gate pass
+  (``copy_kernel``), the rate the passes are held against.
+
+Every pass but the copy updates the planes **in place** and returns them:
+the JAX versions alias their inputs to their outputs, and at 32 qubits two
+planes take 32 GiB, which the card does not hold twice. A profile (``mu``
+or a ``nu`` of a sandwich, or a diagonal pass) is ``base + sum_t
+angles[t] * [terms[t] holds]``, a term being a tuple of ``(qubit, wanted
+bit)`` conditions; no term of a sandwich may condition on its ancillas.
 """
 
 from __future__ import annotations
@@ -57,7 +71,8 @@ from qcmrf_tpu_torch.utils.config import resolve_device
 
 #: launches of the CUDA kernels, bumped where each is launched
 LAUNCHES = {"logpot": 0, "lse": 0, "map": 0, "moments": 0, "hdh_multi": 0,
-            "hdh_multi_uniform": 0}
+            "hdh_multi_uniform": 0, "diag": 0, "row_gate": 0, "lane": 0,
+            "copy": 0}
 
 #: the streaming logsumexp writes at most this many partial pairs a row
 MAX_LSE_PARTS = 4096
@@ -386,13 +401,9 @@ def plane_qubits(re: torch.Tensor, im: torch.Tensor) -> int:
     return size.bit_length() - 1
 
 
-def _check_pass(nq: int, a_lo: int, k: int, profiles) -> None:
-    if not 1 <= k <= _MAX_SANDWICH_K:
-        raise ValueError(f"{k} ancillas; a sandwich pass takes 1.."
-                         f"{_MAX_SANDWICH_K}")
-    if a_lo < 0 or a_lo + k > nq:
-        raise ValueError(f"ancillas {a_lo}..{a_lo + k - 1} outside "
-                         f"{nq} qubits")
+def _check_terms(nq: int, profiles, ancillas=range(0)) -> None:
+    """Raises unless every condition names one of ``nq`` qubits, outside
+    ``ancillas``, and a bit, and the terms fit the kernels' table."""
     n_terms = sum(len(terms) for terms, _, _ in profiles)
     if n_terms > MAX_SANDWICH_TERMS:
         raise ValueError(f"{n_terms} terms in one pass; the kernels take "
@@ -403,9 +414,19 @@ def _check_pass(nq: int, a_lo: int, k: int, profiles) -> None:
                 if not 0 <= p < nq or w not in (0, 1):
                     raise ValueError(f"condition ({p}, {w}) outside {nq} "
                                      "qubits or not a bit")
-                if a_lo <= p < a_lo + k:
+                if p in ancillas:
                     raise ValueError(f"a term conditions on ancilla {p} "
                                      "of its own pass")
+
+
+def _check_pass(nq: int, a_lo: int, k: int, profiles) -> None:
+    if not 1 <= k <= _MAX_SANDWICH_K:
+        raise ValueError(f"{k} ancillas; a sandwich pass takes 1.."
+                         f"{_MAX_SANDWICH_K}")
+    if a_lo < 0 or a_lo + k > nq:
+        raise ValueError(f"ancillas {a_lo}..{a_lo + k - 1} outside "
+                         f"{nq} qubits")
+    _check_terms(nq, profiles, range(a_lo, a_lo + k))
 
 
 def _profile_table(profiles, device: torch.device):
@@ -436,8 +457,13 @@ def _profile_table(profiles, device: torch.device):
 @functools.lru_cache(maxsize=64)
 def _device_bytes(blob: bytes, device: torch.device) -> torch.Tensor:
     """A read-only device copy of ``blob``, kept so that a repeated pass
-    does not copy (and synchronise) again."""
-    return torch.frombuffer(bytearray(blob), dtype=torch.uint8).to(device)
+    does not copy again. The copy leaves from pinned host memory without
+    waiting, so a stream of passes with new tables never stalls the
+    host on the card."""
+    host = torch.frombuffer(bytearray(blob), dtype=torch.uint8)
+    if device.type == "cuda":
+        host = host.pin_memory()
+    return host.to(device, non_blocking=True)
 
 
 def _anchor_ids(nq: int, a_lo: int, k: int, device) -> torch.Tensor:
@@ -666,3 +692,223 @@ def apply_hdh_sandwich_multi_uniform(num_qubits: int, folded, anc_lo: int,
                   (1 << num_qubits) >> k, int(anc_lo), comp, amp)
     LAUNCHES["hdh_multi_uniform"] += 1
     return re, im
+
+
+# --------------------------------------------------------------------------
+# Generic gate passes on real/imaginary planes
+# --------------------------------------------------------------------------
+
+#: shared memory of one lane_kernel block: Mᵀ as two float32 planes and a
+#: tile of 64 state rows (kLaneShared of the CUDA source)
+LANE_SHARED_BYTES = (2 * 128 * 128 + 2 * 64 * 128) * 4
+
+
+def _gate_planes(re, im) -> int:
+    """Qubit count of planes a gate pass takes: whole 128-value rows."""
+    nq = plane_qubits(re, im)
+    if nq < 7:
+        raise ValueError(f"planes of {nq} qubits; the gate passes take "
+                         ">= 7 (whole 128-value rows)")
+    return nq
+
+
+def _launch_ptrs(*planes):
+    """Pointers of planes handed to a gate kernel, which moves them as
+    float4: each must start on a 16-byte boundary."""
+    for t in planes:
+        if t.data_ptr() % 16:
+            raise ValueError("a plane does not start on a 16-byte boundary")
+    return [_build.ptr(t) for t in planes]
+
+
+def _rotate(re, im, c, s):
+    """``(re + i im) * (c + i s)`` written back into the planes."""
+    new_re = re * c - im * s
+    im.copy_(re * s + im * c)
+    re.copy_(new_re)
+    return re, im
+
+
+def _diag_args(re, im, terms, angles, base):
+    nq = _gate_planes(re, im)
+    prof = _profile(terms, angles, base)
+    _check_terms(nq, (prof,))
+    return nq, prof
+
+
+def apply_diagonal_profile_reference(re, im, terms, angles, base=0.0):
+    """Plain PyTorch version of :func:`apply_diagonal_profile`, any device:
+    the angle summed in float64 at every state id."""
+    nq, prof = _diag_args(re, im, terms, angles, base)
+    x = torch.arange(1 << nq, dtype=torch.int64,
+                     device=re.device).reshape(re.shape)
+    return _rotate(re, im, *_profile_cos_sin(prof, x))
+
+
+def apply_diagonal_profile(re, im, terms, angles, base=0.0):
+    """One pass applying ``e^{i (base + sum_t angles[t] [terms[t] hold])}``,
+    **in place**; returns the planes. ``terms`` is a sequence of condition
+    tuples ``((qubit, wanted bit), ...)``; an empty tuple holds everywhere.
+    At most ``MAX_SANDWICH_TERMS`` terms (the planner emits at most 64)."""
+    if re.device.type == "cpu":
+        return apply_diagonal_profile_reference(re, im, terms, angles, base)
+    nq, prof = _diag_args(re, im, terms, angles, base)
+    table, n_terms = _profile_table((prof,), re.device)
+    _build.launch("qcmrf_diag", re.device, _build.ptr(table), n_terms,
+                  *_launch_ptrs(re, im), (1 << nq) >> 2)
+    LAUNCHES["diag"] += 1
+    return re, im
+
+
+def apply_masked_rotation_reference(re, im, conds, base_angle: float,
+                                    masked_angle: float):
+    """Plain PyTorch version of :func:`apply_masked_rotation`."""
+    return apply_diagonal_profile_reference(re, im, (conds,),
+                                            (masked_angle,), base_angle)
+
+
+def apply_masked_rotation(re, im, conds, base_angle: float,
+                          masked_angle: float):
+    """Phase ``e^{i (base + masked [all conds hold])}``, in place: the
+    diagonal pass at one term."""
+    return apply_diagonal_profile(re, im, (conds,), (masked_angle,),
+                                  base_angle)
+
+
+def _unitary(U, k: int) -> np.ndarray:
+    U = np.asarray(U, dtype=np.complex64)
+    if U.shape != (1 << k, 1 << k):
+        raise ValueError(f"gate of shape {U.shape}, expected "
+                         f"{(1 << k, 1 << k)}")
+    return U
+
+
+def _row_args(re, im, U, q_lo: int, k: int):
+    nq = _gate_planes(re, im)
+    if q_lo < 7 or q_lo + k > nq:
+        raise ValueError(f"row qubits {q_lo}..{q_lo + k - 1}: a row pass "
+                         f"takes qubits 7..{nq - 1}")
+    return nq, _unitary(U, k)
+
+
+def _row_gate_reference(re, im, U, q_lo: int, k: int):
+    S = 1 << q_lo
+    v = torch.complex(re.reshape(-1, 1 << k, S), im.reshape(-1, 1 << k, S))
+    out = torch.einsum("oj,hjs->hos", torch.from_numpy(U).to(re.device), v)
+    re.copy_(out.real.reshape(re.shape))
+    im.copy_(out.imag.reshape(im.shape))
+    return re, im
+
+
+def _row_gate(re, im, U, q_lo: int, k: int):
+    nq, U = _row_args(re, im, U, q_lo, k)
+    if re.device.type == "cpu":
+        return _row_gate_reference(re, im, U, q_lo, k)
+    m = _build.GateMatrix()
+    flat = U.reshape(-1)
+    m.re[:flat.size] = flat.real.tolist()
+    m.im[:flat.size] = flat.imag.tolist()
+    _build.launch("qcmrf_row_gate", re.device, m, k, *_launch_ptrs(re, im),
+                  (1 << nq) >> (k + 2), q_lo)
+    LAUNCHES["row_gate"] += 1
+    return re, im
+
+
+def _lane_args(re, im, M):
+    nq = _gate_planes(re, im)
+    return nq, _unitary(M, 7)
+
+
+def apply_lane_reference(re, im, M):
+    """Plain PyTorch version of :func:`apply_lane`, any device: the four
+    real float32 products of the JAX kernel."""
+    _, M = _lane_args(re, im, M)
+    mr = torch.from_numpy(np.ascontiguousarray(M.real)).to(re.device)
+    mi = torch.from_numpy(np.ascontiguousarray(M.imag)).to(re.device)
+    r, i = re.reshape(-1, 128), im.reshape(-1, 128)
+    out_re = r @ mr.T - i @ mi.T
+    im.copy_((r @ mi.T + i @ mr.T).reshape(im.shape))
+    re.copy_(out_re.reshape(re.shape))
+    return re, im
+
+
+def apply_lane(re, im, M):
+    """``out = state · Mᵀ`` on every 128-value row (qubits 0-6), M a
+    complex 128x128 matrix, **in place**; returns the planes. On the card:
+    ``lane_kernel`` in float32 FMAs."""
+    nq, M = _lane_args(re, im, M)
+    if re.device.type == "cpu":
+        return apply_lane_reference(re, im, M)
+    mt = _device_bytes(np.ascontiguousarray(M.T.real).tobytes()
+                       + np.ascontiguousarray(M.T.imag).tobytes(), re.device)
+    _build.launch("qcmrf_lane", re.device, _build.ptr(mt),
+                  *_launch_ptrs(re, im), (1 << nq) >> 7)
+    LAUNCHES["lane"] += 1
+    return re, im
+
+
+def apply_1q_reference(re, im, U, q: int, n: int = None):
+    """Plain PyTorch version of :func:`apply_1q`."""
+    nq = _gate_planes(re, im)
+    if n is not None and n != nq:
+        raise ValueError(f"planes of {nq} qubits, not {n}")
+    if 0 <= q < 7:
+        return apply_lane_reference(re, im, _lane_gate_matrix(
+            _unitary(U, 1), q))
+    _, U = _row_args(re, im, U, q, 1)
+    return _row_gate_reference(re, im, U, q, 1)
+
+
+def apply_1q(re, im, U, q: int, n: int = None):
+    """Apply a 2x2 unitary to qubit ``q``, in place; returns the planes.
+    A lane qubit (q < 7) goes through :func:`apply_lane` with the gate
+    embedded in 128x128, a row qubit through ``row_gate_kernel<1>``.
+    ``n``, when given, must be the planes' qubit count."""
+    nq = _gate_planes(re, im)
+    if n is not None and n != nq:
+        raise ValueError(f"planes of {nq} qubits, not {n}")
+    if 0 <= q < 7:
+        return apply_lane(re, im, _lane_gate_matrix(_unitary(U, 1), q))
+    return _row_gate(re, im, U, q, 1)
+
+
+def apply_2q_row_pair_reference(re, im, U4, q_lo: int):
+    """Plain PyTorch version of :func:`apply_2q_row_pair`."""
+    _, U4 = _row_args(re, im, U4, q_lo, 2)
+    return _row_gate_reference(re, im, U4, q_lo, 2)
+
+
+def apply_2q_row_pair(re, im, U4, q_lo: int):
+    """Apply a 4x4 unitary to the adjacent row qubits ``(q_lo, q_lo + 1)``,
+    both >= 7, in place; the matrix index is ``bit(q_lo + 1) * 2 +
+    bit(q_lo)`` (``row_gate_kernel<2>``)."""
+    return _row_gate(re, im, U4, q_lo, 2)
+
+
+def _copy_args(re, im, out):
+    nq = _gate_planes(re, im)
+    if plane_qubits(*out) != nq or out[0].device != re.device:
+        raise ValueError("output planes differ from the input planes in "
+                         "size or device")
+    return nq
+
+
+def copy_planes_reference(re, im, out):
+    """Plain PyTorch version of :func:`copy_planes`."""
+    _copy_args(re, im, out)
+    out[0].copy_(re)
+    out[1].copy_(im)
+    return out
+
+
+def copy_planes(re, im, out):
+    """Copy both planes into ``out`` (a pair of planes): the bytes of a
+    read-write gate pass and no arithmetic (``copy_kernel``); returns
+    ``out``."""
+    nq = _copy_args(re, im, out)
+    if re.device.type == "cpu":
+        return copy_planes_reference(re, im, out)
+    _build.launch("qcmrf_copy", re.device, *_launch_ptrs(re, im, *out),
+                  (1 << nq) >> 2)
+    LAUNCHES["copy"] += 1
+    return out

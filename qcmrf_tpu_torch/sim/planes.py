@@ -12,16 +12,21 @@ of the flat index. A circuit runs as a stream of fused passes:
   :func:`fuse_ops` folds the leading Hadamard wall into a closed-form
   ``init_uniform`` or into a write-only first sandwich group
   (``sandwichku``);
-* **executor** :func:`apply_ops`: ``init_uniform`` is plain PyTorch; the
-  sandwich passes go to the CUDA kernels of
-  :mod:`qcmrf_tpu_torch.ops.kernels` (their plain versions on the CPU),
-  updating the planes in place. ``diag``, ``lane``, ``rowq`` and ``row2``
-  come with slice 2b of ROADMAP.md and raise until then.
+* **executor** :func:`apply_ops`: ``init_uniform`` is plain PyTorch; every
+  other pass goes to a CUDA kernel of :mod:`qcmrf_tpu_torch.ops.kernels`
+  (its plain version on the CPU), updating the planes in place: the
+  sandwich passes, ``diag`` (the diagonal profile), ``lane`` (the 128x128
+  product on qubits 0-6), ``rowq`` and ``row2`` (the row gates).
+
+:func:`apply_gate` is the unfused path, one gate at a time (``cx`` as
+``H_t · cp(pi) · H_t``, every diagonal gate a masked rotation): the oracle
+of the fused stream.
 
 A QCMRF circuit whose ancillas all sit at qubit 7 or above (``n >= 6``)
 fuses into sandwich passes only: at 32 qubits, one write-only and two
-read-write passes over 32 GiB of planes. Requires ``Q >= 7``; measurements
-are deferred as in the dense engine.
+read-write passes over 32 GiB of planes. A lowered circuit (the ``[cx, id,
+rz, sx, x]`` basis) runs through all five kinds of pass. Requires ``Q >=
+7``; measurements are deferred as in the dense engine.
 """
 
 from __future__ import annotations
@@ -36,9 +41,6 @@ from qcmrf_tpu_torch.circuits.ir import Circuit, Gate
 from qcmrf_tpu_torch.ops import kernels as K
 from qcmrf_tpu_torch.sim.dense import GATES_1Q
 from qcmrf_tpu_torch.utils.config import resolve_device
-
-_ROW_GATE_SLICE = ("slice 2b of ROADMAP.md (the lane, row, row-pair, "
-                   "masked-rotation and diagonal-profile kernels, rows 8-12)")
 
 
 def zero_planes(num_qubits: int,
@@ -68,6 +70,23 @@ def _diag_conds_and_angles(g: Gate):
             conds.append((q, (f + 1) // 2))
         return tuple(conds), 0.0, g.params[0]
     raise ValueError(f"not diagonal: {g.name}")
+
+
+def apply_gate(re, im, g: Gate, num_qubits: int):
+    """One gate on the planes, in place, without fusion; returns them."""
+    if g.name in ("barrier", "measure", "id"):
+        return re, im
+    if g.name in ("h", "x", "sx", "sxdg"):
+        return K.apply_1q(re, im, GATES_1Q[g.name], g.qubits[0], num_qubits)
+    if g.name in ("rz", "cp", "flags_phase"):
+        conds, base, masked = _diag_conds_and_angles(g)
+        return K.apply_masked_rotation(re, im, conds, base, masked)
+    if g.name == "cx":
+        c, t = g.qubits
+        K.apply_1q(re, im, GATES_1Q["h"], t, num_qubits)
+        K.apply_masked_rotation(re, im, ((c, 1), (t, 1)), 0.0, math.pi)
+        return K.apply_1q(re, im, GATES_1Q["h"], t, num_qubits)
+    raise ValueError(f"unsupported gate {g.name}")
 
 
 _MAX_DIAG_TERMS = 64  # cap per fused diagonal pass
@@ -390,10 +409,17 @@ def apply_ops(re, im, ops, num_qubits: int):
             K.apply_hdh_sandwich_multi_uniform(
                 num_qubits, folded, a, nts, nas, nbs, mt, ma, mb,
                 out=(re, im))
-        elif kind in ("diag", "lane", "rowq", "row2"):
-            raise NotImplementedError(
-                f"the {kind!r} pass comes to the port with "
-                f"{_ROW_GATE_SLICE}")
+        elif kind == "diag":
+            _, terms, angles, base = op
+            K.apply_diagonal_profile(re, im, terms, angles, base)
+        elif kind == "lane":
+            K.apply_lane(re, im, op[1])
+        elif kind == "rowq":
+            _, U, q = op
+            K.apply_1q(re, im, U, q, num_qubits)
+        elif kind == "row2":
+            _, U4, q_lo = op
+            K.apply_2q_row_pair(re, im, U4, q_lo)
         else:
             raise ValueError(f"unknown op {kind!r}")
     return re, im

@@ -158,12 +158,24 @@ def test_qcmrf_facade_matches():
 
 
 def test_unported_facade_methods_name_their_slice():
+    """The facade methods that once raised now return what JAX's do: the
+    lowered gate list (params within 1e-12, global phase), and the
+    operators' Z-string terms."""
     q = compiler.QCMRF.build([[0, 1]], theta=[-1.0] * 4)
-    for call in (q.lowered, q.Hamiltonian,
-                 lambda: q.sufficient_statistic([0, 1], [0, 1]),
-                 lambda: q._conjugate_blocks(np.eye(2))):
-        with pytest.raises(NotImplementedError, match="slice 2b"):
-            call()
+    jq = jcompiler.QCMRF.build([[0, 1]], theta=[-1.0] * 4)
+    for style in ("fused", "literal"):
+        got, want = q.lowered(style), jq.lowered(style)
+        assert_same_gates(got, want)
+        assert abs(got.global_phase - want.global_phase) <= 1e-12
+    for got, want in ((q.Hamiltonian(), jq.Hamiltonian()),
+                      (q.sufficient_statistic([0, 1], [0, 1]),
+                       jq.sufficient_statistic([0, 1], [0, 1])),
+                      (q._conjugate_blocks(q.Hamiltonian()),
+                       jq._conjugate_blocks(jq.Hamiltonian()))):
+        assert got.n == want.n
+        assert [m for m, _ in got.terms] == [m for m, _ in want.terms]
+        np.testing.assert_allclose([c for _, c in got.terms],
+                                   [c for _, c in want.terms], atol=1e-12)
 
 
 def random_circuit(nq, depth, seed):

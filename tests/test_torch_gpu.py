@@ -337,3 +337,104 @@ def test_infer_k16_streaming_matches_elimination(dev, tmp_path, monkeypatch):
         if "marginals" in w:
             np.testing.assert_allclose(g["marginals"], w["marginals"],
                                        rtol=0, atol=1e-5)
+
+
+def unit_planes(nq, seed, dev):
+    re, im = rand_planes(nq, seed, dev)
+    scale = float(torch.sqrt((re * re).sum() + (im * im).sum()))
+    return re / scale, im / scale
+
+
+def random_terms(rng, count, nq):
+    return tuple(tuple((int(p), int(rng.randint(2))) for p in rng.choice(
+        nq, rng.randint(0, 4), replace=False)) for _ in range(count))
+
+
+def test_gate_kernels_match_plain_versions(dev):
+    """diag (1, 12 and 64 terms, an empty term, conditions on bit 23), the
+    masked rotation, rowq at q = 7, 15, 23, row2 at q_lo = 7, 22, the lane
+    op (embedded H, the 7-H wall, a random M) and the copy, each against
+    its plain version at width 24 on unit-norm planes, within 1e-5."""
+    nq = 24
+    rng = np.random.RandomState(24)
+    H = dense.GATES_1Q["h"]
+    wall = np.eye(128, dtype=np.complex64)
+    for q in range(7):
+        wall = kernels._lane_gate_matrix(np.asarray(H, np.complex64),
+                                         q) @ wall
+    U = (rng.randn(2, 2) + 1j * rng.randn(2, 2)).astype(np.complex64)
+    U4 = (rng.randn(4, 4) + 1j * rng.randn(4, 4)).astype(np.complex64)
+    M = ((rng.randn(128, 128) + 1j * rng.randn(128, 128)) / 16).astype(
+        np.complex64)
+    cases = []
+    special = (((23, 1), (4, 0)), ())  # the top bit; no condition
+    for count in (1, 12, 64):
+        terms = special[:1] if count == 1 else (
+            random_terms(rng, count - 2, nq) + special)
+        angles = tuple(rng.uniform(-np.pi, np.pi, count))
+        cases.append(("diag", kernels.apply_diagonal_profile,
+                      kernels.apply_diagonal_profile_reference,
+                      (terms, angles, 0.3)))
+    cases.append(("diag", kernels.apply_masked_rotation,
+                  kernels.apply_masked_rotation_reference,
+                  (((23, 1), (7, 0)), -0.2, 1.3)))
+    for q in (7, 15, 23):
+        cases.append(("row_gate", kernels.apply_1q,
+                      kernels.apply_1q_reference, (U, q, nq)))
+    for q_lo in (7, 22):
+        cases.append(("row_gate", kernels.apply_2q_row_pair,
+                      kernels.apply_2q_row_pair_reference, (U4, q_lo)))
+    for lane_op in (kernels._lane_gate_matrix(np.asarray(H, np.complex64),
+                                              3), wall, M):
+        cases.append(("lane", kernels.apply_lane,
+                      kernels.apply_lane_reference, (lane_op,)))
+    for name, fn, plain, args in cases:
+        before = kernels.LAUNCHES[name]
+        got = fn(*unit_planes(nq, 2, dev), *args)
+        assert kernels.LAUNCHES[name] == before + 1, name
+        want = plain(*unit_planes(nq, 2, dev), *args)
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    # width 8: two rows, a partial tile of the lane kernel
+    for fn, plain, args in ((kernels.apply_lane, kernels.apply_lane_reference,
+                             (M,)),
+                            (kernels.apply_1q, kernels.apply_1q_reference,
+                             (U, 7, 8)),
+                            (kernels.apply_diagonal_profile,
+                             kernels.apply_diagonal_profile_reference,
+                             ((((7, 1),), ((0, 0), (5, 1))), (0.4, -1.1)))):
+        torch.testing.assert_close(fn(*unit_planes(8, 5, dev), *args),
+                                   plain(*unit_planes(8, 5, dev), *args),
+                                   rtol=0, atol=1e-5)
+    src = unit_planes(nq, 3, dev)
+    out = (torch.empty_like(src[0]), torch.empty_like(src[1]))
+    before = kernels.LAUNCHES["copy"]
+    assert kernels.copy_planes(*src, out=out) is out
+    assert kernels.LAUNCHES["copy"] == before + 1
+    assert torch.equal(out[0], src[0]) and torch.equal(out[1], src[1])
+
+
+def test_lowered_chain_matches_unlowered_on_card(dev):
+    """bench.py's chain at width 20, lowered (fused style): every pass
+    kind, one launch per op of its kind, the full state (global phase
+    included) within 1e-4 in 2-norm of the unlowered chain's."""
+    from qcmrf_tpu_torch.circuits.compiler import QCMRF
+
+    theta = -np.abs(np.random.RandomState(0).randn(36)) * 0.3
+    q = QCMRF.build([[i, i + 1] for i in range(9)], theta=theta,
+                    with_measurements=False)
+    low = q.lowered()
+    kinds = {}
+    for op in planes.fuse_ops(low):
+        kinds[op[0]] = kinds.get(op[0], 0) + 1
+    before = dict(kernels.LAUNCHES)
+    re, im = planes.run_statevector(low, device=dev)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["lane"] - before["lane"] == kinds["lane"]
+    assert kernels.LAUNCHES["diag"] - before["diag"] == kinds["diag"]
+    assert (kernels.LAUNCHES["row_gate"] - before["row_gate"]
+            == kinds["rowq"] + kinds.get("row2", 0))
+    assert (kernels.LAUNCHES["hdh_multi"] - before["hdh_multi"]
+            == kinds["sandwich"])
+    want = torch.complex(*planes.run_statevector(q.circuit, device=dev))
+    diff = torch.complex(re, im) - want
+    assert float(torch.linalg.vector_norm(diff.reshape(-1))) <= 1e-4

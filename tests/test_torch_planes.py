@@ -285,14 +285,29 @@ def test_outcome_probs_marginalise_like_dense():
 
 
 def test_unported_passes_raise():
-    _, c = circuits([[0, 1], [1, 2], [2, 3], [3, 4]], 2)  # width 10
-    with pytest.raises(NotImplementedError, match="slice 2b"):
-        planes.run_statevector(c, device="cpu")
-    for op in (("diag", ((((0, 1),),)), (0.1,), 0.0),
-               ("lane", np.eye(128)), ("rowq", np.eye(2), 8),
-               ("row2", np.eye(4), 7)):
-        with pytest.raises(NotImplementedError, match="slice 2b"):
-            planes.apply_ops(*planes.zero_planes(9, "cpu"), [op], 9)
+    """The passes that once raised (diag, lane, rowq, row2) now run: the
+    width-10 circuit whose a=6 block stays unfused matches the JAX plane
+    engine and the dense engine, and each pass alone matches the JAX
+    executor's within 1e-5. Planes below 7 qubits still raise."""
+    jc, c = circuits([[0, 1], [1, 2], [2, 3], [3, 4]], 2)  # width 10
+    got = planes.simulate_probs(c, device="cpu").numpy()
+    np.testing.assert_allclose(got, np.asarray(jtpu.simulate_probs(jc)),
+                               atol=1e-5)
+    np.testing.assert_allclose(got, np.asarray(jdense.simulate_probs(jc)),
+                               atol=1e-5)
+    rng = np.random.RandomState(3)
+    U4 = (rng.randn(4, 4) + 1j * rng.randn(4, 4)).astype(np.complex64) / 3
+    M = ((rng.randn(128, 128) + 1j * rng.randn(128, 128)) / 16).astype(
+        np.complex64)
+    for op in (("diag", (((0, 1),), ((8, 0), (2, 1)), ()), (0.1, -0.7, 0.3),
+                0.2),
+               ("lane", M), ("rowq", U4[:2, :2], 8), ("row2", U4, 7)):
+        re, im = planes_pair(9, 4)
+        want = jtpu._apply_ops(*jax_planes(re, im), [op], 9)
+        pr, pi = port_planes(re, im)
+        assert planes.apply_ops(pr, pi, [op], 9)[0] is pr
+        np.testing.assert_allclose(to_complex(pr, pi), to_complex(*want),
+                                   atol=1e-5, err_msg=op[0])
     with pytest.raises(ValueError, match=">= 7"):
         planes.run_statevector(Circuit(3), device="cpu")
 

@@ -116,6 +116,17 @@ def test_gpu_platform_raises_without_cuda(platform, tmp_path):
     assert not (tmp_path / "models_0.1.json").exists()
 
 
+@pytest.mark.parametrize("case", ["sandwich24", "lowered28"])
+def test_host_ab_needs_the_card(case, capsys):
+    """The A/B timing script exits 1, printing no result, without CUDA."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from qcmrf_tpu_torch.runners import host_ab
+
+    assert host_ab.main([case]) == 1
+    assert capsys.readouterr().out == ""
+
+
 def _chain12():
     from qcmrf_tpu_torch.circuits.compiler import compile_qcmrf
     from qcmrf_tpu_torch.models.mrf import MRF
@@ -126,11 +137,16 @@ def _chain12():
 
 
 def _default_device_calls():
+    from qcmrf_tpu_torch.models import pauli
     from qcmrf_tpu_torch.models.mrf import MRF, chain_mrf, grid_mrf
     from qcmrf_tpu_torch.ops import kernels
+    from qcmrf_tpu_torch.runners import bench
     from qcmrf_tpu_torch.sim import batch, dense, planes
 
     return {
+        "bench.copy_kernel_gbps": lambda: bench.copy_kernel_gbps(12),
+        "bench.gate_apply_gbps": lambda: bench.gate_apply_gbps(12),
+        "PauliSum.diagonal": lambda: pauli.z_on(3, 1).diagonal(),
         "MRF.create": lambda: MRF.create([[0, 1]], theta=[-0.1] * 4).theta,
         "MRF.from_numpy": lambda: MRF.from_numpy(
             [[0, 1]], np.full(4, -0.1)).theta,
