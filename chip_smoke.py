@@ -25,7 +25,14 @@ kernels' launch counters reset just before it and read just after:
   chain's state, global phase included; the unfused per-gate path and
   random circuits over the whole gate set are held against the fused
   stream and the dense engine at 20 qubits;
-* the copy and gate-pass rates at 28 qubits (``runners/bench.py``).
+* ``train`` fits bench.py's K27 model for 5 steps through ``train_cli``
+  on 20 000 ids drawn by ``sample_exact`` on the card, every gradient
+  through the fused lnZ + moments kernel (one launch a step, each loss
+  held against lnZ of the lse kernel); the K27 step is timed beside the
+  lse + moments sweeps it replaces, the gradient held against the two
+  sweeps' moments, and the table and elimination routes driven too;
+* the copy and gate-pass rates at 28 qubits and the float32 FMA peak
+  (``runners/bench.py``).
 
 Every failed check raises, so the exit code is non-zero. The
 second-to-last line is a JSON object with one entry per kernel (its time,
@@ -751,12 +758,12 @@ def tie_chain(n: int, dev):
 
 def infer_kernel_args(mrf):
     """(cliques, n, coef, beta, lnz, masks) of the two sweeps."""
-    from qcmrf_tpu_torch.models import moments
+    from qcmrf_tpu_torch.utils import moebius
     from qcmrf_tpu_torch.ops import kernels
 
     coef = kernels.moebius_coefficients(mrf)[None]
     lnz = kernels.log_partition(mrf).reshape(1)
-    masks = torch.from_numpy(moments._monomial_masks(mrf.cliques, mrf.n)).to(
+    masks = torch.from_numpy(moebius.monomial_masks(mrf.cliques, mrf.n)).to(
         mrf.device)
     return mrf.cliques, mrf.n, coef, mrf.beta, lnz, masks
 
@@ -855,7 +862,7 @@ def phase_infer(dev, report) -> dict:
     import contextlib
     import io
 
-    from qcmrf_tpu_torch.models import moments
+    from qcmrf_tpu_torch.utils import moebius
     from qcmrf_tpu_torch.models.mrf import MRF
     from qcmrf_tpu_torch.ops import kernels
     from qcmrf_tpu_torch.runners import infer_cli
@@ -928,7 +935,7 @@ def phase_infer(dev, report) -> dict:
     for k, e in check_map_and_moments(mrf, "K27", times).items():
         err[k] = max(err[k], e)
     cl = mrf.cliques
-    m = moments._monomial_layout(cl).m
+    m = moebius.monomial_layout(cl).m
     parts = kernels.lse_geometry(1 << n)[0]
     # per state: the chains and beta; then a compare (map), or the exp of
     # lp - lnZ and a mask test and an add per monomial (moments). Bytes:
@@ -1077,6 +1084,265 @@ def phase_chain32(dev) -> None:
                                      f"theta^T phi of its bits {host:.6f}")
     require(abs(lnz - lnz_e) <= 1e-4, "chain32: lnZ within 1e-4 of "
                                       "elimination")
+
+
+TRAIN_SAMPLES = 20_000   # the train CLI's default sample count
+TRAIN_STEPS = 5
+
+
+def k27_mu_hat() -> np.ndarray:
+    """bench.py's moment target of ``train_wide_k27_step_ms``: uniform(0.1,
+    0.5) from RandomState(11) after its theta draw."""
+    rs = np.random.RandomState(11)
+    d = 4 * len(complete_cliques(INFER_N))
+    rs.randn(d)
+    return rs.uniform(0.1, 0.5, d)
+
+
+def fused_vs_references(mrf, what: str, plain: bool = True) -> dict:
+    """The lnz_moments kernel on one model against its plain version and
+    against the two sweeps (lse, then moments normalised by it): lnZ
+    within 1e-4 and every monomial moment within 1e-5. Returns the
+    largest differences and the plain version's milliseconds."""
+    from qcmrf_tpu_torch.ops import kernels
+
+    cl, n, coef, beta, lnz2, masks = infer_kernel_args(mrf)
+    lnz, mono = kernels.combine_lnz_moments(
+        *kernels.lnz_moments_partials(cl, n, coef, beta, masks))
+    mono2 = kernels.monomial_moments(cl, n, coef, beta, lnz2, masks)
+    out = dict(lnz=abs(float(lnz[0]) - float(lnz2[0])),
+               moments=float((mono - mono2).abs().max()), plain_ms=None)
+    require(out["lnz"] <= 1e-4 and out["moments"] <= 1e-5,
+            f"{what}: lnz_moments kernel == lse + moments kernels (lnZ "
+            f"{out['lnz']:.2e}, moments {out['moments']:.2e}; 1e-4, 1e-5)")
+    if plain:
+        (pm, ps), out["plain_ms"] = timed_once(
+            lambda: kernels.lnz_moments_partials_reference(cl, n, coef, beta,
+                                                           masks))
+        plnz, pmono = kernels.combine_lnz_moments(pm, ps)
+        e_lnz = abs(float(lnz[0]) - float(plnz[0]))
+        e_mom = float((mono - pmono).abs().max())
+        require(e_lnz <= 1e-4 and e_mom <= 1e-5,
+                f"{what}: lnz_moments kernel == plain version (lnZ "
+                f"{e_lnz:.2e}, moments {e_mom:.2e} over {masks.numel()} "
+                "monomials; 1e-4, 1e-5)")
+        out["lnz"] = max(out["lnz"], e_lnz)
+        out["moments"] = max(out["moments"], e_mom)
+        del pm, ps
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_train_cli(argv, record=False):
+    """``train_cli.main(argv)`` on the card with the launch counts reset
+    just before and read just after: ``(fitted doc, launches, seconds,
+    steps)``. With ``record``, ``steps`` lists each exact step's theta
+    before the update, its loss and its launches (the step function is
+    wrapped; the CLI is not changed)."""
+    import contextlib
+    import io
+
+    from qcmrf_tpu_torch.models import train as mtrain
+    from qcmrf_tpu_torch.runners import train_cli
+
+    steps = []
+    orig = mtrain.make_train_step
+
+    def recording(template, optimizer, nonpositive=True):
+        step = orig(template, optimizer, nonpositive)
+        raw = optimizer.param_groups[0]["params"][0]
+
+        def wrapped(batch):
+            theta = mtrain._to_theta(raw, nonpositive).detach().clone()
+            before = read_counts()
+            loss = float(step(batch))
+            after = read_counts()
+            steps.append(dict(theta=theta, loss=loss, launches={
+                k: after[k] - before[k] for k in after}))
+            return loss
+
+        return wrapped
+
+    if record:
+        mtrain.make_train_step = recording
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            out = train_cli.main(argv + ["--platform", "gpu"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_counts()
+    finally:
+        mtrain.make_train_step = orig
+    with open(out) as f:
+        return json.load(f), launches, seconds, steps
+
+
+def phase_train(dev, report) -> dict:
+    """Exact-MLE training on bench.py's K27 complete graph (width 27 > 25:
+    every gradient goes through the fused lnz_moments kernel): data from
+    ``sample_exact`` on the card, ``train_cli.main`` for 5 steps, each
+    step's loss held against lnZ of the lse kernel; the K27 step timed
+    (``train_wide_k27_step_ms``) beside the two sweeps it replaces; the
+    kernel against its plain version and the two-sweep kernels at K27 and
+    n = 20; the NLL's gradient against beta (mu - mu_hat) of the two
+    sweeps; the table and elimination routes of the CLI, and the
+    enumeration route of make_lnz_fn. Returns the launch counts of the
+    K27 CLI run."""
+    from qcmrf_tpu_torch.evaluation.estimators import (
+        clique_marginals_from_samples)
+    from qcmrf_tpu_torch.models import moments, sample
+    from qcmrf_tpu_torch.models import train as mtrain
+    from qcmrf_tpu_torch.models.mrf import MRF
+    from qcmrf_tpu_torch.ops import kernels
+    from qcmrf_tpu_torch.utils import moebius
+
+    n = INFER_N
+    cliques = complete_cliques(n)
+    mrf = MRF.create(cliques, theta=k27_theta(), device=dev)
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "chiprun_out", "train_k27")
+    os.makedirs(out_dir, exist_ok=True)
+    graph = os.path.join(out_dir, "k27.json")
+    with open(graph, "w") as f:
+        json.dump(cliques, f)
+
+    print("[train] K27 (bench.py's wide model): exact MLE through the fused "
+          "lnz_moments kernel")
+    x, sample_ms = timed_once(lambda: sample.sample_exact(11, mrf,
+                                                          TRAIN_SAMPLES))
+    require(x.shape == (TRAIN_SAMPLES,) and int(x.min()) >= 0
+            and int(x.max()) < 1 << n,
+            f"sample_exact: {TRAIN_SAMPLES} K27 state ids in [0, 2^27) on "
+            f"the card, {sample_ms:.1f} ms (two-stage draw)")
+    data = os.path.join(out_dir, "data.json")
+    with open(data, "w") as f:
+        json.dump(x.cpu().tolist(), f)
+    mu_data = clique_marginals_from_samples(mrf, x)
+    mu = moments.clique_moments_streaming(mrf).double()
+    gap = float((mu_data - mu).abs().max())
+    require(gap <= 0.02, f"the samples' clique marginals within 0.02 of the "
+                         f"exact ones ({gap:.4f}; 20 000 draws)")
+
+    m_mono = moebius.monomial_layout(mrf.cliques).m
+    per_launch = kernels.moments_per_launch(
+        len(cliques), 2, reserve=kernels._LNZ_STATIC_BYTES)
+    print(f"  K27: {m_mono} monomials, moments_per_launch {per_launch}")
+    doc, launches, seconds, steps = run_train_cli(
+        ["--graph", graph, "--data", data, "--steps", str(TRAIN_STEPS),
+         "--checkpoint-every", str(TRAIN_STEPS),
+         "--outdir", os.path.join(out_dir, "cli")], record=True)
+    print(f"  train_cli K27, {TRAIN_STEPS} steps: {seconds:.3f} s; launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    require(len(steps) == TRAIN_STEPS, f"{TRAIN_STEPS} steps recorded")
+    for i, s in enumerate(steps):
+        lm = s["launches"]
+        require(lm["lnz_moments"] == 1 and lm["lse"] == 0
+                and lm["moments"] == 0,
+                f"step {i + 1}: lnz_moments launched once, lse and moments "
+                "never")
+        lnz = float(kernels.log_partition(mrf.with_theta(s["theta"])))
+        want = lnz - float(mrf.beta * (s["theta"].double() * mu_data).sum())
+        require(abs(s["loss"] - want) <= 1e-4,
+                f"step {i + 1}: loss {s['loss']:.6f} == lnZ (lse kernel) - "
+                f"beta theta^T mu_hat = {want:.6f} (1e-4)")
+    require(doc["final_nll"] == steps[-1]["loss"]
+            and len(doc["theta"]) == mrf.dimension
+            and os.path.isdir(os.path.join(out_dir, "cli", "ckpt",
+                                           str(TRAIN_STEPS))),
+            "fitted_model.json holds the last step's loss and 1404 thetas; "
+            f"ckpt/{TRAIN_STEPS} written")
+
+    # the K27 step in bench.py's meaning, and the two sweeps it replaces
+    raw = mtrain._from_theta(mrf.theta, True).requires_grad_()
+    step = mtrain.make_moment_train_step(mrf, mtrain.adam([raw], 5e-2),
+                                         k27_mu_hat())
+    before = kernels.LAUNCHES["lnz_moments"]
+    step_ms = cuda_ms(step, reps=5)
+    require(kernels.LAUNCHES["lnz_moments"] - before == 6,
+            "make_moment_train_step: one lnz_moments launch a step")
+    args = infer_kernel_args(mrf)
+    cl, _, coef, beta, _, masks = args
+    two_ms = cuda_ms(lambda: kernels.monomial_moments(
+        cl, n, coef, beta, kernels.combine_lse(*kernels.lse_partials(
+            cl, n, coef, beta)).float(), masks), reps=5)
+    fused_ms = cuda_ms(lambda: kernels.lnz_moments_partials(
+        cl, n, coef, beta, masks), reps=5)
+    print(f"  train_wide_k27_step_ms {step_ms:.3f}; lnz_moments kernel "
+          f"{fused_ms:.3f} ms; lse + moments kernels {two_ms:.3f} ms")
+
+    err = fused_vs_references(mrf, "K27")
+    plain_ms = err["plain_ms"]
+    for what, m in (("K20", seeded_model(complete_cliques(20), 20, 0.05,
+                                         dev)),
+                    ("3/4/5-variable ring n=20",
+                     seeded_model(mixed_cliques(20), 5, 0.3, dev))):
+        e = fused_vs_references(m, what)
+        err = {k: max(err[k], e[k]) for k in ("lnz", "moments")}
+
+    # the NLL's gradient on the card: the fused sweep as the backward
+    theta = mrf.theta.clone().requires_grad_()
+    (grad,) = torch.autograd.grad(mrf.with_theta(theta).nll(x), theta)
+    want = (mrf.beta * (mu - mu_data)).float()
+    g_err = float((grad - want).abs().max())
+    require(g_err <= 1e-5, f"K27: autograd.grad of MRF.nll == beta (mu - "
+                           f"mu_hat) of the two sweeps within 1e-5 "
+                           f"({g_err:.2e})")
+
+    # the other routes: the table (n = 20, _nll's enumeration branch and
+    # make_lnz_fn's), and elimination on bit-array data (a 32-chain)
+    grid = grid_model(4, 5, 0, dev)
+    ids = os.path.join(out_dir, "grid20.json")
+    with open(ids, "w") as f:
+        json.dump(sample.sample_exact(5, grid, TRAIN_SAMPLES).cpu().tolist(),
+                  f)
+    gdoc, glaunch, gsec, _ = run_train_cli(
+        ["--graph", "grid:4x5", "--data", ids, "--steps", "3",
+         "--outdir", os.path.join(out_dir, "grid")])
+    require(glaunch["lnz_moments"] == 3 and math.isfinite(gdoc["final_nll"]),
+            f"table route (grid 4x5, n=20): 3 steps, 3 lnz_moments launches, "
+            f"final nll {gdoc['final_nll']:.4f} ({gsec:.2f} s)")
+    gtheta = grid.theta.clone().requires_grad_()
+    (g,) = torch.autograd.grad(mtrain.make_lnz_fn(grid)(gtheta), gtheta)
+    e = float((g - grid.beta * moments.clique_moments_streaming(grid)).abs()
+              .max())
+    require(e <= 1e-5, f"make_lnz_fn enumeration route (n=20): gradient == "
+                       f"beta mu of the two sweeps ({e:.2e})")
+    bits = (np.random.RandomState(32).rand(4096, 32) < 0.3).astype(int)
+    bpath = os.path.join(out_dir, "chain32_bits.json")
+    with open(bpath, "w") as f:
+        json.dump(bits.tolist(), f)
+    edoc, elaunch, esec, _ = run_train_cli(
+        ["--graph", "chain:32", "--data", bpath, "--steps", "3",
+         "--outdir", os.path.join(out_dir, "chain32")])
+    require(sum(elaunch.values()) == 0 and math.isfinite(edoc["final_nll"]),
+            f"elimination route (32-chain, bit-array data): 3 steps, no "
+            f"kernel launch, final nll {edoc['final_nll']:.4f} ({esec:.2f} s)")
+
+    # per state: the chains and beta, a max, the exp of v - M, and a mask
+    # test and an add per monomial (moments_kernel's count plus the max);
+    # bytes: the partials written and the masks read
+    parts = kernels.lse_geometry(1 << n)[0]
+    b = bound(4 * parts * (m_mono + 1) + 8 * m_mono,
+              (chain_flops(cliques) + 4 + 2 * m_mono) << n)
+    print(f"  lnz_moments: kernel {fused_ms:.3f} ms, plain {plain_ms:.3f} "
+          f"ms, bound {b['bound_ms']:.3f} ms ({b['bound_by']}) at 2^{n} "
+          f"states, K={len(cliques)}, {m_mono} monomials")
+    report["lnz_moments"] = dict(
+        max_abs_err=max(err["lnz"], err["moments"]),
+        lnz_err=err["lnz"], moments_err=err["moments"], ms=fused_ms,
+        plain_ms=plain_ms, **b,
+        shape=f"K{n} pairwise, 2^{n} states, {m_mono} monomials")
+    report["train"] = dict(
+        train_wide_k27_step_ms=step_ms, two_sweep_ms=two_ms,
+        cli_seconds=seconds, sample_exact_ms=sample_ms,
+        losses=[s["loss"] for s in steps], grad_err=g_err,
+        moments_per_launch=per_launch)
+    del x, mu, mu_data
+    torch.cuda.empty_cache()
+    return launches
 
 
 #: generic gate kernel -> the op kinds of the planner that launch it
@@ -1502,6 +1768,50 @@ def phase_small_circuits(dev) -> None:
     torch.cuda.empty_cache()
 
 
+#: short chains of x -> x * x - 1.5 held value by value against float64
+FMA_CHECK_STEPS = (1, 15, 16)
+FMA_CHECK_TOL = 1e-3
+
+
+def check_fma_chain(K, dev) -> float:
+    """fma_peak_kernel against its plain version on inputs whose result
+    depends on the number of FMAs. x -> x * x - 1.5 is chaotic on [-1.5,
+    0.75]: on 2^20 random x in [-1, 1] a chain of s steps stays within
+    1e-3 of the float64 plain version (float32 rounding grows about 1.6x
+    a step) while s - 1 or s + 1 steps lie O(1) away, which the check
+    asserts of the oracle itself. At the rate run's length the chain on x
+    = 0, b = -1 alternates 0 and -1 exactly, so its parity is checked too.
+    Returns the largest |kernel - float64| of the short chains."""
+    g = torch.Generator(device=dev).manual_seed(18)
+    x = torch.rand(1 << 20, generator=g, device=dev) * 2 - 1
+    out = torch.empty_like(x)
+    oracle = [x.double()]
+    for _ in range(max(FMA_CHECK_STEPS) + 1):
+        oracle.append(oracle[-1] * oracle[-1] - 1.5)
+    worst = 0.0
+    for s in FMA_CHECK_STEPS:
+        top = K.fma_chain_max(x, -1.5, steps=s, out=out)
+        err = float((out.double() - oracle[s]).abs().max())
+        sep = min(float((oracle[s + d] - oracle[s]).abs().max())
+                  for d in (-1, 1))
+        require(err <= FMA_CHECK_TOL < sep / 100 and float(top) == float(
+            out.max()), f"fma_peak kernel, {s} steps of x*x - 1.5: "
+                        f"max |kernel - float64| {err:.2e} (tolerance "
+                        f"{FMA_CHECK_TOL}; a step more or fewer moves "
+                        f"{sep:.2f}), block max {float(top)}")
+        worst = max(worst, err)
+    z = torch.zeros(1 << 20, device=dev)
+    for s, want in ((K.FMA_CHAIN, 0.0), (K.FMA_CHAIN - 1, -1.0)):
+        K.fma_chain_max(z, -1.0, steps=s, out=out)
+        require(bool((out == want).all()),
+                f"fma_peak kernel, {s} steps from 0 at b = -1: "
+                f"all {want}")
+    print(f"  fma_peak: chains of {FMA_CHECK_STEPS} steps within "
+          f"{worst:.2e} of float64; {K.FMA_CHAIN} and {K.FMA_CHAIN - 1} "
+          "steps from 0 at b = -1 give 0 and -1")
+    return worst
+
+
 def phase_rates(dev, report) -> dict:
     """copy_kernel_gbps and gate_apply_gbps at n = 28: the copy kernel's
     path. Returns the launch counts of these chains."""
@@ -1512,13 +1822,16 @@ def phase_rates(dev, report) -> dict:
     reset_counts()
     copy = bench.copy_kernel_gbps(n, dev)
     lane, row = bench.gate_apply_gbps(n, dev)
+    tflops = bench.fma_peak_tflops(dev)
     torch.cuda.synchronize()
     launches = read_counts()
-    require(launches["copy"] > 0, f"kernel copy launched {launches['copy']} "
-                                  "times by copy_kernel_gbps")
+    for k, fn in (("copy", "copy_kernel_gbps"), ("fma_peak",
+                                                 "fma_peak_tflops")):
+        require(launches[k] > 0, f"kernel {k} launched {launches[k]} times "
+                                 f"by {fn}")
     rates = dict(copy_kernel_gbps=copy, gate_lane_gbps=lane,
                  gate_row_gbps=row, gate_row_copy_ratio=row / copy,
-                 gate_lane_copy_ratio=lane / copy)
+                 gate_lane_copy_ratio=lane / copy, fma_peak_tflops=tflops)
     print(f"[rates] n={n}: " + ", ".join(f"{k} {v:.4f}"
                                           for k, v in rates.items()))
     # the copy kernel and its library call at the rates' shape
@@ -1534,6 +1847,28 @@ def phase_rates(dev, report) -> dict:
     report["rates"] = rates
     report["copy_w28"] = dict(ms=ms, library_ms=lib,
                               **bound(16 << n, 0))
+    err = check_fma_chain(K, dev)
+    # the rate run's chain on bench.py's array of ones, and its plain time
+    x = torch.ones(bench.FMA_VALUES, dtype=torch.float32, device=dev)
+    got = float(K.fma_chain_max(x))
+    want, plain_ms = timed_once(lambda: K.fma_chain_max_reference(x))
+    require(got == float(want) == 1.0,
+            f"fma_peak kernel on ones: max {got}, plain {float(want)}")
+    ms = cuda_ms(lambda: K.fma_chain_max(x), reps=10)
+    flops = 2 * K.FMA_CHAIN * bench.FMA_VALUES
+    print(f"  fma_peak: {tflops:.3f} TFLOP/s float32 (data sheet 67); kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.3f} ms for {bench.FMA_VALUES} "
+          f"values")
+    report["fma_peak"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                              tflops=flops / (ms * 1e-3) / 1e12,
+                              **bound(4 * bench.FMA_VALUES, flops),
+                              shape=f"({512 * 512}, 128) float32 ones, "
+                                    f"{K.FMA_CHAIN} FMAs a value",
+                              err_shape=f"2^20 values in [-1, 1], "
+                                        f"{FMA_CHECK_STEPS} steps of "
+                                        "x*x - 1.5 against float64")
+    del x
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -1563,6 +1898,7 @@ REPLACES = {
     "lse": "qcmrf_tpu/ops/kernels.py:514",
     "map": "qcmrf_tpu/ops/kernels.py:570",
     "moments": "qcmrf_tpu/ops/kernels.py:817",
+    "lnz_moments": "qcmrf_tpu/ops/kernels.py:913",
     "hdh_multi": "qcmrf_tpu/ops/kernels.py:1895",
     "hdh_multi_uniform": "qcmrf_tpu/ops/kernels.py:1895",
     "circuit": "qcmrf_tpu/ops/circuit_kernel.py:108",
@@ -1570,6 +1906,7 @@ REPLACES = {
     "row_gate": "qcmrf_tpu/ops/kernels.py:1128",
     "diag": "qcmrf_tpu/ops/kernels.py:1340",
     "copy": "qcmrf_tpu/runners/bench.py:177",
+    "fma_peak": "bench.py:405",
 }
 ALSO_REPLACES = {
     "hdh_multi": ["qcmrf_tpu/ops/kernels.py:1477 (at k=1)",
@@ -1580,12 +1917,13 @@ ALSO_REPLACES = {
 SOURCES = {
     "sampler": "qcmrf_kernels.cu", "logpot": "qcmrf_kernels.cu",
     "lse": "qcmrf_kernels.cu", "map": "qcmrf_kernels.cu",
-    "moments": "qcmrf_kernels.cu",
+    "moments": "qcmrf_kernels.cu", "lnz_moments": "qcmrf_kernels.cu",
     "hdh_multi": "circuit_kernels.cu",
     "hdh_multi_uniform": "circuit_kernels.cu",
     "circuit": "circuit_kernels.cu",
     "lane": "gate_kernels.cu", "row_gate": "gate_kernels.cu",
     "diag": "gate_kernels.cu", "copy": "gate_kernels.cu",
+    "fma_peak": "gate_kernels.cu",
 }
 
 
@@ -1623,9 +1961,10 @@ def sandwich_entry(name, report) -> dict:
 
 
 KERNEL_NAMES = ("sampler_kernel", "logpot_kernel", "lse_kernel",
-                "map_kernel", "moments_kernel", "hdh_multi_kernel",
-                "hdh_multi_uniform_kernel", "circuit_kernel", "diag_kernel",
-                "row_gate_kernel", "lane_kernel", "copy_kernel")
+                "map_kernel", "moments_kernel", "lnz_moments_kernel",
+                "hdh_multi_kernel", "hdh_multi_uniform_kernel",
+                "circuit_kernel", "diag_kernel", "row_gate_kernel",
+                "lane_kernel", "copy_kernel", "fma_peak_kernel")
 
 
 def print_ptxas(path) -> None:
@@ -1678,6 +2017,7 @@ def main() -> int:
     sv = phase_main_path(dev, "statevector", {
         "circuit": 7, "logpot": None, "lse": None})
     infer = phase_infer(dev, report)
+    train = phase_train(dev, report)
     phase_sandwich_kernels(dev, report)
     phase_gate_level(dev, report)
     gate = report["main_gate_level"]
@@ -1698,12 +2038,18 @@ def main() -> int:
     for k in ("map", "moments"):
         kernels_line.append(dict(launches=infer[k], library_ms=None,
                                  **report[k]))
+    # no single PyTorch call computes the fused sweep or the FMA chain
+    kernels_line.append(dict(launches=train["lnz_moments"], library_ms=None,
+                             **report["lnz_moments"]))
     for k in ("lane", "row_gate", "diag"):
         kernels_line.append(gate_entry(k, report, lowered[k]))
     kernels_line.append(gate_entry("copy", report, rates["copy"]))
+    kernels_line.append(dict(launches=rates["fma_peak"], library_ms=None,
+                             **report["fma_peak"]))
     for k, entry in zip(("sampler", "logpot", "lse", "hdh_multi",
                          "hdh_multi_uniform", "circuit", "map", "moments",
-                         "lane", "row_gate", "diag", "copy"), kernels_line):
+                         "lnz_moments", "lane", "row_gate", "diag", "copy",
+                         "fma_peak"), kernels_line):
         entry.update(name=k, route="cuda",
                      source=f"qcmrf_tpu_torch/csrc/{SOURCES[k]}",
                      replaces=REPLACES[k])
@@ -1718,8 +2064,8 @@ def main() -> int:
                      "pass_w32", "infer_k27_batch_s",
                      "infer_k27_query_s", "gate_w24", "lowered", "rates",
                      "copy_w28", "lane_library_ms", "row_gate_library_ms",
-                     "row_library_by_qubit")}), f, indent=1,
-                  default=str)
+                     "row_library_by_qubit", "train", "fma_peak")}), f,
+                  indent=1, default=str)
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(f"[card] {smi}")
     print(json.dumps({"kernels": kernels_line}))

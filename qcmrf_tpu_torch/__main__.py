@@ -4,9 +4,11 @@ Commands:
     run       experiment driver (counts JSON), analytic and statevector engines
     eval      evaluation tables, --mode file
     infer     exact inference queries: lnz, prob, map, mmap, marginals
+    train     exact-MLE training (exact and shot gradients, bit-array
+              data past n = 30, structure learning), with checkpoints
 
-The JAX package's whisker, bench and train commands, and infer's sample
-query, come to the port with later slices of ROADMAP.md.
+The JAX package's whisker and bench commands, and infer's sample query,
+come to the port with later slices of ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -30,6 +32,10 @@ def main(argv=None) -> int:
         m(rest)
     elif cmd == "infer":
         from qcmrf_tpu_torch.runners.infer_cli import main as m
+
+        m(rest)
+    elif cmd == "train":
+        from qcmrf_tpu_torch.runners.train_cli import main as m
 
         m(rest)
     else:

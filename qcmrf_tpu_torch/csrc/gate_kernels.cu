@@ -1,7 +1,8 @@
 // Hand-written Hopper (sm_90a) kernels of the plane engine's generic gate
 // passes: the diagonal profile (also the masked rotation), the 2x2 / 4x4
-// row-qubit gates, the 128x128 lane-qubit product, and the plane copy that
-// normalises the gate passes' rates.
+// row-qubit gates, the 128x128 lane-qubit product, the plane copy that
+// normalises the gate passes' rates, and the float32 FMA chain that
+// normalises the float kernels' rates.
 //
 // Built with the other sources of csrc/ into one library by
 // qcmrf_tpu_torch/ops/_build.py (nvcc -gencode arch=compute_90a,code=sm_90a
@@ -310,6 +311,49 @@ copy_kernel(const float* __restrict__ src_re, const float* __restrict__ src_im,
   }
 }
 
+// ---------------------------------------------------------------------------
+// 5. Float32 FMA peak: the compute rate the float kernels are held against
+// ---------------------------------------------------------------------------
+// Replaces bench.py::main's inner _vpu_kern (1024 chained x * x + b per
+// value of a (512 * 512, 128) float32 array). Each thread runs four
+// independent chains of `steps` x = fmaf(x, x, b) (1024 in the rate run),
+// one per value of a float4, unrolled by 32; the block reduces its chains'
+// final values to one max, written per block, so no chain is dead code.
+// With `out` each chain's final value is written too, so that a short
+// chain can be held value by value against its plain version; the count
+// is a launch argument, so the check and the rate run execute the same
+// loop. Bound on this card: float32 FMAs, 2 * steps operations a value
+// against 4 bytes read.
+__global__ void __launch_bounds__(kThreads)
+fma_peak_kernel(const float* __restrict__ x, float b, int steps,
+                int64_t num_quads, float* __restrict__ block_max,
+                float* __restrict__ out) {
+  __shared__ float warp_max[kThreads / 32];
+  const int64_t q = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
+  float best = __int_as_float(static_cast<int>(0xff800000u));  // -inf
+  if (q < num_quads) {
+    float4 v = load4(x, uint64_t(q) << 2);
+#pragma unroll 32
+    for (int i = 0; i < steps; ++i) {
+      v.x = fmaf(v.x, v.x, b);
+      v.y = fmaf(v.y, v.y, b);
+      v.z = fmaf(v.z, v.z, b);
+      v.w = fmaf(v.w, v.w, b);
+    }
+    if (out != nullptr) store4(out, uint64_t(q) << 2, v);
+    best = fmaxf(fmaxf(v.x, v.y), fmaxf(v.z, v.w));
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    best = fmaxf(best, __shfl_xor_sync(0xffffffffu, best, off));
+  }
+  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = best;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int i = 1; i < kThreads / 32; ++i) best = fmaxf(best, warp_max[i]);
+    block_max[blockIdx.x] = best;
+  }
+}
+
 template <typename Kernel>
 cudaError_t allow_shared(Kernel kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
@@ -373,6 +417,15 @@ int qcmrf_copy(const float* src_re, const float* src_im, float* dst_re,
   copy_kernel<<<grid_blocks(num_groups, kThreads), kThreads, 0,
                 static_cast<cudaStream_t>(stream)>>>(src_re, src_im, dst_re,
                                                      dst_im, num_groups);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int qcmrf_fma_peak(const float* x, float b, int steps, int64_t num_quads,
+                   float* block_max, float* out, void* stream) {
+  const int64_t blocks = (num_quads + kThreads - 1) / kThreads;
+  fma_peak_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      x, b, steps, num_quads, block_max, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,8 +1,9 @@
 // Hand-written Hopper (sm_90a) kernels of the closed-form QCMRF sampling
-// path and of exact inference: the fused outcome sampler, the log-potential
-// table, and the streaming logsumexp, argmax and monomial-moment sweeps. All
-// evaluate a clique's multilinear (Moebius) form with one shared device
-// function, moebius_chain.
+// path, of exact inference and of exact-MLE training: the fused outcome
+// sampler, the log-potential table, the streaming logsumexp, argmax and
+// monomial-moment sweeps, and the fused lnZ + moments sweep. All evaluate a
+// clique's multilinear (Moebius) form with one shared device function,
+// moebius_chain.
 //
 // Built by qcmrf_tpu_torch/ops/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -443,6 +444,96 @@ moments_kernel(const float* __restrict__ coef, const int* __restrict__ shifts,
   for (int g = threadIdx.x; g < m; g += blockDim.x) row[g] = s_acc[g];
 }
 
+// ---------------------------------------------------------------------------
+// 6. Fused lnZ and monomial moments
+// ---------------------------------------------------------------------------
+// Replaces qcmrf_tpu/ops/kernels.py::_build_gram_lse_loop_kernel, the
+// forward sweep of the differentiable lnZ
+// (qcmrf_tpu/models/moments.py::lnz_and_moments_streaming).
+// moments_kernel without a given lnZ: block p sweeps [p * per_block, (p +
+// 1) * per_block) in tiles of kThreads states and carries a running max M
+// of v = beta * lp(x), as lse_kernel does for its one sum. Per tile: each
+// thread evaluates one state's v; the block takes the tile's max (warp
+// shuffles, then one exchange of the warp maxima in shared memory); if it
+// raises M, each thread rescales the sums of the monomials it owns by
+// exp(M_old - M_new) (the raise is strict, so two -inf never meet; on the
+// first tile the factor is exp(-inf) = 0 on sums of 0); then w = exp(v - M)
+// goes into shared memory beside the state id and the matching weights are
+// added as in moments_kernel. Out: one (M_b, S_b[0..m)) per block; mask 0,
+// the empty monomial, gives the block's scaled Z. A block past the last
+// state would write M = -inf and zero sums, which combine_lnz_moments
+// (plain torch, float64) weighs by exp(-inf) = 0.
+// Bound on this card: float ALU work, as moments_kernel's (the chains, one
+// exp per state, a 64-bit mask test and an add per (state, monomial)), plus
+// one max per state and, each time M rises, one product per monomial;
+// device memory sees only the partials. Float32 FMAs throughout, no TF32:
+// the JAX package holds its fused sweep to a float32 oracle.
+__global__ void __launch_bounds__(kThreads)
+lnz_moments_kernel(const float* __restrict__ coef,
+                   const int* __restrict__ shifts,
+                   const int* __restrict__ sizes, int K, int cmax,
+                   int64_t num_states, int64_t per_block, float beta,
+                   const unsigned long long* __restrict__ masks, int m,
+                   float* __restrict__ m_out, float* __restrict__ s_out) {
+  // layout as moments_kernel's: masks (m), tile ids (kThreads), tile
+  // weights (kThreads), sums (m), then the structure tables
+  extern __shared__ unsigned long long smem64[];
+  __shared__ float s_warp_max[kThreads / 32];
+  unsigned long long* s_mask = smem64;
+  unsigned long long* s_x = s_mask + m;
+  float* s_w = reinterpret_cast<float*>(s_x + kThreads);
+  float* s_acc = s_w + kThreads;
+  const int b = blockIdx.y;
+  for (int g = threadIdx.x; g < m; g += blockDim.x) {
+    s_mask[g] = masks[g];
+    s_acc[g] = 0.0f;
+  }
+  const SharedStructure st =
+      load_structure(s_acc + m, coef, shifts, sizes, K, cmax, b);
+  const int64_t begin = static_cast<int64_t>(blockIdx.x) * per_block;
+  const int64_t end =
+      begin + per_block < num_states ? begin + per_block : num_states;
+  float M = neg_inf();
+  for (int64_t t0 = begin; t0 < end; t0 += kThreads) {
+    const int64_t x = t0 + threadIdx.x;
+    float v = neg_inf();
+    if (x < end) {
+      v = __fmul_rn(beta,
+                    log_potential(x, st.coef, st.shifts, st.sizes, K, cmax));
+    }
+    float tile = v;
+    for (int off = 16; off > 0; off >>= 1) {
+      tile = fmaxf(tile, __shfl_xor_sync(0xffffffffu, tile, off));
+    }
+    if ((threadIdx.x & 31) == 0) s_warp_max[threadIdx.x >> 5] = tile;
+    __syncthreads();
+    tile = s_warp_max[0];
+    for (int i = 1; i < kThreads / 32; ++i) tile = fmaxf(tile, s_warp_max[i]);
+    if (tile > M) {
+      const float scale = expf(M - tile);
+      for (int g = threadIdx.x; g < m; g += kThreads) s_acc[g] *= scale;
+      M = tile;
+    }
+    s_x[threadIdx.x] = static_cast<unsigned long long>(x);
+    s_w[threadIdx.x] = x < end ? expf(v - M) : 0.0f;
+    __syncthreads();
+    for (int g = threadIdx.x; g < m; g += kThreads) {
+      const unsigned long long mask = s_mask[g];
+      float a = 0.0f;
+#pragma unroll 8
+      for (int t = 0; t < kThreads; ++t) {
+        a += (s_x[t] & mask) == mask ? s_w[t] : 0.0f;
+      }
+      s_acc[g] += a;
+    }
+    __syncthreads();
+  }
+  const int64_t o = static_cast<int64_t>(b) * gridDim.x + blockIdx.x;
+  if (threadIdx.x == 0) m_out[o] = M;
+  float* row = s_out + o * m;
+  for (int g = threadIdx.x; g < m; g += blockDim.x) row[g] = s_acc[g];
+}
+
 size_t structure_smem_bytes(int K, int cmax) {
   return (static_cast<size_t>(K) << cmax) * sizeof(float) +
          static_cast<size_t>(K) * (cmax + 1) * sizeof(int);
@@ -543,6 +634,22 @@ int qcmrf_moments(const float* coef, const int* shifts, const int* sizes,
                    static_cast<cudaStream_t>(stream)>>>(
       coef, shifts, sizes, K, cmax, num_states, per_block, beta, lnz, masks,
       m, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int qcmrf_lnz_moments(const float* coef, const int* shifts, const int* sizes,
+                      int B, int K, int cmax, int64_t num_states,
+                      int64_t per_block, int parts, float beta,
+                      const unsigned long long* masks, int m, float* m_out,
+                      float* s_out, void* stream) {
+  const dim3 grid(parts, B);
+  const size_t smem = moments_smem_bytes(K, cmax, m);
+  const cudaError_t err = allow_shared(lnz_moments_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  lnz_moments_kernel<<<grid, kThreads, smem,
+                       static_cast<cudaStream_t>(stream)>>>(
+      coef, shifts, sizes, K, cmax, num_states, per_block, beta, masks, m,
+      m_out, s_out);
   return static_cast<int>(cudaGetLastError());
 }
 

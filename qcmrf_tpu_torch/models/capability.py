@@ -1,8 +1,8 @@
 """Backend-feasibility caps and the capability matrix (port of
 :mod:`qcmrf_tpu.models.capability`): the same caps, width-cap override
-and :func:`explain` dict, served by ``infer --explain``. Host only:
-nothing here touches a device. The JAX package's big-n threshold comes
-with its reader, the bit-array data path of the train and sample CLIs.
+and :func:`explain` dict, served by ``infer --explain``, and the big-n
+threshold of the train CLI's bit-array data path. Host only: nothing here
+touches a device.
 
 The caps (why each exists):
 
@@ -58,6 +58,13 @@ SAMPLER_TABLE_FLOATS_CAP = 1 << 28
 
 #: circuit shot samplers return int32 state ids (``--grad shots``).
 CIRCUIT_SAMPLER_MAX_N = 30
+
+
+def big_n_threshold() -> int:
+    """n above which the train CLI's data travels as bit arrays (int32
+    state ids end); ``QCMRF_BIG_N_THRESHOLD`` lets tests drive that path
+    at tiny widths. Read at call time."""
+    return int(os.environ.get("QCMRF_BIG_N_THRESHOLD", "30"))
 
 
 def _entry(ok: bool, reason: str) -> Dict:

@@ -10,7 +10,7 @@ A sweep of all ``2**n`` states, with no ``2**n`` array, gives
   (:func:`qcmrf_tpu_torch.ops.kernels.monomial_moments`) over the
   deduplicated bit-monomial basis of the structure (every subset of every
   clique), mapped once onto the theta layout by the inverse-Moebius
-  doubling (:func:`_masks_from_monomials`).
+  doubling (:func:`qcmrf_tpu_torch.utils.moebius.masks_from_monomials`).
 
 Evidence clamps by exact clique-table reduction (:func:`reduce_evidence`),
 after which any ln Z backend serves the free variables: the clamped log
@@ -19,15 +19,18 @@ enumeration of the max variables.
 
 The JAX package's MXU forms of the moment sweep (the lane-packed weighted
 Gram kernel and its XLA fallback for cliques of more than 4 variables)
-are one kernel here: it takes any list of monomial masks. Differentiable
-ln Z (the moment sweep as its gradient) comes with slice 4 of
-ROADMAP.md, and ``mesh`` sharding with slice 6.
+are one kernel here: it takes any list of monomial masks.
+
+ln Z is differentiable in ``theta`` (:func:`log_partition_streaming`, that
+is :func:`qcmrf_tpu_torch.ops.kernels.log_partition`): under
+differentiation one fused sweep (``lnz_moments_kernel``,
+:func:`lnz_and_moments_streaming`) gives ln Z and the moments that its
+backward returns, ``beta * E_p[phi] * g``; a value-only call runs the
+streaming logsumexp alone. ``mesh`` sharding comes with slice 6 of
+ROADMAP.md.
 """
 
 from __future__ import annotations
-
-import collections
-import functools
 
 import numpy as np
 import torch
@@ -35,6 +38,7 @@ import torch
 from qcmrf_tpu_torch.models import elimination as _ve
 from qcmrf_tpu_torch.models.capability import STREAMING_MAX_N as _MAX_N
 from qcmrf_tpu_torch.models.mrf import MRF
+from qcmrf_tpu_torch.utils import moebius
 
 
 def _no_mesh(mesh) -> None:
@@ -44,77 +48,14 @@ def _no_mesh(mesh) -> None:
             "port with slice 6 (the multi-device layer) of ROADMAP.md")
 
 
-class _MonomialLayout(
-        collections.namedtuple("_MonomialLayout", "cmaps m subsets")):
-    """Host-side layout of the deduplicated bit-monomial basis shared by
-    every clique: the union of all subsets of all cliques.
-
-    * ``subsets[g]``: sorted variable tuple of monomial ``g`` (index 0 is
-      the empty set).
-    * ``cmaps[k][s]``: global monomial index of clique ``k``'s slot subset
-      ``s`` (bit ``i`` of ``s`` <-> slot ``i``, i.e. ``C[i]``).
-    """
-
-
-@functools.lru_cache(maxsize=128)
-def _monomial_layout(cliques: tuple) -> _MonomialLayout:
-    index = {(): 0}
-    cmaps = []
-    for C in cliques:
-        local = []
-        for s in range(1 << len(C)):
-            S = tuple(sorted(C[i] for i in range(len(C)) if (s >> i) & 1))
-            local.append(index.setdefault(S, len(index)))
-        cmaps.append(tuple(local))
-    return _MonomialLayout(cmaps=tuple(cmaps), m=len(index),
-                           subsets=tuple(index))
-
-
-@functools.lru_cache(maxsize=128)
-def _monomial_masks(cliques: tuple, n: int) -> np.ndarray:
-    """(m,) int64: each monomial as the state-id bits of its variables
-    (variable 0 is the most significant bit; a repeated variable is one
-    bit, as ``b^2 = b``)."""
-    return np.asarray([sum(1 << (n - 1 - v) for v in set(S))
-                       for S in _monomial_layout(cliques).subsets], np.int64)
-
-
-@functools.lru_cache(maxsize=128)
-def _inverse_moebius_plan(cliques: tuple):
-    """Per clique size c: (monomial index of every slot subset, (K_c,
-    2^c); theta position each doubled entry lands at, (K_c, 2^c))."""
-    layout = _monomial_layout(cliques)
-    groups = {}
-    off = 0
-    for k, C in enumerate(cliques):
-        c = len(C)
-        # slot-bitmask order -> theta's y index (y[0] slowest) is the
-        # c-bit reversal, its own inverse
-        rev = [int(format(s, f"0{c}b")[::-1], 2) for s in range(1 << c)]
-        gidx, pos = groups.setdefault(c, ([], []))
-        gidx.append(layout.cmaps[k])
-        pos.append([off + r for r in rev])
-        off += 1 << c
-    return {c: (np.asarray(g, np.int64), np.asarray(p, np.int64))
-            for c, (g, p) in groups.items()}
-
-
-def _masks_from_monomials(mono: torch.Tensor, cliques: tuple):
-    """theta-layout moments ``E_p[phi]`` from monomial moments ``E_p[prod
-    b]`` by the inverse-Moebius doubling per clique: per slot ``(without,
-    with) -> (without - with, with)``, pairwise differences of
-    probabilities (no signed 2^|C|-term sums), all cliques of one size at
-    once."""
-    out = torch.empty(sum(1 << len(C) for C in cliques), dtype=mono.dtype,
-                      device=mono.device)
-    for c, (gidx, pos) in _inverse_moebius_plan(cliques).items():
-        tab = mono[torch.from_numpy(gidx).to(mono.device)]
-        for i in range(c):
-            t = tab.reshape(len(gidx), 1 << (c - 1 - i), 2, 1 << i)
-            tab = torch.cat([t[:, :, :1] - t[:, :, 1:], t[:, :, 1:]], dim=2)
-        out[torch.from_numpy(pos).to(mono.device)] = tab.reshape(len(gidx),
-                                                                 -1)
-    return out
+def _check_streaming_n(n: int) -> None:
+    if n > _MAX_N:
+        raise ValueError(
+            f"streaming moments cap at n={_MAX_N}, the JAX package's cap "
+            "(its int32 block ids), kept so that both packages refuse "
+            f"alike; got n={n} — bounded-treewidth models can use "
+            "models.elimination.clique_marginals at any n"
+        )
 
 
 def clique_moments_streaming(mrf: MRF, lnZ=None) -> torch.Tensor:
@@ -125,28 +66,44 @@ def clique_moments_streaming(mrf: MRF, lnZ=None) -> torch.Tensor:
     any n; this serves any structure up to ``n = 47``."""
     from qcmrf_tpu_torch.ops import kernels
 
-    if mrf.n > _MAX_N:
-        raise ValueError(
-            f"streaming moments cap at n={_MAX_N}, the JAX package's cap "
-            "(its int32 block ids), kept so that both packages refuse "
-            f"alike; got n={mrf.n} — bounded-treewidth models can use "
-            "models.elimination.clique_marginals at any n"
-        )
+    _check_streaming_n(mrf.n)
     if lnZ is None:
         lnZ = kernels.log_partition(mrf)
     lnz = torch.as_tensor(lnZ, dtype=torch.float32,
                           device=mrf.device).reshape(1)
-    masks = torch.from_numpy(_monomial_masks(mrf.cliques, mrf.n)).to(
-        mrf.device)
+    masks = moebius.device_masks(mrf.cliques, mrf.n, mrf.device)
     coef = kernels.moebius_coefficients(mrf)[None]
     mono = kernels.monomial_moments(mrf.cliques, mrf.n, coef, mrf.beta, lnz,
                                     masks)[0]
-    return _masks_from_monomials(mono, mrf.cliques).to(mrf.theta.dtype)
+    return moebius.masks_from_monomials(mono, mrf.cliques).to(
+        mrf.theta.dtype)
+
+
+def lnz_and_moments_streaming(mrf: MRF):
+    """``(lnZ, E_p[phi])`` in ONE streaming sweep, for any structure:
+    :func:`qcmrf_tpu_torch.ops.kernels.lnz_and_moments`, the fused kernel
+    (a running max per block of states) over the deduplicated monomial
+    basis, its blocks merged in float64, the monomial moments mapped onto
+    the theta layout by the inverse-Moebius doubling. Both come in
+    ``theta``'s dtype. The JAX package fuses only structures its Gram
+    lanes hold and sweeps twice otherwise (cliques of 5+ variables, n <
+    10); the port's kernel takes any masks, so that two-sweep fallback has
+    no counterpart here. Half the sweeps of the two-sweep form for an
+    exact-MLE step, whose NLL needs lnZ and whose gradient needs the
+    moments."""
+    from qcmrf_tpu_torch.ops import kernels
+
+    _check_streaming_n(mrf.n)
+    return kernels.lnz_and_moments(mrf.cliques, mrf.n, mrf.theta, mrf.beta)
 
 
 def log_partition_streaming(mrf: MRF, mesh=None) -> torch.Tensor:
-    """``ln Z`` by the streaming logsumexp, for any structure (value only:
-    its gradient through the moment sweep comes with slice 4)."""
+    """``ln Z`` for any structure, differentiable in ``mrf.theta`` with the
+    gradient ``beta * E_p[phi]`` from the fused sweep instead of autograd
+    through a ``2**n`` table: :func:`qcmrf_tpu_torch.ops.kernels.
+    log_partition`, which picks its sweep before any runs (one fused
+    sweep under differentiation, else one streaming logsumexp, as JAX's
+    primal). ``beta`` is a constant."""
     from qcmrf_tpu_torch.ops import kernels
 
     _no_mesh(mesh)

@@ -12,7 +12,9 @@ State ids use variable 0 as the **MSB**. ``theta`` lives on one device; the
 whole-table quantities (:meth:`MRF.all_log_potentials`,
 :meth:`MRF.log_partition`, :meth:`MRF.gibbs_probs`) go through
 :mod:`qcmrf_tpu_torch.ops.kernels`, so a model on a CUDA device is evaluated
-by the log-potential and streaming-logsumexp kernels.
+by the log-potential and streaming kernels. :meth:`MRF.log_partition` and
+:meth:`MRF.nll` are differentiable in ``theta`` (the fused lnZ + moments
+sweep is the backward); the table has no backward.
 """
 
 from __future__ import annotations
@@ -204,7 +206,11 @@ class MRF:
         return kernels.logpot_table(self.cliques, self.n, coef, 1.0)[0]
 
     def log_partition(self) -> torch.Tensor:
-        """``ln Z(beta)`` by the streaming logsumexp."""
+        """``ln Z(beta)``, differentiable in ``theta``: under
+        differentiation one fused lnZ + moments sweep whose backward is
+        ``beta * E_p[phi]`` (the JAX package autodiffs its ``2**n`` table;
+        the port's table is a kernel with no backward), else the streaming
+        logsumexp (:func:`qcmrf_tpu_torch.ops.kernels.log_partition`)."""
         from qcmrf_tpu_torch.ops import kernels
 
         return kernels.log_partition(self)
@@ -219,6 +225,14 @@ class MRF:
         """Post-selection success rate ``Z / 2**n`` of the QCMRF circuit.
         Requires theta <= 0."""
         return torch.exp(self.log_partition() - self.n * math.log(2.0))
+
+    # ---- training-facing quantities ------------------------------------
+
+    def nll(self, x_batch) -> torch.Tensor:
+        """Average negative log-likelihood of observed state ids; its
+        gradient in ``theta`` is ``beta * (E_p[phi] - E_data[phi])``."""
+        return (self.log_partition()
+                - self.beta * self.log_potential(x_batch).mean())
 
     def with_theta(self, theta) -> "MRF":
         return dataclasses.replace(

@@ -67,6 +67,10 @@ _SIGNATURES = {
     # lnz, masks, m, out, stream
     "qcmrf_moments": (_P, _P, _P, _I, _I, _I, _I64, _I64, _I, _F, _P, _P,
                       _I, _P, _P),
+    # coef, shifts, sizes, B, K, cmax, num_states, per_block, parts, beta,
+    # masks, m, m_out, s_out, stream
+    "qcmrf_lnz_moments": (_P, _P, _P, _I, _I, _I, _I64, _I64, _I, _F, _P,
+                          _I, _P, _P, _P),
     # table, n_terms, k, re, im, num_anchors, a_lo, stream
     "qcmrf_hdh_multi": (_P, _I, _I, _P, _P, _I64, _I, _P),
     # table, n_terms, k, re, im, num_anchors, a_lo, comp, amp, stream
@@ -82,6 +86,8 @@ _SIGNATURES = {
     "qcmrf_lane": (_P, _P, _P, _I64, _P),
     # src_re, src_im, dst_re, dst_im, num_groups, stream
     "qcmrf_copy": (_P, _P, _P, _P, _I64, _P),
+    # x, b, steps, num_quads, block_max, out (or null), stream
+    "qcmrf_fma_peak": (_P, _F, _I, _I64, _P, _P, _P),
 }
 
 
@@ -190,6 +196,19 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape,
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} is not contiguous")
+
+
+def refuse_grad(t: torch.Tensor, name: str) -> None:
+    """Raise where autograd would lose a gradient without a word: the
+    kernels have no backward, so under grad mode a tensor that requires
+    grad is refused, on every device (the CPU plain versions too, so that
+    a CPU run shows what the card does)."""
+    if torch.is_grad_enabled() and t.requires_grad:
+        raise ValueError(
+            f"{name} requires grad and this kernel has no backward: "
+            "differentiate lnZ through models.moments."
+            "log_partition_streaming or MRF.log_partition, or pass a "
+            "detached tensor")
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

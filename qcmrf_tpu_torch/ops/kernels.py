@@ -14,12 +14,18 @@ after the clique sum.
 * :func:`map_partials` returns one (best value, earliest id) pair per
   block (``map_kernel``); :func:`combine_map` finishes the argmax;
 * :func:`monomial_moments` sums ``p(x)`` over the states of each monomial
-  (``moments_kernel``).
+  (``moments_kernel``);
+* :func:`lnz_moments_partials` does both in one sweep by a running max
+  per block (``lnz_moments_kernel``); :func:`combine_lnz_moments` gives
+  ``(lnZ, E_p[monomials])``.
 
 On a CUDA tensor each launches its kernel of ``csrc/qcmrf_kernels.cu``; on a
 CPU tensor it runs its plain PyTorch version (``*_reference``), which any
 device can run. Rows of a coefficient batch are separate models of one
-structure, evaluated in one launch.
+structure, evaluated in one launch. The kernels have no backward: under
+grad mode each wrapper refuses coefficients that require grad, on every
+device. The differentiable lnZ is :func:`log_partition`, whose backward
+is the moments of the fused sweep (:func:`lnz_and_moments`).
 
 The sandwich passes (kernels of ``csrc/circuit_kernels.cu``) act on a
 statevector held as two float32 planes, real and imaginary, of ``2**nq``
@@ -45,7 +51,9 @@ of at least 7 qubits:
   128x128 ``M``, the planner's ``lane`` op and :func:`apply_1q` on a lane
   qubit (``lane_kernel``);
 * :func:`copy_planes`: both planes copied, the bytes of a gate pass
-  (``copy_kernel``), the rate the passes are held against.
+  (``copy_kernel``), the rate the passes are held against;
+* :func:`fma_chain_max`: chained float32 FMAs (``fma_peak_kernel``), the
+  compute rate the float kernels are held against.
 
 Every pass but the copy updates the planes **in place** and returns them:
 the JAX versions alias their inputs to their outputs, and at 32 qubits two
@@ -70,9 +78,9 @@ from qcmrf_tpu_torch.utils import moebius
 from qcmrf_tpu_torch.utils.config import resolve_device
 
 #: launches of the CUDA kernels, bumped where each is launched
-LAUNCHES = {"logpot": 0, "lse": 0, "map": 0, "moments": 0, "hdh_multi": 0,
-            "hdh_multi_uniform": 0, "diag": 0, "row_gate": 0, "lane": 0,
-            "copy": 0}
+LAUNCHES = {"logpot": 0, "lse": 0, "map": 0, "moments": 0,
+            "lnz_moments": 0, "hdh_multi": 0, "hdh_multi_uniform": 0,
+            "diag": 0, "row_gate": 0, "lane": 0, "copy": 0, "fma_peak": 0}
 
 #: the streaming logsumexp writes at most this many partial pairs a row
 MAX_LSE_PARTS = 4096
@@ -136,6 +144,7 @@ def logpot_table(cliques: tuple, n: int, coef: torch.Tensor, beta: float,
     """``beta * theta^T phi(x)`` for all ``2**n`` states and every row of
     ``coef`` ((B, K << cmax)); float32 (B, 2**n). ``fuse_amp`` returns the
     post-selected amplitudes ``2^(-n/2) * exp(lp / 2)`` instead."""
+    _build.refuse_grad(coef, "coef")
     if coef.device.type == "cpu":
         return logpot_table_reference(cliques, n, coef, beta, fuse_amp)
     dev = coef.device
@@ -178,6 +187,7 @@ def lse_partials(cliques: tuple, n: int, coef: torch.Tensor, beta: float):
     """Per-block (max, scaled sum) of ``beta * theta^T phi(x)`` over all
     ``2**n`` states, for every row of ``coef``: two float32 (B, parts)
     tensors (``lse_geometry`` gives ``parts``). No table is written."""
+    _build.refuse_grad(coef, "coef")
     if coef.device.type == "cpu":
         return lse_partials_reference(cliques, n, coef, beta)
     dev = coef.device
@@ -219,7 +229,15 @@ def gibbs_probs(mrf: MRF) -> torch.Tensor:
 
 
 def log_partition(mrf: MRF) -> torch.Tensor:
-    """``ln Z`` by the streaming logsumexp (no table)."""
+    """``ln Z`` with no table, differentiable in ``mrf.theta``. The sweep is
+    chosen before any runs: under differentiation (grad mode on and
+    ``theta`` requiring grad) one fused lnZ + moments sweep
+    (:func:`lnz_and_moments`), whose moments are the backward, ``beta *
+    E_p[phi] * g``; otherwise the streaming logsumexp alone. ``beta`` is
+    a constant."""
+    if torch.is_grad_enabled() and mrf.theta.requires_grad:
+        return _LogPartition.apply(mrf.theta, mrf.cliques, mrf.n,
+                                   float(mrf.beta))
     coef = moebius_coefficients(mrf)[None]
     return combine_lse(*lse_partials(mrf.cliques, mrf.n, coef, mrf.beta))[0]
 
@@ -250,6 +268,7 @@ def map_partials(cliques: tuple, n: int, coef: torch.Tensor, beta: float):
     states and the earliest state id that holds it, for every row of
     ``coef``: float32 and int64 (B, parts) tensors (``lse_geometry`` gives
     ``parts``). :func:`combine_map` finishes. No table is written."""
+    _build.refuse_grad(coef, "coef")
     if coef.device.type == "cpu":
         return map_partials_reference(cliques, n, coef, beta)
     dev = coef.device
@@ -302,11 +321,12 @@ def monomial_moments_reference(cliques: tuple, n: int, coef: torch.Tensor,
     return torch.cat(out, dim=-1)
 
 
-def moments_per_launch(K: int, cmax: int) -> int:
+def moments_per_launch(K: int, cmax: int, reserve: int = 0) -> int:
     """Most monomials one moments launch takes: as many masks and sums as
-    a block's shared memory holds beside the structure tables and the tile
-    of states."""
-    free = _build.SHARED_BYTES_LIMIT - _build.structure_bytes(K, cmax)
+    a block's shared memory holds beside the structure tables, the tile
+    of states and ``reserve`` bytes of the kernel's own."""
+    free = (_build.SHARED_BYTES_LIMIT - _build.structure_bytes(K, cmax)
+            - reserve)
     return free // _MOMENT_BYTES - _BLOCK_THREADS
 
 
@@ -320,6 +340,7 @@ def monomial_moments(cliques: tuple, n: int, coef: torch.Tensor,
     mask) == mask``). One sweep of the states for every
     :func:`moments_per_launch` monomials, no table; the float32 per-block
     partials are added in float64."""
+    _build.refuse_grad(coef, "coef")
     if coef.device.type == "cpu":
         return monomial_moments_reference(cliques, n, coef, beta, lnz,
                                           masks)
@@ -344,6 +365,167 @@ def monomial_moments(cliques: tuple, n: int, coef: torch.Tensor,
         LAUNCHES["moments"] += 1
         out[:, lo:hi] = part.sum(dim=1, dtype=torch.float64)
     return out
+
+
+# --------------------------------------------------------------------------
+# Fused lnZ + monomial moments: one sweep by running max
+# --------------------------------------------------------------------------
+
+#: the fused kernel's static shared memory: one float32 tile max a warp
+_LNZ_STATIC_BYTES = (_BLOCK_THREADS // 32) * 4
+
+
+def lnz_moments_partials_reference(cliques: tuple, n: int,
+                                   coef: torch.Tensor, beta: float,
+                                   masks: torch.Tensor):
+    """Plain PyTorch version of one launch of
+    :func:`lnz_moments_partials`, on any device: the table cut into the
+    sweep's blocks, each block's max ``M_b``, and its weights ``exp(v -
+    M_b)`` summed in float64 over each monomial's states."""
+    lp, per_part = _padded_table(cliques, n, coef, beta)
+    M = lp.amax(dim=-1)
+    w = torch.where(lp == -math.inf, 0.0,
+                    torch.exp(lp - M[..., None])).double()
+    x = torch.arange(lp.shape[1] * per_part, dtype=torch.int64,
+                     device=coef.device).reshape(lp.shape[1:])
+    chunk = max(1, (1 << 24) >> n)
+    S = []
+    for s in range(0, masks.numel(), chunk):
+        mk = masks[s:s + chunk, None, None]
+        S.append(torch.einsum("bpl,cpl->bpc", w,
+                              ((x & mk) == mk).double()))
+    return M, torch.cat(S, dim=-1).float()
+
+
+def _lnz_moments_launch(cliques: tuple, n: int, coef: torch.Tensor,
+                        beta: float, masks: torch.Tensor):
+    """One launch of ``lnz_moments_kernel``: the (M, S) partials of
+    :func:`lnz_moments_partials_reference` for a mask list that fits."""
+    dev = coef.device
+    # extra: the tile of states, two monomials and the tile max
+    shifts, sizes, B, K, cmax = _build.structure_args(
+        cliques, n, coef,
+        extra=(_BLOCK_THREADS + 2) * _MOMENT_BYTES + _LNZ_STATIC_BYTES)
+    m = masks.numel()
+    _build.check(masks, "masks", torch.int64, (m,), dev)
+    parts, per_part = lse_geometry(1 << n)
+    M = torch.empty((B, parts), dtype=torch.float32, device=dev)
+    S = torch.empty((B, parts, m), dtype=torch.float32, device=dev)
+    _build.launch("qcmrf_lnz_moments", dev, _build.ptr(coef),
+                  _build.ptr(shifts), _build.ptr(sizes), B, K, cmax, 1 << n,
+                  per_part, parts, beta, _build.ptr(masks), m, _build.ptr(M),
+                  _build.ptr(S))
+    LAUNCHES["lnz_moments"] += 1
+    return M, S
+
+
+def lnz_moments_partials(cliques: tuple, n: int, coef: torch.Tensor,
+                         beta: float, masks: torch.Tensor):
+    """One sweep of all ``2**n`` states, no table and no lnZ needed:
+    per block ``b`` of states (``lse_geometry``), the running max ``M_b``
+    of ``v = beta * theta^T phi(x)`` and, per monomial ``g``, ``S_b[g] =
+    sum exp(v - M_b)`` over the block's states holding it, for every row
+    of ``coef``: float32 ``(B, parts)`` and ``(B, parts, m)``.
+    :func:`combine_lnz_moments` finishes.
+
+    ``masks`` is int64 (m,) as for :func:`monomial_moments`, and
+    ``masks[0]`` must be 0, the empty monomial, whose sum is the block's
+    scaled Z (checked for a CPU list; :func:`moebius.monomial_masks`
+    gives such a list). A list longer than :func:`moments_per_launch` takes is
+    split over launches: every launch takes mask 0 too and scales its own
+    columns, block by block, by its own scaled Z onto the first launch's
+    (``S_0[0] / S_j[0]``), so no two launches need to agree on ``M_b``.
+    On a CUDA tensor each launch is ``lnz_moments_kernel``; on a CPU
+    tensor the plain version."""
+    _build.refuse_grad(coef, "coef")
+    m = masks.numel()
+    # a mask list on the card is not read back (a sync a step):
+    # moebius.monomial_masks puts the empty monomial first
+    if m == 0 or (masks.device.type == "cpu" and int(masks[0]) != 0):
+        raise ValueError("masks[0] must be 0, the empty monomial")
+    run = (lnz_moments_partials_reference if coef.device.type == "cpu"
+           else _lnz_moments_launch)
+    K = len(cliques)
+    cmax = max(len(C) for C in cliques)
+    step = moments_per_launch(K, cmax, reserve=_LNZ_STATIC_BYTES)
+    if step < 2:
+        raise ValueError(f"a launch takes {step} monomials; it needs 2")
+    M, S = run(cliques, n, coef, beta, masks[:step])
+    cols = [S]
+    for lo in range(step, m, step - 1):
+        _, Sj = run(cliques, n, coef, beta,
+                    torch.cat([masks[:1], masks[lo:lo + step - 1]]))
+        z = Sj[..., :1]
+        cols.append(Sj[..., 1:] * torch.where(z > 0, S[..., :1] / z, 0.0))
+    return M, torch.cat(cols, dim=-1)
+
+
+def combine_lnz_moments(M: torch.Tensor, S: torch.Tensor):
+    """``(lnZ, E_p[monomials])`` in float64 from the partials of
+    :func:`lnz_moments_partials`: ``M* = max_b M_b``, ``Z e^{-M*} = sum_b
+    e^{M_b - M*} S_b[0]``, ``lnZ = M* + log(Z e^{-M*})`` and ``E_p[g] =
+    sum_b e^{M_b - M*} S_b[g] / (Z e^{-M*})``; shapes (B,) and (B, m). A
+    block with ``M_b = -inf`` weighs 0."""
+    M, S = M.double(), S.double()
+    top = M.amax(dim=-1, keepdim=True)
+    w = torch.exp(M - top)[..., None]
+    sums = (w * S).sum(dim=-2)
+    z = sums[..., :1]
+    return top[..., 0] + torch.log(z[..., 0]), sums / z
+
+
+def lnz_and_moments(cliques: tuple, n: int, theta: torch.Tensor,
+                    beta: float):
+    """``(lnZ, E_p[phi])`` of the model ``(cliques, n, theta, beta)`` in one
+    fused sweep (:func:`lnz_moments_partials` over the structure's
+    monomial basis, :func:`combine_lnz_moments`, then the inverse-Moebius
+    doubling onto the theta layout), both in ``theta``'s dtype on its
+    device."""
+    masks = moebius.device_masks(cliques, n, theta.device)
+    coef = coefficient_table(cliques, n, theta)[None]
+    lnz, mono = combine_lnz_moments(
+        *lnz_moments_partials(cliques, n, coef, beta, masks))
+    return (lnz[0].to(theta.dtype),
+            moebius.masks_from_monomials(mono[0], cliques).to(theta.dtype))
+
+
+class _LogPartition(torch.autograd.Function):
+    """ln Z of ``theta`` whose backward is ``beta * E_p[phi] * g``: the
+    forward's fused sweep computes ln Z and the moments together and saves
+    the moments. ``beta`` is a host constant (no gradient), as in the JAX
+    package's custom VJP."""
+
+    @staticmethod
+    def forward(ctx, theta, cliques, n, beta):
+        lnz, mu = lnz_and_moments(cliques, n, theta.detach(), beta)
+        ctx.save_for_backward(mu)
+        ctx.beta = beta
+        return lnz
+
+    @staticmethod
+    def backward(ctx, g):
+        (mu,) = ctx.saved_tensors
+        return ctx.beta * mu * g, None, None, None
+
+
+# --------------------------------------------------------------------------
+# Float32 FMA chain: the compute peak the float kernels are held against
+# --------------------------------------------------------------------------
+
+#: FMAs in each chain of ``fma_peak_kernel`` in the rate run (bench.py's)
+FMA_CHAIN = 1024
+
+
+def fma_chain_max_reference(x: torch.Tensor, b: float = 1e-9,
+                            steps: int = FMA_CHAIN, out=None):
+    """Plain PyTorch version of :func:`fma_chain_max`, on any device and in
+    ``x``'s dtype (float64 makes it the oracle of a short chain)."""
+    y = x.clone()
+    for _ in range(steps):
+        y.mul_(y).add_(b)
+    if out is not None:
+        out.copy_(y)
+    return y.max()
 
 
 # --------------------------------------------------------------------------
@@ -912,3 +1094,30 @@ def copy_planes(re, im, out):
                   (1 << nq) >> 2)
     LAUNCHES["copy"] += 1
     return out
+
+
+def fma_chain_max(x: torch.Tensor, b: float = 1e-9, steps: int = FMA_CHAIN,
+                  out=None) -> torch.Tensor:
+    """Run a chain of ``steps`` ``x = x * x + b`` on every value of ``x``
+    (float32, contiguous, a multiple of 4 values) and return the largest
+    final value, a 0-d tensor: ``fma_peak_kernel``, 2 * ``steps`` float32
+    operations a value, reduced on the card so no chain is dead code.
+    ``out`` (like ``x``), where given, receives every final value. ``x``
+    is not changed."""
+    if x.dtype != torch.float32 or not x.is_contiguous() or x.numel() % 4:
+        raise ValueError("x must be contiguous float32 holding a multiple "
+                         "of 4 values")
+    if not 0 <= steps < 1 << 31:
+        raise ValueError(f"steps must fit an int, got {steps}")
+    if out is not None:
+        _build.check(out, "out", torch.float32, x.shape, x.device)
+    if x.device.type == "cpu":
+        return fma_chain_max_reference(x, b, steps, out)
+    quads = x.numel() // 4
+    block_max = torch.empty(-(-quads // _BLOCK_THREADS), dtype=torch.float32,
+                            device=x.device)
+    _build.launch("qcmrf_fma_peak", x.device, *_launch_ptrs(x), b, steps,
+                  quads, _build.ptr(block_max),
+                  None if out is None else _launch_ptrs(out)[0])
+    LAUNCHES["fma_peak"] += 1
+    return block_max.max()

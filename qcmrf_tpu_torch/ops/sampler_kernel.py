@@ -121,7 +121,10 @@ def sample_call(seed: int, cliques: tuple, n: int, coef: torch.Tensor,
     int32 bits (B, shots)); ``flags_x`` -> (x, accept flag int32 0/1);
     ``flags`` -> accept flags; ``count`` -> accepted shots, int64 (B,).
     On a CPU tensor this is the plain version; on a CUDA tensor, the kernel.
+    The kernel has no backward: ``coef`` that requires grad under grad
+    mode is refused on every device.
     """
+    _build.refuse_grad(coef, "coef")
     if coef.device.type == "cpu":
         return sample_call_reference(seed, cliques, n, coef, shots, mode,
                                      stream0)

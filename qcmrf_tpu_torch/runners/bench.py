@@ -1,10 +1,13 @@
-"""Gate-pass and copy rates on the card (the rate part of
-:mod:`qcmrf_tpu.runners.bench`).
+"""Gate-pass, copy and compute rates on the card (the rate part of
+:mod:`qcmrf_tpu.runners.bench` and of the root ``bench.py``).
 
 * :func:`copy_kernel_gbps`: ``copy_kernel`` reading and writing both
   planes, the bytes of a read-write gate pass and no arithmetic;
 * :func:`gate_apply_gbps`: chained Hadamards on a lane qubit (3, the
-  ``lane_kernel``) and on a row qubit (n - 2, ``row_gate_kernel<1>``).
+  ``lane_kernel``) and on a row qubit (n - 2, ``row_gate_kernel<1>``);
+* :func:`fma_peak_tflops`: ``fma_peak_kernel``, 1024 chained float32
+  FMAs on every value of a (512 * 512, 128) array, the float32 rate the
+  compute-bound kernels are held against (``bench.py``'s ``_vpu_kern``).
 
 The ratio of a gate rate to the copy rate of the same run is the gate
 pass's cost beyond its bytes. Each rate is timed with CUDA events around a
@@ -90,3 +93,20 @@ def gate_apply_gbps(n: int, device=None) -> tuple:
     row = _chain_pass_ms(lambda i: kernels.apply_1q(re, im, H, n - 2, n),
                          device)
     return _pass_ms_to_gbps(lane, n), _pass_ms_to_gbps(row, n)
+
+
+#: bench.py's compute-peak array: (512 * 512, 128) float32 values
+FMA_VALUES = 512 * 512 * 128
+
+
+def fma_peak_tflops(device=None, reps: int = 10) -> float:
+    """Float32 TFLOP/s of ``fma_peak_kernel``: ``kernels.FMA_CHAIN``
+    chained FMAs (2 operations each) on every one of ``FMA_VALUES`` ones,
+    reduced on the card to one max, timed by CUDA events over ``reps``
+    launches after one warm-up. ``device`` is the current CUDA device
+    unless one is named."""
+    device = _card(device)
+    x = torch.ones(FMA_VALUES, dtype=torch.float32, device=device)
+    ms = _chain_pass_ms(lambda i: kernels.fma_chain_max(x), device,
+                        passes=reps, reps=1)
+    return 2 * kernels.FMA_CHAIN * FMA_VALUES / (ms * 1e-3) / 1e12

@@ -21,8 +21,8 @@ out, ``index`` echoes the line order).
 
 ``--platform default`` means the card, as for ``run``: the JAX package's
 ``default`` serves n <= 26 on the host, the port does not. ``--query
-sample`` and ``--method gibbs|pam`` come with slice 3b, ``--method ais``
-with slice 4 and ``--mesh`` with slice 6 of ROADMAP.md.
+sample`` and ``--method gibbs|pam|ais`` come with slice 3b and ``--mesh``
+with slice 6 of ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -102,8 +102,8 @@ def _check_ported(query: str, method: str, where: str = "") -> None:
             "(sampling) of ROADMAP.md")
     if method == "ais":
         raise SystemExit(
-            f"{where}--method ais comes to the port with slice 4 (AIS and "
-            "training) of ROADMAP.md")
+            f"{where}--method ais comes to the port with slice 3b "
+            "(sampling, AIS included) of ROADMAP.md")
 
 
 def _floats(t) -> list:
@@ -146,7 +146,7 @@ def main(argv: Optional[List[str]] = None):
     parser.add_argument("--method", type=str, default="exact",
                         choices=["exact", "gibbs", "pam", "ais"],
                         help="sampler for --query sample (slice 3b); 'ais' "
-                             "comes with slice 4")
+                             "comes with slice 3b too")
     parser.add_argument("--ais-chains", type=int, default=256)
     parser.add_argument("--ais-temps", type=int, default=128)
     parser.add_argument("--sample-seed", type=int, default=0)

@@ -381,3 +381,29 @@ def test_rates_need_the_card():
     for args in ((1.0, 28), (0.37, 24, 2)):
         assert bench._pass_ms_to_gbps(*args) == pytest.approx(
             jbench._pass_ms_to_gbps(*args), rel=1e-15)
+
+
+@pytest.mark.parametrize("steps", [1, 15, 16])
+def test_fma_chain_counts_its_steps(steps):
+    """The FMA chain's wrapper on the CPU (its plain version): ``steps``
+    chained ``x * x + b``, every final value written to ``out`` and their
+    max returned. x -> x * x - 1.5 is chaotic, so a step more or fewer
+    moves the values by O(1): float32 stays within 1e-3 of float64 at 16
+    steps, and one step away lies more than 1 off."""
+    x = torch.from_numpy(np.random.RandomState(18).uniform(
+        -1, 1, 1 << 12).astype(np.float32))
+    out = torch.empty_like(x)
+    top = kernels.fma_chain_max(x, -1.5, steps=steps, out=out)
+    want = x.double()
+    for _ in range(steps):
+        want = want * want - 1.5
+    torch.testing.assert_close(out.double(), want, rtol=0, atol=1e-3)
+    assert float(top) == float(out.max())
+    assert float((want * want - 1.5 - want).abs().max()) > 1.0
+    z = torch.zeros(8)
+    kernels.fma_chain_max(z, -1.0, steps=kernels.FMA_CHAIN - 1, out=out[:8])
+    assert bool((out[:8] == -1.0).all())
+    for bad in (dict(x=x.double()), dict(x=x[:6]), dict(out=out[:8]),
+                dict(steps=1 << 31)):
+        with pytest.raises(ValueError):
+            kernels.fma_chain_max(**{"x": x, "b": -1.5, "out": out, **bad})

@@ -17,6 +17,7 @@ from qcmrf_tpu_torch.ops import circuit_kernel  # noqa: E402
 from qcmrf_tpu_torch.ops import kernels, sampler_kernel  # noqa: E402
 from qcmrf_tpu_torch.runners import run_experiment  # noqa: E402
 from qcmrf_tpu_torch.sim import analytic, batch, dense, planes  # noqa: E402
+from qcmrf_tpu_torch.utils import moebius  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -234,13 +235,12 @@ def test_map_kernel_matches_plain_version(dev, n):
 
 @pytest.mark.parametrize("n", [16, 20])
 def test_moments_kernel_matches_plain_version(dev, n):
-    from qcmrf_tpu_torch.models import moments
 
     for m in (complete_model(n, dev), mixed_model(n, dev)):
         coef = kernels.moebius_coefficients(m)[None]
         lnz = kernels.log_partition(m).reshape(1)
         masks = torch.from_numpy(
-            moments._monomial_masks(m.cliques, n)).to(dev)
+            moebius.monomial_masks(m.cliques, n)).to(dev)
         before = kernels.LAUNCHES["moments"]
         got = kernels.monomial_moments(m.cliques, n, coef, m.beta, lnz, masks)
         assert kernels.LAUNCHES["moments"] == before + 1
@@ -267,7 +267,6 @@ def test_wide_structure_kernels_match_plain_versions(dev, monkeypatch):
     """Every streaming kernel opts in to more than 48 KB of shared memory,
     and a monomial list longer than one launch takes is split over
     launches with the same result."""
-    from qcmrf_tpu_torch.models import moments
     from qcmrf_tpu_torch.ops import _build
 
     n = 20
@@ -287,7 +286,7 @@ def test_wide_structure_kernels_match_plain_versions(dev, monkeypatch):
     wv, wx = kernels.map_partials_reference(cl, n, coef, beta)
     assert torch.equal(x, wx)
     torch.testing.assert_close(v, wv, rtol=1e-6, atol=0)
-    masks = torch.from_numpy(moments._monomial_masks(cl, n)).to(dev)
+    masks = torch.from_numpy(moebius.monomial_masks(cl, n)).to(dev)
     assert masks.numel() > 1500
     want = kernels.monomial_moments_reference(cl, n, coef, beta, lnz, masks)
     before = kernels.LAUNCHES["moments"]
@@ -438,3 +437,145 @@ def test_lowered_chain_matches_unlowered_on_card(dev):
     want = torch.complex(*planes.run_statevector(q.circuit, device=dev))
     diff = torch.complex(re, im) - want
     assert float(torch.linalg.vector_norm(diff.reshape(-1))) <= 1e-4
+
+
+@pytest.mark.parametrize("n", [16, 20])
+def test_lnz_moments_kernel_matches_plain_version(dev, n):
+    """The fused kernel (one launch) against its plain version and against
+    the lse + moments kernels: lnZ within 1e-5, moments within 1e-6."""
+
+    for m in (complete_model(n, dev), mixed_model(n, dev)):
+        coef = kernels.moebius_coefficients(m)[None]
+        masks = moebius.device_masks(m.cliques, n, dev)
+        before = kernels.LAUNCHES["lnz_moments"]
+        M, S = kernels.lnz_moments_partials(m.cliques, n, coef, m.beta, masks)
+        assert kernels.LAUNCHES["lnz_moments"] == before + 1
+        assert M.is_cuda and S.shape == (1, M.shape[1], masks.numel())
+        lnz, mono = kernels.combine_lnz_moments(M, S)
+        want_lnz, want = kernels.combine_lnz_moments(
+            *kernels.lnz_moments_partials_reference(m.cliques, n, coef,
+                                                    m.beta, masks))
+        torch.testing.assert_close(lnz, want_lnz, rtol=0, atol=1e-5)
+        torch.testing.assert_close(mono, want, rtol=0, atol=1e-6)
+        lnz2 = kernels.log_partition(m).reshape(1)
+        torch.testing.assert_close(lnz, lnz2.double(), rtol=0, atol=1e-5)
+        torch.testing.assert_close(mono, kernels.monomial_moments(
+            m.cliques, n, coef, m.beta, lnz2, masks), rtol=0, atol=1e-6)
+
+
+def test_lnz_moments_split_over_launches(dev, monkeypatch):
+    """A mask list longer than one launch takes: every launch with mask 0,
+    the result that of one launch."""
+
+    n = 20
+    m = wide_model(n, dev)
+    coef = kernels.moebius_coefficients(m)[None]
+    masks = moebius.device_masks(m.cliques, n, dev)
+    one = kernels.combine_lnz_moments(*kernels.lnz_moments_partials(
+        m.cliques, n, coef, m.beta, masks))
+    monkeypatch.setattr(kernels, "moments_per_launch",
+                        lambda K, cmax, reserve=0: 500)
+    before = kernels.LAUNCHES["lnz_moments"]
+    split = kernels.combine_lnz_moments(*kernels.lnz_moments_partials(
+        m.cliques, n, coef, m.beta, masks))
+    assert (kernels.LAUNCHES["lnz_moments"] - before
+            == 1 + -(-(masks.numel() - 500) // 499))
+    torch.testing.assert_close(split[0], one[0], rtol=0, atol=1e-6)
+    torch.testing.assert_close(split[1], one[1], rtol=0, atol=1e-6)
+
+
+def test_lnz_gradient_on_card_is_beta_mu(dev):
+    """autograd.grad of lnZ on the card is beta * E_p[phi] of the two
+    sweeps; the value-only call takes the lse sweep alone."""
+    from qcmrf_tpu_torch.models import moments
+
+    base = complete_model(16, dev, scale=0.2)
+    m = MRF.create(base.cliques, theta=base.theta, beta=1.3, device=dev)
+    theta = m.theta.clone().requires_grad_()
+    before = dict(kernels.LAUNCHES)
+    (g,) = torch.autograd.grad(moments.log_partition_streaming(
+        m.with_theta(theta)), theta)
+    assert kernels.LAUNCHES["lnz_moments"] == before["lnz_moments"] + 1
+    assert kernels.LAUNCHES["lse"] == before["lse"]
+    want = m.beta * moments.clique_moments_streaming(m)
+    torch.testing.assert_close(g, want, rtol=0, atol=1e-5)
+    before = dict(kernels.LAUNCHES)
+    moments.log_partition_streaming(m)
+    assert kernels.LAUNCHES["lnz_moments"] == before["lnz_moments"]
+    assert kernels.LAUNCHES["lse"] == before["lse"] + 1
+
+
+def test_nll_backward_on_card(dev):
+    """MRF.nll(x).backward() on the card gives beta (E_p[phi] -
+    E_data[phi]), and the kernels refuse a tensor whose gradient they
+    would lose."""
+    from qcmrf_tpu_torch.evaluation.estimators import (
+        clique_marginals_from_samples)
+    from qcmrf_tpu_torch.models import moments
+
+    m = mixed_model(16, dev)
+    x = torch.randint(0, 1 << 16, (3000,), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(1))
+    theta = m.theta.clone().requires_grad_()
+    m.with_theta(theta).nll(x).backward()
+    want = m.beta * (moments.clique_moments_streaming(m)
+                     - clique_marginals_from_samples(m, x).float())
+    torch.testing.assert_close(theta.grad, want, rtol=0, atol=1e-5)
+    coef = kernels.moebius_coefficients(m.with_theta(theta))[None]
+    with pytest.raises(ValueError, match="no backward"):
+        kernels.lse_partials(m.cliques, m.n, coef, m.beta)
+
+
+def test_train_cli_on_card(dev, tmp_path):
+    """A small fit through train_cli on the card: one fused launch a step,
+    the fit within 1e-4 of the same run on the CPU."""
+    import json
+
+    from qcmrf_tpu_torch.runners import train_cli
+
+    ids = tmp_path / "ids.json"
+    ids.write_text(json.dumps(
+        np.random.RandomState(3).randint(0, 1 << 8, 2047).tolist()))
+    argv = ["--graph", "chain:8", "--data", str(ids), "--steps", "12",
+            "--lr", "0.1"]
+    before = kernels.LAUNCHES["lnz_moments"]
+    card = json.loads(open(train_cli.main(
+        argv + ["--outdir", str(tmp_path / "gpu")])).read())
+    assert kernels.LAUNCHES["lnz_moments"] == before + 12
+    cpu = json.loads(open(train_cli.main(
+        argv + ["--platform", "cpu", "--outdir", str(tmp_path / "cpu")])
+    ).read())
+    np.testing.assert_allclose(card["theta"], cpu["theta"], rtol=0,
+                               atol=1e-4)
+    assert abs(card["final_nll"] - cpu["final_nll"]) <= 1e-5
+
+
+def test_fma_peak_kernel_matches_plain_version(dev):
+    from qcmrf_tpu_torch.runners import bench
+
+    """Short chains of the chaotic x -> x * x - 1.5, value by value within
+    1e-3 of float64 (a step more or fewer moves them by O(1)); the full
+    chain's parity from 0 at b = -1; the rate run's ones."""
+    x = torch.ones(1 << 20, device=dev)
+    before = kernels.LAUNCHES["fma_peak"]
+    got = kernels.fma_chain_max(x)
+    assert kernels.LAUNCHES["fma_peak"] == before + 1
+    assert float(got) == float(kernels.fma_chain_max_reference(x)) == 1.0
+    g = torch.Generator(device=dev).manual_seed(18)
+    y = torch.rand(1 << 16, generator=g, device=dev) * 2 - 1
+    out = torch.empty_like(y)
+    for steps in (1, 15, 16):
+        want = y.double()
+        for _ in range(steps):
+            want = want * want - 1.5
+        top = kernels.fma_chain_max(y, -1.5, steps=steps, out=out)
+        torch.testing.assert_close(out.double(), want, rtol=0, atol=1e-3)
+        assert float(top) == float(out.max())
+        assert float((want * want - 1.5 - want).abs().max()) > 1.0
+    z = torch.zeros(1 << 12, device=dev)
+    for steps, value in ((kernels.FMA_CHAIN, 0.0),
+                         (kernels.FMA_CHAIN - 1, -1.0)):
+        out = torch.empty_like(z)
+        kernels.fma_chain_max(z, -1.0, steps=steps, out=out)
+        assert bool((out == value).all())
+    assert bench.fma_peak_tflops(dev, reps=2) > 1.0

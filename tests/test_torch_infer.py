@@ -143,7 +143,7 @@ def test_cli_dispatch(k10, capsys):
 def test_unported_options_name_their_slices(k10, tmp_path):
     cases = ((["--query", "sample"], "slice 3b"),
              (["--query", "sample", "--method", "pam"], "slice 3b"),
-             (["--query", "lnz", "--method", "ais"], "slice 4"),
+             (["--query", "lnz", "--method", "ais"], "slice 3b"),
              (["--query", "lnz", "--mesh", "2x1"], "slice 6"),
              (batch(tmp_path, [{"query": "lnz"}, {"query": "sample"}]),
               "line 2: --query sample comes to the port with slice 3b"))

@@ -23,6 +23,7 @@ from qcmrf_tpu.ops import kernels as jkernels  # noqa: E402
 from qcmrf_tpu_torch.models import moments, sample  # noqa: E402
 from qcmrf_tpu_torch.models.mrf import MRF, chain_mrf  # noqa: E402
 from qcmrf_tpu_torch.ops import kernels  # noqa: E402
+from qcmrf_tpu_torch.utils import moebius  # noqa: E402
 
 TOL = 1e-5
 
@@ -158,7 +159,7 @@ def test_monomial_moments_reference_is_the_masked_sum():
     _, m = models("size5")
     coef = kernels.moebius_coefficients(m)[None]
     lnz = kernels.log_partition(m).reshape(1)
-    masks = torch.from_numpy(moments._monomial_masks(m.cliques, m.n))
+    masks = torch.from_numpy(moebius.monomial_masks(m.cliques, m.n))
     got = kernels.monomial_moments(m.cliques, m.n, coef, m.beta, lnz, masks)
     assert got.dtype == torch.float64 and got.shape == (1, masks.numel())
     p = torch.softmax(kernels.logpot_table_reference(
@@ -173,12 +174,12 @@ def test_monomial_moments_reference_is_the_masked_sum():
 def test_monomial_layout_and_doubling_match_jax():
     for name in ("size34", "size5"):
         cl = tuple(tuple(C) for C in STRUCTURES[name])
-        got, want = moments._monomial_layout(cl), jmoments._monomial_layout(cl)
+        got, want = moebius.monomial_layout(cl), jmoments._monomial_layout(cl)
         assert got.subsets == want.subsets and got.cmaps == want.cmaps
         assert got.m == want.m
         mono = np.random.RandomState(1).rand(got.m)
         np.testing.assert_allclose(
-            moments._masks_from_monomials(torch.from_numpy(mono), cl).numpy(),
+            moebius.masks_from_monomials(torch.from_numpy(mono), cl).numpy(),
             np.asarray(jmoments._masks_from_monomials(
                 jnp.asarray(mono, jnp.float32), cl)), rtol=0, atol=1e-6)
 
@@ -265,7 +266,7 @@ def test_unported_options_name_their_slices():
             fn(*args, mesh=object())
     with pytest.raises(NotImplementedError, match="slice 6"):
         moments.conditional_prob_streaming(m, 0, 1, {}, mesh=object())
-    for name in ("sample_exact", "sample_gibbs", "sample_gibbs_bits",
-                 "sample_pam", "sample_pam_streaming", "sample_conditional"):
+    for name in ("sample_gibbs", "sample_gibbs_bits", "sample_pam",
+                 "sample_pam_streaming", "sample_conditional"):
         with pytest.raises(NotImplementedError, match="slice 3b"):
             getattr(sample, name)(None, m, 4)

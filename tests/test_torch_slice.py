@@ -137,14 +137,26 @@ def _chain12():
 
 
 def _default_device_calls():
-    from qcmrf_tpu_torch.models import pauli
+    import tempfile
+
+    from qcmrf_tpu_torch.models import pauli, sample, train
     from qcmrf_tpu_torch.models.mrf import MRF, chain_mrf, grid_mrf
     from qcmrf_tpu_torch.ops import kernels
-    from qcmrf_tpu_torch.runners import bench
+    from qcmrf_tpu_torch.runners import bench, train_cli
     from qcmrf_tpu_torch.sim import batch, dense, planes
 
     return {
         "bench.copy_kernel_gbps": lambda: bench.copy_kernel_gbps(12),
+        "bench.fma_peak_tflops": lambda: bench.fma_peak_tflops(),
+        "train.fit_mle": lambda: train.fit_mle(
+            MRF.create([[0, 1]], theta=[-0.1] * 4), [0, 3], steps=1),
+        "train.adam_from_numpy": lambda: train.adam_from_numpy(
+            np.zeros(4), np.zeros(4), np.zeros(4), 1, 0.1),
+        "sample.sample_exact": lambda: sample.sample_exact(
+            0, MRF.create([[0, 1]], theta=[-0.1] * 4), 8),
+        "train_cli.main": lambda: train_cli.main([
+            "--graph", "chain:3", "--steps", "1", "--platform", "default",
+            "--outdir", tempfile.mkdtemp()]),
         "bench.gate_apply_gbps": lambda: bench.gate_apply_gbps(12),
         "PauliSum.diagonal": lambda: pauli.z_on(3, 1).diagonal(),
         "MRF.create": lambda: MRF.create([[0, 1]], theta=[-0.1] * 4).theta,
@@ -234,6 +246,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "import qcmrf_tpu_torch.models.moments\n"
             "import qcmrf_tpu_torch.models.sample\n"
             "import qcmrf_tpu_torch.models.capability\n"
+            "import qcmrf_tpu_torch.models.train\n"
+            "import qcmrf_tpu_torch.models.structure\n"
+            "import qcmrf_tpu_torch.evaluation.estimators\n"
+            "import qcmrf_tpu_torch.runners.train_cli\n"
+            "import qcmrf_tpu_torch.runners.bench\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'qcmrf_tpu.')) or m == 'qcmrf_tpu']\n"
             "assert not bad, bad\n"
