@@ -554,11 +554,17 @@ def diag_flops(terms, nq) -> int:
 
 def pass_flops(ops, nq) -> int:
     """Float operations of the fused passes: a complex multiply-add is 8;
-    the lane pass does 128 a value, a row pass 2^K, a sandwich 6 per
-    ancilla level plus its phase."""
+    a lane op given with its factors does 2 a value for each factor that
+    is not the identity (a 2x2 butterfly, as a rowq pass), a bare lane op
+    (the dense product) 128, a row pass 2^K, a sandwich 6 per ancilla
+    level plus its phase."""
+    from qcmrf_tpu_torch.ops import kernels as K
+
     total = 0
     for op in ops:
-        if op[0] == "lane":
+        if op[0] == "lane" and len(op) == 3:
+            total += 16 * bin(K.lane_factor_mask(op[2])).count("1") << nq
+        elif op[0] == "lane":
             total += 1024 << nq
         elif op[0] in ("rowq", "row2"):
             total += (16 if op[0] == "rowq" else 32) << nq
@@ -569,6 +575,12 @@ def pass_flops(ops, nq) -> int:
                  1 if op[0] == "sandwich" else len(op[2]))
             total += (6 * k + 6) << nq
     return total
+
+
+def dense_lanes(ops) -> list:
+    """The stream with each lane op stripped of its factors: the dense
+    product's count, the yardstick before the factored pass."""
+    return [op[:2] if op[0] == "lane" else op for op in ops]
 
 
 def stream_bound(ops, nq) -> dict:
@@ -1346,8 +1358,9 @@ def phase_train(dev, report) -> dict:
 
 
 #: generic gate kernel -> the op kinds of the planner that launch it
-GATE_KERNEL_OPS = {"lane": ("lane",), "row_gate": ("rowq", "row2"),
-                   "diag": ("diag",), "hdh_multi": ("sandwich", "sandwichk")}
+GATE_KERNEL_OPS = {"lane_factored": ("lane",),
+                   "row_gate": ("rowq", "row2"), "diag": ("diag",),
+                   "hdh_multi": ("sandwich", "sandwichk")}
 
 
 def unit_planes(nq, seed, dev):
@@ -1408,7 +1421,27 @@ def gate_cases(nq):
                            ("lane, random complex M", M)):
         cases.append(("lane", label, K.apply_lane, K.apply_lane_reference,
                       (lane_op,)))
+    wall = np.tile(H, (7, 1, 1))
+    for label, factors in (
+            ("lane_factored, 1 random factor", random_factors(rng, 1)),
+            ("lane_factored, 3 random factors", random_factors(rng, 3)),
+            ("lane_factored, 7 random factors", random_factors(rng, 7)),
+            ("lane_factored, the 7-H wall", wall)):
+        cases.append(("lane_factored", label, K.apply_lane_factored,
+                      K.apply_lane_factored_reference, (factors,)))
     return cases
+
+
+def random_factors(rng, count):
+    """Lane factors: random unitaries on ``count`` lane qubits, the
+    identity on the others."""
+    from qcmrf_tpu_torch.ops import kernels as K
+
+    factors = K.identity_factors()
+    for q in rng.choice(7, count, replace=False):
+        a = rng.randn(2, 2) + 1j * rng.randn(2, 2)
+        factors[q] = np.linalg.qr(a)[0].astype(np.complex64)
+    return factors
 
 
 def stream_cases(ops):
@@ -1427,12 +1460,12 @@ def stream_cases(ops):
                  lambda op: (op[1], op[2], nq)),
         "row2": ("row_gate", K.apply_2q_row_pair,
                  K.apply_2q_row_pair_reference, lambda op: op[1:]),
-        "lane": ("lane", K.apply_lane, K.apply_lane_reference,
-                 lambda op: op[1:]),
+        "lane": ("lane_factored", K.apply_lane_factored,
+                 K.apply_lane_factored_reference, lambda op: (op[2],)),
     }
     rowq = [op[2] for op in ops if op[0] == "rowq"]
     lanes = [i for i, op in enumerate(ops) if op[0] == "lane"]
-    densest = max(lanes, key=lambda i: np.count_nonzero(ops[i][1]))
+    densest = densest_lane(ops)
     picked = {}
     for i, op in enumerate(ops):
         if op[0] == "diag":
@@ -1444,7 +1477,9 @@ def stream_cases(ops):
         elif op[0] == "row2":
             picked[f"row2 q_lo={op[2]}, pass {i}"] = i
         elif i in (lanes[0], lanes[-1], densest):
-            picked[f"lane, {np.count_nonzero(op[1])} nonzeros, pass {i}"] = i
+            factors = bin(K.lane_factor_mask(op[2])).count("1")
+            picked[f"lane, {np.count_nonzero(op[1])} nonzeros, {factors} "
+                   f"factors, pass {i}"] = i
     cases = []
     for label, i in picked.items():
         kind, fn, ref, args = calls[ops[i][0]]
@@ -1452,9 +1487,16 @@ def stream_cases(ops):
     return cases
 
 
+def densest_lane(ops) -> int:
+    """Index of the stream's lane op with the most nonzeros in its M."""
+    lanes = [i for i, op in enumerate(ops) if op[0] == "lane"]
+    return max(lanes, key=lambda i: np.count_nonzero(ops[i][1]))
+
+
 #: the case of each kernel whose plain version is timed at width 24
 TIMED_CASE = {"diag": "diag, 12 terms", "row_gate": "rowq q=15",
-              "lane": "lane, the 7-H wall"}
+              "lane": "lane, the 7-H wall",
+              "lane_factored": "lane_factored, 7 random factors"}
 
 
 def lane_library(M, nq, dev):
@@ -1512,17 +1554,41 @@ def hold_library(label, library, apply) -> float:
 
 
 def phase_library_calls(dev, ops, report) -> None:
-    """At the main run's width 28: the lane kernel against torch.matmul on
-    the random M, and the row kernel against torch.matmul on every (K,
-    qubit) of the lowered chain's row passes; each library call timed, the
-    row call's time weighted by the stream's passes."""
+    """At the main run's width 28: the factored lane kernel against
+    torch.matmul on the stream's densest lane op (the same function), the
+    dense lane kernel against torch.matmul on the random M (and timed
+    itself, on the 7-H wall: no main path launches it), and the row kernel
+    against torch.matmul on every (K, qubit) of the lowered chain's row
+    passes; each library call timed, the row call's time weighted by the
+    stream's passes."""
     from qcmrf_tpu_torch.ops import kernels as K
 
     nq = LOWERED_WIDTH
-    M = gate_cases(GATE_PASS_WIDTH)[-1][4][0]
+    densest = ops[densest_lane(ops)]
+    report["lane_factored_library_ms"] = hold_library(
+        f"lane_factored at width {nq}, the stream's densest lane op "
+        f"({np.count_nonzero(densest[1])} nonzeros)",
+        lane_library(densest[1], nq, dev),
+        lambda re, im: K.apply_lane_factored(re, im, densest[2]))
+    M = next(c[4][0] for c in gate_cases(GATE_PASS_WIDTH)
+             if c[1] == "lane, random complex M")
     report["lane_library_ms"] = hold_library(
         f"lane at width {nq}, random complex M", lane_library(M, nq, dev),
         lambda re, im: K.apply_lane(re, im, M))
+    re, im = unit_planes(nq, 9, dev)
+    wall = hadamard_wall()
+    report["lane_w28"] = dict(
+        ms=cuda_ms(lambda: K.apply_lane(re, im, wall), reps=3),
+        library_ms=report["lane_library_ms"],
+        shape=f"2^{nq} values, the 7-H wall as a dense M",
+        **bound(16 << nq, 1024 << nq))
+    del re, im
+    torch.cuda.empty_cache()
+    print(f"  dense lane kernel at 2^{nq} values: "
+          f"{report['lane_w28']['ms']:.4f} ms a pass; torch.matmul "
+          f"{report['lane_library_ms']:.4f} ms (random M); the densest "
+          f"lane op's torch.matmul {report['lane_factored_library_ms']:.4f} "
+          "ms")
     rows = [op for op in ops if op[0] in ("rowq", "row2")]
     by_key = {}
     for op in rows:
@@ -1537,8 +1603,7 @@ def phase_library_calls(dev, ops, report) -> None:
             torch.cuda.empty_cache()
     lib = sum(by_key[(1 if op[0] == "rowq" else 2, op[2])]
               for op in rows) / len(rows)
-    print(f"  library calls at 2^{nq} values: lane "
-          f"{report['lane_library_ms']:.4f} ms; row {lib:.4f} ms a pass "
+    print(f"  library calls at 2^{nq} values: row {lib:.4f} ms a pass "
           f"(mean over the stream's "
           f"{len(rows)} row passes; by (K, qubit): "
           + ", ".join(f"{k}:{ms:.3f}" for k, ms in sorted(by_key.items()))
@@ -1558,9 +1623,28 @@ def phase_gate_kernels(dev, report):
     from qcmrf_tpu_torch.sim import planes
 
     ops = planes.fuse_ops(lowered_chain(LOWERED_WIDTH // 2)[1])
-    err = {w: dict(diag=0.0, row_gate=0.0, lane=0.0, copy=0.0)
-           for w in (GATE_PASS_WIDTH, LOWERED_WIDTH)}
+    err = {w: dict(diag=0.0, row_gate=0.0, lane=0.0, lane_factored=0.0,
+                   copy=0.0) for w in (GATE_PASS_WIDTH, LOWERED_WIDTH)}
+    err[8] = dict(lane=0.0, lane_factored=0.0)
     plain = {}
+    # width 8 (two rows): both lane kernels on every lane case, and the
+    # copy at width 7 (one row)
+    small = [c for c in gate_cases(GATE_PASS_WIDTH) + stream_cases(ops)
+             if c[0] in ("lane", "lane_factored")]
+    print(f"[gate kernels] width 8: {len(small)} lane cases; the copy at "
+          "width 7")
+    for kind, label, fn, ref, args in small:
+        got = fn(*unit_planes(8, 2, dev), *args)
+        want = ref(*unit_planes(8, 2, dev), *args)
+        e = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        err[8][kind] = max(err[8][kind], e)
+        require(e <= 1e-5, f"{label}, width 8: kernel == plain version "
+                           f"within 1e-5 (max |diff| {e:.2e})")
+    src = unit_planes(7, 4, dev)
+    out = (torch.empty_like(src[0]), torch.empty_like(src[1]))
+    K.copy_planes(*src, out=out)
+    require(torch.equal(out[0], src[0]) and torch.equal(out[1], src[1]),
+            "copy kernel at width 7: both planes copied exactly")
     for nq in (GATE_PASS_WIDTH, LOWERED_WIDTH):
         cases = gate_cases(nq)
         if nq == LOWERED_WIDTH:
@@ -1601,14 +1685,14 @@ def phase_gate_kernels(dev, report):
         del src, out
         torch.cuda.empty_cache()
     for kind, row in plain.items():
-        by_width = {w: err[w][kind] for w in err}
+        by_width = {w: e[kind] for w, e in sorted(err.items()) if kind in e}
         print(f"  {kind}: max |kernel - plain| {by_width}; plain "
               f"{row['plain_ms']:.3f} ms, kernel "
               f"{row['ms_at_plain_shape']:.4f} ms ({row['plain_shape']})")
         report.setdefault("gate_w24", {})[kind] = dict(
             max_abs_err=max(by_width.values()),
-            err_shape=f"max over widths {GATE_PASS_WIDTH} and "
-                      f"{LOWERED_WIDTH}: {by_width}", **row)
+            err_shape=f"max over widths {sorted(by_width)}: {by_width}",
+            **row)
     phase_library_calls(dev, ops, report)
 
 
@@ -1669,18 +1753,23 @@ def phase_lowered_chain(dev, report) -> dict:
     peak = torch.cuda.max_memory_allocated()
     ms = start.elapsed_time(end)
     b_ms = stream_bound(ops, nq)["bound_ms"]
+    dense_ms = stream_bound(dense_lanes(ops), nq)["bound_ms"]
     lane_ms = sum(bound(0, pass_flops([op], nq))["bound_ms"]
-                  for op in ops if op[0] == "lane")
+                  for op in dense_lanes(ops) if op[0] == "lane")
     print(f"  qcmrf{nq}_lowered_gate_level_ms {ms:.1f} ({seconds:.3f} s on "
           f"the host clock, planner included); {len(ops)} passes; bound "
-          f"{b_ms:.1f} ms ({b_ms - lane_ms:.1f} of bytes, {lane_ms:.1f} of "
-          f"lane operations); peak memory {peak / 2**30:.3f} GiB; launches "
-          f"{launches}")
+          f"{b_ms:.1f} ms with the lane passes counted by their factors "
+          f"(bytes); counted as dense products, as before the factored "
+          f"pass: {dense_ms:.1f} ms ({dense_ms - lane_ms:.1f} of bytes, "
+          f"{lane_ms:.1f} of lane operations); peak memory "
+          f"{peak / 2**30:.3f} GiB; launches {launches}")
     for k, op_kinds in GATE_KERNEL_OPS.items():
         want = sum(kinds.get(o, 0) for o in op_kinds)
         require(launches[k] == want,
                 f"kernel {k} launched {launches[k]} times, the stream's "
                 f"{'+'.join(op_kinds)} ops: {want}")
+    require(launches["lane"] == 0, f"the dense lane kernel launched "
+                                   f"{launches['lane']} times (expected 0)")
     want = planes.run_statevector(q.circuit, device=dev)
     d = diff_norm((re, im), want)
     norm = norm_float64(re, im)
@@ -1706,7 +1795,8 @@ def phase_lowered_chain(dev, report) -> dict:
     report["lowered"] = dict(
         qcmrf28_lowered_gate_level_ms=ms, host_seconds=seconds,
         passes=len(ops), kinds=kinds, gates=len(low.gates), plan_ms=plan_ms,
-        bound_ms=b_ms, lane_bound_ms=lane_ms, peak_bytes=peak,
+        bound_ms=b_ms, dense_lane_bound_ms=dense_ms,
+        dense_lane_op_bound_ms=lane_ms, peak_bytes=peak,
         diff_norm=d, launches=launches, per_kernel=per_kind)
     return launches
 
@@ -1834,18 +1924,23 @@ def phase_rates(dev, report) -> dict:
                  gate_lane_copy_ratio=lane / copy, fma_peak_tflops=tflops)
     print(f"[rates] n={n}: " + ", ".join(f"{k} {v:.4f}"
                                           for k, v in rates.items()))
-    # the copy kernel and its library call at the rates' shape
+    # the copy kernel and its library call at the rates' shape, in turns
+    # (kernel, copy_, copy_, kernel)
     src = unit_planes(n, 5, dev)
     out = (torch.empty_like(src[0]), torch.empty_like(src[1]))
-    ms = cuda_ms(lambda: K.copy_planes(*src, out=out), reps=10)
-    lib = cuda_ms(lambda: (out[0].copy_(src[0]), out[1].copy_(src[1])),
-                  reps=10)
-    del src, out
+    runs = {"kernel": lambda: K.copy_planes(*src, out=out),
+            "copy_": lambda: (out[0].copy_(src[0]), out[1].copy_(src[1]))}
+    times = {"kernel": [], "copy_": []}
+    for name in ("kernel", "copy_", "copy_", "kernel"):
+        times[name].append(cuda_ms(runs[name], reps=10))
+    ms, lib = (sum(times[k]) / 2 for k in ("kernel", "copy_"))
+    del src, out, runs
     torch.cuda.empty_cache()
     print(f"  copy kernel {ms:.4f} ms, planes' copy_ {lib:.4f} ms at 2^{n} "
-          "values")
+          f"values (in turns: {times})")
     report["rates"] = rates
     report["copy_w28"] = dict(ms=ms, library_ms=lib,
+                              shape=f"2^{n} values, both planes",
                               **bound(16 << n, 0))
     err = check_fma_chain(K, dev)
     # the rate run's chain on bench.py's array of ones, and its plain time
@@ -1874,19 +1969,19 @@ def phase_rates(dev, report) -> dict:
 
 def gate_entry(kind, report, launches) -> dict:
     """A generic gate kernel's line: its mean time and bound per launch in
-    the lowered width-28 main run (the copy: at the rates' width 28), its
-    plain version at width 24."""
+    the lowered width-28 main run (the copy: at the rates' width 28; the
+    dense lane kernel, which the main run no longer launches: at width
+    28 on the 7-H wall), its plain version at width 24."""
     w24 = report["gate_w24"][kind]
-    if kind == "copy":
-        row = report["copy_w28"]
+    if kind in ("copy", "lane"):
+        row = report[f"{kind}_w28"]
         return dict(launches=launches, ms=row["ms"], bound_ms=row["bound_ms"],
                     bound_by=row["bound_by"], library_ms=row["library_ms"],
-                    shape=f"2^{LOWERED_WIDTH} values, both planes", **w24)
+                    shape=row["shape"], **w24)
     run = report["lowered"]["per_kernel"][kind]
     return dict(launches=launches, ms=run["ms"], bound_ms=run["bound_ms"],
                 bound_by=run["bound_by"],
-                library_ms=report[f"{kind}_library_ms"]
-                if kind in ("lane", "row_gate") else None,
+                library_ms=report.get(f"{kind}_library_ms"),
                 shape=f"mean per launch over the {run['passes']} passes of "
                       f"the lowered width-{LOWERED_WIDTH} chain "
                       f"({run['total_ms']:.1f} ms in all)", **w24)
@@ -1902,6 +1997,7 @@ REPLACES = {
     "hdh_multi": "qcmrf_tpu/ops/kernels.py:1895",
     "hdh_multi_uniform": "qcmrf_tpu/ops/kernels.py:1895",
     "circuit": "qcmrf_tpu/ops/circuit_kernel.py:108",
+    "lane_factored": "qcmrf_tpu/ops/kernels.py:1046",
     "lane": "qcmrf_tpu/ops/kernels.py:1046",
     "row_gate": "qcmrf_tpu/ops/kernels.py:1128",
     "diag": "qcmrf_tpu/ops/kernels.py:1340",
@@ -1921,7 +2017,8 @@ SOURCES = {
     "hdh_multi": "circuit_kernels.cu",
     "hdh_multi_uniform": "circuit_kernels.cu",
     "circuit": "circuit_kernels.cu",
-    "lane": "gate_kernels.cu", "row_gate": "gate_kernels.cu",
+    "lane_factored": "gate_kernels.cu", "lane": "gate_kernels.cu",
+    "row_gate": "gate_kernels.cu",
     "diag": "gate_kernels.cu", "copy": "gate_kernels.cu",
     "fma_peak": "gate_kernels.cu",
 }
@@ -1964,7 +2061,8 @@ KERNEL_NAMES = ("sampler_kernel", "logpot_kernel", "lse_kernel",
                 "map_kernel", "moments_kernel", "lnz_moments_kernel",
                 "hdh_multi_kernel", "hdh_multi_uniform_kernel",
                 "circuit_kernel", "diag_kernel", "row_gate_kernel",
-                "lane_kernel", "copy_kernel", "fma_peak_kernel")
+                "lane_kernel", "lane_factored_kernel", "copy_kernel",
+                "fma_peak_kernel")
 
 
 def print_ptxas(path) -> None:
@@ -2041,14 +2139,15 @@ def main() -> int:
     # no single PyTorch call computes the fused sweep or the FMA chain
     kernels_line.append(dict(launches=train["lnz_moments"], library_ms=None,
                              **report["lnz_moments"]))
-    for k in ("lane", "row_gate", "diag"):
+    for k in ("lane_factored", "lane", "row_gate", "diag"):
         kernels_line.append(gate_entry(k, report, lowered[k]))
     kernels_line.append(gate_entry("copy", report, rates["copy"]))
     kernels_line.append(dict(launches=rates["fma_peak"], library_ms=None,
                              **report["fma_peak"]))
     for k, entry in zip(("sampler", "logpot", "lse", "hdh_multi",
                          "hdh_multi_uniform", "circuit", "map", "moments",
-                         "lnz_moments", "lane", "row_gate", "diag", "copy",
+                         "lnz_moments", "lane_factored", "lane", "row_gate",
+                         "diag", "copy",
                          "fma_peak"), kernels_line):
         entry.update(name=k, route="cuda",
                      source=f"qcmrf_tpu_torch/csrc/{SOURCES[k]}",
@@ -2063,7 +2162,8 @@ def main() -> int:
             if k in ("gate_level", "gate_plain_width", "sandwich_w24",
                      "pass_w32", "infer_k27_batch_s",
                      "infer_k27_query_s", "gate_w24", "lowered", "rates",
-                     "copy_w28", "lane_library_ms", "row_gate_library_ms",
+                     "copy_w28", "lane_w28", "lane_library_ms",
+                     "lane_factored_library_ms", "row_gate_library_ms",
                      "row_library_by_qubit", "train", "fma_peak")}), f,
                   indent=1, default=str)
     print(f"[total] {time.perf_counter() - t_start:.1f} s")

@@ -1,8 +1,9 @@
 // Hand-written Hopper (sm_90a) kernels of the plane engine's generic gate
 // passes: the diagonal profile (also the masked rotation), the 2x2 / 4x4
-// row-qubit gates, the 128x128 lane-qubit product, the plane copy that
-// normalises the gate passes' rates, and the float32 FMA chain that
-// normalises the float kernels' rates.
+// row-qubit gates, the lane-qubit pass (factored: one butterfly a factor,
+// for the planner's lane ops; dense: the 128x128 product, for an M given
+// without factors), the plane copy that normalises the gate passes' rates,
+// and the float32 FMA chain that normalises the float kernels' rates.
 //
 // Built with the other sources of csrc/ into one library by
 // qcmrf_tpu_torch/ops/_build.py (nvcc -gencode arch=compute_90a,code=sm_90a
@@ -26,6 +27,13 @@
 struct GateMatrix {
   float re[16];
   float im[16];
+};
+
+// The seven 2x2 factors of a lane op, factor q's entry (o, i) at 4 q + 2 o
+// + i; passed by value to qcmrf_lane_factored.
+struct LaneFactors {
+  float re[28];
+  float im[28];
 };
 
 namespace {
@@ -293,21 +301,143 @@ lane_kernel(const float* __restrict__ mt, float* __restrict__ re,
 }
 
 // ---------------------------------------------------------------------------
+// 3b. Factored lane pass: M = F6 (x) ... (x) F0, one 2x2 butterfly a qubit
+// ---------------------------------------------------------------------------
+// Replaces qcmrf_tpu/ops/kernels.py::_build_matmul_pair_kernel
+// (_lane_matmul_call) on every lane op the planner emits. Such an op
+// composes 1q gates on qubits 0-6, each I (x) U (x) I, and gates on
+// different qubits commute, so its M is a Kronecker product of seven 2x2
+// factors (the planner carries them beside M). The TPU's MXU makes the
+// dense 128-wide product almost free; this card has no float32-exact
+// tensor-core path as cheap, and the dense product is compute-bound
+// (lane_kernel above). Factor by factor the pass does at most 7 complex
+// butterflies a value (16 float operations each, 112 at most) against 16
+// bytes moved, below the card's ridge: bound by device memory, like the
+// copy.
+// Design: one warp owns one 128-value row; lane t holds values 4t .. 4t+3
+// of each plane as a float4 (512 coalesced bytes a plane a row). Qubits 0
+// and 1 lie inside the float4, so their butterflies are register
+// arithmetic; qubits 2-6 are lane bits 0-4, so a butterfly on qubit q
+// takes its partner from lane t ^ (1 << (q - 2)) by __shfl_xor_sync, and
+// the lane's own bit picks the row of F_q. Every value is updated as
+// new = F[b][b] own + F[b][1-b] partner (b its bit of q), which the plain
+// version repeats. Identity factors are skipped (the host passes a 7-bit
+// mask). A warp takes kFactoredRows rows, all loaded before any is
+// computed, on a grid that covers the rows (no grid-stride cap): the copy
+// kernel's design, and at one row a warp its two float4 loads a thread;
+// a warp reads its rows before it writes them and no warp touches
+// another's rows, so the pass is in place.
+constexpr int kFactoredRows = 1;
+
+// out = c_own own + c_par par, complex, in this order of rounding
+__device__ __forceinline__ void butterfly(float own_r, float own_i,
+                                          float par_r, float par_i,
+                                          float cor, float coi, float cpr,
+                                          float cpi, float& out_r,
+                                          float& out_i) {
+  out_r = fmaf(-cpi, par_i, fmaf(cpr, par_r, fmaf(-coi, own_i, cor * own_r)));
+  out_i = fmaf(cpi, par_r, fmaf(cpr, par_i, fmaf(coi, own_r, cor * own_i)));
+}
+
+__global__ void __launch_bounds__(kThreads)
+lane_factored_kernel(LaneFactors f, int mask, float* __restrict__ re,
+                     float* __restrict__ im, int64_t rows) {
+  const int lane = threadIdx.x & 31;
+  const int64_t row0 =
+      ((int64_t(blockIdx.x) * blockDim.x + threadIdx.x) >> 5) * kFactoredRows;
+  float4 vr[kFactoredRows], vi[kFactoredRows];
+#pragma unroll
+  for (int r = 0; r < kFactoredRows; ++r) {
+    if (row0 + r < rows) {  // one answer for the whole warp
+      vr[r] = load4(re, uint64_t(row0 + r) * 128 + 4 * lane);
+      vi[r] = load4(im, uint64_t(row0 + r) * 128 + 4 * lane);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    if (!(mask >> q & 1)) continue;
+#pragma unroll
+    for (int r = 0; r < kFactoredRows; ++r) {
+      float4 nr, ni;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int b = e >> q & 1, p = e ^ (1 << q);
+        const int own = 4 * q + 3 * b, par = 4 * q + 2 * b + (1 - b);
+        butterfly(lane4(vr[r], e), lane4(vi[r], e), lane4(vr[r], p),
+                  lane4(vi[r], p), f.re[own], f.im[own], f.re[par],
+                  f.im[par], lane4(nr, e), lane4(ni, e));
+      }
+      vr[r] = nr;
+      vi[r] = ni;
+    }
+  }
+#pragma unroll
+  for (int q = 2; q < 7; ++q) {
+    if (!(mask >> q & 1)) continue;
+    const int b = lane >> (q - 2) & 1;
+    const float cor = b ? f.re[4 * q + 3] : f.re[4 * q];
+    const float coi = b ? f.im[4 * q + 3] : f.im[4 * q];
+    const float cpr = b ? f.re[4 * q + 2] : f.re[4 * q + 1];
+    const float cpi = b ? f.im[4 * q + 2] : f.im[4 * q + 1];
+#pragma unroll
+    for (int r = 0; r < kFactoredRows; ++r) {
+      if (row0 + r >= rows) continue;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pr =
+            __shfl_xor_sync(0xffffffffu, lane4(vr[r], e), 1 << (q - 2));
+        const float pi =
+            __shfl_xor_sync(0xffffffffu, lane4(vi[r], e), 1 << (q - 2));
+        butterfly(lane4(vr[r], e), lane4(vi[r], e), pr, pi, cor, coi, cpr,
+                  cpi, lane4(vr[r], e), lane4(vi[r], e));
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kFactoredRows; ++r) {
+    if (row0 + r < rows) {
+      store4(re, uint64_t(row0 + r) * 128 + 4 * lane, vr[r]);
+      store4(im, uint64_t(row0 + r) * 128 + 4 * lane, vi[r]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // 4. Plane copy: the same bytes as a gate pass, no arithmetic
 // ---------------------------------------------------------------------------
 // Replaces qcmrf_tpu/runners/bench.py::copy_kernel_gbps's kernel: reads both
 // planes and writes both (16 bytes a value), the same-run rate the gate
 // passes are held against. Bound on this card: device memory.
+// Design, the fastest of those timed side by side on the card
+// (runners/copy_designs.py, on an H100 SXM at 700 W): each thread issues
+// kCopyUnroll float4 loads, kThreads apart, before any store, on a grid
+// that covers both planes (the first half of the blocks copy the real
+// plane) with no grid-stride cap. There a grid-stride loop of one float4
+// a plane an iteration (at most 16 blocks an SM) moved 2.83 TB/s, the
+// same loop one plane after the other no more, a cp.async.bulk ring
+// through shared memory 2.90, this design with 4-16 loads a thread
+// 2.96-3.00 and with 2 loads 3.02, the planes' two copy_ calls 3.01.
+constexpr int kCopyUnroll = 2;
+
 __global__ void __launch_bounds__(kThreads)
-copy_kernel(const float* __restrict__ src_re, const float* __restrict__ src_im,
-            float* __restrict__ dst_re, float* __restrict__ dst_im,
-            int64_t num_groups) {
-  const int64_t stride = int64_t(gridDim.x) * blockDim.x;
-  for (int64_t g = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-       g < num_groups; g += stride) {
-    const uint64_t x = uint64_t(g) << 2;
-    store4(dst_re, x, load4(src_re, x));
-    store4(dst_im, x, load4(src_im, x));
+copy_kernel(const float4* __restrict__ src_re,
+            const float4* __restrict__ src_im, float4* __restrict__ dst_re,
+            float4* __restrict__ dst_im, int64_t num_groups,
+            int64_t blocks_per_plane) {
+  const bool second = blockIdx.x >= blocks_per_plane;
+  const float4* src = second ? src_im : src_re;
+  float4* dst = second ? dst_im : dst_re;
+  const int64_t base =
+      (blockIdx.x - (second ? blocks_per_plane : 0)) * kThreads * kCopyUnroll +
+      threadIdx.x;
+  float4 v[kCopyUnroll];
+#pragma unroll
+  for (int k = 0; k < kCopyUnroll; ++k) {
+    if (base + k * kThreads < num_groups) v[k] = src[base + k * kThreads];
+  }
+#pragma unroll
+  for (int k = 0; k < kCopyUnroll; ++k) {
+    if (base + k * kThreads < num_groups) dst[base + k * kThreads] = v[k];
   }
 }
 
@@ -412,11 +542,26 @@ int qcmrf_lane(const float* mt, float* re, float* im, int64_t rows,
   return static_cast<int>(cudaGetLastError());
 }
 
+int qcmrf_lane_factored(LaneFactors f, int mask, float* re, float* im,
+                        int64_t rows, void* stream) {
+  const int64_t per_block = (kThreads / 32) * kFactoredRows;
+  const int64_t blocks = (rows + per_block - 1) / per_block;
+  lane_factored_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(f, mask, re, im,
+                                                              rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
 int qcmrf_copy(const float* src_re, const float* src_im, float* dst_re,
                float* dst_im, int64_t num_groups, void* stream) {
-  copy_kernel<<<grid_blocks(num_groups, kThreads), kThreads, 0,
-                static_cast<cudaStream_t>(stream)>>>(src_re, src_im, dst_re,
-                                                     dst_im, num_groups);
+  const int64_t per_block = int64_t(kThreads) * kCopyUnroll;
+  const int64_t blocks_per_plane = (num_groups + per_block - 1) / per_block;
+  copy_kernel<<<static_cast<unsigned>(2 * blocks_per_plane), kThreads, 0,
+                static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float4*>(src_re),
+      reinterpret_cast<const float4*>(src_im),
+      reinterpret_cast<float4*>(dst_re), reinterpret_cast<float4*>(dst_im),
+      num_groups, blocks_per_plane);
   return static_cast<int>(cudaGetLastError());
 }
 

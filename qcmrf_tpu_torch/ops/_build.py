@@ -49,6 +49,13 @@ class GateMatrix(ctypes.Structure):
     _fields_ = [("re", ctypes.c_float * 16), ("im", ctypes.c_float * 16)]
 
 
+class LaneFactors(ctypes.Structure):
+    """A lane op's seven 2x2 factors as ``gate_kernels.cu`` takes them by
+    value: factor q's entry (o, i) at ``4 q + 2 o + i``."""
+
+    _fields_ = [("re", ctypes.c_float * 28), ("im", ctypes.c_float * 28)]
+
+
 _SIGNATURES = {
     # coef, shifts, sizes, B, K, cmax, n, shots, seed, stream0, mode,
     # x_out, a_out, count_out, stream
@@ -84,6 +91,8 @@ _SIGNATURES = {
     "qcmrf_row_gate": (GateMatrix, _I, _P, _P, _I64, _I, _P),
     # m^T planes, re, im, rows, stream
     "qcmrf_lane": (_P, _P, _P, _I64, _P),
+    # factors, mask of the non-identity factors, re, im, rows, stream
+    "qcmrf_lane_factored": (LaneFactors, _I, _P, _P, _I64, _P),
     # src_re, src_im, dst_re, dst_im, num_groups, stream
     "qcmrf_copy": (_P, _P, _P, _P, _I64, _P),
     # x, b, steps, num_quads, block_max, out (or null), stream

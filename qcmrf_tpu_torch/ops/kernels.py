@@ -47,9 +47,13 @@ of at least 7 qubits:
   (``diag_kernel``);
 * :func:`apply_1q` on a row qubit (q >= 7) and :func:`apply_2q_row_pair`
   on two adjacent row qubits (``row_gate_kernel<K>``, K = 1, 2);
+* :func:`apply_lane_factored`: the planner's ``lane`` op, ``M = F6 ⊗ ...
+  ⊗ F0`` on qubits 0-6 given by its seven 2x2 factors, one butterfly a
+  value a factor, and :func:`apply_1q` on a lane qubit
+  (``lane_factored_kernel``);
 * :func:`apply_lane`: ``out = state · Mᵀ`` per 128-value row for a complex
-  128x128 ``M``, the planner's ``lane`` op and :func:`apply_1q` on a lane
-  qubit (``lane_kernel``);
+  128x128 ``M`` given without factors (``lane_kernel``, the dense
+  product);
 * :func:`copy_planes`: both planes copied, the bytes of a gate pass
   (``copy_kernel``), the rate the passes are held against;
 * :func:`fma_chain_max`: chained float32 FMAs (``fma_peak_kernel``), the
@@ -80,7 +84,8 @@ from qcmrf_tpu_torch.utils.config import resolve_device
 #: launches of the CUDA kernels, bumped where each is launched
 LAUNCHES = {"logpot": 0, "lse": 0, "map": 0, "moments": 0,
             "lnz_moments": 0, "hdh_multi": 0, "hdh_multi_uniform": 0,
-            "diag": 0, "row_gate": 0, "lane": 0, "copy": 0, "fma_peak": 0}
+            "diag": 0, "row_gate": 0, "lane": 0, "lane_factored": 0,
+            "copy": 0, "fma_peak": 0}
 
 #: the streaming logsumexp writes at most this many partial pairs a row
 MAX_LSE_PARTS = 4096
@@ -1016,8 +1021,9 @@ def apply_lane_reference(re, im, M):
 
 def apply_lane(re, im, M):
     """``out = state · Mᵀ`` on every 128-value row (qubits 0-6), M a
-    complex 128x128 matrix, **in place**; returns the planes. On the card:
-    ``lane_kernel`` in float32 FMAs."""
+    complex 128x128 matrix given without factors, **in place**; returns
+    the planes. On the card: ``lane_kernel``, the dense product in float32
+    FMAs."""
     nq, M = _lane_args(re, im, M)
     if re.device.type == "cpu":
         return apply_lane_reference(re, im, M)
@@ -1029,28 +1035,106 @@ def apply_lane(re, im, M):
     return re, im
 
 
+def identity_factors() -> np.ndarray:
+    """The ``(7, 2, 2)`` complex64 factors of a lane op that touches no
+    qubit: one 2x2 identity a lane qubit."""
+    return np.tile(np.eye(2, dtype=np.complex64), (7, 1, 1))
+
+
+def lane_factor_mask(factors) -> int:
+    """Bit q set where a lane op's factor q is not the identity: the
+    factors the pass applies."""
+    eye = np.eye(2, dtype=np.complex64)
+    return sum(1 << q for q, F in enumerate(factors)
+               if not np.array_equal(F, eye))
+
+
+def _factored_args(re, im, factors):
+    """(nq, factors as complex64, mask of the non-identity factors)."""
+    nq = _gate_planes(re, im)
+    F = np.asarray(factors, dtype=np.complex64)
+    if F.shape != (7, 2, 2):
+        raise ValueError(f"lane factors of shape {F.shape}, expected "
+                         "(7, 2, 2)")
+    return nq, F, lane_factor_mask(F)
+
+
+def _butterfly(own, par, c_own, c_par):
+    """``c_own * own + c_par * par`` on (re, im) pairs, rounded in the
+    kernel's order."""
+    (o_r, o_i), (p_r, p_i) = own, par
+    cor, coi = float(c_own.real), float(c_own.imag)
+    cpr, cpi = float(c_par.real), float(c_par.imag)
+    return (o_r * cor - o_i * coi + p_r * cpr - p_i * cpi,
+            o_i * cor + o_r * coi + p_i * cpr + p_r * cpi)
+
+
+def apply_lane_factored_reference(re, im, factors):
+    """Plain PyTorch version of :func:`apply_lane_factored`, any device: the
+    kernel's butterflies, qubit 0 first, on a ``(rows, 2^(6-q), 2, 2^q)``
+    view of the planes; each value becomes ``F[b][b] own + F[b][1-b]
+    partner``, b its bit of q."""
+    _, F, mask = _factored_args(re, im, factors)
+    for q in range(7):
+        if not mask >> q & 1:
+            continue
+        shape = (-1, 1 << (6 - q), 2, 1 << q)
+        r, i = re.view(shape), im.view(shape)
+        new = [_butterfly((r[:, :, b], i[:, :, b]),
+                          (r[:, :, 1 - b], i[:, :, 1 - b]),
+                          F[q, b, b], F[q, b, 1 - b]) for b in (0, 1)]
+        for b, (nr, ni) in enumerate(new):
+            r[:, :, b] = nr
+            i[:, :, b] = ni
+    return re, im
+
+
+def apply_lane_factored(re, im, factors):
+    """The lane op ``M = F6 ⊗ ... ⊗ F0`` on every 128-value row, given by
+    its ``(7, 2, 2)`` factors (factor q acts on qubit q), **in place**;
+    returns the planes. One 2x2 butterfly a value for each factor that is
+    not the identity: ``lane_factored_kernel`` on the card, bound by its
+    bytes. The planner's lane ops carry their factors; an ``M`` given
+    without them goes to :func:`apply_lane`."""
+    nq, F, mask = _factored_args(re, im, factors)
+    if re.device.type == "cpu":
+        return apply_lane_factored_reference(re, im, F)
+    f = _build.LaneFactors()
+    f.re[:] = F.real.reshape(-1).tolist()
+    f.im[:] = F.imag.reshape(-1).tolist()
+    _build.launch("qcmrf_lane_factored", re.device, f, mask,
+                  *_launch_ptrs(re, im), (1 << nq) >> 7)
+    LAUNCHES["lane_factored"] += 1
+    return re, im
+
+
+def _one_factor(U, q: int) -> np.ndarray:
+    factors = identity_factors()
+    factors[q] = _unitary(U, 1)
+    return factors
+
+
 def apply_1q_reference(re, im, U, q: int, n: int = None):
     """Plain PyTorch version of :func:`apply_1q`."""
     nq = _gate_planes(re, im)
     if n is not None and n != nq:
         raise ValueError(f"planes of {nq} qubits, not {n}")
     if 0 <= q < 7:
-        return apply_lane_reference(re, im, _lane_gate_matrix(
-            _unitary(U, 1), q))
+        return apply_lane_factored_reference(re, im, _one_factor(U, q))
     _, U = _row_args(re, im, U, q, 1)
     return _row_gate_reference(re, im, U, q, 1)
 
 
 def apply_1q(re, im, U, q: int, n: int = None):
     """Apply a 2x2 unitary to qubit ``q``, in place; returns the planes.
-    A lane qubit (q < 7) goes through :func:`apply_lane` with the gate
-    embedded in 128x128, a row qubit through ``row_gate_kernel<1>``.
-    ``n``, when given, must be the planes' qubit count."""
+    A lane qubit (q < 7) goes through :func:`apply_lane_factored` with one
+    factor, a row qubit through ``row_gate_kernel<1>``. ``n``, when given,
+    must be the planes' qubit count."""
     nq = _gate_planes(re, im)
     if n is not None and n != nq:
         raise ValueError(f"planes of {nq} qubits, not {n}")
     if 0 <= q < 7:
-        return apply_lane(re, im, _lane_gate_matrix(_unitary(U, 1), q))
+        return apply_lane_factored(re, im, _one_factor(U, q))
     return _row_gate(re, im, U, q, 1)
 
 

@@ -4,7 +4,8 @@
 * :func:`copy_kernel_gbps`: ``copy_kernel`` reading and writing both
   planes, the bytes of a read-write gate pass and no arithmetic;
 * :func:`gate_apply_gbps`: chained Hadamards on a lane qubit (3, the
-  ``lane_kernel``) and on a row qubit (n - 2, ``row_gate_kernel<1>``);
+  ``lane_factored_kernel``) and on a row qubit (n - 2,
+  ``row_gate_kernel<1>``);
 * :func:`fma_peak_tflops`: ``fma_peak_kernel``, 1024 chained float32
   FMAs on every value of a (512 * 512, 128) array, the float32 rate the
   compute-bound kernels are held against (``bench.py``'s ``_vpu_kern``).
@@ -83,7 +84,7 @@ def copy_kernel_gbps(n: int, device=None) -> float:
 
 def gate_apply_gbps(n: int, device=None) -> tuple:
     """``(lane_gbps, row_gbps)``: effective rates of chained Hadamards on
-    qubit 3 (``lane_kernel``) and on qubit ``n - 2``
+    qubit 3 (``lane_factored_kernel``) and on qubit ``n - 2``
     (``row_gate_kernel<1>``), in place on planes of ``2**n`` values (n >=
     9). ``device`` is the current CUDA device unless one is named."""
     device = _card(device)

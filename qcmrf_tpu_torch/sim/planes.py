@@ -15,8 +15,10 @@ of the flat index. A circuit runs as a stream of fused passes:
 * **executor** :func:`apply_ops`: ``init_uniform`` is plain PyTorch; every
   other pass goes to a CUDA kernel of :mod:`qcmrf_tpu_torch.ops.kernels`
   (its plain version on the CPU), updating the planes in place: the
-  sandwich passes, ``diag`` (the diagonal profile), ``lane`` (the 128x128
-  product on qubits 0-6), ``rowq`` and ``row2`` (the row gates).
+  sandwich passes, ``diag`` (the diagonal profile), ``lane`` (qubits 0-6:
+  one butterfly a value a factor for the planner's ops, which carry their
+  factors; the dense 128x128 product for a bare ``('lane', M)``), ``rowq``
+  and ``row2`` (the row gates).
 
 :func:`apply_gate` is the unfused path, one gate at a time (``cx`` as
 ``H_t · cp(pi) · H_t``, every diagonal gate a masked rotation): the oracle
@@ -191,7 +193,10 @@ def fuse_primitives(prim: list) -> list:
       the cp inside the cx decomposition) -> ONE ``('diag', terms, angles,
       base)`` pass;
     * consecutive non-diagonal 1q gates on LANE qubits (q < 7) compose
-      into one 128x128 matrix -> ONE ``lane`` pass;
+      into one 128x128 matrix -> ONE ``('lane', M, factors)`` pass: ``M``
+      is composed as the JAX planner composes it, and ``factors`` (7, 2,
+      2) holds each lane qubit's composed 2x2 (identity where no gate
+      touched it), so that ``M = F6 ⊗ ... ⊗ F0``;
     * consecutive 1q gates on the SAME row qubit compose their 2x2s, and
       consecutive 1q gates on ADJACENT row qubits merge into one 4x4
       two-qubit ``row2`` pass;
@@ -217,9 +222,11 @@ def fuse_primitives(prim: list) -> list:
             if q < 7:
                 M = K._lane_gate_matrix(U, q)
                 if ops and ops[-1][0] == "lane":
-                    ops[-1] = ("lane", M @ ops[-1][1])
+                    _, M_prev, factors = ops[-1]
+                    factors[q] = U @ factors[q]
+                    ops[-1] = ("lane", M @ M_prev, factors)
                 else:
-                    ops.append(("lane", M))
+                    ops.append(("lane", M, K._one_factor(U, q)))
             else:
                 if ops and ops[-1][0] == "rowq" and ops[-1][2] == q:
                     ops[-1] = ("rowq", U @ ops[-1][1], q)
@@ -412,6 +419,8 @@ def apply_ops(re, im, ops, num_qubits: int):
         elif kind == "diag":
             _, terms, angles, base = op
             K.apply_diagonal_profile(re, im, terms, angles, base)
+        elif kind == "lane" and len(op) == 3:
+            K.apply_lane_factored(re, im, op[2])
         elif kind == "lane":
             K.apply_lane(re, im, op[1])
         elif kind == "rowq":

@@ -11,6 +11,7 @@ for lowered circuits, 5e-5 for the random-circuit fuzz. Every state is a
 unit-norm random vector, so one float32 ulp of the largest amplitude is
 far below each."""
 
+import functools
 import math
 
 import numpy as np
@@ -73,7 +74,7 @@ def assert_pass_matches(port_fn, jax_fn, nq, seed, atol=1e-5):
 
 @pytest.mark.parametrize("q", [0, 3, 6, 7, 9])
 def test_apply_1q_matches_pallas(q):
-    """Hadamard on lane (the 128x128 product) and row qubits, n = 10."""
+    """Hadamard on lane (the factored pass) and row qubits, n = 10."""
     assert_pass_matches(
         lambda r, i: kernels.apply_1q(r, i, H, q, 10),
         lambda r, i: jkernels.apply_1q(r, i, H, q, 10), 10, 6)
@@ -173,6 +174,118 @@ def test_lane_op_matches_pallas(which):
             jnp.asarray(M.imag.astype(np.float32))), 9, 8)
 
 
+def random_factors(count, seed):
+    """(7, 2, 2) lane factors: random unitaries on ``count`` lane qubits
+    drawn from ``seed``, the identity on the others."""
+    rng = np.random.RandomState(seed)
+    factors = kernels.identity_factors()
+    for q in rng.choice(7, count, replace=False):
+        a = rng.randn(2, 2) + 1j * rng.randn(2, 2)
+        factors[q] = np.linalg.qr(a)[0].astype(np.complex64)
+    return factors
+
+
+@pytest.mark.parametrize("count", [0, 1, 7])
+@pytest.mark.parametrize("nq", [7, 8, 10])
+def test_lane_factored_matches_pallas(count, nq):
+    """The factored pass's plain version (which the CPU wrapper runs, bit
+    for bit) against JAX's executor on ``("lane", kron(factors))``, the
+    Pallas product interpreted, within 1e-5."""
+    F = random_factors(count, 10 * nq + count)
+    re, im = state(nq, count)
+    want = jtpu._apply_ops(*jax_planes(re, im), [("lane", kron_factors(F))],
+                           nq)
+    ref = kernels.apply_lane_factored_reference(*port_planes(re, im), F)
+    pr, pi = port_planes(re, im)
+    got = kernels.apply_lane_factored(pr, pi, F)
+    assert got[0] is pr and got[1] is pi  # updated in place
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    np.testing.assert_allclose(to_complex(*got), to_complex(*want), rtol=0,
+                               atol=1e-5)
+    if count == 0:
+        assert np.array_equal(to_complex(*got), to_complex(re, im))
+
+
+@pytest.mark.parametrize("q", range(7))
+def test_apply_1q_on_lane_qubits_takes_the_factored_pass(q, monkeypatch):
+    """apply_1q on qubit 0-6 is one factored pass with the gate as factor
+    q and the identity elsewhere, equal to JAX's apply_1q within 1e-5."""
+    U = random_factors(7, q)[q]
+    calls = []
+    factored = kernels.apply_lane_factored
+
+    def spy(re, im, factors):
+        calls.append(np.asarray(factors))
+        return factored(re, im, factors)
+
+    monkeypatch.setattr(kernels, "apply_lane_factored", spy)
+    assert_pass_matches(lambda r, i: kernels.apply_1q(r, i, U, q, 9),
+                        lambda r, i: jkernels.apply_1q(r, i, U, q, 9), 9, q)
+    assert len(calls) == 1
+    want = kernels.identity_factors()
+    want[q] = U
+    assert np.array_equal(calls[0], want)
+
+
+def test_executor_routes_lane_ops(monkeypatch):
+    """A planner lane op (factors beside M) goes to the factored pass; a
+    bare ``("lane", M)``, as JAX's planner makes it, to the dense one."""
+    calls = []
+    for name in ("apply_lane", "apply_lane_factored"):
+        monkeypatch.setattr(kernels, name, lambda re, im, a, name=name: (
+            calls.append(name), (re, im))[1])
+    F = random_factors(2, 3)
+    ops = [("lane", kron_factors(F), F), ("lane", kron_factors(F))]
+    planes.apply_ops(*port_planes(*state(8, 1)), ops, 8)
+    assert calls == ["apply_lane_factored", "apply_lane"]
+
+
+def lowered_chain(nn):
+    """bench.py's chain of nn variables (width 2 nn), lowered to basis
+    gates (fused style), as a JAX and a port circuit."""
+    theta = -np.abs(np.random.RandomState(0).randn(4 * (nn - 1))) * 0.3
+    jc = jlower(jcompile(JMRF.create([[i, i + 1] for i in range(nn - 1)],
+                                     theta=theta),
+                         with_measurements=False), style="fused")
+    return jc, port_circuit(jc)
+
+
+@pytest.mark.parametrize("nn", [5, 6])
+def test_lowered_chain_lane_ops_carry_their_factors(nn):
+    """Every lane op of the lowered chain at widths 10 and 12: (kind, M)
+    equal to JAX's op within 1e-9, kron(factors) equal to M within
+    FACTORS_ATOL, and at most a few non-identity factors."""
+    jc, c = lowered_chain(nn)
+    ops, jops = planes.fuse_ops(c), jtpu.fuse_ops(jc)
+    assert_same_ops(ops, jops)
+    lanes = [op for op in ops if op[0] == "lane"]
+    assert lanes and all(len(op) == 3 for op in lanes)
+    eye = np.eye(2, dtype=np.complex64)
+    for op in lanes:
+        np.testing.assert_allclose(kron_factors(op[2]), op[1], rtol=0,
+                                   atol=FACTORS_ATOL)
+        assert 1 <= sum(not np.array_equal(f, eye) for f in op[2]) <= 7
+
+
+def test_lowered_chain_run_ops_matches_jax(monkeypatch):
+    """The width-8 lowered chain's whole stream through run_ops on the
+    CPU, every lane op a factored pass and none a dense one, against JAX's
+    executor on JAX's stream, within 2e-5."""
+    jc, c = lowered_chain(4)
+    ops = planes.fuse_ops(c)
+    calls = []
+    for name in ("apply_lane", "apply_lane_factored"):
+        real = getattr(kernels, name)
+        monkeypatch.setattr(kernels, name, lambda re, im, a, name=name,
+                            real=real: (calls.append(name), real(re, im, a))[1])
+    got = to_complex(*planes.run_ops(ops, c.num_qubits, "cpu"))
+    want = jtpu._apply_ops(*jtpu.zero_planes(jc.num_qubits),
+                           jtpu.fuse_ops(jc), jc.num_qubits)
+    np.testing.assert_allclose(got, to_complex(*want), rtol=0, atol=2e-5)
+    assert calls == ["apply_lane_factored"] * sum(op[0] == "lane"
+                                                  for op in ops)
+
+
 def test_gate_passes_raise_on_bad_inputs():
     pr, pi = port_planes(*state(9, 1))
     with pytest.raises(ValueError, match="row qubits"):
@@ -187,6 +300,8 @@ def test_gate_passes_raise_on_bad_inputs():
         kernels.apply_1q(pr, pi, H, 9)
     with pytest.raises(ValueError, match="shape"):
         kernels.apply_lane(pr, pi, np.eye(64))
+    with pytest.raises(ValueError, match="lane factors"):
+        kernels.apply_lane_factored(pr, pi, np.eye(2))
     with pytest.raises(ValueError, match="outside"):
         kernels.apply_masked_rotation(pr, pi, ((9, 1),), 0.0, 0.1)
     with pytest.raises(ValueError, match="terms"):
@@ -243,9 +358,28 @@ def port_circuit(jc) -> Circuit:
         global_phase=jc.global_phase, name=jc.name)
 
 
+#: kron of a lane op's factors against its M: both are composed in
+#: complex64 (in another order), a few float32 ulps of entries <= 1
+FACTORS_ATOL = 1e-6
+
+
+def kron_factors(factors):
+    """``F6 ⊗ ... ⊗ F0`` of a lane op's (7, 2, 2) factors."""
+    return functools.reduce(np.kron, np.asarray(factors)[::-1])
+
+
 def assert_same_ops(got, want, path="op"):
     """Structural equality of two op streams: ints and strings exactly,
-    floats and matrices to 1e-9."""
+    floats and matrices to 1e-9. The port's lane op carries its factors
+    beside M: its ``(kind, M)`` is held to JAX's ``("lane", M)``, and the
+    Kronecker product of its factors to its M within FACTORS_ATOL."""
+    if (isinstance(got, tuple) and isinstance(want, tuple)
+            and len(got) == 3 and len(want) == 2
+            and got[0] == want[0] == "lane"):
+        assert np.asarray(got[2]).shape == (7, 2, 2), path
+        np.testing.assert_allclose(kron_factors(got[2]), got[1], rtol=0,
+                                   atol=FACTORS_ATOL, err_msg=path)
+        got = got[:2]
     if isinstance(want, np.ndarray) or isinstance(got, np.ndarray):
         np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                    rtol=0, atol=1e-9, err_msg=path)

@@ -412,10 +412,57 @@ def test_gate_kernels_match_plain_versions(dev):
     assert torch.equal(out[0], src[0]) and torch.equal(out[1], src[1])
 
 
+def random_factors(rng, count):
+    factors = kernels.identity_factors()
+    for q in rng.choice(7, count, replace=False):
+        a = rng.randn(2, 2) + 1j * rng.randn(2, 2)
+        factors[q] = np.linalg.qr(a)[0].astype(np.complex64)
+    return factors
+
+
+@pytest.mark.parametrize("nq", [8, 24, 28])
+def test_lane_factored_kernel_matches_plain_version(dev, nq):
+    """The factored lane kernel (one launch a pass) against its plain
+    version within 1e-5 on unit-norm planes: random unitary factors on 1, 3
+    and 7 lane qubits, and the lowered qcmrf28 chain's first, last and
+    densest lane passes."""
+    from qcmrf_tpu_torch.circuits.compiler import QCMRF
+
+    rng = np.random.RandomState(nq)
+    theta = -np.abs(np.random.RandomState(0).randn(52)) * 0.3
+    ops = planes.fuse_ops(QCMRF.build(
+        [[i, i + 1] for i in range(13)], theta=theta,
+        with_measurements=False).lowered(style="fused"))
+    lanes = [op for op in ops if op[0] == "lane"]
+    densest = max(lanes, key=lambda op: np.count_nonzero(op[1]))
+    cases = [random_factors(rng, c) for c in (1, 3, 7)]
+    cases += [op[2] for op in (lanes[0], lanes[-1], densest)]
+    for factors in cases:
+        before = kernels.LAUNCHES["lane_factored"]
+        got = kernels.apply_lane_factored(*unit_planes(nq, 2, dev), factors)
+        assert kernels.LAUNCHES["lane_factored"] == before + 1
+        want = kernels.apply_lane_factored_reference(*unit_planes(nq, 2, dev),
+                                                     factors)
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+        del got, want
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("nq", [7, 24, 28])
+def test_copy_kernel_is_exact(dev, nq):
+    src = unit_planes(nq, 3, dev)
+    out = (torch.empty_like(src[0]), torch.empty_like(src[1]))
+    before = kernels.LAUNCHES["copy"]
+    assert kernels.copy_planes(*src, out=out) is out
+    assert kernels.LAUNCHES["copy"] == before + 1
+    assert torch.equal(out[0], src[0]) and torch.equal(out[1], src[1])
+
+
 def test_lowered_chain_matches_unlowered_on_card(dev):
     """bench.py's chain at width 20, lowered (fused style): every pass
-    kind, one launch per op of its kind, the full state (global phase
-    included) within 1e-4 in 2-norm of the unlowered chain's."""
+    kind, one launch per op of its kind (every lane op the factored
+    kernel, none the dense one), the full state (global phase included)
+    within 1e-4 in 2-norm of the unlowered chain's."""
     from qcmrf_tpu_torch.circuits.compiler import QCMRF
 
     theta = -np.abs(np.random.RandomState(0).randn(36)) * 0.3
@@ -428,7 +475,9 @@ def test_lowered_chain_matches_unlowered_on_card(dev):
     before = dict(kernels.LAUNCHES)
     re, im = planes.run_statevector(low, device=dev)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["lane"] - before["lane"] == kinds["lane"]
+    assert (kernels.LAUNCHES["lane_factored"] - before["lane_factored"]
+            == kinds["lane"])
+    assert kernels.LAUNCHES["lane"] == before["lane"]
     assert kernels.LAUNCHES["diag"] - before["diag"] == kinds["diag"]
     assert (kernels.LAUNCHES["row_gate"] - before["row_gate"]
             == kinds["rowq"] + kinds.get("row2", 0))

@@ -4,6 +4,7 @@ sandwich passes' plain versions against the JAX package's Pallas kernels
 and both dense engines. On the CPU every sandwich wrapper runs its plain
 version; tests/test_torch_gpu.py holds the CUDA kernels against them."""
 
+import functools
 import numbers
 
 import numpy as np
@@ -40,9 +41,28 @@ def circuits(cliques, seed, scale=0.5, **kw):
     return jcompile(jm, **kw), compile_qcmrf(m, **kw)
 
 
+#: kron of a lane op's factors against its M: both are composed in
+#: complex64 (in another order), a few float32 ulps of entries <= 1
+FACTORS_ATOL = 1e-6
+
+
+def kron_factors(factors):
+    """``F6 ⊗ ... ⊗ F0`` of a lane op's (7, 2, 2) factors."""
+    return functools.reduce(np.kron, np.asarray(factors)[::-1])
+
+
 def assert_same(got, want, path="op"):
     """Structural equality of two op streams: ints and strings exactly,
-    floats and matrices to 1e-9."""
+    floats and matrices to 1e-9. The port's lane op carries its factors
+    beside M: its ``(kind, M)`` is held to JAX's ``("lane", M)``, and the
+    Kronecker product of its factors to its M within FACTORS_ATOL."""
+    if (isinstance(got, tuple) and isinstance(want, tuple)
+            and len(got) == 3 and len(want) == 2
+            and got[0] == want[0] == "lane"):
+        assert np.asarray(got[2]).shape == (7, 2, 2), path
+        np.testing.assert_allclose(kron_factors(got[2]), got[1], rtol=0,
+                                   atol=FACTORS_ATOL, err_msg=path)
+        got = got[:2]
     if isinstance(want, np.ndarray) or isinstance(got, np.ndarray):
         got, want = np.asarray(got), np.asarray(want)
         assert got.shape == want.shape, path
