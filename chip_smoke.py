@@ -13,9 +13,10 @@ kernels' launch counters reset just before it and read just after:
   whole-circuit kernel (one launch per graph) and ``eval`` scores them;
 * ``infer`` answers a batch of lnz, prob, map, mmap and marginals queries,
   with and without evidence, on bench.py's K27 complete graph (every
-  query through the streaming lse, map and moments kernels), checked
-  against the log-potential table on the card; a 32-variable chain's
-  streaming MAP and lnZ (ids past 2^31) are held against elimination;
+  query through the streaming lse, map and fused lnz_moments kernels, no
+  moments launch), checked against the log-potential table on the card;
+  a 32-variable chain's streaming MAP and lnZ (ids past 2^31) are held
+  against elimination;
 * the plane engine runs the 16-variable QCMRF chain at 32 qubits (three
   fused sandwich passes over 32 GiB of planes, in place), checked against
   the post-selected amplitudes of the log-potential kernel;
@@ -33,6 +34,10 @@ kernels' launch counters reset just before it and read just after:
   sweeps' moments, and the table and elimination routes driven too;
 * the copy and gate-pass rates at 28 qubits and the float32 FMA peak
   (``runners/bench.py``).
+
+The lse and lnz_moments kernels evaluate states through the
+block-invariant split: their bounds come from the split's operation
+count, printed beside the per-state chain's count.
 
 Every failed check raises, so the exit code is non-zero. The
 second-to-last line is a JSON object with one entry per kernel (its time,
@@ -238,37 +243,84 @@ def phase_logpot(dev, report):
     torch.cuda.empty_cache()
 
 
-def phase_lnz(dev, report):
+def split_ops(cliques, n: int, masks: int = 0) -> int:
+    """Float operations of one split sweep over 2^n states: lse_kernel's,
+    or with ``masks`` monomials lnz_moments_kernel's. The monomial
+    coefficients once (an add a coefficient entry); per sub-block of 2^L
+    states the plan's tests and adds (2 a monomial), the subset-sum
+    transform (L 2^(L-1) adds) and, with masks, the superset sums and a
+    test and an add a monomial; per state beta, the max, the difference
+    and the exp (counted as one), and for lse the sum."""
     from qcmrf_tpu_torch.ops import kernels
 
-    mrf = grid_model(4, 7, 2, dev)
+    cl = tuple(tuple(C) for C in cliques)
+    L = kernels.split_bits(n)
+    plan = kernels.split_plan(cl, n, L)
+    per_sub = (2 * len(plan.hm) + (L << (L - 1)) * (2 if masks else 1)
+               + 2 * masks)
+    return (len(plan.coef_index) + (per_sub << (n - L))
+            + ((4 if masks else 5) << n))
+
+
+def lse_row(what: str, mrf, reps: int) -> dict:
+    """The lse kernel on one model: two launches bit-equal, lnZ within
+    1e-4 of the table kernel's logsumexp and of its plain version; its
+    time and its plain version's, and its bound from the split's count
+    (the per-state chain's count beside it)."""
+    from qcmrf_tpu_torch.ops import kernels
+
     coef = kernels.moebius_coefficients(mrf)[None]
     args = (mrf.cliques, mrf.n, coef, mrf.beta)
-    lnz = float(kernels.combine_lse(*kernels.lse_partials(*args))[0])
+    m1, s1 = kernels.lse_partials(*args)
+    m2, s2 = kernels.lse_partials(*args)
+    require(torch.equal(m1, m2) and torch.equal(s1, s2),
+            f"{what}: two lse launches give bit-equal partials")
+    lnz = float(kernels.combine_lse(m1, s1)[0])
     table = kernels.logpot_table(*args)[0]
     from_table = float(torch.logsumexp(table, dim=0))
     del table
     torch.cuda.empty_cache()
-    print(f"[lnZ] n=28 grid 4x7: lse kernel {lnz:.6f}, logsumexp of the "
-          f"table kernel {from_table:.6f}")
+    print(f"[lnZ] {what}: lse kernel {lnz:.6f}, logsumexp of the table "
+          f"kernel {from_table:.6f}")
     require(abs(lnz - from_table) <= 1e-4,
-            "lse kernel == torch.logsumexp(log-potential table) within 1e-4")
+            f"{what}: lse kernel == torch.logsumexp(log-potential table) "
+            "within 1e-4")
     plain = float(kernels.combine_lse(
         *kernels.lse_partials_reference(*args))[0])
     err = abs(lnz - plain)
-    require(err <= 1e-4, f"lse kernel == plain version within 1e-4 "
+    require(err <= 1e-4, f"{what}: lse kernel == plain version within 1e-4 "
                          f"({err:.3e})")
-    ms = cuda_ms(lambda: kernels.lse_partials(*args), reps=10)
-    plain_ms = cuda_ms(lambda: kernels.lse_partials_reference(*args), reps=2)
-    print(f"  kernel {ms:.3f} ms, plain {plain_ms:.3f} ms for 2^28 states")
+    ms = cuda_ms(lambda: kernels.lse_partials(*args), reps=reps)
+    plain_ms = cuda_ms(lambda: kernels.lse_partials_reference(*args), reps=1)
     torch.cuda.empty_cache()
-    # per state: the chains, beta, and the running max/exp/sum (the exp
-    # counted as one operation); device memory sees only the partials
-    report["lse"] = dict(
-        **bound(8 * kernels.lse_geometry(1 << mrf.n)[0],
-                (chain_flops(mrf.cliques) + 5) << mrf.n),
-        max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        shape="(1, 2^28) states, grid 4x7")
+    # device memory sees only the partials; per state the chains cost
+    # chain_flops + 5 (beta, max, difference, exp, sum)
+    n = mrf.n
+    nbytes = 8 * kernels.lse_geometry(1 << n)[0]
+    ops = split_ops(mrf.cliques, n)
+    chain = (chain_flops(mrf.cliques) + 5) << n
+    b = bound(nbytes, ops)
+    print(f"  kernel {ms:.3f} ms, plain {plain_ms:.3f} ms for 2^{n} states; "
+          f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}) from the split's "
+          f"{ops:.4e} operations (the chain's {chain:.4e}: "
+          f"{bound(nbytes, chain)['bound_ms']:.3f} ms)")
+    return dict(**b, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                split_ops=ops, chain_ops=chain,
+                chain_bound_ms=bound(nbytes, chain)["bound_ms"])
+
+
+def phase_lnz(dev, report):
+    """The streaming logsumexp (``lse_kernel``, the block-invariant split)
+    at n = 28 (grid 4x7) and on bench.py's K27 (2^27 states, K = 351),
+    where the infer batch spends its lse sweeps."""
+    from qcmrf_tpu_torch.models.mrf import MRF
+
+    row = lse_row("n=28 grid 4x7", grid_model(4, 7, 2, dev), reps=20)
+    k27 = MRF.create(complete_cliques(INFER_N), theta=k27_theta(),
+                     device=dev)
+    report["lse"] = dict(**row, shape="(1, 2^28) states, grid 4x7", k27=dict(
+        **lse_row(f"K{INFER_N}, K={len(k27.cliques)}", k27, reps=20),
+        shape=f"(1, 2^{INFER_N}) states, K{INFER_N} pairwise"))
 
 
 def phase_suite_shapes(dev):
@@ -932,10 +984,14 @@ def phase_infer(dev, report) -> dict:
             f"{len(INFER_QUERIES)} JSON lines printed")
     print(f"  K27 batch of {len(INFER_QUERIES)} queries through infer_cli: "
           f"{seconds:.3f} s; launches lse {launches['lse']}, map "
-          f"{launches['map']}, moments {launches['moments']}")
-    for k in ("lse", "map", "moments"):
+          f"{launches['map']}, lnz_moments {launches['lnz_moments']}, "
+          f"moments {launches['moments']}")
+    for k in ("lse", "map", "lnz_moments"):
         require(launches[k] > 0, f"kernel {k} launched {launches[k]} times "
                                  "in the K27 batch")
+    require(launches["moments"] == 0,
+            "the marginals went through the fused sweep: moments launched "
+            f"{launches['moments']} times in the K27 batch")
     require(all(r["backend"] == "streaming" for r in results),
             "every K27 query went to the streaming sweeps")
     check_k27_answers(results, cliques, theta, dev)
@@ -1111,6 +1167,16 @@ def k27_mu_hat() -> np.ndarray:
     return rs.uniform(0.1, 0.5, d)
 
 
+def two_sweep_moments(mrf) -> torch.Tensor:
+    """E_p[phi] of the two sweeps: lnZ by the lse kernel, then the
+    moments kernel normalised by it (the fused sweep's yardstick)."""
+    from qcmrf_tpu_torch.models import moments
+    from qcmrf_tpu_torch.ops import kernels
+
+    return moments.clique_moments_streaming(
+        mrf, lnZ=kernels.log_partition(mrf))
+
+
 def fused_vs_references(mrf, what: str, plain: bool = True) -> dict:
     """The lnz_moments kernel on one model against its plain version and
     against the two sweeps (lse, then moments normalised by it): lnZ
@@ -1205,7 +1271,7 @@ def phase_train(dev, report) -> dict:
     K27 CLI run."""
     from qcmrf_tpu_torch.evaluation.estimators import (
         clique_marginals_from_samples)
-    from qcmrf_tpu_torch.models import moments, sample
+    from qcmrf_tpu_torch.models import sample
     from qcmrf_tpu_torch.models import train as mtrain
     from qcmrf_tpu_torch.models.mrf import MRF
     from qcmrf_tpu_torch.ops import kernels
@@ -1233,14 +1299,14 @@ def phase_train(dev, report) -> dict:
     with open(data, "w") as f:
         json.dump(x.cpu().tolist(), f)
     mu_data = clique_marginals_from_samples(mrf, x)
-    mu = moments.clique_moments_streaming(mrf).double()
+    mu = two_sweep_moments(mrf).double()
     gap = float((mu_data - mu).abs().max())
     require(gap <= 0.02, f"the samples' clique marginals within 0.02 of the "
                          f"exact ones ({gap:.4f}; 20 000 draws)")
 
     m_mono = moebius.monomial_layout(mrf.cliques).m
     per_launch = kernels.moments_per_launch(
-        len(cliques), 2, reserve=kernels._LNZ_STATIC_BYTES)
+        len(cliques), 2, reserve=kernels.lnz_moments_reserve(mrf.cliques, n))
     print(f"  K27: {m_mono} monomials, moments_per_launch {per_launch}")
     doc, launches, seconds, steps = run_train_cli(
         ["--graph", graph, "--data", data, "--steps", str(TRAIN_STEPS),
@@ -1318,8 +1384,7 @@ def phase_train(dev, report) -> dict:
             f"final nll {gdoc['final_nll']:.4f} ({gsec:.2f} s)")
     gtheta = grid.theta.clone().requires_grad_()
     (g,) = torch.autograd.grad(mtrain.make_lnz_fn(grid)(gtheta), gtheta)
-    e = float((g - grid.beta * moments.clique_moments_streaming(grid)).abs()
-              .max())
+    e = float((g - grid.beta * two_sweep_moments(grid)).abs().max())
     require(e <= 1e-5, f"make_lnz_fn enumeration route (n=20): gradient == "
                        f"beta mu of the two sweeps ({e:.2e})")
     bits = (np.random.RandomState(32).rand(4096, 32) < 0.3).astype(int)
@@ -1333,19 +1398,26 @@ def phase_train(dev, report) -> dict:
             f"elimination route (32-chain, bit-array data): 3 steps, no "
             f"kernel launch, final nll {edoc['final_nll']:.4f} ({esec:.2f} s)")
 
-    # per state: the chains and beta, a max, the exp of v - M, and a mask
-    # test and an add per monomial (moments_kernel's count plus the max);
-    # bytes: the partials written and the masks read
+    # bytes: the partials written and the masks read. Operations: the
+    # split's count; the per-state chain's beside it (the chains and beta,
+    # a max, the exp of v - M, and a mask test and an add per monomial a
+    # state)
     parts = kernels.lse_geometry(1 << n)[0]
-    b = bound(4 * parts * (m_mono + 1) + 8 * m_mono,
-              (chain_flops(cliques) + 4 + 2 * m_mono) << n)
+    nbytes = 4 * parts * (m_mono + 1) + 8 * m_mono
+    ops = split_ops(cliques, n, m_mono)
+    chain = (chain_flops(cliques) + 4 + 2 * m_mono) << n
+    b = bound(nbytes, ops)
+    chain_bound = bound(nbytes, chain)["bound_ms"]
     print(f"  lnz_moments: kernel {fused_ms:.3f} ms, plain {plain_ms:.3f} "
-          f"ms, bound {b['bound_ms']:.3f} ms ({b['bound_by']}) at 2^{n} "
-          f"states, K={len(cliques)}, {m_mono} monomials")
+          f"ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}) from the "
+          f"split's {ops:.4e} operations (the chain's {chain:.4e}: "
+          f"{chain_bound:.3f} ms) at 2^{n} states, K={len(cliques)}, "
+          f"{m_mono} monomials")
     report["lnz_moments"] = dict(
         max_abs_err=max(err["lnz"], err["moments"]),
         lnz_err=err["lnz"], moments_err=err["moments"], ms=fused_ms,
-        plain_ms=plain_ms, **b,
+        plain_ms=plain_ms, **b, split_ops=ops, chain_ops=chain,
+        chain_bound_ms=chain_bound,
         shape=f"K{n} pairwise, 2^{n} states, {m_mono} monomials")
     report["train"] = dict(
         train_wide_k27_step_ms=step_ms, two_sweep_ms=two_ms,

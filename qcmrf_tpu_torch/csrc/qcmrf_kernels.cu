@@ -1,9 +1,11 @@
 // Hand-written Hopper (sm_90a) kernels of the closed-form QCMRF sampling
 // path, of exact inference and of exact-MLE training: the fused outcome
 // sampler, the log-potential table, the streaming logsumexp, argmax and
-// monomial-moment sweeps, and the fused lnZ + moments sweep. All evaluate a
-// clique's multilinear (Moebius) form with one shared device function,
-// moebius_chain.
+// monomial-moment sweeps, and the fused lnZ + moments sweep. The sampler,
+// the table, the argmax and the moments kernels evaluate a clique's
+// multilinear (Moebius) form state by state with one shared device
+// function, moebius_chain; the logsumexp and the fused sweep evaluate whole
+// sub-blocks of states through the block-invariant split (section 3).
 //
 // Built by qcmrf_tpu_torch/ops/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -16,10 +18,27 @@
 //                                  subset s of clique k at k * 2^cmax + s
 //   shifts int32   (K, cmax)       state-id right-shift of clique k's slot i
 //   sizes  int32   (K,)            clique sizes (slots >= size are unused)
+// The split kernels take coef and a SplitPlan in place of shifts and sizes.
 // Row b of a launch is blockIdx.y.
 
 #include <cstdint>
+#include <type_traits>
+
 #include <cuda_runtime.h>
+
+// The block-invariant split of a structure (section 3), built by
+// qcmrf_tpu_torch/ops/kernels.py::split_plan and passed by value; at
+// namespace scope, as the extern "C" entry points take it.
+struct SplitPlan {
+  const unsigned long long* hm;  // (U,) high mask of each monomial
+  const int* coef_index;         // (C,) coefficient entries by monomial
+  const int* c_items;            // (CI + 1,) entry offsets of the items
+  const int* c_heads;            // (U + 1,) item offsets of each monomial
+  const int* m_items;            // (MI + 1,) monomial offsets of the items
+  const int* m_heads;            // (G + 1,) item offsets of each target
+  const int* targets;            // (G,) the target of each group
+  int L, U, CI, MI, G;
+};
 
 namespace {
 
@@ -246,15 +265,180 @@ logpot_kernel(const float* __restrict__ coef, const int* __restrict__ shifts,
 }
 
 // ---------------------------------------------------------------------------
-// 3. Streaming logsumexp
+// 3. The block-invariant split, and the streaming logsumexp
 // ---------------------------------------------------------------------------
+// The split evaluator of lse_kernel and lnz_moments_kernel (the port of
+// qcmrf_tpu/ops/kernels.py::_split_logpot, the JAX loop kernels' split).
+// A block's states are cut into sub-blocks of 2^L consecutive ids, across
+// which h = x >> L is fixed. The log-potential is sum_g c_g [x holds g] over
+// the monomials g of the structure (c_g: the sum of the coefficient entries
+// whose subset is g). With g's low part t (an index into [0, 2^L)) and high
+// part hm (a mask on h), a sub-block needs P[t] = sum of c_g over the
+// monomials of target t with (h & hm) == hm, and then the subset-sum (zeta)
+// transform value[xl] = sum_{t subset of xl} P[t], L add stages, gives the
+// log-potential of its 2^L states. qcmrf_tpu_torch/ops/kernels.py::
+// split_plan builds the plan from the structure alone: the monomials sorted
+// by target, and every fixed-order sum cut into items of about sqrt(its
+// length) entries, summed by one thread each, then each group's items by
+// one thread. No atomics: every sum has one order, and two launches on the
+// same inputs are bit-equal.
+//
+// A thread holds R = 2^L / 256 values of a sub-block (R = 1 below L = 8,
+// where threads past 2^L idle): value r of thread tid is xl = r * 256 +
+// tid, so id bits 0-4 are lane bits, 5-7 warp bits and 8 up register bits.
+// The transform's stages on bits 5-7 run in shared memory on P, those on
+// bits 0-4 by __shfl_xor_sync and those on bits 8 up inside a thread's
+// registers, as the lane pass of gate_kernels.cu does its butterflies.
+// The plan's per-sub-block tables in shared memory.
+struct SplitShared {
+  const unsigned long long* hm;  // (U,)
+  float* c;                      // (U,) the monomial coefficients
+  const int* m_items;
+  const int* m_heads;
+  const int* targets;
+  float* part;                   // (max(CI, MI),) item sums
+  float* P;                      // (2^L,) zero between sub-blocks
+};
+
+// Carves the tables out of dynamic shared memory (`base`: U 64-bit masks,
+// then `u64_extra` 64-bit slots of the caller's, then the 32-bit tables),
+// copies them, computes row `coef_row`'s monomial coefficients in the
+// plan's order and zeroes P; `*rest` points past the tables.
+__device__ __forceinline__ SplitShared load_split(
+    unsigned long long* base, int u64_extra, const SplitPlan& pl,
+    const float* __restrict__ coef_row, float** rest) {
+  unsigned long long* s_hm = base;
+  float* s_c = reinterpret_cast<float*>(base + pl.U + u64_extra);
+  int* s_items = reinterpret_cast<int*>(s_c + pl.U);
+  int* s_heads = s_items + pl.MI + 1;
+  int* s_targets = s_heads + pl.G + 1;
+  float* s_part = reinterpret_cast<float*>(s_targets + pl.G);
+  float* s_P = s_part + (pl.CI > pl.MI ? pl.CI : pl.MI);
+  *rest = s_P + (1 << pl.L);
+  for (int i = threadIdx.x; i < pl.U; i += blockDim.x) s_hm[i] = pl.hm[i];
+  for (int i = threadIdx.x; i <= pl.MI; i += blockDim.x) {
+    s_items[i] = pl.m_items[i];
+  }
+  for (int i = threadIdx.x; i <= pl.G; i += blockDim.x) {
+    s_heads[i] = pl.m_heads[i];
+  }
+  for (int i = threadIdx.x; i < pl.G; i += blockDim.x) {
+    s_targets[i] = pl.targets[i];
+  }
+  for (int i = threadIdx.x; i < (1 << pl.L); i += blockDim.x) s_P[i] = 0.0f;
+  for (int i = threadIdx.x; i < pl.CI; i += blockDim.x) {
+    float a = 0.0f;
+    for (int j = pl.c_items[i]; j < pl.c_items[i + 1]; ++j) {
+      a += coef_row[pl.coef_index[j]];
+    }
+    s_part[i] = a;
+  }
+  __syncthreads();
+  for (int u = threadIdx.x; u < pl.U; u += blockDim.x) {
+    float a = 0.0f;
+    for (int i = pl.c_heads[u]; i < pl.c_heads[u + 1]; ++i) a += s_part[i];
+    s_c[u] = a;
+  }
+  __syncthreads();
+  return {s_hm, s_c, s_items, s_heads, s_targets, s_part, s_P};
+}
+
+// Low index of pair q of the 2^(L-1) pairs that differ in bit j.
+__device__ __forceinline__ int pair_low(int q, int j) {
+  return ((q >> j) << (j + 1)) | (q & ((1 << j) - 1));
+}
+
+// The stages of the subset-sum transform (kSuperset: the superset sums)
+// on the lane bits 0-4 and the register bits 8 up of a thread's R values.
+template <bool kSuperset, int R>
+__device__ __forceinline__ void transform_in_registers(float (&v)[R],
+                                                       int L) {
+  const int lane = threadIdx.x & 31;
+  for (int j = 0; j < 5 && j < L; ++j) {
+    const bool take = (((lane >> j) & 1) != 0) != kSuperset;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float o = __shfl_xor_sync(0xffffffffu, v[r], 1 << j);
+      if (take) v[r] += o;
+    }
+  }
+#pragma unroll
+  for (int bit = 1; bit < R; bit <<= 1) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (((r & bit) != 0) != kSuperset) v[r] += v[r ^ bit];
+    }
+  }
+}
+
+// The stages on the warp bits 5-7 of a 2^L table in shared memory; each
+// ends in a barrier.
+template <bool kSuperset>
+__device__ __forceinline__ void transform_in_shared(float* t, int L) {
+  for (int j = 5; j < L && j < 8; ++j) {
+    for (int q = threadIdx.x; q < (1 << (L - 1)); q += blockDim.x) {
+      const int lo = pair_low(q, j);
+      if (kSuperset) {
+        t[lo] += t[lo | (1 << j)];
+      } else {
+        t[lo | (1 << j)] += t[lo];
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// beta * theta^T phi(x) of sub-block h: thread tid's values r * 256 + tid
+// (0 past 2^L). Starts and ends with P zero; holds four or more barriers,
+// so every thread of the block calls it.
+template <int R>
+__device__ __forceinline__ void split_values(const SplitShared& s,
+                                             const SplitPlan& pl,
+                                             unsigned long long h, float beta,
+                                             float (&v)[R]) {
+  for (int i = threadIdx.x; i < pl.MI; i += blockDim.x) {
+    float a = 0.0f;
+    for (int j = s.m_items[i]; j < s.m_items[i + 1]; ++j) {
+      const unsigned long long hm = s.hm[j];
+      a += (h & hm) == hm ? s.c[j] : 0.0f;
+    }
+    s.part[i] = a;
+  }
+  __syncthreads();
+  for (int g = threadIdx.x; g < pl.G; g += blockDim.x) {
+    float a = 0.0f;
+    for (int i = s.m_heads[g]; i < s.m_heads[g + 1]; ++i) a += s.part[i];
+    s.P[s.targets[g]] = a;
+  }
+  __syncthreads();
+  transform_in_shared<false>(s.P, pl.L);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int x = r * kThreads + threadIdx.x;
+    v[r] = 0.0f;
+    if (x < (1 << pl.L)) {
+      v[r] = s.P[x];
+      s.P[x] = 0.0f;
+    }
+  }
+  transform_in_registers<false>(v, pl.L);
+#pragma unroll
+  for (int r = 0; r < R; ++r) v[r] = __fmul_rn(beta, v[r]);
+}
+
 // Replaces qcmrf_tpu/ops/kernels.py::_build_lse_loop_kernel.
-// Block p sweeps the int64 ids [p * per_block, (p + 1) * per_block), each
-// thread carrying a running (max, scaled sum) in registers; the block merges
-// its threads' pairs in shared memory and writes one partial pair.
-// combine_lse (plain torch) finishes. No table is written.
-// Bound on this card: float ALU work (the chains plus one expf per state);
-// device memory sees only the partials.
+// Block p of lse_geometry sweeps the ids [p * per_block, (p + 1) *
+// per_block), sub-block by sub-block through split_values; each thread
+// carries a running (max, scaled sum) of its values in registers; the
+// block merges its threads' pairs in shared memory and writes one partial
+// pair. A CUDA block computes the monomial coefficients once and then
+// sweeps blocks p = blockIdx.x, blockIdx.x + gridDim.x, ... combine_lse
+// (plain torch) finishes. No table is written.
+// Bound on this card: float work, about L / 2 adds a state for the
+// transform, beta, the max, the exp and the sum, and the plan's tests a
+// sub-block (2 U operations over 2^L states); device memory sees only the
+// partials. What the count leaves out sets the pace: 5 shuffles, 3
+// shared-memory stages and 6 barriers a sub-block.
 __device__ __forceinline__ void lse_merge(float& m, float& s, float m2,
                                           float s2) {
   const float M = fmaxf(m, m2);
@@ -263,49 +447,57 @@ __device__ __forceinline__ void lse_merge(float& m, float& s, float m2,
   m = M;
 }
 
+template <int R>
 __global__ void __launch_bounds__(kThreads)
-lse_kernel(const float* __restrict__ coef, const int* __restrict__ shifts,
-           const int* __restrict__ sizes, int K, int cmax, int64_t num_states,
-           int64_t per_block, float beta, float* __restrict__ m_out,
-           float* __restrict__ s_out) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.y;
-  const SharedStructure st =
-      load_structure(smem, coef, shifts, sizes, K, cmax, b);
-  const int64_t begin = static_cast<int64_t>(blockIdx.x) * per_block;
-  const int64_t end =
-      begin + per_block < num_states ? begin + per_block : num_states;
-  float m = neg_inf();
-  float s = 0.0f;
-  for (int64_t x = begin + threadIdx.x; x < end; x += blockDim.x) {
-    const float v = __fmul_rn(
-        beta, log_potential(x, st.coef, st.shifts, st.sizes, K, cmax));
-    if (v > m) {
-      s = s * expf(m - v) + 1.0f;
-      m = v;
-    } else {
-      s += expf(v - m);
-    }
-  }
+lse_kernel(SplitPlan pl, const float* __restrict__ coef, int ncoef,
+           int64_t per_block, int parts, float beta,
+           float* __restrict__ m_out, float* __restrict__ s_out) {
+  extern __shared__ unsigned long long smem64[];
   __shared__ float sm[kThreads];
   __shared__ float ss[kThreads];
-  sm[threadIdx.x] = m;
-  ss[threadIdx.x] = s;
-  __syncthreads();
-  for (int h = kThreads / 2; h > 0; h >>= 1) {
-    if (static_cast<int>(threadIdx.x) < h) {
-      float mm = sm[threadIdx.x];
-      float sv = ss[threadIdx.x];
-      lse_merge(mm, sv, sm[threadIdx.x + h], ss[threadIdx.x + h]);
-      sm[threadIdx.x] = mm;
-      ss[threadIdx.x] = sv;
+  const int b = blockIdx.y;
+  float* rest;
+  const SplitShared sp = load_split(
+      smem64, 0, pl, coef + static_cast<int64_t>(b) * ncoef, &rest);
+  const int64_t subs = per_block >> pl.L;
+  const bool active = static_cast<int>(threadIdx.x) < (1 << pl.L);
+  for (int p = blockIdx.x; p < parts; p += gridDim.x) {
+    float m = neg_inf();
+    float s = 0.0f;
+    const unsigned long long h0 = static_cast<unsigned long long>(p) * subs;
+    for (int64_t i = 0; i < subs; ++i) {
+      float v[R];
+      split_values<R>(sp, pl, h0 + i, beta, v);
+      if (active) {
+        float top = v[0];
+#pragma unroll
+        for (int r = 1; r < R; ++r) top = fmaxf(top, v[r]);
+        if (top > m) {
+          s *= expf(m - top);
+          m = top;
+        }
+#pragma unroll
+        for (int r = 0; r < R; ++r) s += expf(v[r] - m);
+      }
     }
+    sm[threadIdx.x] = m;
+    ss[threadIdx.x] = s;
     __syncthreads();
-  }
-  if (threadIdx.x == 0) {
-    const int64_t o = static_cast<int64_t>(b) * gridDim.x + blockIdx.x;
-    m_out[o] = sm[0];
-    s_out[o] = ss[0];
+    for (int half = kThreads / 2; half > 0; half >>= 1) {
+      if (static_cast<int>(threadIdx.x) < half) {
+        float mm = sm[threadIdx.x];
+        float sv = ss[threadIdx.x];
+        lse_merge(mm, sv, sm[threadIdx.x + half], ss[threadIdx.x + half]);
+        sm[threadIdx.x] = mm;
+        ss[threadIdx.x] = sv;
+      }
+      __syncthreads();
+    }
+    if (threadIdx.x == 0) {
+      const int64_t o = static_cast<int64_t>(b) * parts + p;
+      m_out[o] = sm[0];
+      s_out[o] = ss[0];
+    }
   }
 }
 
@@ -450,88 +642,94 @@ moments_kernel(const float* __restrict__ coef, const int* __restrict__ shifts,
 // Replaces qcmrf_tpu/ops/kernels.py::_build_gram_lse_loop_kernel, the
 // forward sweep of the differentiable lnZ
 // (qcmrf_tpu/models/moments.py::lnz_and_moments_streaming).
-// moments_kernel without a given lnZ: block p sweeps [p * per_block, (p +
-// 1) * per_block) in tiles of kThreads states and carries a running max M
-// of v = beta * lp(x), as lse_kernel does for its one sum. Per tile: each
-// thread evaluates one state's v; the block takes the tile's max (warp
+// Block p of lse_geometry sweeps [p * per_block, (p + 1) * per_block)
+// sub-block by sub-block (split_values) and carries a running max M of v =
+// beta * lp(x). Per sub-block h: the block takes the sub-block's max (warp
 // shuffles, then one exchange of the warp maxima in shared memory); if it
 // raises M, each thread rescales the sums of the monomials it owns by
 // exp(M_old - M_new) (the raise is strict, so two -inf never meet; on the
-// first tile the factor is exp(-inf) = 0 on sums of 0); then w = exp(v - M)
-// goes into shared memory beside the state id and the matching weights are
-// added as in moments_kernel. Out: one (M_b, S_b[0..m)) per block; mask 0,
-// the empty monomial, gives the block's scaled Z. A block past the last
-// state would write M = -inf and zero sums, which combine_lnz_moments
-// (plain torch, float64) weighs by exp(-inf) = 0.
-// Bound on this card: float ALU work, as moments_kernel's (the chains, one
-// exp per state, a 64-bit mask test and an add per (state, monomial)), plus
-// one max per state and, each time M rises, one product per monomial;
-// device memory sees only the partials. Float32 FMAs throughout, no TF32:
-// the JAX package holds its fused sweep to a float32 oracle.
+// first sub-block the factor is exp(-inf) = 0 on sums of 0); then w = exp(v
+// - M), and the superset-sum transform W[t] = sum_{xl superset of t} w[xl]
+// (registers and lanes, then the warp bits in shared memory). Monomial g
+// (the id-bit mask mask_g) holds at every state of W[mask_g & (2^L - 1)]
+// iff (h & (mask_g >> L)) == mask_g >> L: one test and one add a monomial
+// a sub-block. Out: one (M_b, S_b[0..m)) per block; mask 0, the empty
+// monomial, gives the block's scaled Z. The masks and sums of a launch live
+// in shared memory beside the plan, so the wrapper splits a mask list
+// longer than what 227 KB holds over several launches.
+// Bound on this card: float work, as lse_kernel's with a second transform
+// (the superset sums) and the monomials' tests and adds a sub-block;
+// device memory sees only the partials. Float32 throughout, no TF32: the
+// JAX package holds its fused sweep to a float32 oracle.
+template <int R>
 __global__ void __launch_bounds__(kThreads)
-lnz_moments_kernel(const float* __restrict__ coef,
-                   const int* __restrict__ shifts,
-                   const int* __restrict__ sizes, int K, int cmax,
-                   int64_t num_states, int64_t per_block, float beta,
+lnz_moments_kernel(SplitPlan pl, const float* __restrict__ coef, int ncoef,
+                   int64_t per_block, int parts, float beta,
                    const unsigned long long* __restrict__ masks, int m,
                    float* __restrict__ m_out, float* __restrict__ s_out) {
-  // layout as moments_kernel's: masks (m), tile ids (kThreads), tile
-  // weights (kThreads), sums (m), then the structure tables
+  // layout: the plan's masks, the monomial masks (m), the plan's 32-bit
+  // tables, then W (2^L) and the sums (m)
   extern __shared__ unsigned long long smem64[];
   __shared__ float s_warp_max[kThreads / 32];
-  unsigned long long* s_mask = smem64;
-  unsigned long long* s_x = s_mask + m;
-  float* s_w = reinterpret_cast<float*>(s_x + kThreads);
-  float* s_acc = s_w + kThreads;
+  unsigned long long* s_mask = smem64 + pl.U;
+  for (int g = threadIdx.x; g < m; g += blockDim.x) s_mask[g] = masks[g];
   const int b = blockIdx.y;
-  for (int g = threadIdx.x; g < m; g += blockDim.x) {
-    s_mask[g] = masks[g];
-    s_acc[g] = 0.0f;
-  }
-  const SharedStructure st =
-      load_structure(s_acc + m, coef, shifts, sizes, K, cmax, b);
-  const int64_t begin = static_cast<int64_t>(blockIdx.x) * per_block;
-  const int64_t end =
-      begin + per_block < num_states ? begin + per_block : num_states;
-  float M = neg_inf();
-  for (int64_t t0 = begin; t0 < end; t0 += kThreads) {
-    const int64_t x = t0 + threadIdx.x;
-    float v = neg_inf();
-    if (x < end) {
-      v = __fmul_rn(beta,
-                    log_potential(x, st.coef, st.shifts, st.sizes, K, cmax));
-    }
-    float tile = v;
-    for (int off = 16; off > 0; off >>= 1) {
-      tile = fmaxf(tile, __shfl_xor_sync(0xffffffffu, tile, off));
-    }
-    if ((threadIdx.x & 31) == 0) s_warp_max[threadIdx.x >> 5] = tile;
-    __syncthreads();
-    tile = s_warp_max[0];
-    for (int i = 1; i < kThreads / 32; ++i) tile = fmaxf(tile, s_warp_max[i]);
-    if (tile > M) {
-      const float scale = expf(M - tile);
-      for (int g = threadIdx.x; g < m; g += kThreads) s_acc[g] *= scale;
-      M = tile;
-    }
-    s_x[threadIdx.x] = static_cast<unsigned long long>(x);
-    s_w[threadIdx.x] = x < end ? expf(v - M) : 0.0f;
-    __syncthreads();
-    for (int g = threadIdx.x; g < m; g += kThreads) {
-      const unsigned long long mask = s_mask[g];
-      float a = 0.0f;
-#pragma unroll 8
-      for (int t = 0; t < kThreads; ++t) {
-        a += (s_x[t] & mask) == mask ? s_w[t] : 0.0f;
+  float* rest;
+  const SplitShared sp = load_split(
+      smem64, m, pl, coef + static_cast<int64_t>(b) * ncoef, &rest);
+  float* W = rest;
+  float* s_acc = W + (1 << pl.L);
+  const int L = pl.L;
+  const unsigned long long low = (1ull << L) - 1;
+  const int64_t subs = per_block >> L;
+  const bool active = static_cast<int>(threadIdx.x) < (1 << L);
+  for (int p = blockIdx.x; p < parts; p += gridDim.x) {
+    for (int g = threadIdx.x; g < m; g += kThreads) s_acc[g] = 0.0f;
+    float M = neg_inf();
+    const unsigned long long h0 = static_cast<unsigned long long>(p) * subs;
+    for (int64_t i = 0; i < subs; ++i) {
+      const unsigned long long h = h0 + i;
+      float v[R];
+      split_values<R>(sp, pl, h, beta, v);
+      float top = neg_inf();
+      if (active) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) top = fmaxf(top, v[r]);
       }
-      s_acc[g] += a;
+      for (int off = 16; off > 0; off >>= 1) {
+        top = fmaxf(top, __shfl_xor_sync(0xffffffffu, top, off));
+      }
+      if ((threadIdx.x & 31) == 0) s_warp_max[threadIdx.x >> 5] = top;
+      __syncthreads();
+      top = s_warp_max[0];
+      for (int k = 1; k < kThreads / 32; ++k) top = fmaxf(top, s_warp_max[k]);
+      if (top > M) {
+        const float scale = expf(M - top);
+        for (int g = threadIdx.x; g < m; g += kThreads) s_acc[g] *= scale;
+        M = top;
+      }
+      float w[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) w[r] = active ? expf(v[r] - M) : 0.0f;
+      transform_in_registers<true>(w, L);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int x = r * kThreads + threadIdx.x;
+        if (x < (1 << L)) W[x] = w[r];
+      }
+      __syncthreads();
+      transform_in_shared<true>(W, L);
+      for (int g = threadIdx.x; g < m; g += kThreads) {
+        const unsigned long long mask = s_mask[g];
+        const unsigned long long gh = mask >> L;
+        if ((h & gh) == gh) s_acc[g] += W[mask & low];
+      }
     }
-    __syncthreads();
+    const int64_t o = static_cast<int64_t>(b) * parts + p;
+    if (threadIdx.x == 0) m_out[o] = M;
+    float* row = s_out + o * m;
+    for (int g = threadIdx.x; g < m; g += kThreads) row[g] = s_acc[g];
   }
-  const int64_t o = static_cast<int64_t>(b) * gridDim.x + blockIdx.x;
-  if (threadIdx.x == 0) m_out[o] = M;
-  float* row = s_out + o * m;
-  for (int g = threadIdx.x; g < m; g += blockDim.x) row[g] = s_acc[g];
 }
 
 size_t structure_smem_bytes(int K, int cmax) {
@@ -543,6 +741,48 @@ size_t moments_smem_bytes(int K, int cmax, int m) {
   return static_cast<size_t>(m + kThreads) *
              (sizeof(unsigned long long) + sizeof(float)) +
          structure_smem_bytes(K, cmax);
+}
+
+// Dynamic shared memory of load_split's tables and P: U 64-bit masks and
+// U coefficients, the item and group tables, the item sums and P.
+size_t split_smem_bytes(const SplitPlan& pl) {
+  const int part = pl.CI > pl.MI ? pl.CI : pl.MI;
+  return static_cast<size_t>(pl.U) *
+             (sizeof(unsigned long long) + sizeof(float)) +
+         static_cast<size_t>(pl.MI + 2 * pl.G + 2 + part + (1 << pl.L)) *
+             sizeof(int);
+}
+
+// lnz_moments_kernel's: the split's, the masks and sums, and W.
+size_t lnz_moments_smem_bytes(const SplitPlan& pl, int m) {
+  return split_smem_bytes(pl) +
+         static_cast<size_t>(m) *
+             (sizeof(unsigned long long) + sizeof(float)) +
+         (static_cast<size_t>(1) << pl.L) * sizeof(float);
+}
+
+// CUDA blocks of a split sweep: each computes the monomial coefficients
+// once and sweeps several blocks of lse_geometry; 512 a launch fill the
+// 132 SMs about once at the kernels' occupancy.
+dim3 split_grid(int parts, int B) {
+  int blocks = 512 / B;
+  if (blocks < 1) blocks = 1;
+  if (blocks > parts) blocks = parts;
+  return dim3(blocks, B);
+}
+
+// launch(std::integral_constant<int, R>) for the R = 2^(L - 8) values a
+// thread (1 below L = 8) of a sub-block of 2^L states; L runs 1..12.
+template <typename Launch>
+int with_values_per_thread(int L, Launch launch) {
+  if (L < 1 || L > 12) return static_cast<int>(cudaErrorInvalidValue);
+  switch (L <= 8 ? 1 : 1 << (L - 8)) {
+    case 1: return launch(std::integral_constant<int, 1>());
+    case 2: return launch(std::integral_constant<int, 2>());
+    case 4: return launch(std::integral_constant<int, 4>());
+    case 8: return launch(std::integral_constant<int, 8>());
+    default: return launch(std::integral_constant<int, 16>());
+  }
 }
 
 // Lets `kernel` take `bytes` of dynamic shared memory. Past 48 KB, static
@@ -559,6 +799,33 @@ unsigned grid_blocks(int64_t items, int64_t cap) {
   int64_t blocks = (items + kThreads - 1) / kThreads;
   if (blocks > cap) blocks = cap;
   return static_cast<unsigned>(blocks < 1 ? 1 : blocks);
+}
+
+template <int R>
+int launch_lse(const SplitPlan& pl, const float* coef, int B, int ncoef,
+               int64_t per_block, int parts, float beta, float* m_out,
+               float* s_out, void* stream) {
+  const size_t smem = split_smem_bytes(pl);
+  const cudaError_t err = allow_shared(lse_kernel<R>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  lse_kernel<R><<<split_grid(parts, B), kThreads, smem,
+                  static_cast<cudaStream_t>(stream)>>>(
+      pl, coef, ncoef, per_block, parts, beta, m_out, s_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int R>
+int launch_lnz_moments(const SplitPlan& pl, const float* coef, int B,
+                       int ncoef, int64_t per_block, int parts, float beta,
+                       const unsigned long long* masks, int m, float* m_out,
+                       float* s_out, void* stream) {
+  const size_t smem = lnz_moments_smem_bytes(pl, m);
+  const cudaError_t err = allow_shared(lnz_moments_kernel<R>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  lnz_moments_kernel<R><<<split_grid(parts, B), kThreads, smem,
+                          static_cast<cudaStream_t>(stream)>>>(
+      pl, coef, ncoef, per_block, parts, beta, masks, m, m_out, s_out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -593,18 +860,13 @@ int qcmrf_logpot(const float* coef, const int* shifts, const int* sizes,
   return static_cast<int>(cudaGetLastError());
 }
 
-int qcmrf_lse(const float* coef, const int* shifts, const int* sizes, int B,
-              int K, int cmax, int64_t num_states, int64_t per_block,
-              int parts, float beta, float* m_out, float* s_out,
-              void* stream) {
-  const dim3 grid(parts, B);
-  const size_t smem = structure_smem_bytes(K, cmax);
-  const cudaError_t err = allow_shared(lse_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  lse_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      coef, shifts, sizes, K, cmax, num_states, per_block, beta, m_out,
-      s_out);
-  return static_cast<int>(cudaGetLastError());
+int qcmrf_lse(SplitPlan plan, const float* coef, int B, int ncoef,
+              int64_t per_block, int parts, float beta, float* m_out,
+              float* s_out, void* stream) {
+  return with_values_per_thread(plan.L, [&](auto r) {
+    return launch_lse<decltype(r)::value>(plan, coef, B, ncoef, per_block,
+                                          parts, beta, m_out, s_out, stream);
+  });
 }
 
 int qcmrf_map(const float* coef, const int* shifts, const int* sizes, int B,
@@ -637,20 +899,15 @@ int qcmrf_moments(const float* coef, const int* shifts, const int* sizes,
   return static_cast<int>(cudaGetLastError());
 }
 
-int qcmrf_lnz_moments(const float* coef, const int* shifts, const int* sizes,
-                      int B, int K, int cmax, int64_t num_states,
+int qcmrf_lnz_moments(SplitPlan plan, const float* coef, int B, int ncoef,
                       int64_t per_block, int parts, float beta,
                       const unsigned long long* masks, int m, float* m_out,
                       float* s_out, void* stream) {
-  const dim3 grid(parts, B);
-  const size_t smem = moments_smem_bytes(K, cmax, m);
-  const cudaError_t err = allow_shared(lnz_moments_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  lnz_moments_kernel<<<grid, kThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      coef, shifts, sizes, K, cmax, num_states, per_block, beta, masks, m,
-      m_out, s_out);
-  return static_cast<int>(cudaGetLastError());
+  return with_values_per_thread(plan.L, [&](auto r) {
+    return launch_lnz_moments<decltype(r)::value>(
+        plan, coef, B, ncoef, per_block, parts, beta, masks, m, m_out, s_out,
+        stream);
+  });
 }
 
 const char* qcmrf_error_string(int code) {

@@ -6,8 +6,9 @@ A sweep of all ``2**n`` states, with no ``2**n`` array, gives
 * ``ln Z``: :func:`log_partition_streaming`, the streaming logsumexp of
   :func:`qcmrf_tpu_torch.ops.kernels.log_partition`;
 * the exact clique marginals ``E_p[phi]``: :func:`clique_moments_streaming`,
-  ln Z, then one sweep of the monomial-moments kernel
-  (:func:`qcmrf_tpu_torch.ops.kernels.monomial_moments`) over the
+  one fused lnZ + moments sweep (:func:`lnz_and_moments_streaming`), or,
+  for a given ln Z, one sweep of the monomial-moments kernel
+  (:func:`qcmrf_tpu_torch.ops.kernels.monomial_moments`), over the
   deduplicated bit-monomial basis of the structure (every subset of every
   clique), mapped once onto the theta layout by the inverse-Moebius
   doubling (:func:`qcmrf_tpu_torch.utils.moebius.masks_from_monomials`).
@@ -60,15 +61,16 @@ def _check_streaming_n(n: int) -> None:
 
 def clique_moments_streaming(mrf: MRF, lnZ=None) -> torch.Tensor:
     """Exact model moments ``E_p[phi]`` (the clique-marginal vector in
-    theta layout) by one streaming sweep of the monomial-moments kernel;
-    ``lnZ`` (from the streaming logsumexp unless given) normalises it.
-    For bounded-width models :func:`elimination.clique_marginals` serves
-    any n; this serves any structure up to ``n = 47``."""
+    theta layout) by one streaming sweep. With no ``lnZ``, the fused lnZ
+    + moments sweep (:func:`lnz_and_moments_streaming`) normalises them
+    itself; a given ``lnZ`` normalises one sweep of the monomial-moments
+    kernel. For bounded-width models :func:`elimination.clique_marginals`
+    serves any n; this serves any structure up to ``n = 47``."""
     from qcmrf_tpu_torch.ops import kernels
 
     _check_streaming_n(mrf.n)
     if lnZ is None:
-        lnZ = kernels.log_partition(mrf)
+        return lnz_and_moments_streaming(mrf)[1]
     lnz = torch.as_tensor(lnZ, dtype=torch.float32,
                           device=mrf.device).reshape(1)
     masks = moebius.device_masks(mrf.cliques, mrf.n, mrf.device)

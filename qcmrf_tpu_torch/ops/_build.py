@@ -56,6 +56,19 @@ class LaneFactors(ctypes.Structure):
     _fields_ = [("re", ctypes.c_float * 28), ("im", ctypes.c_float * 28)]
 
 
+class SplitTables(ctypes.Structure):
+    """A split plan as ``qcmrf_kernels.cu`` takes it by value
+    (``SplitPlan``): device pointers to the plan's tables and its counts
+    (``kernels.SplitPlan``)."""
+
+    _fields_ = [("hm", ctypes.c_void_p), ("coef_index", ctypes.c_void_p),
+                ("c_items", ctypes.c_void_p), ("c_heads", ctypes.c_void_p),
+                ("m_items", ctypes.c_void_p), ("m_heads", ctypes.c_void_p),
+                ("targets", ctypes.c_void_p), ("L", ctypes.c_int),
+                ("U", ctypes.c_int), ("CI", ctypes.c_int),
+                ("MI", ctypes.c_int), ("G", ctypes.c_int)]
+
+
 _SIGNATURES = {
     # coef, shifts, sizes, B, K, cmax, n, shots, seed, stream0, mode,
     # x_out, a_out, count_out, stream
@@ -64,9 +77,8 @@ _SIGNATURES = {
     # coef, shifts, sizes, B, K, cmax, num_states, beta, fuse_amp,
     # amp_scale, out, stream
     "qcmrf_logpot": (_P, _P, _P, _I, _I, _I, _I64, _F, _I, _F, _P, _P),
-    # coef, shifts, sizes, B, K, cmax, num_states, per_block, parts, beta,
-    # m_out, s_out, stream
-    "qcmrf_lse": (_P, _P, _P, _I, _I, _I, _I64, _I64, _I, _F, _P, _P, _P),
+    # plan, coef, B, ncoef, per_block, parts, beta, m_out, s_out, stream
+    "qcmrf_lse": (SplitTables, _P, _I, _I, _I64, _I, _F, _P, _P, _P),
     # coef, shifts, sizes, B, K, cmax, num_states, per_block, parts, beta,
     # v_out, x_out, stream
     "qcmrf_map": (_P, _P, _P, _I, _I, _I, _I64, _I64, _I, _F, _P, _P, _P),
@@ -74,10 +86,10 @@ _SIGNATURES = {
     # lnz, masks, m, out, stream
     "qcmrf_moments": (_P, _P, _P, _I, _I, _I, _I64, _I64, _I, _F, _P, _P,
                       _I, _P, _P),
-    # coef, shifts, sizes, B, K, cmax, num_states, per_block, parts, beta,
-    # masks, m, m_out, s_out, stream
-    "qcmrf_lnz_moments": (_P, _P, _P, _I, _I, _I, _I64, _I64, _I, _F, _P,
-                          _I, _P, _P, _P),
+    # plan, coef, B, ncoef, per_block, parts, beta, masks, m, m_out, s_out,
+    # stream
+    "qcmrf_lnz_moments": (SplitTables, _P, _I, _I, _I64, _I, _F, _P, _I, _P,
+                          _P, _P),
     # table, n_terms, k, re, im, num_anchors, a_lo, stream
     "qcmrf_hdh_multi": (_P, _I, _I, _P, _P, _I64, _I, _P),
     # table, n_terms, k, re, im, num_anchors, a_lo, comp, amp, stream
@@ -238,17 +250,25 @@ def structure_args(cliques: tuple, n: int, coef: torch.Tensor,
     fit a block's shared memory."""
     K = len(cliques)
     cmax = max(len(C) for C in cliques)
-    B = coef.shape[0]
-    check(coef, "coef", torch.float32, (B, K << cmax), coef.device)
-    need = structure_bytes(K, cmax) + extra
-    if need > SHARED_BYTES_LIMIT:
-        raise ValueError(f"structure tables and kernel need {need} bytes of "
-                         f"shared memory; a block holds at most "
-                         f"{SHARED_BYTES_LIMIT}")
-    if not 1 <= B <= 65535:
-        raise ValueError(f"{B} coefficient rows; the kernels take 1..65535")
+    B = check_rows(coef, K, cmax, structure_bytes(K, cmax) + extra,
+                   "structure tables and kernel")
     shifts, sizes = _device_layout(cliques, n, coef.device)
     return shifts, sizes, B, K, cmax
+
+
+def check_rows(coef: torch.Tensor, K: int, cmax: int, need: int,
+               what: str) -> int:
+    """The number B of ``(B, K << cmax)`` float32 coefficient rows, checked;
+    raises when ``need`` bytes of shared memory (``what`` needs them) do not
+    fit a block."""
+    B = coef.shape[0]
+    check(coef, "coef", torch.float32, (B, K << cmax), coef.device)
+    if need > SHARED_BYTES_LIMIT:
+        raise ValueError(f"{what} need {need} bytes of shared memory; a "
+                         f"block holds at most {SHARED_BYTES_LIMIT}")
+    if not 1 <= B <= 65535:
+        raise ValueError(f"{B} coefficient rows; the kernels take 1..65535")
+    return B
 
 
 @functools.lru_cache(maxsize=256)

@@ -2,10 +2,13 @@
 moments), the H·D·H sandwich passes and the generic gate passes of the
 plane engine (the port of :mod:`qcmrf_tpu.ops.kernels`).
 
-The table and the sweeps evaluate ``beta * theta^T phi(x)`` per state id
-from the per-clique Moebius coefficients of :func:`moebius_coefficients`,
-clique by clique in the order of ``_logpot_block``, with ``beta`` applied
-after the clique sum.
+The table, the argmax and the moments sweeps evaluate ``beta * theta^T
+phi(x)`` per state id from the per-clique Moebius coefficients of
+:func:`moebius_coefficients`, clique by clique in the order of
+``_logpot_block``, with ``beta`` applied after the clique sum. The
+logsumexp and the fused sweep evaluate sub-blocks of ``2**L`` consecutive
+states at once through the block-invariant split (:func:`split_plan`), a
+subset-sum transform of per-sub-block monomial coefficients.
 
 * :func:`logpot_table` writes the ``(B, 2**n)`` table (``logpot_kernel``);
 * :func:`lse_partials` sweeps the states without a table and returns one
@@ -71,6 +74,7 @@ from __future__ import annotations
 
 import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -170,6 +174,182 @@ def lse_geometry(num_states: int):
     return -(-num_states // per_part), per_part
 
 
+# --------------------------------------------------------------------------
+# The block-invariant split of the streaming lnZ sweeps
+# --------------------------------------------------------------------------
+#
+# A block of lse_geometry is cut into sub-blocks of 2^L consecutive state
+# ids, across which the high bits h = x >> L are fixed (variable v at id
+# bit n - 1 - v). The log-potential is a sum over monomials g (the
+# variable sets of the clique subsets) of c_g [x holds g], with c_g the sum
+# of the coefficient entries whose subset is g. Split g into its low part
+# t (an index into [0, 2^L)) and its high part hm (a mask on h): then, per
+# sub-block, P[t] = sum of c_g over the monomials of target t with (h & hm)
+# == hm, and the subset-sum (zeta) transform value[xl] = sum_{t subset of
+# xl} P[t] gives the log-potential of all 2^L states of the sub-block. The
+# sums of the moments come back the dual way: the superset sums W[t] =
+# sum_{xl superset of t} w[xl], then one test a monomial a sub-block.
+
+#: state-id bits of a sub-block of the split sweeps (fewer when a block
+#: of ``lse_geometry`` holds fewer states)
+SPLIT_BITS = 12
+
+
+class SplitPlan(NamedTuple):
+    """The split of a structure at ``L`` low id bits, from the structure
+    alone. Monomials (variable sets of clique subsets) are sorted by
+    target; each fixed-order sum of the plan is cut into items of about
+    sqrt(its length) entries, so that no thread sums a long chain:
+
+    * ``hm`` int64 (U,): each monomial's high mask on ``h = x >> L``;
+    * ``target`` int32 (U,): its low part, an index into [0, 2^L);
+    * ``coef_index`` int32 (C,): the coefficient entries ``k * 2^cmax +
+      s`` of every monomial, grouped by monomial in clique order;
+    * ``c_items`` (CI + 1,), ``c_heads`` (U + 1,): entry offsets of the
+      items of the monomial coefficients, and item offsets of each
+      monomial;
+    * ``m_items`` (MI + 1,), ``m_heads`` (G + 1,), ``targets`` (G,):
+      monomial offsets of the items of a sub-block's ``P``, item offsets
+      of each target group, and the group's target."""
+
+    L: int
+    hm: np.ndarray
+    target: np.ndarray
+    coef_index: np.ndarray
+    c_items: np.ndarray
+    c_heads: np.ndarray
+    m_items: np.ndarray
+    m_heads: np.ndarray
+    targets: np.ndarray
+
+
+def split_bits(n: int) -> int:
+    """``L`` of the split sweeps over ``2**n`` states: ``SPLIT_BITS``, or
+    log2 of a block's states when a block holds fewer (then ``L = n`` below
+    10 variables: one sub-block)."""
+    per_part = lse_geometry(1 << n)[1]
+    return min(SPLIT_BITS, per_part.bit_length() - 1)
+
+
+def _segments(counts) -> tuple:
+    """Items of a segmented sum of groups of ``counts`` entries: each group
+    in pieces of ceil(sqrt(count)) entries. Returns (entry offsets of the
+    items, item offsets of the groups), int32."""
+    items, heads, pos = [0], [0], 0
+    for c in counts:
+        size = math.isqrt(c - 1) + 1
+        items.extend(pos + min(lo + size, c) for lo in range(0, c, size))
+        pos += c
+        heads.append(len(items) - 1)
+    return np.asarray(items, np.int32), np.asarray(heads, np.int32)
+
+
+@functools.lru_cache(maxsize=256)
+def split_plan(cliques: tuple, n: int, L: int) -> SplitPlan:
+    """The :class:`SplitPlan` of ``cliques`` over ``n`` variables at ``L``
+    low id bits (``1 <= L <= n``)."""
+    if not 1 <= L <= n:
+        raise ValueError(f"L={L} outside 1..{n}")
+    cmax = max(len(C) for C in cliques)
+    layout = moebius.monomial_layout(cliques)
+    masks = moebius.monomial_masks(cliques, n).astype(np.uint64)
+    low = np.uint64((1 << L) - 1)
+    target = (masks & low).astype(np.int64)
+    order = np.argsort(target, kind="stable")
+    rank = np.empty_like(order)
+    rank[order] = np.arange(len(order))
+    # contributions (monomial, entry) in clique order, grouped by monomial
+    contrib = sorted((int(rank[u]), (k << cmax) | s)
+                     for k, cmap in enumerate(layout.cmaps)
+                     for s, u in enumerate(cmap))
+    per_mono = np.bincount([u for u, _ in contrib], minlength=len(order))
+    c_items, c_heads = _segments(per_mono.tolist())
+    tsorted = target[order]
+    targets, per_target = np.unique(tsorted, return_counts=True)
+    m_items, m_heads = _segments(per_target.tolist())
+    return SplitPlan(
+        L=L, hm=(masks[order] >> np.uint64(L)).astype(np.int64),
+        target=tsorted.astype(np.int32),
+        coef_index=np.asarray([e for _, e in contrib], np.int32),
+        c_items=c_items, c_heads=c_heads, m_items=m_items, m_heads=m_heads,
+        targets=targets.astype(np.int32))
+
+
+def subset_sum(a: torch.Tensor, L: int) -> torch.Tensor:
+    """The zeta transform along the last axis (2^L): ``out[x] = sum_{t
+    subset of x} a[t]``, one stage a bit."""
+    lead = a.shape[:-1]
+    for j in range(L):
+        t = a.reshape(*lead, 1 << (L - 1 - j), 2, 1 << j)
+        a = torch.stack([t[..., 0, :], t[..., 1, :] + t[..., 0, :]],
+                        dim=-2).reshape(*lead, 1 << L)
+    return a
+
+
+def superset_sum(a: torch.Tensor, L: int) -> torch.Tensor:
+    """The dual transform along the last axis (2^L): ``out[t] = sum_{x
+    superset of t} a[x]``, one stage a bit."""
+    lead = a.shape[:-1]
+    for j in range(L):
+        t = a.reshape(*lead, 1 << (L - 1 - j), 2, 1 << j)
+        a = torch.stack([t[..., 0, :] + t[..., 1, :], t[..., 1, :]],
+                        dim=-2).reshape(*lead, 1 << L)
+    return a
+
+
+def _segment_sum(values: torch.Tensor, items: np.ndarray,
+                 heads: np.ndarray) -> torch.Tensor:
+    """Group sums of ``values`` (..., entries) through the plan's items:
+    (..., groups)."""
+    dev = values.device
+
+    def owner(offsets):
+        return torch.from_numpy(np.repeat(np.arange(len(offsets) - 1),
+                                          np.diff(offsets))).to(dev)
+
+    part = values.new_zeros((*values.shape[:-1], len(items) - 1))
+    part.index_add_(-1, owner(items), values)
+    out = values.new_zeros((*values.shape[:-1], len(heads) - 1))
+    return out.index_add_(-1, owner(heads), part)
+
+
+def split_log_potentials_reference(plan: SplitPlan, coef: torch.Tensor,
+                                   beta: float, sub_blocks) -> torch.Tensor:
+    """Plain PyTorch version of the split evaluator of ``lse_kernel`` and
+    ``lnz_moments_kernel``, on any device: ``beta * theta^T phi(x)`` at
+    the ids ``x = h * 2^L + xl`` of every sub-block ``h`` of
+    ``sub_blocks`` and every ``xl`` in [0, 2^L), for every row of
+    ``coef`` ((B, K << cmax)): float32 (B, len(sub_blocks), 2^L). The
+    monomial coefficients, then ``P`` per sub-block through the plan's
+    items and target groups, then the subset-sum transform and ``beta``."""
+    dev = coef.device
+    c = _segment_sum(coef[:, torch.from_numpy(plan.coef_index).to(dev)],
+                     plan.c_items, plan.c_heads)
+    h = torch.as_tensor(sub_blocks, dtype=torch.int64, device=dev)
+    hm = torch.from_numpy(plan.hm).to(dev)
+    hit = (h[:, None] & hm) == hm
+    groups = _segment_sum(torch.where(hit, c[:, None, :], 0.0),
+                          plan.m_items, plan.m_heads)
+    P = coef.new_zeros((coef.shape[0], len(h), 1 << plan.L))
+    P[..., torch.from_numpy(plan.targets).to(dev).long()] = groups
+    return subset_sum(P, plan.L) * beta
+
+
+def split_moment_sums_reference(w: torch.Tensor, L: int, sub_blocks,
+                                masks: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of ``lnz_moments_kernel``'s moment rule: for
+    weights ``w`` (B, len(sub_blocks), 2^L) of the states of each
+    sub-block, the superset sums ``W``, then per monomial mask ``g`` (id
+    bits) the sum over the sub-blocks ``h`` with ``(h & (g >> L)) == g >>
+    L`` of ``W[g & (2^L - 1)]``: (B, m) in ``w``'s dtype, the sum of
+    ``w`` over each monomial's states."""
+    W = superset_sum(w, L)
+    h = torch.as_tensor(sub_blocks, dtype=torch.int64, device=w.device)
+    gh, gl = masks >> L, masks & ((1 << L) - 1)
+    hit = ((h[:, None] & gh) == gh).to(w.dtype)
+    return torch.einsum("bsm,sm->bm", W[..., gl], hit)
+
+
 def _padded_table(cliques: tuple, n: int, coef: torch.Tensor, beta: float):
     """The plain table cut into the sweeps' blocks, ``-inf`` past the
     last state: ((B, parts, per_part), per_part)."""
@@ -188,22 +368,60 @@ def lse_partials_reference(cliques: tuple, n: int, coef: torch.Tensor,
     return m, torch.exp(lp - m[..., None]).sum(dim=-1)
 
 
+def split_shared_bytes(plan: SplitPlan, masks: int = 0) -> int:
+    """Dynamic shared memory of a split kernel's block: the plan's tables,
+    their item sums and ``P`` (``lse_kernel``); with ``masks`` monomials,
+    also their masks and sums and ``W`` (``lnz_moments_kernel``)."""
+    U, CI = len(plan.hm), len(plan.c_items) - 1
+    MI, G = len(plan.m_items) - 1, len(plan.targets)
+    size = 12 * U + 4 * (MI + 2 * G + 2 + max(CI, MI) + (1 << plan.L))
+    if masks:
+        size += _MOMENT_BYTES * masks + 4 * (1 << plan.L)
+    return size
+
+
+@functools.lru_cache(maxsize=256)
+def _device_plan(cliques: tuple, n: int, L: int, device: torch.device):
+    """The plan's tables on ``device`` and the ``SplitTables`` that point
+    at them (the tensors stay cached beside it)."""
+    plan = split_plan(cliques, n, L)
+    tabs = [torch.from_numpy(a).to(device) for a in (
+        plan.hm, plan.coef_index, plan.c_items, plan.c_heads, plan.m_items,
+        plan.m_heads, plan.targets)]
+    return tabs, _build.SplitTables(
+        *(t.data_ptr() for t in tabs), L, len(plan.hm),
+        len(plan.c_items) - 1, len(plan.m_items) - 1, len(plan.targets))
+
+
+def _split_args(cliques: tuple, n: int, coef: torch.Tensor, need: int):
+    """Checked arguments of a split kernel: ``(tables, B, parts,
+    per_part)``. Raises when ``need`` bytes of shared memory, static
+    included, do not fit a block."""
+    B = _build.check_rows(coef, len(cliques), max(len(C) for C in cliques),
+                          need, "the split plan and kernel")
+    parts, per_part = lse_geometry(1 << n)
+    _, tables = _device_plan(cliques, n, split_bits(n), coef.device)
+    return tables, B, parts, per_part
+
+
 def lse_partials(cliques: tuple, n: int, coef: torch.Tensor, beta: float):
     """Per-block (max, scaled sum) of ``beta * theta^T phi(x)`` over all
     ``2**n`` states, for every row of ``coef``: two float32 (B, parts)
-    tensors (``lse_geometry`` gives ``parts``). No table is written."""
+    tensors (``lse_geometry`` gives ``parts``). No table is written; on
+    the card the states are evaluated through the split
+    (:func:`split_plan`)."""
     _build.refuse_grad(coef, "coef")
     if coef.device.type == "cpu":
         return lse_partials_reference(cliques, n, coef, beta)
     dev = coef.device
-    shifts, sizes, B, K, cmax = _build.structure_args(
-        cliques, n, coef, extra=_LSE_STATIC_BYTES)
-    parts, per_part = lse_geometry(1 << n)
+    plan = split_plan(cliques, n, split_bits(n))
+    tables, B, parts, per_part = _split_args(
+        cliques, n, coef, split_shared_bytes(plan) + _LSE_STATIC_BYTES)
     m = torch.empty((B, parts), dtype=torch.float32, device=dev)
     s = torch.empty((B, parts), dtype=torch.float32, device=dev)
-    _build.launch("qcmrf_lse", dev, _build.ptr(coef), _build.ptr(shifts),
-                  _build.ptr(sizes), B, K, cmax, 1 << n, per_part, parts,
-                  beta, _build.ptr(m), _build.ptr(s))
+    _build.launch("qcmrf_lse", dev, tables, _build.ptr(coef), B,
+                  coef.shape[1], per_part, parts, beta, _build.ptr(m),
+                  _build.ptr(s))
     LAUNCHES["lse"] += 1
     return m, s
 
@@ -326,13 +544,15 @@ def monomial_moments_reference(cliques: tuple, n: int, coef: torch.Tensor,
     return torch.cat(out, dim=-1)
 
 
-def moments_per_launch(K: int, cmax: int, reserve: int = 0) -> int:
-    """Most monomials one moments launch takes: as many masks and sums as
-    a block's shared memory holds beside the structure tables, the tile
-    of states and ``reserve`` bytes of the kernel's own."""
-    free = (_build.SHARED_BYTES_LIMIT - _build.structure_bytes(K, cmax)
-            - reserve)
-    return free // _MOMENT_BYTES - _BLOCK_THREADS
+def moments_per_launch(K: int, cmax: int, reserve: int = None) -> int:
+    """Most monomials one launch takes: as many masks and sums as a
+    block's shared memory holds beside ``reserve`` bytes of the kernel's
+    own; by default ``moments_kernel``'s, the structure tables and its
+    tile of states."""
+    if reserve is None:
+        reserve = (_build.structure_bytes(K, cmax)
+                   + _BLOCK_THREADS * _MOMENT_BYTES)
+    return (_build.SHARED_BYTES_LIMIT - reserve) // _MOMENT_BYTES
 
 
 def monomial_moments(cliques: tuple, n: int, coef: torch.Tensor,
@@ -402,24 +622,29 @@ def lnz_moments_partials_reference(cliques: tuple, n: int,
     return M, torch.cat(S, dim=-1).float()
 
 
+def lnz_moments_reserve(cliques: tuple, n: int) -> int:
+    """Shared memory of ``lnz_moments_kernel`` beside its masks and sums:
+    the split's tables, ``P`` and ``W``, and its static bytes."""
+    plan = split_plan(cliques, n, split_bits(n))
+    return (split_shared_bytes(plan, 1) - _MOMENT_BYTES
+            + _LNZ_STATIC_BYTES)
+
+
 def _lnz_moments_launch(cliques: tuple, n: int, coef: torch.Tensor,
                         beta: float, masks: torch.Tensor):
     """One launch of ``lnz_moments_kernel``: the (M, S) partials of
     :func:`lnz_moments_partials_reference` for a mask list that fits."""
     dev = coef.device
-    # extra: the tile of states, two monomials and the tile max
-    shifts, sizes, B, K, cmax = _build.structure_args(
-        cliques, n, coef,
-        extra=(_BLOCK_THREADS + 2) * _MOMENT_BYTES + _LNZ_STATIC_BYTES)
     m = masks.numel()
+    plan = split_plan(cliques, n, split_bits(n))
+    tables, B, parts, per_part = _split_args(
+        cliques, n, coef, split_shared_bytes(plan, m) + _LNZ_STATIC_BYTES)
     _build.check(masks, "masks", torch.int64, (m,), dev)
-    parts, per_part = lse_geometry(1 << n)
     M = torch.empty((B, parts), dtype=torch.float32, device=dev)
     S = torch.empty((B, parts, m), dtype=torch.float32, device=dev)
-    _build.launch("qcmrf_lnz_moments", dev, _build.ptr(coef),
-                  _build.ptr(shifts), _build.ptr(sizes), B, K, cmax, 1 << n,
-                  per_part, parts, beta, _build.ptr(masks), m, _build.ptr(M),
-                  _build.ptr(S))
+    _build.launch("qcmrf_lnz_moments", dev, tables, _build.ptr(coef), B,
+                  coef.shape[1], per_part, parts, beta, _build.ptr(masks), m,
+                  _build.ptr(M), _build.ptr(S))
     LAUNCHES["lnz_moments"] += 1
     return M, S
 
@@ -452,7 +677,8 @@ def lnz_moments_partials(cliques: tuple, n: int, coef: torch.Tensor,
            else _lnz_moments_launch)
     K = len(cliques)
     cmax = max(len(C) for C in cliques)
-    step = moments_per_launch(K, cmax, reserve=_LNZ_STATIC_BYTES)
+    step = moments_per_launch(K, cmax, reserve=lnz_moments_reserve(
+        cliques, n))
     if step < 2:
         raise ValueError(f"a launch takes {step} monomials; it needs 2")
     M, S = run(cliques, n, coef, beta, masks[:step])

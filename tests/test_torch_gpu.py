@@ -301,8 +301,9 @@ def test_wide_structure_kernels_match_plain_versions(dev, monkeypatch):
 
 
 def test_infer_k16_streaming_matches_elimination(dev, tmp_path, monkeypatch):
-    """K16 through the lse, map and moments kernels (the streaming route,
-    forced by the width cap) against variable elimination on the card."""
+    """K16 through the lse, map and fused lnz_moments kernels (the
+    streaming route, forced by the width cap) against variable
+    elimination on the card."""
     import json
 
     from qcmrf_tpu_torch.models import capability
@@ -324,8 +325,10 @@ def test_infer_k16_streaming_matches_elimination(dev, tmp_path, monkeypatch):
     monkeypatch.setattr(capability, "ELIM_WIDTH_CAP", 1)
     before = dict(kernels.LAUNCHES)
     got = infer_cli.main(argv)
-    for k in ("lse", "map", "moments"):
+    for k in ("lse", "map", "lnz_moments"):
         assert kernels.LAUNCHES[k] > before[k], k
+    # the marginals take the fused sweep, not lse + moments
+    assert kernels.LAUNCHES["moments"] == before["moments"]
     for g, w in zip(got, want):
         assert g["backend"] == "streaming" and w["backend"] == "elimination"
         for k in ("lnz", "log_mass", "prob", "beta_logpot"):
@@ -491,7 +494,11 @@ def test_lowered_chain_matches_unlowered_on_card(dev):
 @pytest.mark.parametrize("n", [16, 20])
 def test_lnz_moments_kernel_matches_plain_version(dev, n):
     """The fused kernel (one launch) against its plain version and against
-    the lse + moments kernels: lnZ within 1e-5, moments within 1e-6."""
+    the lse + moments kernels: lnZ within 1e-5, moments within 1e-6. The
+    moments kernel evaluates states by the per-state chain, as the plain
+    lse does, so it is normalised by the chain's lnZ: by the lse kernel's
+    (the split, another order of float32 sums) its probabilities sum to
+    1 only within about 1e-6."""
 
     for m in (complete_model(n, dev), mixed_model(n, dev)):
         coef = kernels.moebius_coefficients(m)[None]
@@ -508,8 +515,73 @@ def test_lnz_moments_kernel_matches_plain_version(dev, n):
         torch.testing.assert_close(mono, want, rtol=0, atol=1e-6)
         lnz2 = kernels.log_partition(m).reshape(1)
         torch.testing.assert_close(lnz, lnz2.double(), rtol=0, atol=1e-5)
+        chain = kernels.combine_lse(*kernels.lse_partials_reference(
+            m.cliques, n, coef, m.beta))
         torch.testing.assert_close(mono, kernels.monomial_moments(
-            m.cliques, n, coef, m.beta, lnz2, masks), rtol=0, atol=1e-6)
+            m.cliques, n, coef, m.beta, chain, masks), rtol=0, atol=1e-6)
+
+
+def split_cases(dev):
+    """(what, model) of the split kernels' checks: a sub-block of all 2^n
+    states below 10 variables (n < L = 12), one of 2^10 and 2^11."""
+    return [(f"chain n={n}", MRF.create(
+        [[i, i + 1] for i in range(n - 1)] + [[0, n - 1]], device=dev,
+        theta=-np.abs(np.random.RandomState(n).randn(4 * n)) * 0.4))
+        for n in (3, 5, 8, 9)] + [
+        ("mixed n=11", mixed_model(11, dev)),
+        ("mixed n=23", mixed_model(23, dev, scale=0.1))]
+
+
+def test_split_kernels_at_small_n_and_three_rows(dev):
+    """lse and lnz_moments on three coefficient rows in one launch, n from
+    3 (8 states, threads past them idle) to 23 (sub-blocks of 2^11): lnZ
+    within 1e-5 and moments within 1e-6 of the plain versions."""
+    for what, m in split_cases(dev):
+        thetas = torch.stack([m.theta, 0.5 * m.theta, 1.5 * m.theta])
+        coef = kernels.coefficient_table(m.cliques, m.n, thetas)
+        before = dict(kernels.LAUNCHES)
+        got = kernels.combine_lse(*kernels.lse_partials(m.cliques, m.n, coef,
+                                                        m.beta))
+        want = kernels.combine_lse(*kernels.lse_partials_reference(
+            m.cliques, m.n, coef, m.beta))
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+        masks = moebius.device_masks(m.cliques, m.n, dev)
+        lnz, mono = kernels.combine_lnz_moments(*kernels.lnz_moments_partials(
+            m.cliques, m.n, coef, m.beta, masks))
+        want_lnz, want_mono = kernels.combine_lnz_moments(
+            *kernels.lnz_moments_partials_reference(m.cliques, m.n, coef,
+                                                    m.beta, masks))
+        assert kernels.LAUNCHES["lse"] == before["lse"] + 1, what
+        assert kernels.LAUNCHES["lnz_moments"] == before["lnz_moments"] + 1
+        assert lnz.shape == (3,) and mono.shape == (3, masks.numel())
+        torch.testing.assert_close(lnz, want_lnz, rtol=0, atol=1e-5)
+        torch.testing.assert_close(mono, want_mono, rtol=0, atol=1e-6)
+
+
+def test_split_kernels_are_deterministic(dev):
+    """No float atomics: two launches on the same inputs are bit-equal."""
+    for m in (complete_model(20, dev), mixed_model(16, dev)):
+        coef = kernels.moebius_coefficients(m)[None]
+        masks = moebius.device_masks(m.cliques, m.n, dev)
+        for run in (lambda: kernels.lse_partials(m.cliques, m.n, coef,
+                                                 m.beta),
+                    lambda: kernels.lnz_moments_partials(
+                        m.cliques, m.n, coef, m.beta, masks)):
+            a, b = run(), run()
+            assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_lse_past_2_31_matches_elimination(dev):
+    """A 32-variable chain (state ids past 2^31): the lse kernel's lnZ
+    within 1e-4 of variable elimination."""
+    from qcmrf_tpu_torch.models import elimination
+
+    m = MRF.create([[i, i + 1] for i in range(31)], device=dev,
+                   theta=-np.abs(np.random.RandomState(32).randn(124)) * 0.3)
+    coef = kernels.moebius_coefficients(m)[None]
+    lnz = float(kernels.combine_lse(*kernels.lse_partials(
+        m.cliques, m.n, coef, m.beta))[0])
+    assert abs(lnz - float(elimination.log_partition(m))) <= 1e-4
 
 
 def test_lnz_moments_split_over_launches(dev, monkeypatch):
@@ -546,7 +618,8 @@ def test_lnz_gradient_on_card_is_beta_mu(dev):
         m.with_theta(theta)), theta)
     assert kernels.LAUNCHES["lnz_moments"] == before["lnz_moments"] + 1
     assert kernels.LAUNCHES["lse"] == before["lse"]
-    want = m.beta * moments.clique_moments_streaming(m)
+    want = m.beta * moments.clique_moments_streaming(
+        m, lnZ=kernels.log_partition(m))
     torch.testing.assert_close(g, want, rtol=0, atol=1e-5)
     before = dict(kernels.LAUNCHES)
     moments.log_partition_streaming(m)
@@ -567,8 +640,9 @@ def test_nll_backward_on_card(dev):
                       generator=torch.Generator(device=dev).manual_seed(1))
     theta = m.theta.clone().requires_grad_()
     m.with_theta(theta).nll(x).backward()
-    want = m.beta * (moments.clique_moments_streaming(m)
-                     - clique_marginals_from_samples(m, x).float())
+    want = m.beta * (moments.clique_moments_streaming(
+        m, lnZ=kernels.log_partition(m))
+        - clique_marginals_from_samples(m, x).float())
     torch.testing.assert_close(theta.grad, want, rtol=0, atol=1e-5)
     coef = kernels.moebius_coefficients(m.with_theta(theta))[None]
     with pytest.raises(ValueError, match="no backward"):
