@@ -37,7 +37,14 @@ kernels' launch counters reset just before it and read just after:
 
 The lse and lnz_moments kernels evaluate states through the
 block-invariant split: their bounds come from the split's operation
-count, printed beside the per-state chain's count.
+count, printed beside the per-state chain's count. The map kernel screens
+states through the split and evaluates the chain at its candidates: its
+bound counts both, beside the chain at every state. The sampler reads its
+keep probabilities from a table: its bound counts Philox's integer
+operations at the float32 rate (printed beside the chain design's
+count, which left Philox out), and the phase counts the ancilla bits that
+differ from the chain arithmetic of the JAX kernel on the same random
+words.
 
 Every failed check raises, so the exit code is non-zero. The
 second-to-last line is a JSON object with one entry per kernel (its time,
@@ -125,7 +132,63 @@ def grid_model(rows: int, cols: int, seed: int, dev):
     return template.with_theta(theta)
 
 
-def plain_sampler_shots(cliques, n, coef) -> int:
+def philox_ops(K: int) -> int:
+    """Integer operations of Philox4x32-10 a shot: 1 + K // 4 calls, each
+    10 rounds of two 32x32 -> 64-bit products (low and high word, 4
+    operations) and four XORs, and the key additions of rounds 1-9 (2
+    each)."""
+    return (1 + K // 4) * (10 * (4 + 4) + 9 * 2)
+
+
+def lookup_ops(cliques) -> int:
+    """Operations of the keep-probability lookup a shot, Philox aside: x's
+    mask, then per clique the slot word (a shift, a mask and a merge a
+    slot), the uniform's shift, the compare with the table's entry and the
+    ancilla bit."""
+    return 1 + sum(3 * len(C) + 3 for C in cliques)
+
+
+def sass_instructions(path, kernel: str) -> dict:
+    """Instructions of ``kernel`` (a mangled-name fragment) in the built
+    library, from ``cuobjdump -sass``: its Philox loop (the innermost loop
+    with wide multiplies: one call and four cliques an iteration) and the
+    loop over shots around it, by opcode. Philox's share is its products
+    (IMAD.WIDE.U32) and three-input XORs (LOP3.LUT 0x96); the rest is the
+    lookup, the loop and the stores."""
+    from qcmrf_tpu_torch.ops import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", str(path)], check=True,
+                          capture_output=True, text=True,
+                          timeout=300).stdout
+    body = text.split("Function : ")
+    sass = next(f for f in body[1:] if kernel in f.splitlines()[0])
+    ins = [(int(a, 16), t.strip()) for a, t in re.findall(
+        r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", sass)]
+    loops = [(int(m.group(1), 16), a) for a, t in ins
+             for m in [re.search(r"BRA (0x[0-9a-f]+)", t)]
+             if m and int(m.group(1), 16) < a]
+
+    def span(lo, hi):
+        return [t for a, t in ins if lo <= a <= hi]
+
+    def philox(ts):
+        return sum("IMAD.WIDE.U32" in t or ("LOP3.LUT" in t and "0x96" in t)
+                   for t in ts)
+
+    def wide(ts):
+        return sum("IMAD.WIDE.U32" in t for t in ts)
+
+    inner = min((lp for lp in loops if wide(span(*lp)) >= 16),
+                key=lambda lp: lp[1] - lp[0])
+    outer = min((lp for lp in loops if lp[0] < inner[0]
+                 and lp[1] > inner[1]), key=lambda lp: lp[1] - lp[0])
+    a, b = span(*inner), span(*outer)
+    return dict(inner=len(a), inner_philox=philox(a), outer=len(b),
+                outer_philox=philox(b), inner_wide=wide(a))
+
+
+def plain_sampler_shots(cliques, n, keep) -> int:
     """Largest power of two <= N_SHOTS_RATE whose plain-version run fits
     in 80% of the free device memory, scaled from a 2^20-shot run."""
     from qcmrf_tpu_torch.ops import sampler_kernel as sk
@@ -134,7 +197,7 @@ def plain_sampler_shots(cliques, n, coef) -> int:
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    out = sk.sample_call_reference(SAMPLE_SEED, cliques, n, coef,
+    out = sk.sample_call_reference(SAMPLE_SEED, cliques, n, keep,
                                    N_SHOTS_CHECK, "parts")
     del out
     per_shot = (torch.cuda.max_memory_allocated() - base) / N_SHOTS_CHECK
@@ -145,18 +208,47 @@ def plain_sampler_shots(cliques, n, coef) -> int:
     return shots
 
 
-def phase_sampler(dev, report):
+def chain_flips(mrf, x, a, chunk=1 << 21) -> int:
+    """Shots whose ancilla bits differ from the JAX kernel's arithmetic (c2
+    as a Moebius chain, ``analytic.clique_keep_probs_fast``) on the same
+    Philox words; every x must be the words' own and every differing bit
+    must lie within 2 ulp of the chain's c2."""
+    from qcmrf_tpu_torch.ops import sampler_kernel as sk
+    from qcmrf_tpu_torch.sim import analytic
+
+    flips, same_x, near = 0, True, True
+    for lo in range(0, x.shape[1], chunk):
+        xs, uniforms = sk.shot_uniforms(SAMPLE_SEED, mrf.n, len(mrf.cliques),
+                                        chunk, device=x.device, first=lo)
+        same_x &= torch.equal(xs[0].to(torch.int32), x[0, lo:lo + chunk])
+        c2 = analytic.clique_keep_probs_fast(mrf, xs[0])
+        bits = a[0, lo:lo + chunk]
+        differ = torch.zeros(chunk, dtype=torch.bool, device=x.device)
+        for k, u in enumerate(uniforms):
+            c = c2[:, k]
+            d = ((bits >> k) & 1).bool() != (u[0] >= c)
+            ulp = torch.nextafter(c, torch.full_like(c, 2.0)) - c
+            near &= bool(((u[0] - c).abs() <= 2 * ulp)[d].all())
+            differ |= d
+        flips += int(differ.sum())
+    require(same_x, "every x == the Philox words' own")
+    require(near, f"{flips} shots with an ancilla bit unlike the chain's, "
+                  "each within 2 ulp of its c2")
+    return flips
+
+
+def phase_sampler(dev, report, lib):
     from qcmrf_tpu_torch.ops import kernels, sampler_kernel as sk
 
     print("[sampler] n=20 grid 4x5, theta = -|randn(RandomState(0))| * 0.3")
     mrf = grid_model(4, 5, 0, dev)
     cl, n = mrf.cliques, mrf.n
-    coef = sk.keep_prob_coefficients(mrf)[None]
+    keep = sk.keep_prob_values(cl, n, mrf.theta, mrf.beta)[None]
     err = 0
     for shots in (N_SHOTS_CHECK, N_SHOTS_CHECK + 77):
         for mode in sk.MODES:
-            got = sk.sample_call(SAMPLE_SEED, cl, n, coef, shots, mode)
-            want = sk.sample_call_reference(SAMPLE_SEED, cl, n, coef, shots,
+            got = sk.sample_call(SAMPLE_SEED, cl, n, keep, shots, mode)
+            want = sk.sample_call_reference(SAMPLE_SEED, cl, n, keep, shots,
                                             mode)
             got = got if isinstance(got, tuple) else (got,)
             want = want if isinstance(want, tuple) else (want,)
@@ -166,13 +258,13 @@ def phase_sampler(dev, report):
             require(all(torch.equal(g, w) for g, w in zip(got, want)),
                     f"kernel == plain version, mode {mode}, {shots} shots "
                     f"(max |kernel - plain| = {mode_err})")
-        flags = sk.sample_call(SAMPLE_SEED, cl, n, coef, shots, "flags")
-        count = sk.sample_call(SAMPLE_SEED, cl, n, coef, shots, "count")
+        flags = sk.sample_call(SAMPLE_SEED, cl, n, keep, shots, "flags")
+        count = sk.sample_call(SAMPLE_SEED, cl, n, keep, shots, "count")
         require(int(count[0]) == int(flags.sum()),
                 f"count {int(count[0])} == flags.sum(), {shots} shots")
 
     delta = math.exp(float(kernels.log_partition(mrf)) - n * math.log(2.0))
-    x, a = sk.sample_call(SAMPLE_SEED, cl, n, coef, N_SHOTS_RATE, "parts")
+    x, a = sk.sample_call(SAMPLE_SEED, cl, n, keep, N_SHOTS_RATE, "parts")
     acc = int((a == 0).sum())
     sigma = math.sqrt(delta * (1 - delta) / N_SHOTS_RATE)
     z = (acc / N_SHOTS_RATE - delta) / sigma
@@ -180,29 +272,58 @@ def phase_sampler(dev, report):
             f"acceptance {acc}/{N_SHOTS_RATE} = {acc / N_SHOTS_RATE:.6e} vs "
             f"delta {delta:.6e} from the lse kernel: {z:+.2f} sigma")
     require(int(x.min()) >= 0 and int(x.max()) < (1 << n), "x in [0, 2^n)")
+    flips = chain_flips(mrf, x, a)
+    print(f"  against the chain's c2 on the same words: every x equal, "
+          f"{flips} of {N_SHOTS_RATE} shots with an ancilla bit flipped "
+          "(each within 2 ulp of c2)")
     del x, a
 
     ms = {}
     for mode in ("parts", "flags", "count"):
         ms[mode] = cuda_ms(lambda: sk.sample_call(
-            SAMPLE_SEED, cl, n, coef, N_SHOTS_RATE, mode), reps=10)
+            SAMPLE_SEED, cl, n, keep, N_SHOTS_RATE, mode), reps=10)
         print(f"  kernel {mode}: {ms[mode]:.3f} ms per {N_SHOTS_RATE} shots "
               f"= {N_SHOTS_RATE / ms[mode] / 1e6:.3f} G shots/s")
-    plain_shots = plain_sampler_shots(cl, n, coef)
+    plain_shots = plain_sampler_shots(cl, n, keep)
     plain_ms = cuda_ms(lambda: sk.sample_call_reference(
-        SAMPLE_SEED, cl, n, coef, plain_shots, "parts"), reps=2)
+        SAMPLE_SEED, cl, n, keep, plain_shots, "parts"), reps=2)
     print(f"  plain parts: {plain_ms:.3f} ms per {plain_shots} shots = "
           f"{plain_shots / plain_ms / 1e6:.3f} G shots/s")
     torch.cuda.empty_cache()
-    # per shot: 8 bytes of outputs; per clique the chain, the uniform's
-    # scaling and the comparison (the Philox integer work is not counted)
+    # per shot: 8 bytes of outputs; Philox's integer operations charged at
+    # the float32 rate (the card issues at most 128 lane operations a clock
+    # an SM, the float rate counts 256: a lower bound) and the lookup's;
+    # the chain design's count beside it: the chain, the uniform's scaling
+    # and the comparison a clique, Philox left out
+    K = len(cl)
+    b = bound(8 * N_SHOTS_RATE,
+              N_SHOTS_RATE * (philox_ops(K) + lookup_ops(cl)))
+    old = bound(8 * N_SHOTS_RATE,
+                N_SHOTS_RATE * (chain_flops(cl) + 2 * K))
+    print(f"  bound {b['bound_ms']:.4f} ms ({b['bound_by']}): Philox "
+          f"{philox_ops(K)} + lookup {lookup_ops(cl)} operations a shot; "
+          f"without Philox (the chain design's count, "
+          f"{chain_flops(cl) + 2 * K} a shot) {old['bound_ms']:.4f} ms")
+    sass = sass_instructions(lib, "14sampler_kernelILi2E")
+    calls = 1 + K // 4
+    per_shot = sass["outer"] - sass["inner"] + sass["inner"] * (calls - 1)
+    philox = (sass["outer_philox"] - sass["inner_philox"]
+              + sass["inner_philox"] * (calls - 1))
+    print(f"  SASS of sampler_kernel<2> (cuobjdump): {sass['inner']} "
+          f"instructions a Philox call and 4 cliques ({sass['inner_philox']} "
+          f"Philox: {sass['inner_wide']} IMAD.WIDE.U32 and the 3-input "
+          f"XORs), {sass['outer']} in the loop over shots; about {per_shot} "
+          f"a shot at K={K} ({calls} calls), {philox} of them Philox")
     report["sampler"] = dict(
-        **bound(8 * N_SHOTS_RATE,
-                N_SHOTS_RATE * (chain_flops(cl) + 2 * len(cl))),
-        max_abs_err=float(err),
+        **b, max_abs_err=float(err),
         err_shape=f"(1, {N_SHOTS_CHECK}) and (1, {N_SHOTS_CHECK + 77}) "
                   f"shots, all modes {list(sk.MODES)}, n=20 K=31",
         ms=ms["parts"], plain_ms=plain_ms,
+        bound_ms_without_philox=old["bound_ms"],
+        ops_per_shot=dict(philox=philox_ops(K), lookup=lookup_ops(cl),
+                          chain_design=chain_flops(cl) + 2 * K),
+        sass_per_shot=dict(all=per_shot, philox=philox, **sass),
+        chain_flips=flips,
         shape=f"(1, {N_SHOTS_RATE}) shots, parts mode, n=20 K=31",
         plain_shape=f"(1, {plain_shots}) shots, parts mode")
 
@@ -243,14 +364,15 @@ def phase_logpot(dev, report):
     torch.cuda.empty_cache()
 
 
-def split_ops(cliques, n: int, masks: int = 0) -> int:
+def split_ops(cliques, n: int, masks: int = 0, per_state: int = None) -> int:
     """Float operations of one split sweep over 2^n states: lse_kernel's,
     or with ``masks`` monomials lnz_moments_kernel's. The monomial
     coefficients once (an add a coefficient entry); per sub-block of 2^L
     states the plan's tests and adds (2 a monomial), the subset-sum
     transform (L 2^(L-1) adds) and, with masks, the superset sums and a
     test and an add a monomial; per state beta, the max, the difference
-    and the exp (counted as one), and for lse the sum."""
+    and the exp (counted as one), and for lse the sum; or ``per_state``
+    (map_kernel's 3: beta, the max and the threshold's compare)."""
     from qcmrf_tpu_torch.ops import kernels
 
     cl = tuple(tuple(C) for C in cliques)
@@ -258,8 +380,9 @@ def split_ops(cliques, n: int, masks: int = 0) -> int:
     plan = kernels.split_plan(cl, n, L)
     per_sub = (2 * len(plan.hm) + (L << (L - 1)) * (2 if masks else 1)
                + 2 * masks)
-    return (len(plan.coef_index) + (per_sub << (n - L))
-            + ((4 if masks else 5) << n))
+    if per_state is None:
+        per_state = 4 if masks else 5
+    return len(plan.coef_index) + (per_sub << (n - L)) + (per_state << n)
 
 
 def lse_row(what: str, mrf, reps: int) -> dict:
@@ -335,7 +458,7 @@ def phase_suite_shapes(dev):
         cl = tuple(tuple(c) for c in C)
         n = max(v for c in C for v in c) + 1
         th = torch.tensor(suite.thetas[j], dtype=torch.float32, device=dev)
-        kc = sk.keep_prob_table(cl, n, th, 1.0)
+        kc = sk.keep_prob_values(cl, n, th, 1.0)
         got = sk.sample_call(0, cl, n, kc, 10_000, "parts", 10 * j)
         want = sk.sample_call_reference(0, cl, n, kc, 10_000, "parts", 10 * j)
         mc = kernels.coefficient_table(cl, n, th)
@@ -846,7 +969,9 @@ def timed_once(fn):
 
 def check_map_and_moments(mrf, what: str, times=None) -> dict:
     """The map and moments kernels against their plain versions on one
-    model; returns the largest differences. With ``times`` (a dict), also
+    model (map: ids and values equal, two launches bit-equal); returns the
+    largest differences and the map kernel's candidates (the states whose
+    chain it evaluated). With ``times`` (a dict), also
     times each kernel (CUDA events over 5 calls after a warm-up) and each
     plain version (the one call that the check makes)."""
     from qcmrf_tpu_torch.ops import kernels
@@ -855,12 +980,16 @@ def check_map_and_moments(mrf, what: str, times=None) -> dict:
     cl, n, coef, beta, lnz, masks = args
     (wv, wx), plain_map = timed_once(
         lambda: kernels.map_partials_reference(*args[:4]))
-    v, x = kernels.map_partials(*args[:4])
+    cand = torch.zeros(wx.shape, dtype=torch.int64, device=wx.device)
+    v, x = kernels.map_partials(*args[:4], candidates=cand)
     map_err = float((v - wv).abs().max())
-    rel = float(((v - wv).abs() / wv.abs().clamp(min=1e-30)).max())
-    require(torch.equal(x, wx) and rel <= 1e-6,
-            f"{what}: map kernel == plain version: the same ids in all "
-            f"{x.shape[1]} blocks, values within 1e-6 relative ({rel:.2e})")
+    require(torch.equal(x, wx) and torch.equal(v, wv),
+            f"{what}: map kernel == plain version: the same ids and values "
+            f"in all {x.shape[1]} blocks (torch.equal), "
+            f"{int(cand.sum())} candidates")
+    v2, x2 = kernels.map_partials(*args[:4])
+    require(torch.equal(v, v2) and torch.equal(x, x2),
+            f"{what}: two map launches give bit-equal partials")
     want, plain_mom = timed_once(
         lambda: kernels.monomial_moments_reference(*args))
     got = kernels.monomial_moments(*args)
@@ -875,7 +1004,7 @@ def check_map_and_moments(mrf, what: str, times=None) -> dict:
                                 reps=5), plain_map)
         times["moments"] = (cuda_ms(lambda: kernels.monomial_moments(*args),
                                     reps=5), plain_mom)
-    return dict(map=map_err, moments=mom_err)
+    return dict(map=map_err, moments=mom_err), int(cand.sum())
 
 
 def oracle_pair_moments(t, lnz, n: int, sel=None, chunk=1 << 20):
@@ -941,7 +1070,7 @@ def phase_infer(dev, report) -> dict:
             ("wide 4-variable cliques n=20",
              seeded_model(random_cliques(20, 700, 4, 4), 5, 0.05, dev)),
             ("tie chain n=20", tie_chain(20, dev))):
-        for k, e in check_map_and_moments(mrf, what).items():
+        for k, e in check_map_and_moments(mrf, what)[0].items():
             err[k] = max(err[k], e)
     v, x = kernels.combine_map(*kernels.map_partials(
         *infer_kernel_args(tie_chain(20, dev))[:4]))
@@ -1000,17 +1129,28 @@ def phase_infer(dev, report) -> dict:
     print("[infer] K27 kernels and plain versions at the batch's shape")
     mrf = MRF.create(cliques, theta=theta, device=dev)
     times = {}
-    for k, e in check_map_and_moments(mrf, "K27", times).items():
+    errs, cands = check_map_and_moments(mrf, "K27", times)
+    for k, e in errs.items():
         err[k] = max(err[k], e)
     cl = mrf.cliques
     m = moebius.monomial_layout(cl).m
     parts = kernels.lse_geometry(1 << n)[0]
-    # per state: the chains and beta; then a compare (map), or the exp of
-    # lp - lnZ and a mask test and an add per monomial (moments). Bytes:
-    # the partials written (and the masks read)
-    b = dict(map=bound(12 * parts, (chain_flops(cl) + 2) << n),
+    # map: the split's sweep and the candidates' chains and beta; beside
+    # it the chain, beta and a compare at every state.
+    # moments: per state the chains and beta, the exp of lp - lnZ and a
+    # mask test and an add per monomial. Bytes: the partials written (and
+    # the masks read)
+    map_ops = split_ops(cl, n, per_state=3) + cands * (chain_flops(cl) + 1)
+    chain_ops = (chain_flops(cl) + 2) << n
+    b = dict(map=bound(12 * parts, map_ops),
              moments=bound(4 * parts * m + 8 * m,
                            (chain_flops(cl) + 3 + 2 * m) << n))
+    chain_b = bound(12 * parts, chain_ops)
+    print(f"  map: {cands} candidates of 2^{n} states; the split's "
+          f"{split_ops(cl, n, per_state=3):.4e} operations and the "
+          f"candidates' chains {cands * (chain_flops(cl) + 1):.4e}, "
+          f"against the chain at every state {chain_ops:.4e} "
+          f"({chain_b['bound_ms']:.3f} ms)")
     for k in ("map", "moments"):
         ms, plain_ms = times[k]
         print(f"  {k}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
@@ -1020,6 +1160,9 @@ def phase_infer(dev, report) -> dict:
         report[k] = dict(max_abs_err=err[k], ms=ms, plain_ms=plain_ms,
                          **b[k], shape=f"K{n} pairwise, 2^{n} states"
                          + (f", {m} monomials" if k == "moments" else ""))
+    report["map"].update(candidates=cands, split_ops=map_ops - cands * (
+        chain_flops(cl) + 1), chain_ops=chain_ops,
+        chain_bound_ms=chain_b["bound_ms"])
     report["infer_k27_batch_s"] = seconds
     phase_chain32(dev)
     return launches
@@ -2177,7 +2320,7 @@ def main() -> int:
     print(smi)
 
     report = {}
-    phase_sampler(dev, report)
+    phase_sampler(dev, report, path)
     phase_logpot(dev, report)
     phase_lnz(dev, report)
     phase_suite_shapes(dev)

@@ -1,11 +1,14 @@
 // Hand-written Hopper (sm_90a) kernels of the closed-form QCMRF sampling
 // path, of exact inference and of exact-MLE training: the fused outcome
 // sampler, the log-potential table, the streaming logsumexp, argmax and
-// monomial-moment sweeps, and the fused lnZ + moments sweep. The sampler,
-// the table, the argmax and the moments kernels evaluate a clique's
-// multilinear (Moebius) form state by state with one shared device
-// function, moebius_chain; the logsumexp and the fused sweep evaluate whole
-// sub-blocks of states through the block-invariant split (section 3).
+// monomial-moment sweeps, and the fused lnZ + moments sweep. The table and
+// the moments kernels evaluate a clique's multilinear (Moebius) form state
+// by state with one shared device function, log_potential; the logsumexp
+// and the fused sweep evaluate whole sub-blocks of states through the
+// block-invariant split (section 3); the argmax screens states through the
+// split and decides among the few near its maximum with the chain
+// (section 4); the sampler reads each clique's keep probability from a
+// shared-memory table (section 1).
 //
 // Built by qcmrf_tpu_torch/ops/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -18,8 +21,8 @@
 //                                  subset s of clique k at k * 2^cmax + s
 //   shifts int32   (K, cmax)       state-id right-shift of clique k's slot i
 //   sizes  int32   (K,)            clique sizes (slots >= size are unused)
-// The split kernels take coef and a SplitPlan in place of shifts and sizes.
-// Row b of a launch is blockIdx.y.
+// The split kernels take coef and a SplitPlan in place of shifts and sizes
+// (the argmax takes both). Row b of a launch is blockIdx.y.
 
 #include <cstdint>
 #include <type_traits>
@@ -76,7 +79,27 @@ __device__ __forceinline__ uint32_t clique_slots(Id x, const int* shifts,
   return y;
 }
 
+// moebius_chain and clique_slots of an M-variable clique, unrolled: the
+// same operations in the same order.
+template <int M, typename Id>
+__device__ __forceinline__ float clique_chain(Id x, const float* coef,
+                                              const int* shifts, float acc) {
+  uint32_t y = 0;
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    y |= static_cast<uint32_t>((x >> shifts[i]) & 1) << i;
+  }
+  acc = __fadd_rn(acc, coef[0]);
+#pragma unroll
+  for (uint32_t s = 1; s < (1u << M); ++s) {
+    const float p = ((y & s) == s) ? 1.0f : 0.0f;
+    acc = __fadd_rn(acc, __fmul_rn(coef[s], p));
+  }
+  return acc;
+}
+
 // theta^T phi(x): the clique sum of qcmrf_tpu/ops/kernels.py::_logpot_block.
+// Cliques of up to 4 variables take the unrolled chain.
 template <typename Id>
 __device__ __forceinline__ float log_potential(Id x, const float* coef,
                                                const int* shifts,
@@ -85,8 +108,15 @@ __device__ __forceinline__ float log_potential(Id x, const float* coef,
   float acc = 0.0f;
   for (int k = 0; k < K; ++k) {
     const int m = sizes[k];
-    acc = moebius_chain(coef + (k << cmax),
-                        clique_slots(x, shifts + k * cmax, m), m, acc);
+    const float* c = coef + (k << cmax);
+    const int* sh = shifts + k * cmax;
+    switch (m) {
+      case 1: acc = clique_chain<1>(x, c, sh, acc); break;
+      case 2: acc = clique_chain<2>(x, c, sh, acc); break;
+      case 3: acc = clique_chain<3>(x, c, sh, acc); break;
+      case 4: acc = clique_chain<4>(x, c, sh, acc); break;
+      default: acc = moebius_chain(c, clique_slots(x, sh, m), m, acc);
+    }
   }
   return acc;
 }
@@ -115,31 +145,39 @@ __device__ __forceinline__ SharedStructure load_structure(
   return {s_coef, s_shifts, s_sizes};
 }
 
-// Philox4x32-10 (Salmon et al., SC'11), the Random123 constants and round.
-__device__ __forceinline__ void philox4x32_10(uint32_t c0, uint32_t c1,
-                                              uint32_t c2, uint32_t c3,
-                                              uint32_t k0, uint32_t k1,
-                                              uint32_t& w0, uint32_t& w1,
-                                              uint32_t& w2, uint32_t& w3) {
+// Philox4x32-10 (Salmon et al., SC'11), the Random123 constants and round,
+// with the key of every round computed once (a key is fixed per row).
+struct PhiloxKey {
+  uint32_t k0[10];
+  uint32_t k1[10];
+};
+
+__device__ __forceinline__ PhiloxKey philox_key(uint32_t k0, uint32_t k1) {
+  PhiloxKey key;
 #pragma unroll
   for (int r = 0; r < 10; ++r) {
-    if (r > 0) {
-      k0 += 0x9E3779B9u;
-      k1 += 0xBB67AE85u;
-    }
-    const uint32_t lo0 = 0xD2511F53u * c0;
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c0);
-    const uint32_t lo1 = 0xCD9E8D57u * c2;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2);
-    c0 = hi1 ^ c1 ^ k0;
-    c1 = lo1;
-    c2 = hi0 ^ c3 ^ k1;
-    c3 = lo0;
+    key.k0[r] = k0 + static_cast<uint32_t>(r) * 0x9E3779B9u;
+    key.k1[r] = k1 + static_cast<uint32_t>(r) * 0xBB67AE85u;
   }
-  w0 = c0;
-  w1 = c1;
-  w2 = c2;
-  w3 = c3;
+  return key;
+}
+
+// Words (w0, w1, w2, w3) of counter (c0, c1, c2, c3): per round two 32x32
+// -> 64-bit products, whose high words are XORed with the other counter
+// words and the round's key.
+__device__ __forceinline__ uint4 philox4x32_10(uint32_t c0, uint32_t c1,
+                                               uint32_t c2, uint32_t c3,
+                                               const PhiloxKey& key) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    const uint64_t p0 = static_cast<uint64_t>(0xD2511F53u) * c0;
+    const uint64_t p1 = static_cast<uint64_t>(0xCD9E8D57u) * c2;
+    c0 = static_cast<uint32_t>(p1 >> 32) ^ c1 ^ key.k0[r];
+    c1 = static_cast<uint32_t>(p1);
+    c2 = static_cast<uint32_t>(p0 >> 32) ^ c3 ^ key.k1[r];
+    c3 = static_cast<uint32_t>(p0);
+  }
+  return make_uint4(c0, c1, c2, c3);
 }
 
 __device__ __forceinline__ float neg_inf() {
@@ -150,59 +188,102 @@ __device__ __forceinline__ float neg_inf() {
 // 1. Fused outcome sampler
 // ---------------------------------------------------------------------------
 // Replaces qcmrf_tpu/ops/sampler_kernel.py::_build_sampler_kernel.
-// One thread per shot: x uniform in [0, 2^n) from Philox word 0, then one
-// Bernoulli per clique with keep probability c2_k(x) from moebius_chain.
-// Random words: key (seed, stream), counter (shot_lo, shot_hi, j, 0); word
-// t = k + 1 of the shot's stream drives clique k, as u = (w >> 8) * 2^-24.
-// Bound on this card: integer and float ALU work (10 Philox rounds per four
-// cliques plus the chain), not memory: the parts mode writes 8 bytes a shot
-// and the count mode none. The design keeps everything but the outputs in
-// registers, the coefficients in shared memory, and reduces the count in
-// the block before one 64-bit atomic.
+// Per shot: x uniform in [0, 2^n) from Philox word 0, then one Bernoulli
+// per clique k that fires when u >= c2_k(x) = exp(beta theta_{k, y}), y the
+// clique's slot word of x. Random words: key (seed, stream), counter
+// (shot_lo, shot_hi, j, 0); word t = k + 1 of the shot's stream drives
+// clique k, as u = (w >> 8) * 2^-24.
+//
+// c2 is one shared-memory load: the TPU kernel rebuilt it from Moebius
+// coefficients by a chain of products and sums, because a TPU vector unit
+// has no per-lane gather; here a block copies the row's keep-probability
+// table into shared memory once, as integer thresholds: u >= c2 iff (w >>
+// 8) >= ceil(c2 * 2^24) (u is a multiple of 2^-24 and c2 * 2^24 is exact),
+// so the comparison needs no conversion to float. The slot word is CMAX
+// shifts and masks unrolled; a clique with fewer slots points the rest at
+// id bit 31, which is 0 (n <= 31). The table is padded with cliques that
+// never fire up to a whole number of Philox calls, so every call's four
+// words go to four cliques with no tail test.
+//
+// Blocks stay resident (a few an SM, a grid-stride loop over shots): the
+// table is loaded once a block and the round keys once a thread.
+// Bound on this card: integer and logic work, Philox's 10 rounds of two
+// wide products and two XORs a call (1 + floor(K / 4) calls a shot) and
+// about a dozen instructions a clique; memory sees 8 bytes a shot in the parts
+// mode and none in the count mode, which reduces in the block before one
+// 64-bit atomic (an integer: exact in any order).
 enum SampleMode { kParts = 0, kFlagsX = 1, kFlags = 2, kCount = 3 };
 
-__global__ void __launch_bounds__(kThreads)
-sampler_kernel(const float* __restrict__ coef, const int* __restrict__ shifts,
-               const int* __restrict__ sizes, int K, int cmax, int n,
-               int64_t shots, uint32_t seed, uint32_t stream0, int mode,
-               int32_t* __restrict__ x_out, int32_t* __restrict__ a_out,
-               unsigned long long* __restrict__ count_out) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.y;
-  const SharedStructure st =
-      load_structure(smem, coef, shifts, sizes, K, cmax, b);
+// Cliques of the padded table: 1 + K words rounded up to whole calls,
+// less word 0.
+__host__ __device__ __forceinline__ int sampler_cliques(int K) {
+  return 4 * ((K + 4) / 4) - 1;
+}
 
-  const int64_t shot =
-      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  int accept = 0;
-  if (shot < shots) {
-    const uint32_t k0 = seed;
-    const uint32_t k1 = stream0 + static_cast<uint32_t>(b);
+// 1 when word w fires clique k at x.
+template <int CMAX>
+__device__ __forceinline__ uint32_t fires(uint32_t x, uint32_t w, int k,
+                                          const uint32_t* thr,
+                                          const int* sh) {
+  uint32_t y = 0;
+#pragma unroll
+  for (int i = 0; i < CMAX; ++i) {
+    y |= ((x >> sh[k * CMAX + i]) & 1u) << i;
+  }
+  return (w >> 8) >= thr[(k << CMAX) | y] ? 1u : 0u;
+}
+
+template <int CMAX>
+__global__ void __launch_bounds__(kThreads)
+sampler_kernel(const float* __restrict__ keep, const int* __restrict__ shifts,
+               int K, int n, int64_t shots, uint32_t seed, uint32_t stream0,
+               int mode, int32_t* __restrict__ x_out,
+               int32_t* __restrict__ a_out,
+               unsigned long long* __restrict__ count_out) {
+  // layout: thresholds (Kp << CMAX), then slot shifts (Kp * CMAX)
+  extern __shared__ uint32_t s_thr[];
+  __shared__ unsigned long long warp_sums[kThreads / 32];
+  const int b = blockIdx.y;
+  const int Kp = sampler_cliques(K);
+  int* s_sh = reinterpret_cast<int*>(s_thr + (Kp << CMAX));
+  const float* row = keep + static_cast<int64_t>(b) * (K << CMAX);
+  for (int i = threadIdx.x; i < (Kp << CMAX); i += blockDim.x) {
+    // __float2uint_ru: the ceiling, saturating past 2^32
+    s_thr[i] = i < (K << CMAX) ? __float2uint_ru(row[i] * 16777216.0f)
+                               : 0xFFFFFFFFu;
+  }
+  for (int i = threadIdx.x; i < Kp * CMAX; i += blockDim.x) {
+    s_sh[i] = i < K * CMAX ? shifts[i] : 31;
+  }
+  __syncthreads();
+
+  const PhiloxKey key = philox_key(seed, stream0 + static_cast<uint32_t>(b));
+  const uint32_t xmask = (1u << n) - 1u;
+  const int calls = (Kp + 1) >> 2;
+  unsigned long long accepted = 0;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t shot = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+       shot < shots; shot += stride) {
     const uint32_t lo = static_cast<uint32_t>(shot);
     const uint32_t hi = static_cast<uint32_t>(shot >> 32);
-    uint32_t w0, w1, w2, w3;
-    philox4x32_10(lo, hi, 0u, 0u, k0, k1, w0, w1, w2, w3);
-    const uint32_t x = w0 & ((1u << n) - 1u);
-    uint32_t fired = 0;
-    accept = 1;
-    for (int k = 0; k < K; ++k) {
-      const int t = k + 1;
-      if ((t & 3) == 0) {
-        philox4x32_10(lo, hi, static_cast<uint32_t>(t >> 2), 0u, k0, k1, w0,
-                      w1, w2, w3);
-      }
-      const int q = t & 3;
-      const uint32_t w = q == 0 ? w0 : q == 1 ? w1 : q == 2 ? w2 : w3;
-      const float u = __fmul_rn(__uint2float_rn(w >> 8), 5.9604644775390625e-08f);
-      const int m = st.sizes[k];
-      const float c2 = moebius_chain(
-          st.coef + (k << cmax), clique_slots(x, st.shifts + k * cmax, m), m,
-          0.0f);
-      if (mode == kParts) {
-        fired |= static_cast<uint32_t>(u >= c2) << k;
-      } else {
-        accept &= static_cast<int>(u < c2);
-      }
+    uint4 w = philox4x32_10(lo, hi, 0u, 0u, key);
+    const uint32_t x = w.x & xmask;
+    // bit k: clique k fired; `any` keeps every clique past 32 too
+    uint32_t fired = fires<CMAX>(x, w.y, 0, s_thr, s_sh) |
+                     fires<CMAX>(x, w.z, 1, s_thr, s_sh) << 1 |
+                     fires<CMAX>(x, w.w, 2, s_thr, s_sh) << 2;
+    uint32_t any = fired;
+    for (int j = 1; j < calls; ++j) {
+      w = philox4x32_10(lo, hi, static_cast<uint32_t>(j), 0u, key);
+      const int k = 4 * j - 1;
+      const uint32_t g = fires<CMAX>(x, w.x, k, s_thr, s_sh) |
+                         fires<CMAX>(x, w.y, k + 1, s_thr, s_sh) << 1 |
+                         fires<CMAX>(x, w.z, k + 2, s_thr, s_sh) << 2 |
+                         fires<CMAX>(x, w.w, k + 3, s_thr, s_sh) << 3;
+      // the parts mode has K <= 32: k <= 31, and bits past 31 are padding
+      fired |= g << (k & 31);
+      any |= g;
     }
     const int64_t o = static_cast<int64_t>(b) * shots + shot;
     if (mode == kParts) {
@@ -210,26 +291,23 @@ sampler_kernel(const float* __restrict__ coef, const int* __restrict__ shifts,
       a_out[o] = static_cast<int32_t>(fired);
     } else if (mode == kFlagsX) {
       x_out[o] = static_cast<int32_t>(x);
-      a_out[o] = accept;
+      a_out[o] = any == 0;
     } else if (mode == kFlags) {
-      a_out[o] = accept;
+      a_out[o] = any == 0;
+    } else {
+      accepted += any == 0;
     }
   }
   if (mode == kCount) {
-    // threads past the ragged tail hold accept = 0
-    __shared__ int warp_sums[kThreads / 32];
-    int c = accept;
     for (int off = 16; off > 0; off >>= 1) {
-      c += __shfl_down_sync(0xffffffffu, c, off);
+      accepted += __shfl_down_sync(0xffffffffu, accepted, off);
     }
-    if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = c;
+    if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = accepted;
     __syncthreads();
     if (threadIdx.x == 0) {
-      int total = 0;
+      unsigned long long total = 0;
       for (int i = 0; i < kThreads / 32; ++i) total += warp_sums[i];
-      if (total) {
-        atomicAdd(count_out + b, static_cast<unsigned long long>(total));
-      }
+      if (total) atomicAdd(count_out + b, total);
     }
   }
 }
@@ -505,63 +583,158 @@ lse_kernel(SplitPlan pl, const float* __restrict__ coef, int ncoef,
 // 4. Streaming argmax
 // ---------------------------------------------------------------------------
 // Replaces qcmrf_tpu/ops/kernels.py::_build_map_loop_kernel.
-// Block p sweeps the int64 ids [p * per_block, (p + 1) * per_block), each
-// thread carrying its best (value, id) in registers. A thread's ids rise, so
-// a strict > keeps the earliest of equal values; the block merges its
-// threads' pairs in shared memory (the larger value, and of equal values the
-// smaller id) and writes one partial pair. combine_map (plain torch) merges
-// the blocks by the same rule, so the earliest state id of the maxima wins.
-// Ids are int64 end to end: the TPU kernel's float-encoded block and row
-// coordinates are not needed.
-// Bound on this card: float ALU work of the chains (as the lse kernel, with a
-// compare in place of the exp); device memory sees only the partials.
+// Block p of lse_geometry writes the best value of beta * theta^T phi(x)
+// over its ids as the per-state chain computes it (log_potential, then
+// beta, the order of the plain version), and the earliest id that holds
+// it: the plain version's answer bit for bit, ties included. The chain
+// costs about 3 K 2^cmax operations a state, so the block screens its
+// states through the split (split_values, as lse_kernel) and evaluates the
+// chain only where the split value is within tol[b] of the block's running
+// maximum M. tol[b] (kernels.map_tolerance) is twice the largest
+// difference between the split's and the chain's value of any state: both
+// sum the same coefficient entries of row b, each rounded at most N times
+// (N = K << cmax), so each lies within gamma_{N+1} |beta| sum |coef_b| of
+// the exact value. A state x* of the chain's maximum then has a split value
+// of at least M_final - tol: the chain ranks x* at or above the split's
+// best state s, whose chain value is at least M_final - tol / 2, and the
+// split's value of x* is within tol / 2 of its chain value. M rises
+// through the sweep, so the threshold fl_down(M - tol) at any sub-block
+// lies at or below M_final - tol: every state that could hold the maximum
+// is evaluated, with states that tie in the chain among them. Generic
+// theta leaves a few candidates a block (about 5 of K27's 2^15); theta = 0
+// makes every state one (slower, still exact). A chain is about 4 K
+// dependent adds, long beside a sub-block's split, and a thread that ran
+// it alone at its sub-block would hold the block at the next barrier with
+// one lane of its warp busy: the block lists its candidates in shared
+// memory instead (a slot by an integer atomic; past kHeld a thread
+// evaluates its candidate at once), and at the block's end its first
+// threads evaluate the list lane by lane, one chain's time for up to 32.
+// Each thread keeps its best (value, id) by map_better; the block merges
+// by the same rule and writes one partial pair, and the candidates it
+// evaluated when cand_out is not null.
+// combine_map (plain torch) merges the blocks. No float atomics: two
+// launches are bit-equal. Ids are int64 end to end.
+// Bound on this card: float work, the split's (as lse_kernel's, with a
+// compare in place of the exp and the sum) and the candidates' chains;
+// device memory sees only the partials.
 constexpr int64_t kNoState = INT64_MAX;
+// candidates a block holds back for its end
+constexpr int kHeld = 256;
 
 __device__ __forceinline__ bool map_better(float v, int64_t x, float bv,
                                            int64_t bx) {
   return v > bv || (v == bv && x < bx);
 }
 
+template <int R>
 __global__ void __launch_bounds__(kThreads)
-map_kernel(const float* __restrict__ coef, const int* __restrict__ shifts,
-           const int* __restrict__ sizes, int K, int cmax, int64_t num_states,
-           int64_t per_block, float beta, float* __restrict__ v_out,
-           int64_t* __restrict__ x_out) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.y;
-  const SharedStructure st =
-      load_structure(smem, coef, shifts, sizes, K, cmax, b);
-  const int64_t begin = static_cast<int64_t>(blockIdx.x) * per_block;
-  const int64_t end =
-      begin + per_block < num_states ? begin + per_block : num_states;
-  float best = neg_inf();
-  int64_t best_x = kNoState;
-  for (int64_t x = begin + threadIdx.x; x < end; x += blockDim.x) {
-    const float v = __fmul_rn(
-        beta, log_potential(x, st.coef, st.shifts, st.sizes, K, cmax));
-    if (v > best || best_x == kNoState) {
-      best = v;
-      best_x = x;
-    }
-  }
+map_kernel(SplitPlan pl, const float* __restrict__ coef,
+           const int* __restrict__ shifts, const int* __restrict__ sizes,
+           int K, int cmax, int64_t per_block, int parts, float beta,
+           const float* __restrict__ tol, float* __restrict__ v_out,
+           int64_t* __restrict__ x_out, long long* __restrict__ cand_out) {
+  // layout: the split's tables and P, then the structure tables of
+  // load_structure for the chain
+  extern __shared__ unsigned long long smem64[];
+  __shared__ float s_warp_max[kThreads / 32];
+  __shared__ long long s_warp_cand[kThreads / 32];
   __shared__ float sv[kThreads];
   __shared__ int64_t sx[kThreads];
-  sv[threadIdx.x] = best;
-  sx[threadIdx.x] = best_x;
-  __syncthreads();
-  for (int h = kThreads / 2; h > 0; h >>= 1) {
-    if (static_cast<int>(threadIdx.x) < h &&
-        map_better(sv[threadIdx.x + h], sx[threadIdx.x + h], sv[threadIdx.x],
-                   sx[threadIdx.x])) {
-      sv[threadIdx.x] = sv[threadIdx.x + h];
-      sx[threadIdx.x] = sx[threadIdx.x + h];
+  __shared__ int64_t s_held_x[kHeld];
+  __shared__ int s_held;
+  if (threadIdx.x == 0) s_held = 0;
+  const int b = blockIdx.y;
+  float* rest;
+  const SplitShared sp = load_split(
+      smem64, 0, pl, coef + static_cast<int64_t>(b) * (K << cmax), &rest);
+  const SharedStructure st =
+      load_structure(rest, coef, shifts, sizes, K, cmax, b);
+  const float delta = tol[b];
+  const int L = pl.L;
+  const int64_t subs = per_block >> L;
+  const bool active = static_cast<int>(threadIdx.x) < (1 << L);
+  for (int p = blockIdx.x; p < parts; p += gridDim.x) {
+    float M = neg_inf();
+    float best = neg_inf();
+    int64_t best_x = kNoState;
+    long long cand = 0;
+    const auto decide = [&](int64_t x) {
+      const float c = __fmul_rn(
+          beta, log_potential(x, st.coef, st.shifts, st.sizes, K, cmax));
+      if (map_better(c, x, best, best_x)) {
+        best = c;
+        best_x = x;
+      }
+    };
+    const unsigned long long h0 = static_cast<unsigned long long>(p) * subs;
+    for (int64_t i = 0; i < subs; ++i) {
+      const unsigned long long h = h0 + i;
+      float v[R];
+      split_values<R>(sp, pl, h, beta, v);
+      float top = neg_inf();
+      if (active) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) top = fmaxf(top, v[r]);
+      }
+      for (int off = 16; off > 0; off >>= 1) {
+        top = fmaxf(top, __shfl_xor_sync(0xffffffffu, top, off));
+      }
+      if ((threadIdx.x & 31) == 0) s_warp_max[threadIdx.x >> 5] = top;
+      __syncthreads();
+      for (int k = 0; k < kThreads / 32; ++k) M = fmaxf(M, s_warp_max[k]);
+      const float T = __fsub_rd(M, delta);
+      uint32_t hits = 0;
+      if (active) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          hits |= static_cast<uint32_t>(v[r] >= T) << r;
+        }
+      }
+      cand += __popc(hits);
+      while (hits) {
+        const int r = __ffs(hits) - 1;
+        hits &= hits - 1;
+        const int64_t x = static_cast<int64_t>(
+            (h << L) | static_cast<unsigned long long>(r * kThreads +
+                                                       threadIdx.x));
+        const int at = atomicAdd(&s_held, 1);
+        if (at < kHeld) {
+          s_held_x[at] = x;
+        } else {
+          decide(x);
+        }
+      }
     }
     __syncthreads();
-  }
-  if (threadIdx.x == 0) {
-    const int64_t o = static_cast<int64_t>(b) * gridDim.x + blockIdx.x;
-    v_out[o] = sv[0];
-    x_out[o] = sx[0];
+    const int held = s_held < kHeld ? s_held : kHeld;
+    for (int t = threadIdx.x; t < held; t += kThreads) decide(s_held_x[t]);
+    for (int off = 16; off > 0; off >>= 1) {
+      cand += __shfl_down_sync(0xffffffffu, cand, off);
+    }
+    if ((threadIdx.x & 31) == 0) s_warp_cand[threadIdx.x >> 5] = cand;
+    sv[threadIdx.x] = best;
+    sx[threadIdx.x] = best_x;
+    __syncthreads();
+    for (int half = kThreads / 2; half > 0; half >>= 1) {
+      if (static_cast<int>(threadIdx.x) < half &&
+          map_better(sv[threadIdx.x + half], sx[threadIdx.x + half],
+                     sv[threadIdx.x], sx[threadIdx.x])) {
+        sv[threadIdx.x] = sv[threadIdx.x + half];
+        sx[threadIdx.x] = sx[threadIdx.x + half];
+      }
+      __syncthreads();
+    }
+    if (threadIdx.x == 0) {
+      s_held = 0;
+      const int64_t o = static_cast<int64_t>(b) * parts + p;
+      v_out[o] = sv[0];
+      x_out[o] = sx[0];
+      if (cand_out) {
+        long long total = 0;
+        for (int k = 0; k < kThreads / 32; ++k) total += s_warp_cand[k];
+        cand_out[o] = total;
+      }
+    }
   }
 }
 
@@ -795,6 +968,37 @@ cudaError_t allow_shared(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// The sampler's dynamic shared memory: the padded table's thresholds and
+// slot shifts.
+size_t sampler_smem_bytes(int K, int cmax) {
+  return static_cast<size_t>(sampler_cliques(K)) * ((1 << cmax) + cmax) *
+         sizeof(uint32_t);
+}
+
+// launch(std::integral_constant<int, CMAX>) for the cliques' largest size:
+// 1..15 (a 16-variable clique's table, 256 KB, outgrows shared memory).
+template <typename Launch>
+int with_clique_size(int cmax, Launch launch) {
+  switch (cmax) {
+    case 1: return launch(std::integral_constant<int, 1>());
+    case 2: return launch(std::integral_constant<int, 2>());
+    case 3: return launch(std::integral_constant<int, 3>());
+    case 4: return launch(std::integral_constant<int, 4>());
+    case 5: return launch(std::integral_constant<int, 5>());
+    case 6: return launch(std::integral_constant<int, 6>());
+    case 7: return launch(std::integral_constant<int, 7>());
+    case 8: return launch(std::integral_constant<int, 8>());
+    case 9: return launch(std::integral_constant<int, 9>());
+    case 10: return launch(std::integral_constant<int, 10>());
+    case 11: return launch(std::integral_constant<int, 11>());
+    case 12: return launch(std::integral_constant<int, 12>());
+    case 13: return launch(std::integral_constant<int, 13>());
+    case 14: return launch(std::integral_constant<int, 14>());
+    case 15: return launch(std::integral_constant<int, 15>());
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 unsigned grid_blocks(int64_t items, int64_t cap) {
   int64_t blocks = (items + kThreads - 1) / kThreads;
   if (blocks > cap) blocks = cap;
@@ -828,22 +1032,63 @@ int launch_lnz_moments(const SplitPlan& pl, const float* coef, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The sampler's grid: as many blocks as stay resident on the card (each
+// loads its table once and loops over shots), fewer for a small call.
+template <int CMAX>
+int launch_sampler(const float* keep, const int* shifts, int B, int K, int n,
+                   int64_t shots, uint32_t seed, uint32_t stream0, int mode,
+                   int32_t* x_out, int32_t* a_out,
+                   unsigned long long* count_out, void* stream) {
+  const size_t smem = sampler_smem_bytes(K, CMAX);
+  cudaError_t err = allow_shared(sampler_kernel<CMAX>, smem);
+  int device = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, sampler_kernel<CMAX>, kThreads, smem);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int64_t cap = static_cast<int64_t>(sms) * (per_sm < 1 ? 1 : per_sm) / B;
+  const dim3 grid(grid_blocks(shots, cap < 1 ? 1 : cap), B);
+  sampler_kernel<CMAX><<<grid, kThreads, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
+      keep, shifts, K, n, shots, seed, stream0, mode, x_out, a_out,
+      count_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int R>
+int launch_map(const SplitPlan& pl, const float* coef, const int* shifts,
+               const int* sizes, int B, int K, int cmax, int64_t per_block,
+               int parts, float beta, const float* tol, float* v_out,
+               int64_t* x_out, long long* cand_out, void* stream) {
+  const size_t smem = split_smem_bytes(pl) + structure_smem_bytes(K, cmax);
+  const cudaError_t err = allow_shared(map_kernel<R>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  map_kernel<R><<<split_grid(parts, B), kThreads, smem,
+                  static_cast<cudaStream_t>(stream)>>>(
+      pl, coef, shifts, sizes, K, cmax, per_block, parts, beta, tol, v_out,
+      x_out, cand_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
-int qcmrf_sample(const float* coef, const int* shifts, const int* sizes,
-                 int B, int K, int cmax, int n, int64_t shots, uint32_t seed,
+int qcmrf_sample(const float* keep, const int* shifts, int B, int K,
+                 int cmax, int n, int64_t shots, uint32_t seed,
                  uint32_t stream0, int mode, int32_t* x_out, int32_t* a_out,
                  unsigned long long* count_out, void* stream) {
-  const dim3 grid(grid_blocks(shots, INT64_C(0x7fffffff)), B);
-  const size_t smem = structure_smem_bytes(K, cmax);
-  const cudaError_t err = allow_shared(sampler_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  sampler_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      coef, shifts, sizes, K, cmax, n, shots, seed, stream0, mode, x_out,
-      a_out, count_out);
-  return static_cast<int>(cudaGetLastError());
+  return with_clique_size(cmax, [&](auto c) {
+    return launch_sampler<decltype(c)::value>(keep, shifts, B, K, n, shots,
+                                              seed, stream0, mode, x_out,
+                                              a_out, count_out, stream);
+  });
 }
 
 int qcmrf_logpot(const float* coef, const int* shifts, const int* sizes,
@@ -869,18 +1114,15 @@ int qcmrf_lse(SplitPlan plan, const float* coef, int B, int ncoef,
   });
 }
 
-int qcmrf_map(const float* coef, const int* shifts, const int* sizes, int B,
-              int K, int cmax, int64_t num_states, int64_t per_block,
-              int parts, float beta, float* v_out, int64_t* x_out,
-              void* stream) {
-  const dim3 grid(parts, B);
-  const size_t smem = structure_smem_bytes(K, cmax);
-  const cudaError_t err = allow_shared(map_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  map_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      coef, shifts, sizes, K, cmax, num_states, per_block, beta, v_out,
-      x_out);
-  return static_cast<int>(cudaGetLastError());
+int qcmrf_map(SplitPlan plan, const float* coef, const int* shifts,
+              const int* sizes, int B, int K, int cmax, int64_t per_block,
+              int parts, float beta, const float* tol, float* v_out,
+              int64_t* x_out, long long* cand_out, void* stream) {
+  return with_values_per_thread(plan.L, [&](auto r) {
+    return launch_map<decltype(r)::value>(plan, coef, shifts, sizes, B, K,
+                                          cmax, per_block, parts, beta, tol,
+                                          v_out, x_out, cand_out, stream);
+  });
 }
 
 int qcmrf_moments(const float* coef, const int* shifts, const int* sizes,

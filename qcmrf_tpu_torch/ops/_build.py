@@ -70,18 +70,19 @@ class SplitTables(ctypes.Structure):
 
 
 _SIGNATURES = {
-    # coef, shifts, sizes, B, K, cmax, n, shots, seed, stream0, mode,
-    # x_out, a_out, count_out, stream
-    "qcmrf_sample": (_P, _P, _P, _I, _I, _I, _I, _I64, _U32, _U32, _I,
-                     _P, _P, _P, _P),
+    # keep, slot shifts, B, K, cmax, n, shots, seed, stream0, mode, x_out,
+    # a_out, count_out, stream
+    "qcmrf_sample": (_P, _P, _I, _I, _I, _I, _I64, _U32, _U32, _I, _P, _P,
+                     _P, _P),
     # coef, shifts, sizes, B, K, cmax, num_states, beta, fuse_amp,
     # amp_scale, out, stream
     "qcmrf_logpot": (_P, _P, _P, _I, _I, _I, _I64, _F, _I, _F, _P, _P),
     # plan, coef, B, ncoef, per_block, parts, beta, m_out, s_out, stream
     "qcmrf_lse": (SplitTables, _P, _I, _I, _I64, _I, _F, _P, _P, _P),
-    # coef, shifts, sizes, B, K, cmax, num_states, per_block, parts, beta,
-    # v_out, x_out, stream
-    "qcmrf_map": (_P, _P, _P, _I, _I, _I, _I64, _I64, _I, _F, _P, _P, _P),
+    # plan, coef, shifts, sizes, B, K, cmax, per_block, parts, beta, tol,
+    # v_out, x_out, cand_out, stream
+    "qcmrf_map": (SplitTables, _P, _P, _P, _I, _I, _I, _I64, _I, _F, _P, _P,
+                  _P, _P, _P),
     # coef, shifts, sizes, B, K, cmax, num_states, per_block, parts, beta,
     # lnz, masks, m, out, stream
     "qcmrf_moments": (_P, _P, _P, _I, _I, _I, _I64, _I64, _I, _F, _P, _P,

@@ -2,20 +2,24 @@
 moments), the H·D·H sandwich passes and the generic gate passes of the
 plane engine (the port of :mod:`qcmrf_tpu.ops.kernels`).
 
-The table, the argmax and the moments sweeps evaluate ``beta * theta^T
-phi(x)`` per state id from the per-clique Moebius coefficients of
+The table and the moments sweeps evaluate ``beta * theta^T phi(x)`` per
+state id from the per-clique Moebius coefficients of
 :func:`moebius_coefficients`, clique by clique in the order of
-``_logpot_block``, with ``beta`` applied after the clique sum. The
-logsumexp and the fused sweep evaluate sub-blocks of ``2**L`` consecutive
-states at once through the block-invariant split (:func:`split_plan`), a
-subset-sum transform of per-sub-block monomial coefficients.
+``_logpot_block``, with ``beta`` applied after the clique sum (the
+chain). The logsumexp and the fused sweep evaluate sub-blocks of ``2**L``
+consecutive states at once through the block-invariant split
+(:func:`split_plan`), a subset-sum transform of per-sub-block monomial
+coefficients. The argmax screens states through the split and evaluates
+the chain only for those within :func:`map_tolerance` of the running
+maximum, so its answer is the chain's, bit for bit.
 
 * :func:`logpot_table` writes the ``(B, 2**n)`` table (``logpot_kernel``);
 * :func:`lse_partials` sweeps the states without a table and returns one
   (max, scaled sum) pair per block of states (``lse_kernel``);
   :func:`combine_lse` finishes the logsumexp;
 * :func:`map_partials` returns one (best value, earliest id) pair per
-  block (``map_kernel``); :func:`combine_map` finishes the argmax;
+  block (``map_kernel``: the split screens, the chain decides);
+  :func:`combine_map` finishes the argmax;
 * :func:`monomial_moments` sums ``p(x)`` over the states of each monomial
   (``moments_kernel``);
 * :func:`lnz_moments_partials` does both in one sweep by a running max
@@ -99,9 +103,12 @@ MIN_LSE_BLOCK_STATES = 1024
 #: threads a block of the streaming kernels (kThreads of the CUDA source)
 _BLOCK_THREADS = 256
 #: static shared memory of the lse and map kernels' block reductions: a
-#: float32 max and sum, or a float32 value and int64 id, per thread
+#: float32 max and sum, or a float32 value and int64 id, per thread (and
+#: for map a float32 max and an int64 candidate count per warp, and the
+#: list of 256 int64 candidate ids with its int32 length)
 _LSE_STATIC_BYTES = _BLOCK_THREADS * 8
-_MAP_STATIC_BYTES = _BLOCK_THREADS * 12
+_MAP_STATIC_BYTES = (_BLOCK_THREADS * 12 + (_BLOCK_THREADS // 32) * 12
+                     + 256 * 8 + 4)
 #: the moments kernel's shared memory per monomial (int64 mask, float32
 #: sum) and per thread (int64 tile id, float32 weight)
 _MOMENT_BYTES = 12
@@ -486,23 +493,117 @@ def map_partials_reference(cliques: tuple, n: int, coef: torch.Tensor,
     return best, hit.amin(dim=-1)
 
 
-def map_partials(cliques: tuple, n: int, coef: torch.Tensor, beta: float):
+#: float32 unit roundoff
+_U = 2.0 ** -24
+
+
+def map_tolerance(coef: torch.Tensor, beta: float) -> torch.Tensor:
+    """Per row of ``coef`` ((B, N), N = K << cmax entries), float32 (B,) on
+    its device: ``4 gamma_{N+1} |beta| sum |coef_b|``, with ``gamma_k = k u
+    / (1 - k u)``, widened by 2^-20 for its own rounding. The split and the
+    chain sum the same held entries of row b in two orders, each result
+    within ``gamma_N sum |coef_b|`` of the exact sum (an add rounds only
+    where both operands are nonzero, at most N - 1 times on a path), and
+    ``beta`` rounds once more: each value lies within ``e = gamma_{N+1}
+    |beta| sum |coef_b|`` of the exact one and the two within ``2 e`` of
+    each other, so a state of the chain's maximum has a split value within
+    ``4 e`` of the split's maximum. No host synchronisation."""
+    g = (coef.shape[-1] + 1) * _U
+    scale = 4 * g / (1 - g) * abs(beta) * (1 + 2.0 ** -20)
+    return (coef.double().abs().sum(dim=-1) * scale).float()
+
+
+def _threshold(M: torch.Tensor, tol: torch.Tensor) -> torch.Tensor:
+    """``M - tol`` rounded down in float32 (``__fsub_rd``)."""
+    t = M - tol
+    over = t.double() > M.double() - tol.double()
+    return torch.where(over, torch.nextafter(t, torch.full_like(
+        t, -math.inf)), t)
+
+
+def map_partials_split_reference(cliques: tuple, n: int, coef: torch.Tensor,
+                                 beta: float, parts=None, candidates=None,
+                                 L: int = None):
+    """Plain PyTorch version of ``map_kernel``'s algorithm, on any device:
+    the split's values of every sub-block of each block of
+    ``lse_geometry`` (:func:`split_log_potentials_reference`); a running
+    maximum ``M`` over the block's sub-blocks; the chain (``_clique_sum``
+    times ``beta``) at every state whose split value is at least
+    ``M - map_tolerance`` rounded down; of those, the best chain value and
+    the earliest id holding it. Equal to :func:`map_partials_reference`.
+    ``parts`` picks blocks (all by default; outputs ``(B, len(parts))``);
+    ``candidates``, an int64 tensor of the outputs' shape, receives each
+    block's chain evaluations; ``L`` (default ``split_bits(n)``, the
+    kernel's) sets the sub-blocks."""
+    dev = coef.device
+    B = coef.shape[0]
+    n_parts, per_part = lse_geometry(1 << n)
+    L = split_bits(n) if L is None else L
+    subs = per_part >> L
+    sel = torch.as_tensor(range(n_parts) if parts is None else parts,
+                          dtype=torch.int64, device=dev)
+    h = (sel[:, None] * subs + torch.arange(subs, device=dev)).reshape(-1)
+    v = split_log_potentials_reference(
+        split_plan(cliques, n, L), coef, beta, h).reshape(
+            B, len(sel), subs, 1 << L)
+    M = v.amax(dim=-1).cummax(dim=-1).values
+    T = _threshold(M, map_tolerance(coef, beta)[:, None, None])
+    b, p, i, xl = torch.nonzero(v >= T[..., None], as_tuple=True)
+    ids = ((sel[p] * subs + i) << L) | xl
+    val = torch.empty(ids.shape, dtype=torch.float32, device=dev)
+    for r in range(B):
+        at = b == r
+        val[at] = _clique_sum(cliques, n, coef[r:r + 1], ids[at])[0] * beta
+    key = b * len(sel) + p
+    best = torch.full((B * len(sel),), -math.inf, device=dev).scatter_reduce(
+        0, key, val, "amax")
+    top = val == best[key]
+    first = torch.full((B * len(sel),), _NO_STATE, dtype=torch.int64,
+                       device=dev).scatter_reduce(0, key[top], ids[top],
+                                                  "amin")
+    if candidates is not None:
+        candidates.copy_(torch.bincount(key, minlength=B * len(sel))
+                         .reshape(B, len(sel)))
+    return best.reshape(B, -1), first.reshape(B, -1)
+
+
+def map_partials(cliques: tuple, n: int, coef: torch.Tensor, beta: float,
+                 candidates: torch.Tensor = None):
     """Per-block best value of ``beta * theta^T phi(x)`` over all ``2**n``
     states and the earliest state id that holds it, for every row of
     ``coef``: float32 and int64 (B, parts) tensors (``lse_geometry`` gives
-    ``parts``). :func:`combine_map` finishes. No table is written."""
+    ``parts``), the chain's values (:func:`map_partials_reference` bit for
+    bit). :func:`combine_map` finishes. No table is written: on the card
+    the states are screened through the split and the chain evaluates the
+    candidates (``map_kernel``). ``candidates``, an int64 (B, parts)
+    tensor, receives each block's candidates; on a CPU tensor it makes the
+    plain version that of the split algorithm
+    (:func:`map_partials_split_reference`)."""
     _build.refuse_grad(coef, "coef")
     if coef.device.type == "cpu":
-        return map_partials_reference(cliques, n, coef, beta)
+        if candidates is None:
+            return map_partials_reference(cliques, n, coef, beta)
+        return map_partials_split_reference(cliques, n, coef, beta,
+                                            candidates=candidates)
     dev = coef.device
+    L = split_bits(n)
     shifts, sizes, B, K, cmax = _build.structure_args(
-        cliques, n, coef, extra=_MAP_STATIC_BYTES)
+        cliques, n, coef,
+        extra=split_shared_bytes(split_plan(cliques, n, L))
+        + _MAP_STATIC_BYTES)
+    _, tables = _device_plan(cliques, n, L, dev)
     parts, per_part = lse_geometry(1 << n)
+    if candidates is not None:
+        _build.check(candidates, "candidates", torch.int64, (B, parts), dev)
+    tol = map_tolerance(coef, beta)
     v = torch.empty((B, parts), dtype=torch.float32, device=dev)
     x = torch.empty((B, parts), dtype=torch.int64, device=dev)
-    _build.launch("qcmrf_map", dev, _build.ptr(coef), _build.ptr(shifts),
-                  _build.ptr(sizes), B, K, cmax, 1 << n, per_part, parts,
-                  beta, _build.ptr(v), _build.ptr(x))
+    _build.launch("qcmrf_map", dev, tables, _build.ptr(coef),
+                  _build.ptr(shifts), _build.ptr(sizes), B, K, cmax,
+                  per_part, parts, beta, _build.ptr(tol), _build.ptr(v),
+                  _build.ptr(x),
+                  _build.ptr(candidates) if candidates is not None
+                  else _build.ctypes.c_void_p(0))
     LAUNCHES["map"] += 1
     return v, x
 

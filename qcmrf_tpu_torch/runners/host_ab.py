@@ -18,10 +18,13 @@ in place of the pinned, non-blocking upload. ``streaming27`` times, with
 the package under ``DIR``, the streaming lnZ sweeps where their main paths
 run them: the lse sweep at n = 28 (grid 4x7) and on bench.py's K27, the
 fused lnZ + moments sweep on K27 (CUDA events, 5 calls after a warm-up),
-one exact-MLE step on K27 (``train_wide_k27_step_ms``) and the K27
-``infer`` batch of ``chip_smoke.py`` through ``infer_cli.main`` (host
-clock, the second of two runs). Prints one JSON line. Needs
-a CUDA device; the script file is run by its path, not with ``-m``.
+one exact-MLE step on K27 (``train_wide_k27_step_ms``), the streaming
+argmax on K27 and the outcome sampler at bench.py's operating point (the
+n=20 grid, 2^27 shots, parts mode; the tree's own keep-probability table),
+and the K27 ``infer`` batch of ``chip_smoke.py`` through
+``infer_cli.main`` (host clock, the second of two runs). Prints one JSON
+line. Needs a CUDA device; the script file is run by its path, not with
+``-m``.
 """
 
 from __future__ import annotations
@@ -58,8 +61,8 @@ def _sync_upload(K) -> None:
 
 
 def _streaming27(smoke, K, dev) -> dict:
-    """Milliseconds of the streaming lnZ sweeps, the K27 step and the K27
-    infer batch (see the module docstring)."""
+    """Milliseconds of the streaming lnZ sweeps, the K27 step, the argmax,
+    the sampler and the K27 infer batch (see the module docstring)."""
     import contextlib
     import io
     import os
@@ -69,6 +72,7 @@ def _streaming27(smoke, K, dev) -> dict:
 
     from qcmrf_tpu_torch.models import train as mtrain
     from qcmrf_tpu_torch.models.mrf import MRF
+    from qcmrf_tpu_torch.ops import sampler_kernel as S
     from qcmrf_tpu_torch.runners import infer_cli
     from qcmrf_tpu_torch.utils import moebius
 
@@ -88,6 +92,14 @@ def _streaming27(smoke, K, dev) -> dict:
     step = mtrain.make_moment_train_step(k27, mtrain.adam([raw], 5e-2),
                                          smoke.k27_mu_hat())
     ms["train_wide_k27_step"] = smoke.cuda_ms(step, reps=5)
+    ms["map_k27"] = smoke.cuda_ms(lambda: K.map_partials(
+        k27.cliques, k27.n, coef, k27.beta), reps=5)
+    grid = smoke.grid_model(4, 5, 0, dev)
+    table = getattr(S, "keep_prob_values", S.keep_prob_table)(
+        grid.cliques, grid.n, grid.theta, grid.beta)[None]
+    ms["sampler_n20_parts"] = smoke.cuda_ms(lambda: S.sample_call(
+        smoke.SAMPLE_SEED, grid.cliques, grid.n, table, smoke.N_SHOTS_RATE,
+        "parts"), reps=5)
     with tempfile.TemporaryDirectory() as tmp:
         paths = [os.path.join(tmp, f) for f in ("g.json", "t.json",
                                                 "q.jsonl")]

@@ -59,8 +59,8 @@ def batched_sample_outcomes(cliques, thetas, seed: int, shots: int,
     if n + len(cliques) + 1 > 31:
         raise ValueError("packed keys need n + K + 1 <= 31 bits")
     analytic.check_thetas(thetas)
-    coef = sampler_kernel.keep_prob_table(cliques, n, thetas, 1.0)
-    x, a = sampler_kernel.sample_call(seed, cliques, n, coef, shots,
+    keep = sampler_kernel.keep_prob_values(cliques, n, thetas, 1.0)
+    x, a = sampler_kernel.sample_call(seed, cliques, n, keep, shots,
                                       "parts", stream0)
     return x + (a << (n + 1))
 

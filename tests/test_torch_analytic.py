@@ -164,6 +164,31 @@ def test_mask_bit_31_reads_unsigned():
     assert int(x.max()) < (1 << 31)
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_sampler_table_against_the_chain_arithmetic(seed):
+    """The sampler reads c2 from the keep-probability table; the JAX
+    kernel evaluates it as a Moebius chain, rounded otherwise. On the same
+    Philox words: x equal, and the ancilla bits equal except on shots
+    whose u lies within 2 ulp of c2. Mixed clique sizes: a smaller
+    clique's unused slots read id bit 31, which is 0."""
+    rng = np.random.RandomState(seed)
+    cliques = [[0, 1, 2], [2, 3], [4], [1, 4], [0, 3, 4, 5]]
+    d = sum(1 << len(C) for C in cliques)
+    mrf = MRF.create(cliques, theta=-np.abs(rng.randn(d)) * 0.7, beta=1.3,
+                     device="cpu")
+    shots = 1 << 15
+    x, a = sampler_kernel.sample_outcome_parts(seed, mrf, shots, seed)
+    wx, uniforms = sampler_kernel.shot_uniforms(seed, mrf.n, len(cliques),
+                                                shots, stream0=seed)
+    assert torch.equal(x, wx[0].to(torch.int32))
+    chain = analytic.clique_keep_probs_fast(mrf, wx[0])
+    for k, u in enumerate(uniforms):
+        c2 = chain[:, k]
+        differ = ((a >> k) & 1).bool() != (u[0] >= c2)
+        ulp = torch.nextafter(c2, torch.full_like(c2, 2.0)) - c2
+        assert bool(((u[0] - c2).abs() <= 2 * ulp)[differ].all())
+
+
 def test_sample_outcomes_follow_joint_law():
     rng = np.random.RandomState(4)
     mrf = MRF.create([[0, 1], [1, 2]], theta=-np.abs(rng.randn(8)) * 0.8,

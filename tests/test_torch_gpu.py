@@ -43,7 +43,8 @@ def as_tuple(out):
 def test_sampler_kernel_matches_plain_version(dev):
     m = MRF.create([[0, 1, 2], [2, 3], [4], [1, 4]], device=dev,
                    theta=-np.abs(np.random.RandomState(2).randn(18)) * 0.5)
-    kc = sampler_kernel.keep_prob_coefficients(m)[None].repeat(3, 1)
+    kc = sampler_kernel.keep_prob_values(m.cliques, m.n, m.theta,
+                                         m.beta)[None].repeat(3, 1)
     for mode in sampler_kernel.MODES:
         for shots in (1, 1000, 4099):
             before = sampler_kernel.LAUNCHES["sampler"]
@@ -220,15 +221,30 @@ def tie_model(n, dev):
 
 @pytest.mark.parametrize("n", [16, 20])
 def test_map_kernel_matches_plain_version(dev, n):
-    for m in (complete_model(n, dev), mixed_model(n, dev), tie_model(n, dev)):
+    """The split screens, the chain decides: ids and values equal the
+    plain version's exactly, on every model, three rows in one launch,
+    theta = 0 (every state a candidate) and the tie; two launches are
+    bit-equal."""
+    for m in (complete_model(n, dev), mixed_model(n, dev), tie_model(n, dev),
+              wide_model(n, dev), complete_model(n, dev).with_theta(
+                  np.zeros(2 * n * (n - 1), np.float32))):
         coef = kernels.moebius_coefficients(m)[None]
+        coef = torch.cat([coef, 0.5 * coef, -coef])
+        parts = kernels.lse_geometry(1 << n)[0]
+        cand = torch.zeros((3, parts), dtype=torch.int64, device=dev)
         before = kernels.LAUNCHES["map"]
-        v, x = kernels.map_partials(m.cliques, n, coef, m.beta)
+        v, x = kernels.map_partials(m.cliques, n, coef, m.beta, cand)
         assert kernels.LAUNCHES["map"] == before + 1
         wv, wx = kernels.map_partials_reference(m.cliques, n, coef, m.beta)
-        assert torch.equal(x, wx)
-        torch.testing.assert_close(v, wv, rtol=1e-6, atol=0)
-    best, sid = kernels.combine_map(v, x)
+        assert torch.equal(x, wx) and torch.equal(v, wv)
+        assert bool((cand >= 1).all()) and int(cand.sum()) <= 3 << n
+        v2, x2 = kernels.map_partials(m.cliques, n, coef, m.beta)
+        assert torch.equal(v, v2) and torch.equal(x, x2)
+        if not bool(m.theta.any()):
+            assert int(cand.sum()) == 3 << n
+    m = tie_model(n, dev)
+    best, sid = kernels.combine_map(*kernels.map_partials(
+        m.cliques, n, kernels.moebius_coefficients(m)[None], m.beta))
     alternating = int("01" * (n // 2), 2)
     assert int(sid[0]) == alternating and float(best[0]) == 0.0
 
@@ -284,8 +300,7 @@ def test_wide_structure_kernels_match_plain_versions(dev, monkeypatch):
         atol=1e-5)
     v, x = kernels.map_partials(cl, n, coef, beta)
     wv, wx = kernels.map_partials_reference(cl, n, coef, beta)
-    assert torch.equal(x, wx)
-    torch.testing.assert_close(v, wv, rtol=1e-6, atol=0)
+    assert torch.equal(x, wx) and torch.equal(v, wv)
     masks = torch.from_numpy(moebius.monomial_masks(cl, n)).to(dev)
     assert masks.numel() > 1500
     want = kernels.monomial_moments_reference(cl, n, coef, beta, lnz, masks)

@@ -22,6 +22,7 @@ from qcmrf_tpu.ops import sampler_kernel as jsampler  # noqa: E402
 
 from qcmrf_tpu_torch.models.mrf import MRF  # noqa: E402
 from qcmrf_tpu_torch.ops import kernels, sampler_kernel  # noqa: E402
+from qcmrf_tpu_torch.utils import moebius  # noqa: E402
 
 
 def port(jm, device="cpu") -> MRF:
@@ -103,6 +104,29 @@ def test_keep_prob_coefficients_match(seed):
             sampler_kernel.keep_prob_coefficients(port(jm)).numpy(),
             np.asarray(jsampler._keep_prob_coefficients(jm)),
             rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_keep_prob_values_are_the_gathered_exp_table(seed):
+    """The sampler's table: exp(beta * theta) gathered by the layout of
+    JAX's ``_moebius_layout``; its Moebius transform is the JAX kernel's
+    coefficient table."""
+    from qcmrf_tpu.sim.analytic import _moebius_layout as jlayout
+
+    for jm in [rand_grid(2, 3, seed, 0.5, beta=1.3)] + random_structures(
+            2, seed):
+        m = port(jm)
+        idx, _, cmax = jlayout(jm.cliques, jm.n)
+        want = np.exp(np.float32(jm.beta) * np.asarray(jm.theta)[idx])
+        got = sampler_kernel.keep_prob_values(m.cliques, m.n, m.theta,
+                                              m.beta)
+        np.testing.assert_allclose(got.numpy(), want.reshape(-1),
+                                   rtol=1e-6, atol=0)
+        np.testing.assert_allclose(
+            moebius.transform(got.reshape(-1, 1 << cmax), cmax)
+            .reshape(-1).numpy(),
+            sampler_kernel.keep_prob_coefficients(m).numpy(),
+            rtol=0, atol=1e-6)
 
 
 KNOWN_ANSWERS = [

@@ -213,8 +213,9 @@ def _wrapper_calls():
             cl, n, c, 1.0, lnz, masks),
         "lnz_moments_partials": lambda c: kernels.lnz_moments_partials(
             cl, n, c, 1.0, masks),
+        # the sampler takes keep probabilities, exp of the table's entries
         "sample_call": lambda c: sampler_kernel.sample_call(
-            0, cl, n, c, 16, "flags"),
+            0, cl, n, torch.exp(c), 16, "flags"),
     }, coef
 
 
