@@ -14,7 +14,9 @@ kernels' launch counters reset just before it and read just after:
 * ``infer`` answers a batch of lnz, prob, map, mmap and marginals queries,
   with and without evidence, on bench.py's K27 complete graph (every
   query through the streaming lse, map and fused lnz_moments kernels, no
-  moments launch), checked against the log-potential table on the card;
+  moments launch), checked against the chain's log-potential table (the
+  plain version on the card, independent of the table kernel), which
+  also holds the table kernel's K27 table;
   a 32-variable chain's streaming MAP and lnZ (ids past 2^31) are held
   against elimination;
 * the plane engine runs the 16-variable QCMRF chain at 32 qubits (three
@@ -35,9 +37,11 @@ kernels' launch counters reset just before it and read just after:
 * the copy and gate-pass rates at 28 qubits and the float32 FMA peak
   (``runners/bench.py``).
 
-The lse and lnz_moments kernels evaluate states through the
+The table, lse and both moments kernels evaluate states through the
 block-invariant split: their bounds come from the split's operation
-count, printed beside the per-state chain's count. The map kernel screens
+count (and for the table, its bytes), printed beside the per-state
+chain's count; the table kernel equals its split plain version bit for
+bit and lies within ``kernels.split_gap`` of the chain's table. The map kernel screens
 states through the split and evaluates the chain at its candidates: its
 bound counts both, beside the chain at every state. The sampler reads its
 keep probabilities from a table: its bound counts Philox's integer
@@ -328,7 +332,42 @@ def phase_sampler(dev, report, lib):
         plain_shape=f"(1, {plain_shots}) shots, parts mode")
 
 
+def table_row(what: str, mrf, reps: int) -> dict:
+    """The table kernel on one model: its time and its plain versions'
+    (the split's, which it equals bit for bit where checked, and the
+    chain's), and its bound, the larger of 4 bytes written a state and
+    the split's operations (beta a state); the chain's count beside it."""
+    from qcmrf_tpu_torch.ops import kernels
+
+    coef = kernels.moebius_coefficients(mrf)[None]
+    args = (mrf.cliques, mrf.n, coef, mrf.beta)
+    n = mrf.n
+    ms = cuda_ms(lambda: kernels.logpot_table(*args), reps=reps)
+    plain_ms = cuda_ms(lambda: kernels.logpot_table_split_reference(*args),
+                       reps=1)
+    chain_ms = cuda_ms(lambda: kernels.logpot_table_reference(*args), reps=1)
+    torch.cuda.empty_cache()
+    ops = split_ops(mrf.cliques, n, per_state=1)
+    chain = (chain_flops(mrf.cliques) + 1) << n
+    b = bound(4 << n, ops)
+    print(f"  {what}: kernel {ms:.3f} ms, plain (split) {plain_ms:.3f} ms, "
+          f"plain (chain) {chain_ms:.3f} ms for 2^{n} states; bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']}: {4 << n} bytes, the "
+          f"split's {ops:.4e} operations; the chain's {chain:.4e}: "
+          f"{bound(4 << n, chain)['bound_ms']:.3f} ms)")
+    return dict(**b, ms=ms, plain_ms=plain_ms, chain_plain_ms=chain_ms,
+                split_ops=ops, chain_ops=chain,
+                chain_bound_ms=bound(4 << n, chain)["bound_ms"])
+
+
 def phase_logpot(dev, report):
+    """The table kernel (the block-invariant split) at n = 20 and 24
+    (grids): equal to its split plain version bit for bit, both
+    ``fuse_amp`` values; each value within ``split_gap`` of the chain's;
+    two launches bit-equal; timed there and on bench.py's K27 (2^27
+    states, the table ``sample_exact`` draws from; its values are held
+    against the chain's oracle table in the infer phase)."""
+    from qcmrf_tpu_torch.models.mrf import MRF
     from qcmrf_tpu_torch.ops import kernels
 
     for rows, cols, seed in ((4, 5, 0), (4, 6, 1)):
@@ -336,31 +375,35 @@ def phase_logpot(dev, report):
         coef = kernels.moebius_coefficients(mrf)[None]
         args = (mrf.cliques, mrf.n, coef, mrf.beta)
         got = kernels.logpot_table(*args)
-        want = kernels.logpot_table_reference(*args)
-        err = float((got - want).abs().max())
-        print(f"[logpot] n={mrf.n} grid {rows}x{cols}: max |kernel - plain| "
-              f"= {err:.3e}")
-        require(torch.allclose(got, want, rtol=1e-6, atol=1e-6),
-                 f"log-potential kernel == plain version, n={mrf.n} "
-                 "(rtol 1e-6, atol 1e-6)")
-        amp = kernels.logpot_table(*args, fuse_amp=True)
-        amp_want = kernels.logpot_table_reference(*args, fuse_amp=True)
-        require(torch.allclose(amp, amp_want, rtol=1e-5, atol=0.0),
-                f"amplitude epilogue == plain version, n={mrf.n} (rtol 1e-5)")
+        want = kernels.logpot_table_split_reference(*args)
+        split_err = float((got - want).abs().max())
+        require(torch.equal(got, want)
+                and torch.equal(got, kernels.logpot_table(*args)),
+                f"[logpot] n={mrf.n} grid {rows}x{cols}: table kernel == "
+                "split plain version (torch.equal); two launches bit-equal")
+        err = float((got - kernels.logpot_table_reference(*args)).abs().max())
+        gap = float(kernels.split_gap(coef, mrf.beta)[0])
+        require(err <= gap, f"  each value within split_gap of the chain's "
+                            f"table (max |kernel - chain| {err:.3e}, "
+                            f"2 e_b {gap:.3e})")
+        require(torch.equal(
+            kernels.logpot_table(*args, fuse_amp=True),
+            kernels.logpot_table_split_reference(*args, fuse_amp=True)),
+            f"  amplitude epilogue == split plain version, n={mrf.n} "
+            "(torch.equal)")
         total = float(kernels.gibbs_probs(mrf).double().sum())
         require(abs(total - 1.0) <= 1e-5,
                 f"gibbs_probs sums to 1 within 1e-5 ({total:.8f})")
-        ms = cuda_ms(lambda: kernels.logpot_table(*args), reps=10)
-        plain_ms = cuda_ms(lambda: kernels.logpot_table_reference(*args),
-                           reps=3)
-        print(f"  kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
-              f"for 2^{mrf.n} states")
-        del got, want, amp, amp_want
-        # per state: 4 bytes written, the clique chains and beta
+        del got, want
         report["logpot"] = dict(
-            **bound(4 << mrf.n, (chain_flops(mrf.cliques) + 1) << mrf.n),
-            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            **table_row(f"n={mrf.n} grid {rows}x{cols}", mrf, reps=10),
+            max_abs_err=split_err, chain_max_abs_err=err, split_gap=gap,
             shape=f"(1, 2^{mrf.n}) table, grid {rows}x{cols}")
+    k27 = MRF.create(complete_cliques(INFER_N), theta=k27_theta(),
+                     device=dev)
+    report["logpot"]["k27"] = dict(
+        **table_row(f"K{INFER_N}", k27, reps=10),
+        shape=f"(1, 2^{INFER_N}) table, K{INFER_N} pairwise")
     torch.cuda.empty_cache()
 
 
@@ -372,7 +415,9 @@ def split_ops(cliques, n: int, masks: int = 0, per_state: int = None) -> int:
     transform (L 2^(L-1) adds) and, with masks, the superset sums and a
     test and an add a monomial; per state beta, the max, the difference
     and the exp (counted as one), and for lse the sum; or ``per_state``
-    (map_kernel's 3: beta, the max and the threshold's compare)."""
+    (map_kernel's 3: beta, the max and the threshold's compare; the
+    table's 1, beta; the given-lnZ moments' 3: beta, the difference and
+    the exp)."""
     from qcmrf_tpu_torch.ops import kernels
 
     cl = tuple(tuple(C) for C in cliques)
@@ -463,14 +508,19 @@ def phase_suite_shapes(dev):
         want = sk.sample_call_reference(0, cl, n, kc, 10_000, "parts", 10 * j)
         mc = kernels.coefficient_table(cl, n, th)
         lp = kernels.logpot_table(cl, n, mc, 1.0)
-        lp_want = kernels.logpot_table_reference(cl, n, mc, 1.0)
+        lp_want = kernels.logpot_table_split_reference(cl, n, mc, 1.0)
+        lp_chain = kernels.logpot_table_reference(cl, n, mc, 1.0)
+        gap = kernels.split_gap(mc, 1.0)
         lz = kernels.combine_lse(*kernels.lse_partials(cl, n, mc, 1.0))
         lz_want = kernels.combine_lse(
             *kernels.lse_partials_reference(cl, n, mc, 1.0))
         require(all(torch.equal(g, w) for g, w in zip(got, want))
-                and torch.allclose(lp, lp_want, rtol=1e-6, atol=1e-6)
+                and torch.equal(lp, lp_want)
+                and bool(((lp - lp_chain).abs().amax(dim=-1) <= gap).all())
                 and torch.allclose(lz, lz_want, rtol=0.0, atol=1e-6),
-                f"graph {C}: sampler identical, table and lnZ within 1e-6")
+                f"graph {C}: sampler identical, table == split plain "
+                "version and within split_gap of the chain's, lnZ within "
+                "1e-6")
 
 
 def counters():
@@ -969,11 +1019,14 @@ def timed_once(fn):
 
 def check_map_and_moments(mrf, what: str, times=None) -> dict:
     """The map and moments kernels against their plain versions on one
-    model (map: ids and values equal, two launches bit-equal); returns the
-    largest differences and the map kernel's candidates (the states whose
-    chain it evaluated). With ``times`` (a dict), also
-    times each kernel (CUDA events over 5 calls after a warm-up) and each
-    plain version (the one call that the check makes)."""
+    model (map: ids and values equal, two launches bit-equal; moments:
+    equal to the split's plain version, within 1e-6 of the chain's plain
+    version in float64 on the same float32 coefficients, the distance of
+    its float32 run printed beside); returns the largest differences and
+    the map kernel's candidates (the states whose chain it evaluated).
+    With ``times`` (a dict), also times each kernel (CUDA events over 5
+    calls after a warm-up) and each plain version (the one float32 call
+    that the check makes)."""
     from qcmrf_tpu_torch.ops import kernels
 
     args = infer_kernel_args(mrf)
@@ -990,14 +1043,22 @@ def check_map_and_moments(mrf, what: str, times=None) -> dict:
     v2, x2 = kernels.map_partials(*args[:4])
     require(torch.equal(v, v2) and torch.equal(x, x2),
             f"{what}: two map launches give bit-equal partials")
-    want, plain_mom = timed_once(
+    want32, plain_mom = timed_once(
         lambda: kernels.monomial_moments_reference(*args))
+    want = kernels.monomial_moments_reference(cl, n, coef.double(), beta,
+                                              lnz, masks)
     got = kernels.monomial_moments(*args)
     mom_err = float((got - want).abs().max())
     require(mom_err <= 1e-6,
-            f"{what}: moments kernel == plain version within 1e-6 "
-            f"absolute ({mom_err:.2e}, {masks.numel()} monomials)")
-    del wv, wx, got, want
+            f"{what}: moments kernel == chain plain version in float64 "
+            f"within 1e-6 absolute ({mom_err:.2e}, {masks.numel()} "
+            f"monomials; its float32 run lies "
+            f"{float((want32 - want).abs().max()):.2e} from it, the kernel "
+            f"{float((got - want32).abs().max()):.2e})")
+    split = kernels.monomial_moments_split_reference(*args)
+    require(torch.equal(got, split),
+            f"{what}: moments kernel == split plain version (torch.equal)")
+    del wv, wx, got, want, want32, split
     torch.cuda.empty_cache()
     if times is not None:
         times["map"] = (cuda_ms(lambda: kernels.map_partials(*args[:4]),
@@ -1005,6 +1066,35 @@ def check_map_and_moments(mrf, what: str, times=None) -> dict:
         times["moments"] = (cuda_ms(lambda: kernels.monomial_moments(*args),
                                     reps=5), plain_mom)
     return dict(map=map_err, moments=mom_err), int(cand.sum())
+
+
+def check_small_map_routes(dev) -> None:
+    """Below ``MIN_KERNEL_N`` the card's MAP routes (``map_state`` and
+    ``map_state_streaming``) take the map kernel, the card's table being
+    the split's: the chain's earliest maximum at n = 1, 4, 8 and 9 on the
+    tie chain, a random complete graph and theta = 0."""
+    from qcmrf_tpu_torch.models import sample
+    from qcmrf_tpu_torch.models.mrf import MRF
+    from qcmrf_tpu_torch.ops import kernels
+
+    cases = [MRF.create([[0]], theta=[0.3, 0.3], device=dev),
+             MRF.create([[0]], theta=[-0.2, 0.1], device=dev)]
+    for n in (4, 8, 9):
+        k = seeded_model(complete_cliques(n), n, 0.3, dev)
+        cases += [tie_chain(n, dev), k, k.with_theta(torch.zeros_like(
+            k.theta))]
+    before = kernels.LAUNCHES["map"]
+    for m in cases:
+        coef = kernels.moebius_coefficients(m)[None]
+        chain = kernels.logpot_table_reference(m.cliques, m.n, coef, 1.0)[0]
+        sid, val = kernels.map_state_streaming(m)
+        require(int(sample.map_state(m)) == int(torch.argmax(chain)) == sid
+                and val == float(m.beta * chain[sid]),
+                f"n={m.n}, K={len(m.cliques)}: map_state and "
+                f"map_state_streaming == the chain's earliest maximum "
+                f"({sid})")
+    require(kernels.LAUNCHES["map"] - before == 2 * len(cases),
+            f"below MIN_KERNEL_N: {2 * len(cases)} map launches")
 
 
 def oracle_pair_moments(t, lnz, n: int, sel=None, chunk=1 << 20):
@@ -1076,6 +1166,7 @@ def phase_infer(dev, report) -> dict:
         *infer_kernel_args(tie_chain(20, dev))[:4]))
     require(int(x[0]) == int("01" * 10, 2) and float(v[0]) == 0.0,
             "tie: the earliest of the two maxima (0101...) wins")
+    check_small_map_routes(dev)
 
     cliques = complete_cliques(n)
     theta = k27_theta()
@@ -1123,7 +1214,8 @@ def phase_infer(dev, report) -> dict:
             f"{launches['moments']} times in the K27 batch")
     require(all(r["backend"] == "streaming" for r in results),
             "every K27 query went to the streaming sweeps")
-    check_k27_answers(results, cliques, theta, dev)
+    report["logpot"]["k27"].update(
+        check_k27_answers(results, cliques, theta, dev))
     report["infer_k27_query_s"] = time_k27_queries(cliques, theta, dev)
 
     print("[infer] K27 kernels and plain versions at the batch's shape")
@@ -1137,20 +1229,26 @@ def phase_infer(dev, report) -> dict:
     parts = kernels.lse_geometry(1 << n)[0]
     # map: the split's sweep and the candidates' chains and beta; beside
     # it the chain, beta and a compare at every state.
-    # moments: per state the chains and beta, the exp of lp - lnZ and a
-    # mask test and an add per monomial. Bytes: the partials written (and
-    # the masks read)
+    # moments: the split's sweep with its superset sums, per state beta,
+    # the difference and the exp; beside it the chains and beta, the exp
+    # of lp - lnZ and a mask test and an add per monomial at every state.
+    # Bytes: the partials written (and the masks and lnZ read)
     map_ops = split_ops(cl, n, per_state=3) + cands * (chain_flops(cl) + 1)
     chain_ops = (chain_flops(cl) + 2) << n
+    mom_ops = split_ops(cl, n, m, per_state=3)
+    mom_bytes = 4 * parts * m + 8 * m + 4
+    mom_chain = (chain_flops(cl) + 3 + 2 * m) << n
     b = dict(map=bound(12 * parts, map_ops),
-             moments=bound(4 * parts * m + 8 * m,
-                           (chain_flops(cl) + 3 + 2 * m) << n))
+             moments=bound(mom_bytes, mom_ops))
     chain_b = bound(12 * parts, chain_ops)
     print(f"  map: {cands} candidates of 2^{n} states; the split's "
           f"{split_ops(cl, n, per_state=3):.4e} operations and the "
           f"candidates' chains {cands * (chain_flops(cl) + 1):.4e}, "
           f"against the chain at every state {chain_ops:.4e} "
           f"({chain_b['bound_ms']:.3f} ms)")
+    print(f"  moments: the split's {mom_ops:.4e} operations, against the "
+          f"chain at every state {mom_chain:.4e} "
+          f"({bound(mom_bytes, mom_chain)['bound_ms']:.3f} ms)")
     for k in ("map", "moments"):
         ms, plain_ms = times[k]
         print(f"  {k}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
@@ -1163,6 +1261,9 @@ def phase_infer(dev, report) -> dict:
     report["map"].update(candidates=cands, split_ops=map_ops - cands * (
         chain_flops(cl) + 1), chain_ops=chain_ops,
         chain_bound_ms=chain_b["bound_ms"])
+    report["moments"].update(split_ops=mom_ops, chain_ops=mom_chain,
+                             chain_bound_ms=bound(mom_bytes,
+                                                  mom_chain)["bound_ms"])
     report["infer_k27_batch_s"] = seconds
     phase_chain32(dev)
     return launches
@@ -1191,17 +1292,59 @@ def time_k27_queries(cliques, theta, dev) -> list:
     return rows
 
 
-def check_k27_answers(results, cliques, theta, dev) -> None:
-    """Every K27 answer against the log-potential table (2^27 float32,
-    held in float64): lnZ and log masses by logsumexp (1e-4), MAP ids by
-    argmax (equal), the probability and the marginals by masked sums
-    (1e-5 absolute; evidence-inconsistent rows exactly 0)."""
+#: sub-blocks of the K27 table held against the split's plain version
+K27_SPLIT_SUBS = 64
+
+
+def check_k27_table(oracle, mrf) -> dict:
+    """The table kernel at K27 against the chain's oracle table: each value
+    within ``split_gap`` (2 e_b), in both directions; and equal to the
+    split's plain version (torch.equal) on K27_SPLIT_SUBS sub-blocks
+    spread over the 2^15, the first and the last among them."""
+    from qcmrf_tpu_torch.ops import kernels
+
+    n = mrf.n
+    coef = kernels.moebius_coefficients(mrf)[None]
+    table = kernels.logpot_table(mrf.cliques, n, coef, 1.0)[0]
+    diff = table - oracle
+    gap = float(kernels.split_gap(coef, 1.0)[0])
+    over, under = float(diff.max()), float(-diff.min())
+    require(max(over, under) <= gap,
+            f"K27 table kernel within 2 e_b = {gap:.3e} of the chain's "
+            f"oracle table: largest gap {over:.3e} above, {under:.3e} below")
+    L = kernels.split_bits(n)
+    last = (1 << (n - L)) - 1
+    subs = torch.linspace(0, last, K27_SPLIT_SUBS, device=oracle.device
+                          ).round().long()
+    want = kernels.split_log_potentials_reference(
+        kernels.split_plan(mrf.cliques, n, L), coef, 1.0, subs)[0]
+    got = table.reshape(-1, 1 << L)[subs]
+    require(torch.equal(got, want),
+            f"K27 table kernel == split plain version on {len(subs)} "
+            f"sub-blocks of 2^{L} states (torch.equal)")
+    del table, diff
+    return dict(gap_above=over, gap_below=under, split_gap=gap,
+                split_max_abs_err=float((got - want).abs().max()))
+
+
+def check_k27_answers(results, cliques, theta, dev) -> dict:
+    """Every K27 answer against the oracle table, the chain's plain
+    version (``logpot_table_reference``) on the card, independent of the
+    table kernel (2^27 float32, held in float64): lnZ and log masses by
+    logsumexp (1e-4), MAP ids by argmax (equal), the probability and the
+    marginals by masked sums (1e-5 absolute; evidence-inconsistent rows
+    exactly 0). Also holds the table kernel at K27 against the oracle
+    (``check_k27_table``)."""
     from qcmrf_tpu_torch.models.mrf import MRF
     from qcmrf_tpu_torch.ops import kernels
 
     n = INFER_N
     mrf = MRF.create(cliques, theta=theta, device=dev)
-    t = kernels.all_log_potentials(mrf).double()
+    oracle = kernels.logpot_table_reference(
+        mrf.cliques, n, kernels.moebius_coefficients(mrf)[None], 1.0)[0]
+    table_check = check_k27_table(oracle, mrf)
+    t = oracle.double()
+    del oracle
     x = torch.arange(1 << n, device=dev)
 
     def bit(v):
@@ -1265,6 +1408,7 @@ def check_k27_answers(results, cliques, theta, dev) -> None:
                      f"log mass within 1e-4")
     del t, x
     torch.cuda.empty_cache()
+    return table_check
 
 
 def phase_chain32(dev) -> None:
@@ -1432,12 +1576,23 @@ def phase_train(dev, report) -> dict:
 
     print("[train] K27 (bench.py's wide model): exact MLE through the fused "
           "lnz_moments kernel")
+    reset_counts()
     x, sample_ms = timed_once(lambda: sample.sample_exact(11, mrf,
                                                           TRAIN_SAMPLES))
+    k27_tables = read_counts()["logpot"]
+    require(k27_tables == 1, "sample_exact K27: one logpot launch (its 2^27 "
+                             f"table; {k27_tables} counted)")
+    report["logpot"]["launches_by_path"]["sample_exact K27"] = k27_tables
     require(x.shape == (TRAIN_SAMPLES,) and int(x.min()) >= 0
             and int(x.max()) < 1 << n,
             f"sample_exact: {TRAIN_SAMPLES} K27 state ids in [0, 2^27) on "
             f"the card, {sample_ms:.1f} ms (two-stage draw)")
+    sample_ms = cuda_ms(lambda: sample.sample_exact(11, mrf, TRAIN_SAMPLES),
+                        reps=3)
+    table_ms = report["logpot"]["k27"]["ms"]
+    print(f"  sample_exact K27, {TRAIN_SAMPLES} draws: {sample_ms:.3f} ms "
+          f"(CUDA events, 3 calls), of which its 2^27 table {table_ms:.3f} "
+          f"ms (bound {report['logpot']['k27']['bound_ms']:.4f} ms)")
     data = os.path.join(out_dir, "data.json")
     with open(data, "w") as f:
         json.dump(x.cpu().tolist(), f)
@@ -1448,8 +1603,7 @@ def phase_train(dev, report) -> dict:
                          f"exact ones ({gap:.4f}; 20 000 draws)")
 
     m_mono = moebius.monomial_layout(mrf.cliques).m
-    per_launch = kernels.moments_per_launch(
-        len(cliques), 2, reserve=kernels.lnz_moments_reserve(mrf.cliques, n))
+    per_launch = kernels.moments_per_launch(mrf.cliques, n)
     print(f"  K27: {m_mono} monomials, moments_per_launch {per_launch}")
     doc, launches, seconds, steps = run_train_cli(
         ["--graph", graph, "--data", data, "--steps", str(TRAIN_STEPS),
@@ -1513,18 +1667,21 @@ def phase_train(dev, report) -> dict:
                            f"({g_err:.2e})")
 
     # the other routes: the table (n = 20, _nll's enumeration branch and
-    # make_lnz_fn's), and elimination on bit-array data (a 32-chain)
+    # make_lnz_fn's; the CLI draws its own data there, through
+    # sample_exact and so one table launch), and elimination on bit-array
+    # data (a 32-chain)
     grid = grid_model(4, 5, 0, dev)
-    ids = os.path.join(out_dir, "grid20.json")
-    with open(ids, "w") as f:
-        json.dump(sample.sample_exact(5, grid, TRAIN_SAMPLES).cpu().tolist(),
-                  f)
     gdoc, glaunch, gsec, _ = run_train_cli(
-        ["--graph", "grid:4x5", "--data", ids, "--steps", "3",
+        ["--graph", "grid:4x5", "--samples", str(TRAIN_SAMPLES),
+         "--data-seed", "5", "--steps", "3",
          "--outdir", os.path.join(out_dir, "grid")])
-    require(glaunch["lnz_moments"] == 3 and math.isfinite(gdoc["final_nll"]),
-            f"table route (grid 4x5, n=20): 3 steps, 3 lnz_moments launches, "
+    require(glaunch["lnz_moments"] == 3 and glaunch["logpot"] == 1
+            and math.isfinite(gdoc["final_nll"]),
+            f"table route (grid 4x5, n=20, the CLI's own data): 3 steps, 3 "
+            f"lnz_moments launches, 1 logpot launch (sample_exact's table), "
             f"final nll {gdoc['final_nll']:.4f} ({gsec:.2f} s)")
+    report["logpot"]["launches_by_path"]["train_cli grid 4x5"] = glaunch[
+        "logpot"]
     gtheta = grid.theta.clone().requires_grad_()
     (g,) = torch.autograd.grad(mtrain.make_lnz_fn(grid)(gtheta), gtheta)
     e = float((g - grid.beta * two_sweep_moments(grid)).abs().max())
@@ -1565,6 +1722,7 @@ def phase_train(dev, report) -> dict:
     report["train"] = dict(
         train_wide_k27_step_ms=step_ms, two_sweep_ms=two_ms,
         cli_seconds=seconds, sample_exact_ms=sample_ms,
+        sample_exact_table_ms=table_ms,
         losses=[s["loss"] for s in steps], grad_err=g_err,
         moments_per_launch=per_launch)
     del x, mu, mu_data
@@ -2220,6 +2378,7 @@ REPLACES = {
     "fma_peak": "bench.py:405",
 }
 ALSO_REPLACES = {
+    "logpot": ["qcmrf_tpu/ops/kernels.py:257 (the split loop kernel)"],
     "hdh_multi": ["qcmrf_tpu/ops/kernels.py:1477 (at k=1)",
                   "qcmrf_tpu/ops/kernels.py:1675 (at k=2)"],
     "row_gate": ["qcmrf_tpu/ops/kernels.py:1176 (at K=2)"],
@@ -2273,7 +2432,7 @@ def sandwich_entry(name, report) -> dict:
 
 
 KERNEL_NAMES = ("sampler_kernel", "logpot_kernel", "lse_kernel",
-                "map_kernel", "moments_kernel", "lnz_moments_kernel",
+                "map_kernel", "lnz_moments_kernel",
                 "hdh_multi_kernel", "hdh_multi_uniform_kernel",
                 "circuit_kernel", "diag_kernel", "row_gate_kernel",
                 "lane_kernel", "lane_factored_kernel", "copy_kernel",
@@ -2288,9 +2447,10 @@ def print_ptxas(path) -> None:
         if "Compiling entry function" in line:
             name = next((k for k in KERNEL_NAMES
                          if f"{len(k)}{k}" in line), None)
-            m = re.search(r"ILi(\d+)E", line)
+            m = re.search(r"ILi(\d+)E(?:Lb([01])E)?", line)
             if name and m:
-                name += f"<{m.group(1)}>"
+                given = {"0": ", fused", "1": ", lnZ given"}
+                name += f"<{m.group(1)}{given.get(m.group(2), '')}>"
         elif name and ("registers" in line or "spill" in line):
             print(f"  ptxas {name}: "
                   + line.replace("ptxas info    :", "").strip())
@@ -2329,6 +2489,10 @@ def main() -> int:
     phase_circuit_kernel(dev, report)
     sv = phase_main_path(dev, "statevector", {
         "circuit": 7, "logpot": None, "lse": None})
+    # the table kernel's paths: both run engines, and below the train
+    # CLI's own data draw and sample_exact's K27 table (phase_train)
+    report["logpot"]["launches_by_path"] = {
+        "run analytic": launches["logpot"], "run statevector": sv["logpot"]}
     infer = phase_infer(dev, report)
     train = phase_train(dev, report)
     phase_sandwich_kernels(dev, report)
@@ -2340,6 +2504,7 @@ def main() -> int:
     rates = phase_rates(dev, report)
 
     kernels_line = []
+    launches["logpot"] = sum(report["logpot"]["launches_by_path"].values())
     for k in ("sampler", "logpot", "lse"):
         kernels_line.append(dict(launches=launches[k], library_ms=None,
                                  **report[k]))

@@ -1,14 +1,12 @@
 // Hand-written Hopper (sm_90a) kernels of the closed-form QCMRF sampling
 // path, of exact inference and of exact-MLE training: the fused outcome
 // sampler, the log-potential table, the streaming logsumexp, argmax and
-// monomial-moment sweeps, and the fused lnZ + moments sweep. The table and
-// the moments kernels evaluate a clique's multilinear (Moebius) form state
-// by state with one shared device function, log_potential; the logsumexp
-// and the fused sweep evaluate whole sub-blocks of states through the
-// block-invariant split (section 3); the argmax screens states through the
-// split and decides among the few near its maximum with the chain
-// (section 4); the sampler reads each clique's keep probability from a
-// shared-memory table (section 1).
+// monomial-moment sweeps, and the fused lnZ + moments sweep. The table,
+// the logsumexp and both moment sweeps evaluate whole sub-blocks of states
+// through the block-invariant split (section 2); the argmax screens states
+// through the split and decides among the few near its maximum with the
+// per-state chain, log_potential (section 4); the sampler reads each
+// clique's keep probability from a shared-memory table (section 1).
 //
 // Built by qcmrf_tpu_torch/ops/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -16,20 +14,21 @@
 // and bound with ctypes. Each extern "C" entry point launches on the
 // caller's stream, allocates nothing, and returns cudaGetLastError().
 //
-// Structure arguments, shared by the kernels:
+// Structure arguments:
 //   coef   float32 (B, K << cmax)  per-row Moebius coefficients, clique-major;
 //                                  subset s of clique k at k * 2^cmax + s
+//   plan   SplitPlan               the split's tables (section 2)
+// and for the argmax's chain (log_potential) also
 //   shifts int32   (K, cmax)       state-id right-shift of clique k's slot i
 //   sizes  int32   (K,)            clique sizes (slots >= size are unused)
-// The split kernels take coef and a SplitPlan in place of shifts and sizes
-// (the argmax takes both). Row b of a launch is blockIdx.y.
+// Row b of a launch is blockIdx.y.
 
 #include <cstdint>
 #include <type_traits>
 
 #include <cuda_runtime.h>
 
-// The block-invariant split of a structure (section 3), built by
+// The block-invariant split of a structure (section 2), built by
 // qcmrf_tpu_torch/ops/kernels.py::split_plan and passed by value; at
 // namespace scope, as the extern "C" entry points take it.
 struct SplitPlan {
@@ -313,40 +312,11 @@ sampler_kernel(const float* __restrict__ keep, const int* __restrict__ shifts,
 }
 
 // ---------------------------------------------------------------------------
-// 2. Log-potential table
+// 2. The block-invariant split, and the streaming logsumexp
 // ---------------------------------------------------------------------------
-// Replaces qcmrf_tpu/ops/kernels.py::_build_logpot_kernel and its single-
-// program twin _build_logpot_loop_kernel (both give the same table).
-// One thread per int64 state id (grid-stride), beta * theta^T phi(x), with
-// the optional 2^(-n/2) * exp(lp / 2) amplitude epilogue.
-// Bound on this card: float ALU work of the chains (about 3 operations per
-// subset per clique) against 4 bytes written per state; the writes are
-// coalesced and nothing else touches device memory.
-__global__ void __launch_bounds__(kThreads)
-logpot_kernel(const float* __restrict__ coef, const int* __restrict__ shifts,
-              const int* __restrict__ sizes, int K, int cmax,
-              int64_t num_states, float beta, int fuse_amp, float amp_scale,
-              float* __restrict__ out) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.y;
-  const SharedStructure st =
-      load_structure(smem, coef, shifts, sizes, K, cmax, b);
-  float* row = out + static_cast<int64_t>(b) * num_states;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t x = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       x < num_states; x += stride) {
-    float v = __fmul_rn(
-        beta, log_potential(x, st.coef, st.shifts, st.sizes, K, cmax));
-    if (fuse_amp) v = __fmul_rn(expf(__fmul_rn(0.5f, v)), amp_scale);
-    row[x] = v;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// 3. The block-invariant split, and the streaming logsumexp
-// ---------------------------------------------------------------------------
-// The split evaluator of lse_kernel and lnz_moments_kernel (the port of
-// qcmrf_tpu/ops/kernels.py::_split_logpot, the JAX loop kernels' split).
+// The split evaluator of lse_kernel, logpot_kernel and lnz_moments_kernel
+// (the port of qcmrf_tpu/ops/kernels.py::_split_logpot, the JAX loop
+// kernels' split).
 // A block's states are cut into sub-blocks of 2^L consecutive ids, across
 // which h = x >> L is fixed. The log-potential is sum_g c_g [x holds g] over
 // the monomials g of the structure (c_g: the sum of the coefficient entries
@@ -358,8 +328,12 @@ logpot_kernel(const float* __restrict__ coef, const int* __restrict__ shifts,
 // split_plan builds the plan from the structure alone: the monomials sorted
 // by target, and every fixed-order sum cut into items of about sqrt(its
 // length) entries, summed by one thread each, then each group's items by
-// one thread. No atomics: every sum has one order, and two launches on the
-// same inputs are bit-equal.
+// one thread. The monomial coefficients and the P sums are taken in
+// float64 and P is rounded to float32 once: float32 sums there carry an
+// error common to every state of a sub-block, which does not average out
+// of a moment (about 3e-6 on 650 4-variable cliques at |v| near 30). No
+// atomics: every sum has one order, and two launches on the same inputs
+// are bit-equal.
 //
 // A thread holds R = 2^L / 256 values of a sub-block (R = 1 below L = 8,
 // where threads past 2^L idle): value r of thread tid is xl = r * 256 +
@@ -370,28 +344,30 @@ logpot_kernel(const float* __restrict__ coef, const int* __restrict__ shifts,
 // The plan's per-sub-block tables in shared memory.
 struct SplitShared {
   const unsigned long long* hm;  // (U,)
-  float* c;                      // (U,) the monomial coefficients
+  double* c;                     // (U,) the monomial coefficients
+  double* part;                  // (max(CI, MI),) item sums
   const int* m_items;
   const int* m_heads;
   const int* targets;
-  float* part;                   // (max(CI, MI),) item sums
   float* P;                      // (2^L,) zero between sub-blocks
 };
 
 // Carves the tables out of dynamic shared memory (`base`: U 64-bit masks,
-// then `u64_extra` 64-bit slots of the caller's, then the 32-bit tables),
-// copies them, computes row `coef_row`'s monomial coefficients in the
-// plan's order and zeroes P; `*rest` points past the tables.
+// then `u64_extra` 64-bit slots of the caller's, then the float64
+// coefficients and item sums, then the 32-bit tables and P), copies them,
+// computes row `coef_row`'s monomial coefficients in the plan's order and
+// zeroes P; `*rest` points past the tables.
 __device__ __forceinline__ SplitShared load_split(
     unsigned long long* base, int u64_extra, const SplitPlan& pl,
     const float* __restrict__ coef_row, float** rest) {
   unsigned long long* s_hm = base;
-  float* s_c = reinterpret_cast<float*>(base + pl.U + u64_extra);
-  int* s_items = reinterpret_cast<int*>(s_c + pl.U);
+  double* s_c = reinterpret_cast<double*>(base + pl.U + u64_extra);
+  double* s_part = s_c + pl.U;
+  int* s_items = reinterpret_cast<int*>(s_part +
+                                        (pl.CI > pl.MI ? pl.CI : pl.MI));
   int* s_heads = s_items + pl.MI + 1;
   int* s_targets = s_heads + pl.G + 1;
-  float* s_part = reinterpret_cast<float*>(s_targets + pl.G);
-  float* s_P = s_part + (pl.CI > pl.MI ? pl.CI : pl.MI);
+  float* s_P = reinterpret_cast<float*>(s_targets + pl.G);
   *rest = s_P + (1 << pl.L);
   for (int i = threadIdx.x; i < pl.U; i += blockDim.x) s_hm[i] = pl.hm[i];
   for (int i = threadIdx.x; i <= pl.MI; i += blockDim.x) {
@@ -405,20 +381,22 @@ __device__ __forceinline__ SplitShared load_split(
   }
   for (int i = threadIdx.x; i < (1 << pl.L); i += blockDim.x) s_P[i] = 0.0f;
   for (int i = threadIdx.x; i < pl.CI; i += blockDim.x) {
-    float a = 0.0f;
+    double a = 0.0;
     for (int j = pl.c_items[i]; j < pl.c_items[i + 1]; ++j) {
-      a += coef_row[pl.coef_index[j]];
+      a = __dadd_rn(a, static_cast<double>(coef_row[pl.coef_index[j]]));
     }
     s_part[i] = a;
   }
   __syncthreads();
   for (int u = threadIdx.x; u < pl.U; u += blockDim.x) {
-    float a = 0.0f;
-    for (int i = pl.c_heads[u]; i < pl.c_heads[u + 1]; ++i) a += s_part[i];
+    double a = 0.0;
+    for (int i = pl.c_heads[u]; i < pl.c_heads[u + 1]; ++i) {
+      a = __dadd_rn(a, s_part[i]);
+    }
     s_c[u] = a;
   }
   __syncthreads();
-  return {s_hm, s_c, s_items, s_heads, s_targets, s_part, s_P};
+  return {s_hm, s_c, s_part, s_items, s_heads, s_targets, s_P};
 }
 
 // Low index of pair q of the 2^(L-1) pairs that differ in bit j.
@@ -475,18 +453,20 @@ __device__ __forceinline__ void split_values(const SplitShared& s,
                                              unsigned long long h, float beta,
                                              float (&v)[R]) {
   for (int i = threadIdx.x; i < pl.MI; i += blockDim.x) {
-    float a = 0.0f;
+    double a = 0.0;
     for (int j = s.m_items[i]; j < s.m_items[i + 1]; ++j) {
       const unsigned long long hm = s.hm[j];
-      a += (h & hm) == hm ? s.c[j] : 0.0f;
+      a = __dadd_rn(a, (h & hm) == hm ? s.c[j] : 0.0);
     }
     s.part[i] = a;
   }
   __syncthreads();
   for (int g = threadIdx.x; g < pl.G; g += blockDim.x) {
-    float a = 0.0f;
-    for (int i = s.m_heads[g]; i < s.m_heads[g + 1]; ++i) a += s.part[i];
-    s.P[s.targets[g]] = a;
+    double a = 0.0;
+    for (int i = s.m_heads[g]; i < s.m_heads[g + 1]; ++i) {
+      a = __dadd_rn(a, s.part[i]);
+    }
+    s.P[s.targets[g]] = __double2float_rn(a);
   }
   __syncthreads();
   transform_in_shared<false>(s.P, pl.L);
@@ -575,6 +555,61 @@ lse_kernel(SplitPlan pl, const float* __restrict__ coef, int ncoef,
       const int64_t o = static_cast<int64_t>(b) * parts + p;
       m_out[o] = sm[0];
       s_out[o] = ss[0];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 3. Log-potential table
+// ---------------------------------------------------------------------------
+// Replaces qcmrf_tpu/ops/kernels.py::_build_logpot_loop_kernel, the JAX
+// package's table past _MAX_GRID, which evaluates the same split
+// (_split_logpot), and _build_logpot_kernel, its per-state chain for
+// small grids: the two tables differ in the last bits, each value of one
+// within 2 e_b of the other's (e_b = gamma_{N+1} |beta| sum |coef_b|,
+// kernels.py::split_gap). Block p of lse_geometry sweeps its sub-blocks
+// through split_values, as lse_kernel, applies beta and the optional
+// amplitude epilogue 2^(-n/2) exp(v / 2), and stores each value from its
+// register: value r of a warp's 32 lanes is 128 contiguous bytes of the
+// row, and a sub-block is 2^L contiguous floats. A store does not hold the
+// thread, so a sub-block's writes drain while the block computes the next
+// one's P sums and transform (qcmrf_tpu_torch/runners/logpot_designs.py
+// times these plain stores beside the same stores with the evict-first
+// hint and beside a bulk copy of each sub-block from shared memory: the
+// plain stores are the fastest on K27, the table the main path writes).
+// Bound on this card: the larger of 4 bytes written a state and the
+// split's float work (lse_kernel's without the max, the exp and the sum;
+// with the epilogue, its exp and two products a state).
+__device__ __forceinline__ float table_value(float v, int fuse_amp,
+                                             float amp_scale) {
+  return fuse_amp ? __fmul_rn(expf(__fmul_rn(0.5f, v)), amp_scale) : v;
+}
+
+template <int R>
+__global__ void __launch_bounds__(kThreads)
+logpot_kernel(SplitPlan pl, const float* __restrict__ coef, int ncoef,
+              int64_t per_block, int parts, float beta, int fuse_amp,
+              float amp_scale, float* __restrict__ out) {
+  extern __shared__ unsigned long long smem64[];
+  const int b = blockIdx.y;
+  float* rest;
+  const SplitShared sp = load_split(
+      smem64, 0, pl, coef + static_cast<int64_t>(b) * ncoef, &rest);
+  const int L = pl.L;
+  float* row = out + static_cast<int64_t>(b) * parts * per_block;
+  const int64_t subs = per_block >> L;
+  for (int p = blockIdx.x; p < parts; p += gridDim.x) {
+    const unsigned long long h0 = static_cast<unsigned long long>(p) * subs;
+    for (int64_t i = 0; i < subs; ++i) {
+      const unsigned long long h = h0 + i;
+      float v[R];
+      split_values<R>(sp, pl, h, beta, v);
+      float* dst = row + (h << L);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int x = r * kThreads + threadIdx.x;
+        if (x < (1 << L)) dst[x] = table_value(v[r], fuse_amp, amp_scale);
+      }
     }
   }
 }
@@ -739,105 +774,42 @@ map_kernel(SplitPlan pl, const float* __restrict__ coef,
 }
 
 // ---------------------------------------------------------------------------
-// 5. Streaming monomial moments
+// 5. Monomial moments: the fused lnZ + moments sweep, and the sweep for a
+//    given lnZ
 // ---------------------------------------------------------------------------
-// Replaces qcmrf_tpu/ops/kernels.py::_build_gram_loop_kernel (and the XLA
-// sweep qcmrf_tpu/models/moments.py::_chunk_mono_partials, which covers
-// cliques of more than 4 variables there).
-// For every monomial g (a set of variables, given as the state-id bit mask
-// mask_g) it sums w(x) = exp(beta * lp(x) - lnZ) over the states x with
-// (x & mask_g) == mask_g. Block p sweeps [p * per_block, (p + 1) *
-// per_block) in tiles of kThreads states: each thread evaluates one state's
-// w through moebius_chain into shared memory beside its id (w = 0 past the
-// end), then each thread adds the tile's matching weights to the shared-
-// memory sums of the monomials it owns (g = tid, tid + kThreads, ...). One
-// float32 partial per (block, monomial); the wrapper adds them in float64.
-// The masks and sums of a launch live in shared memory, so the wrapper
-// splits a mask list longer than what 227 KB holds over several launches.
-// Bound on this card: float ALU work: the chains and one exp per state, then
-// a 64-bit mask test and an add per (state, monomial); device memory sees
-// only the partials. The TPU kernel's lane packing, selector matrices and
-// bf16 operand splits served the MXU and have no counterpart here.
-__global__ void __launch_bounds__(kThreads)
-moments_kernel(const float* __restrict__ coef, const int* __restrict__ shifts,
-               const int* __restrict__ sizes, int K, int cmax,
-               int64_t num_states, int64_t per_block, float beta,
-               const float* __restrict__ lnz,
-               const unsigned long long* __restrict__ masks, int m,
-               float* __restrict__ out) {
-  // layout: masks (m), tile ids (kThreads), tile weights (kThreads),
-  // sums (m), then the structure tables of load_structure
-  extern __shared__ unsigned long long smem64[];
-  unsigned long long* s_mask = smem64;
-  unsigned long long* s_x = s_mask + m;
-  float* s_w = reinterpret_cast<float*>(s_x + kThreads);
-  float* s_acc = s_w + kThreads;
-  const int b = blockIdx.y;
-  for (int g = threadIdx.x; g < m; g += blockDim.x) {
-    s_mask[g] = masks[g];
-    s_acc[g] = 0.0f;
-  }
-  const SharedStructure st =
-      load_structure(s_acc + m, coef, shifts, sizes, K, cmax, b);
-  const float lz = lnz[b];
-  const int64_t begin = static_cast<int64_t>(blockIdx.x) * per_block;
-  const int64_t end =
-      begin + per_block < num_states ? begin + per_block : num_states;
-  for (int64_t t0 = begin; t0 < end; t0 += kThreads) {
-    const int64_t x = t0 + threadIdx.x;
-    float w = 0.0f;
-    if (x < end) {
-      const float v = __fmul_rn(
-          beta, log_potential(x, st.coef, st.shifts, st.sizes, K, cmax));
-      w = expf(v - lz);
-    }
-    s_x[threadIdx.x] = static_cast<unsigned long long>(x);
-    s_w[threadIdx.x] = w;
-    __syncthreads();
-    for (int g = threadIdx.x; g < m; g += kThreads) {
-      const unsigned long long mask = s_mask[g];
-      float a = 0.0f;
-#pragma unroll 8
-      for (int t = 0; t < kThreads; ++t) {
-        a += (s_x[t] & mask) == mask ? s_w[t] : 0.0f;
-      }
-      s_acc[g] += a;
-    }
-    __syncthreads();
-  }
-  float* row = out + (static_cast<int64_t>(b) * gridDim.x + blockIdx.x) * m;
-  for (int g = threadIdx.x; g < m; g += blockDim.x) row[g] = s_acc[g];
-}
-
-// ---------------------------------------------------------------------------
-// 6. Fused lnZ and monomial moments
-// ---------------------------------------------------------------------------
-// Replaces qcmrf_tpu/ops/kernels.py::_build_gram_lse_loop_kernel, the
-// forward sweep of the differentiable lnZ
-// (qcmrf_tpu/models/moments.py::lnz_and_moments_streaming).
+// kLnzGiven = false replaces qcmrf_tpu/ops/kernels.py::
+// _build_gram_lse_loop_kernel, the forward sweep of the differentiable lnZ
+// (qcmrf_tpu/models/moments.py::lnz_and_moments_streaming); kLnzGiven =
+// true replaces _build_gram_loop_kernel (and the XLA sweep qcmrf_tpu/
+// models/moments.py::_chunk_mono_partials, which covers cliques of more
+// than 4 variables there), the moments for a given lnZ.
 // Block p of lse_geometry sweeps [p * per_block, (p + 1) * per_block)
-// sub-block by sub-block (split_values) and carries a running max M of v =
-// beta * lp(x). Per sub-block h: the block takes the sub-block's max (warp
-// shuffles, then one exchange of the warp maxima in shared memory); if it
-// raises M, each thread rescales the sums of the monomials it owns by
-// exp(M_old - M_new) (the raise is strict, so two -inf never meet; on the
-// first sub-block the factor is exp(-inf) = 0 on sums of 0); then w = exp(v
-// - M), and the superset-sum transform W[t] = sum_{xl superset of t} w[xl]
-// (registers and lanes, then the warp bits in shared memory). Monomial g
-// (the id-bit mask mask_g) holds at every state of W[mask_g & (2^L - 1)]
-// iff (h & (mask_g >> L)) == mask_g >> L: one test and one add a monomial
-// a sub-block. Out: one (M_b, S_b[0..m)) per block; mask 0, the empty
-// monomial, gives the block's scaled Z. The masks and sums of a launch live
-// in shared memory beside the plan, so the wrapper splits a mask list
-// longer than what 227 KB holds over several launches.
+// sub-block by sub-block (split_values). The fused sweep carries a running
+// max M of v = beta * lp(x). Per sub-block h: the block takes the
+// sub-block's max (warp shuffles, then one exchange of the warp maxima in
+// shared memory); if it raises M, each thread rescales the sums of the
+// monomials it owns by exp(M_old - M_new) (the raise is strict, so two -inf
+// never meet; on the first sub-block the factor is exp(-inf) = 0 on sums
+// of 0). With lnZ given, M is lnz[b] throughout: no max, no exchange, no
+// rescale. Then w = exp(v - M), and the superset-sum transform W[t] =
+// sum_{xl superset of t} w[xl] (registers and lanes, then the warp bits in
+// shared memory). Monomial g (the id-bit mask mask_g) holds at every state
+// of W[mask_g & (2^L - 1)] iff (h & (mask_g >> L)) == mask_g >> L: one test
+// and one add a monomial a sub-block. Out: per block the float32 sums
+// S_b[0..m) and, fused, M_b; mask 0, the empty monomial, gives the
+// fused block's scaled Z. The masks and sums of a launch live in shared
+// memory beside the plan, so the wrappers split a mask list longer than
+// what 227 KB holds over several launches.
 // Bound on this card: float work, as lse_kernel's with a second transform
-// (the superset sums) and the monomials' tests and adds a sub-block;
-// device memory sees only the partials. Float32 throughout, no TF32: the
-// JAX package holds its fused sweep to a float32 oracle.
-template <int R>
+// (the superset sums) and the monomials' tests and adds a sub-block (with
+// lnZ given, less the max); device memory sees only the partials. Float32
+// throughout, no TF32: the JAX package holds its sweeps to a float32
+// oracle.
+template <int R, bool kLnzGiven>
 __global__ void __launch_bounds__(kThreads)
 lnz_moments_kernel(SplitPlan pl, const float* __restrict__ coef, int ncoef,
                    int64_t per_block, int parts, float beta,
+                   const float* __restrict__ lnz,
                    const unsigned long long* __restrict__ masks, int m,
                    float* __restrict__ m_out, float* __restrict__ s_out) {
   // layout: the plan's masks, the monomial masks (m), the plan's 32-bit
@@ -858,28 +830,32 @@ lnz_moments_kernel(SplitPlan pl, const float* __restrict__ coef, int ncoef,
   const bool active = static_cast<int>(threadIdx.x) < (1 << L);
   for (int p = blockIdx.x; p < parts; p += gridDim.x) {
     for (int g = threadIdx.x; g < m; g += kThreads) s_acc[g] = 0.0f;
-    float M = neg_inf();
+    float M = kLnzGiven ? lnz[b] : neg_inf();
     const unsigned long long h0 = static_cast<unsigned long long>(p) * subs;
     for (int64_t i = 0; i < subs; ++i) {
       const unsigned long long h = h0 + i;
       float v[R];
       split_values<R>(sp, pl, h, beta, v);
-      float top = neg_inf();
-      if (active) {
+      if (!kLnzGiven) {
+        float top = neg_inf();
+        if (active) {
 #pragma unroll
-        for (int r = 0; r < R; ++r) top = fmaxf(top, v[r]);
-      }
-      for (int off = 16; off > 0; off >>= 1) {
-        top = fmaxf(top, __shfl_xor_sync(0xffffffffu, top, off));
-      }
-      if ((threadIdx.x & 31) == 0) s_warp_max[threadIdx.x >> 5] = top;
-      __syncthreads();
-      top = s_warp_max[0];
-      for (int k = 1; k < kThreads / 32; ++k) top = fmaxf(top, s_warp_max[k]);
-      if (top > M) {
-        const float scale = expf(M - top);
-        for (int g = threadIdx.x; g < m; g += kThreads) s_acc[g] *= scale;
-        M = top;
+          for (int r = 0; r < R; ++r) top = fmaxf(top, v[r]);
+        }
+        for (int off = 16; off > 0; off >>= 1) {
+          top = fmaxf(top, __shfl_xor_sync(0xffffffffu, top, off));
+        }
+        if ((threadIdx.x & 31) == 0) s_warp_max[threadIdx.x >> 5] = top;
+        __syncthreads();
+        top = s_warp_max[0];
+        for (int k = 1; k < kThreads / 32; ++k) {
+          top = fmaxf(top, s_warp_max[k]);
+        }
+        if (top > M) {
+          const float scale = expf(M - top);
+          for (int g = threadIdx.x; g < m; g += kThreads) s_acc[g] *= scale;
+          M = top;
+        }
       }
       float w[R];
 #pragma unroll
@@ -899,7 +875,7 @@ lnz_moments_kernel(SplitPlan pl, const float* __restrict__ coef, int ncoef,
       }
     }
     const int64_t o = static_cast<int64_t>(b) * parts + p;
-    if (threadIdx.x == 0) m_out[o] = M;
+    if (!kLnzGiven && threadIdx.x == 0) m_out[o] = M;
     float* row = s_out + o * m;
     for (int g = threadIdx.x; g < m; g += kThreads) row[g] = s_acc[g];
   }
@@ -910,23 +886,18 @@ size_t structure_smem_bytes(int K, int cmax) {
          static_cast<size_t>(K) * (cmax + 1) * sizeof(int);
 }
 
-size_t moments_smem_bytes(int K, int cmax, int m) {
-  return static_cast<size_t>(m + kThreads) *
-             (sizeof(unsigned long long) + sizeof(float)) +
-         structure_smem_bytes(K, cmax);
-}
-
 // Dynamic shared memory of load_split's tables and P: U 64-bit masks and
-// U coefficients, the item and group tables, the item sums and P.
+// U float64 coefficients, the float64 item sums, the item and group tables
+// and P.
 size_t split_smem_bytes(const SplitPlan& pl) {
   const int part = pl.CI > pl.MI ? pl.CI : pl.MI;
-  return static_cast<size_t>(pl.U) *
-             (sizeof(unsigned long long) + sizeof(float)) +
-         static_cast<size_t>(pl.MI + 2 * pl.G + 2 + part + (1 << pl.L)) *
+  return static_cast<size_t>(2 * pl.U + part) * sizeof(double) +
+         static_cast<size_t>(pl.MI + 2 * pl.G + 2 + (1 << pl.L)) *
              sizeof(int);
 }
 
-// lnz_moments_kernel's: the split's, the masks and sums, and W.
+// lnz_moments_kernel's (both forms): the split's, the masks and sums, and
+// W.
 size_t lnz_moments_smem_bytes(const SplitPlan& pl, int m) {
   return split_smem_bytes(pl) +
          static_cast<size_t>(m) *
@@ -1019,16 +990,30 @@ int launch_lse(const SplitPlan& pl, const float* coef, int B, int ncoef,
 }
 
 template <int R>
+int launch_logpot(const SplitPlan& pl, const float* coef, int B, int ncoef,
+                  int64_t per_block, int parts, float beta, int fuse_amp,
+                  float amp_scale, float* out, void* stream) {
+  const size_t smem = split_smem_bytes(pl);
+  const cudaError_t err = allow_shared(logpot_kernel<R>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  logpot_kernel<R><<<split_grid(parts, B), kThreads, smem,
+                     static_cast<cudaStream_t>(stream)>>>(
+      pl, coef, ncoef, per_block, parts, beta, fuse_amp, amp_scale, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int R, bool kLnzGiven>
 int launch_lnz_moments(const SplitPlan& pl, const float* coef, int B,
                        int ncoef, int64_t per_block, int parts, float beta,
-                       const unsigned long long* masks, int m, float* m_out,
-                       float* s_out, void* stream) {
+                       const float* lnz, const unsigned long long* masks,
+                       int m, float* m_out, float* s_out, void* stream) {
   const size_t smem = lnz_moments_smem_bytes(pl, m);
-  const cudaError_t err = allow_shared(lnz_moments_kernel<R>, smem);
+  const cudaError_t err =
+      allow_shared(lnz_moments_kernel<R, kLnzGiven>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  lnz_moments_kernel<R><<<split_grid(parts, B), kThreads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      pl, coef, ncoef, per_block, parts, beta, masks, m, m_out, s_out);
+  lnz_moments_kernel<R, kLnzGiven><<<split_grid(parts, B), kThreads, smem,
+                                     static_cast<cudaStream_t>(stream)>>>(
+      pl, coef, ncoef, per_block, parts, beta, lnz, masks, m, m_out, s_out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1091,18 +1076,14 @@ int qcmrf_sample(const float* keep, const int* shifts, int B, int K,
   });
 }
 
-int qcmrf_logpot(const float* coef, const int* shifts, const int* sizes,
-                 int B, int K, int cmax, int64_t num_states, float beta,
-                 int fuse_amp, float amp_scale, float* out, void* stream) {
-  // grid-stride: enough blocks to fill 132 SMs many times over
-  const dim3 grid(grid_blocks(num_states, 132 * 64), B);
-  const size_t smem = structure_smem_bytes(K, cmax);
-  const cudaError_t err = allow_shared(logpot_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  logpot_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      coef, shifts, sizes, K, cmax, num_states, beta, fuse_amp, amp_scale,
-      out);
-  return static_cast<int>(cudaGetLastError());
+int qcmrf_logpot(SplitPlan plan, const float* coef, int B, int ncoef,
+                 int64_t per_block, int parts, float beta, int fuse_amp,
+                 float amp_scale, float* out, void* stream) {
+  return with_values_per_thread(plan.L, [&](auto r) {
+    return launch_logpot<decltype(r)::value>(plan, coef, B, ncoef, per_block,
+                                             parts, beta, fuse_amp,
+                                             amp_scale, out, stream);
+  });
 }
 
 int qcmrf_lse(SplitPlan plan, const float* coef, int B, int ncoef,
@@ -1125,20 +1106,15 @@ int qcmrf_map(SplitPlan plan, const float* coef, const int* shifts,
   });
 }
 
-int qcmrf_moments(const float* coef, const int* shifts, const int* sizes,
-                  int B, int K, int cmax, int64_t num_states,
+int qcmrf_moments(SplitPlan plan, const float* coef, int B, int ncoef,
                   int64_t per_block, int parts, float beta, const float* lnz,
-                  const unsigned long long* masks, int m, float* out,
+                  const unsigned long long* masks, int m, float* s_out,
                   void* stream) {
-  const dim3 grid(parts, B);
-  const size_t smem = moments_smem_bytes(K, cmax, m);
-  const cudaError_t err = allow_shared(moments_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  moments_kernel<<<grid, kThreads, smem,
-                   static_cast<cudaStream_t>(stream)>>>(
-      coef, shifts, sizes, K, cmax, num_states, per_block, beta, lnz, masks,
-      m, out);
-  return static_cast<int>(cudaGetLastError());
+  return with_values_per_thread(plan.L, [&](auto r) {
+    return launch_lnz_moments<decltype(r)::value, true>(
+        plan, coef, B, ncoef, per_block, parts, beta, lnz, masks, m, nullptr,
+        s_out, stream);
+  });
 }
 
 int qcmrf_lnz_moments(SplitPlan plan, const float* coef, int B, int ncoef,
@@ -1146,9 +1122,9 @@ int qcmrf_lnz_moments(SplitPlan plan, const float* coef, int B, int ncoef,
                       const unsigned long long* masks, int m, float* m_out,
                       float* s_out, void* stream) {
   return with_values_per_thread(plan.L, [&](auto r) {
-    return launch_lnz_moments<decltype(r)::value>(
-        plan, coef, B, ncoef, per_block, parts, beta, masks, m, m_out, s_out,
-        stream);
+    return launch_lnz_moments<decltype(r)::value, false>(
+        plan, coef, B, ncoef, per_block, parts, beta, nullptr, masks, m,
+        m_out, s_out, stream);
   });
 }
 

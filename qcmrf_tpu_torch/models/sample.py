@@ -3,7 +3,8 @@
 
 * :func:`sample_exact`: IID draws from the Gibbs distribution by the
   ``2**n`` logits of the log-potential kernel;
-* :func:`map_state`: the argmax of the log-potential table;
+* :func:`map_state`: the argmax of the log-potential table (on the card
+  the streaming argmax kernel, :func:`kernels.map_state_streaming`);
 * :func:`map_state_clamped`: the evidence-constrained MAP (MPE) for any
   clique structure, by exact clique-table reduction
   (:func:`qcmrf_tpu_torch.models.moments.reduce_evidence`) and the
@@ -65,8 +66,14 @@ def sample_exact(generator, mrf: MRF, num_samples: int) -> torch.Tensor:
 
 def map_state(mrf: MRF) -> torch.Tensor:
     """Exact MAP state id (argmax of the Gibbs distribution; the first
-    maximum on ties), from the log-potential table."""
-    return torch.argmax(mrf.all_log_potentials())
+    maximum on ties), as a 0-d int64 tensor on ``mrf``'s device:
+    :func:`kernels.map_state_streaming`'s, which picks the route for the
+    device (the chain's table on the CPU, the streaming argmax on the
+    card, whose table is the split's)."""
+    from qcmrf_tpu_torch.ops import kernels
+
+    return torch.tensor(kernels.map_state_streaming(mrf)[0],
+                        device=mrf.device)
 
 
 def map_state_clamped(mrf: MRF, evidence: dict, mesh=None):

@@ -2,18 +2,22 @@
 moments), the H·D·H sandwich passes and the generic gate passes of the
 plane engine (the port of :mod:`qcmrf_tpu.ops.kernels`).
 
-The table and the moments sweeps evaluate ``beta * theta^T phi(x)`` per
-state id from the per-clique Moebius coefficients of
-:func:`moebius_coefficients`, clique by clique in the order of
-``_logpot_block``, with ``beta`` applied after the clique sum (the
-chain). The logsumexp and the fused sweep evaluate sub-blocks of ``2**L``
-consecutive states at once through the block-invariant split
-(:func:`split_plan`), a subset-sum transform of per-sub-block monomial
-coefficients. The argmax screens states through the split and evaluates
-the chain only for those within :func:`map_tolerance` of the running
-maximum, so its answer is the chain's, bit for bit.
+The plain versions evaluate ``beta * theta^T phi(x)`` per state id from
+the per-clique Moebius coefficients of :func:`moebius_coefficients`,
+clique by clique in the order of ``_logpot_block``, with ``beta`` applied
+after the clique sum (the chain). On the card the table, the logsumexp and
+both moment sweeps evaluate sub-blocks of ``2**L`` consecutive states at
+once through the block-invariant split (:func:`split_plan`), a subset-sum
+transform of per-sub-block monomial coefficients, as the JAX package's
+loop kernels do: the same entries summed in another order, each value
+within :func:`split_gap` of the chain's. The argmax screens states
+through the split and evaluates the chain only for those within
+:func:`map_tolerance` of the running maximum, so its answer is the
+chain's, bit for bit.
 
-* :func:`logpot_table` writes the ``(B, 2**n)`` table (``logpot_kernel``);
+* :func:`logpot_table` writes the ``(B, 2**n)`` table (``logpot_kernel``,
+  the split; :func:`logpot_table_split_reference` is its plain version
+  bit for bit, :func:`logpot_table_reference` the chain's table);
 * :func:`lse_partials` sweeps the states without a table and returns one
   (max, scaled sum) pair per block of states (``lse_kernel``);
   :func:`combine_lse` finishes the logsumexp;
@@ -21,14 +25,14 @@ maximum, so its answer is the chain's, bit for bit.
   block (``map_kernel``: the split screens, the chain decides);
   :func:`combine_map` finishes the argmax;
 * :func:`monomial_moments` sums ``p(x)`` over the states of each monomial
-  (``moments_kernel``);
+  for a given lnZ (``lnz_moments_kernel`` with ``lnz`` given);
 * :func:`lnz_moments_partials` does both in one sweep by a running max
   per block (``lnz_moments_kernel``); :func:`combine_lnz_moments` gives
   ``(lnZ, E_p[monomials])``.
 
 On a CUDA tensor each launches its kernel of ``csrc/qcmrf_kernels.cu``; on a
-CPU tensor it runs its plain PyTorch version (``*_reference``), which any
-device can run. Rows of a coefficient batch are separate models of one
+CPU tensor it runs its plain PyTorch version (``*_reference``, the chain),
+which any device can run. Rows of a coefficient batch are separate models of one
 structure, evaluated in one launch. The kernels have no backward: under
 grad mode each wrapper refuses coefficients that require grad, on every
 device. The differentiable lnZ is :func:`log_partition`, whose backward
@@ -109,9 +113,10 @@ _BLOCK_THREADS = 256
 _LSE_STATIC_BYTES = _BLOCK_THREADS * 8
 _MAP_STATIC_BYTES = (_BLOCK_THREADS * 12 + (_BLOCK_THREADS // 32) * 12
                      + 256 * 8 + 4)
-#: the moments kernel's shared memory per monomial (int64 mask, float32
-#: sum) and per thread (int64 tile id, float32 weight)
+#: the moment sweeps' shared memory per monomial (int64 mask, float32 sum)
 _MOMENT_BYTES = 12
+#: lnz_moments_kernel's static shared memory: one float32 max a warp
+_LNZ_STATIC_BYTES = (_BLOCK_THREADS // 32) * 4
 
 
 def coefficient_table(cliques: tuple, n: int,
@@ -135,7 +140,7 @@ def _clique_sum(cliques: tuple, n: int, coef: torch.Tensor,
                 x: torch.Tensor) -> torch.Tensor:
     """``theta^T phi(x)`` per row of ``coef`` at ids ``x``: (B, len(x))."""
     cmax = max(len(C) for C in cliques)
-    acc = torch.zeros((coef.shape[0], x.shape[0]), dtype=torch.float32,
+    acc = torch.zeros((coef.shape[0], x.shape[0]), dtype=coef.dtype,
                       device=coef.device)
     for k, C in enumerate(cliques):
         off = k << cmax
@@ -145,29 +150,54 @@ def _clique_sum(cliques: tuple, n: int, coef: torch.Tensor,
     return acc
 
 
+def _amplitudes(lp: torch.Tensor, n: int) -> torch.Tensor:
+    """The table's amplitude epilogue ``2^(-n/2) * exp(lp / 2)``."""
+    return torch.exp(0.5 * lp) * (2.0 ** (-0.5 * n))
+
+
 def logpot_table_reference(cliques: tuple, n: int, coef: torch.Tensor,
                            beta: float, fuse_amp: bool = False):
-    """Plain PyTorch version of :func:`logpot_table`, on any device."""
+    """Plain PyTorch version of :func:`logpot_table` by the chain, on any
+    device: the CPU route, and the card's oracle independent of its
+    kernel. In ``coef``'s dtype: float64 coefficients give the chain in
+    float64."""
     x = torch.arange(1 << n, dtype=torch.int64, device=coef.device)
     acc = _clique_sum(cliques, n, coef, x) * beta
-    if fuse_amp:
-        return torch.exp(0.5 * acc) * (2.0 ** (-0.5 * n))
-    return acc
+    return _amplitudes(acc, n) if fuse_amp else acc
+
+
+def logpot_table_split_reference(cliques: tuple, n: int, coef: torch.Tensor,
+                                 beta: float, fuse_amp: bool = False):
+    """Plain PyTorch version of ``logpot_kernel``, on any device, equal to
+    it bit for bit: :func:`split_log_potentials_reference` over every
+    sub-block at ``L = split_bits(n)``, then the epilogue. Each value lies
+    within :func:`split_gap` of :func:`logpot_table_reference`'s."""
+    plan = split_plan(cliques, n, split_bits(n))
+    lp = split_log_potentials_reference(
+        plan, coef, beta, range(1 << (n - plan.L))).reshape(
+            coef.shape[0], 1 << n)
+    return _amplitudes(lp, n) if fuse_amp else lp
 
 
 def logpot_table(cliques: tuple, n: int, coef: torch.Tensor, beta: float,
                  fuse_amp: bool = False) -> torch.Tensor:
     """``beta * theta^T phi(x)`` for all ``2**n`` states and every row of
     ``coef`` ((B, K << cmax)); float32 (B, 2**n). ``fuse_amp`` returns the
-    post-selected amplitudes ``2^(-n/2) * exp(lp / 2)`` instead."""
+    post-selected amplitudes ``2^(-n/2) * exp(lp / 2)`` instead. On the
+    card the states go through the split (``logpot_kernel``,
+    :func:`logpot_table_split_reference` bit for bit), as the JAX
+    package's loop kernel: each value within :func:`split_gap` of the
+    chain's, which the CPU route computes."""
     _build.refuse_grad(coef, "coef")
     if coef.device.type == "cpu":
         return logpot_table_reference(cliques, n, coef, beta, fuse_amp)
     dev = coef.device
-    shifts, sizes, B, K, cmax = _build.structure_args(cliques, n, coef)
+    plan = split_plan(cliques, n, split_bits(n))
+    tables, B, parts, per_part = _split_args(cliques, n, coef,
+                                             split_shared_bytes(plan))
     out = torch.empty((B, 1 << n), dtype=torch.float32, device=dev)
-    _build.launch("qcmrf_logpot", dev, _build.ptr(coef), _build.ptr(shifts),
-                  _build.ptr(sizes), B, K, cmax, 1 << n, beta, int(fuse_amp),
+    _build.launch("qcmrf_logpot", dev, tables, _build.ptr(coef), B,
+                  coef.shape[1], per_part, parts, beta, int(fuse_amp),
                   2.0 ** (-0.5 * n), _build.ptr(out))
     LAUNCHES["logpot"] += 1
     return out
@@ -282,79 +312,113 @@ def split_plan(cliques: tuple, n: int, L: int) -> SplitPlan:
         targets=targets.astype(np.int32))
 
 
+def _transform(a: torch.Tensor, L: int, bits, superset: bool):
+    """The subset-sum (or, ``superset``, the superset-sum) transform along
+    the last axis (2^L), one stage a bit in the order of ``bits``."""
+    lead = a.shape[:-1]
+    for j in bits:
+        t = a.reshape(*lead, 1 << (L - 1 - j), 2, 1 << j)
+        lo, hi = t[..., 0, :], t[..., 1, :]
+        pair = (lo + hi, hi) if superset else (lo, hi + lo)
+        a = torch.stack(pair, dim=-2).reshape(*lead, 1 << L)
+    return a
+
+
 def subset_sum(a: torch.Tensor, L: int) -> torch.Tensor:
     """The zeta transform along the last axis (2^L): ``out[x] = sum_{t
     subset of x} a[t]``, one stage a bit."""
-    lead = a.shape[:-1]
-    for j in range(L):
-        t = a.reshape(*lead, 1 << (L - 1 - j), 2, 1 << j)
-        a = torch.stack([t[..., 0, :], t[..., 1, :] + t[..., 0, :]],
-                        dim=-2).reshape(*lead, 1 << L)
-    return a
+    return _transform(a, L, range(L), False)
 
 
 def superset_sum(a: torch.Tensor, L: int) -> torch.Tensor:
     """The dual transform along the last axis (2^L): ``out[t] = sum_{x
     superset of t} a[x]``, one stage a bit."""
-    lead = a.shape[:-1]
-    for j in range(L):
-        t = a.reshape(*lead, 1 << (L - 1 - j), 2, 1 << j)
-        a = torch.stack([t[..., 0, :] + t[..., 1, :], t[..., 1, :]],
-                        dim=-2).reshape(*lead, 1 << L)
-    return a
+    return _transform(a, L, range(L), True)
+
+
+def _kernel_stages(L: int, superset: bool) -> list:
+    """The kernels' order of the transform's stages: the warp bits 5-7 in
+    shared memory, the lane bits 0-4 by shuffles and the register bits 8
+    up; the subset sums take the warp bits first, the superset sums
+    last."""
+    warp = list(range(5, min(L, 8)))
+    rest = list(range(min(L, 5))) + list(range(8, L))
+    return rest + warp if superset else warp + rest
+
+
+def _ordered_sums(values: torch.Tensor, offsets: np.ndarray) -> torch.Tensor:
+    """Sums of the runs ``values[..., offsets[i]:offsets[i + 1]]``, each
+    from 0 left to right as one thread of the kernels takes it (exact
+    zeros pad the shorter runs): (..., len(offsets) - 1)."""
+    lens = np.diff(offsets)
+    width = int(lens.max(initial=0))
+    pick = offsets[:-1, None] + np.arange(width)
+    held = np.arange(width) < lens[:, None]
+    dev = values.device
+    g = values[..., torch.from_numpy(np.where(held, pick, 0)).to(dev)]
+    g = torch.where(torch.from_numpy(held).to(dev), g, 0.0)
+    acc = values.new_zeros(g.shape[:-1])
+    for k in range(width):
+        acc = acc + g[..., k]
+    return acc
 
 
 def _segment_sum(values: torch.Tensor, items: np.ndarray,
                  heads: np.ndarray) -> torch.Tensor:
-    """Group sums of ``values`` (..., entries) through the plan's items:
-    (..., groups)."""
-    dev = values.device
-
-    def owner(offsets):
-        return torch.from_numpy(np.repeat(np.arange(len(offsets) - 1),
-                                          np.diff(offsets))).to(dev)
-
-    part = values.new_zeros((*values.shape[:-1], len(items) - 1))
-    part.index_add_(-1, owner(items), values)
-    out = values.new_zeros((*values.shape[:-1], len(heads) - 1))
-    return out.index_add_(-1, owner(heads), part)
+    """Group sums of ``values`` (..., entries) through the plan's items,
+    in the kernels' order on any device: (..., groups)."""
+    return _ordered_sums(_ordered_sums(values, items), heads)
 
 
 def split_log_potentials_reference(plan: SplitPlan, coef: torch.Tensor,
                                    beta: float, sub_blocks) -> torch.Tensor:
-    """Plain PyTorch version of the split evaluator of ``lse_kernel`` and
-    ``lnz_moments_kernel``, on any device: ``beta * theta^T phi(x)`` at
-    the ids ``x = h * 2^L + xl`` of every sub-block ``h`` of
-    ``sub_blocks`` and every ``xl`` in [0, 2^L), for every row of
-    ``coef`` ((B, K << cmax)): float32 (B, len(sub_blocks), 2^L). The
-    monomial coefficients, then ``P`` per sub-block through the plan's
-    items and target groups, then the subset-sum transform and ``beta``."""
+    """Plain PyTorch version of the split evaluator of the table, lse,
+    map and moment kernels (``split_values``), on any device and bit for
+    bit: ``beta * theta^T phi(x)`` at the ids ``x = h * 2^L + xl`` of
+    every sub-block ``h`` of ``sub_blocks`` and every ``xl`` in [0, 2^L),
+    for every row of ``coef`` ((B, K << cmax)): float32 (B,
+    len(sub_blocks), 2^L). The monomial coefficients, then ``P`` per
+    sub-block through the plan's items and target groups, both in float64
+    and ``P`` rounded to float32 once, then the float32 subset-sum
+    transform in the kernels' stage order and ``beta``, every sum in the
+    kernels' order."""
     dev = coef.device
-    c = _segment_sum(coef[:, torch.from_numpy(plan.coef_index).to(dev)],
-                     plan.c_items, plan.c_heads)
+    c = _segment_sum(
+        coef[:, torch.from_numpy(plan.coef_index).to(dev)].double(),
+        plan.c_items, plan.c_heads)
     h = torch.as_tensor(sub_blocks, dtype=torch.int64, device=dev)
     hm = torch.from_numpy(plan.hm).to(dev)
     hit = (h[:, None] & hm) == hm
     groups = _segment_sum(torch.where(hit, c[:, None, :], 0.0),
                           plan.m_items, plan.m_heads)
     P = coef.new_zeros((coef.shape[0], len(h), 1 << plan.L))
-    P[..., torch.from_numpy(plan.targets).to(dev).long()] = groups
-    return subset_sum(P, plan.L) * beta
+    P[..., torch.from_numpy(plan.targets).to(dev).long()] = groups.float()
+    return _transform(P, plan.L, _kernel_stages(plan.L, False),
+                      False) * beta
 
 
 def split_moment_sums_reference(w: torch.Tensor, L: int, sub_blocks,
-                                masks: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of ``lnz_moments_kernel``'s moment rule: for
-    weights ``w`` (B, len(sub_blocks), 2^L) of the states of each
-    sub-block, the superset sums ``W``, then per monomial mask ``g`` (id
-    bits) the sum over the sub-blocks ``h`` with ``(h & (g >> L)) == g >>
-    L`` of ``W[g & (2^L - 1)]``: (B, m) in ``w``'s dtype, the sum of
-    ``w`` over each monomial's states."""
-    W = superset_sum(w, L)
+                                masks: torch.Tensor,
+                                per_part: int = None) -> torch.Tensor:
+    """Plain PyTorch version of ``lnz_moments_kernel``'s moment rule, in
+    its order: for weights ``w`` (B, len(sub_blocks), 2^L) of the states
+    of each sub-block, the superset sums ``W`` (the kernels' stage
+    order), then per monomial mask ``g`` (id bits) the sum, sub-block by
+    sub-block from 0, over the sub-blocks ``h`` with ``(h & (g >> L)) ==
+    g >> L`` of ``W[g & (2^L - 1)]``: (B, m) in ``w``'s dtype, the sum of
+    ``w`` over each monomial's states. With ``per_part``, the sums start
+    anew every ``per_part`` sub-blocks, as a kernel block's: (B,
+    len(sub_blocks) // per_part, m)."""
+    W = _transform(w, L, _kernel_stages(L, True), True)
     h = torch.as_tensor(sub_blocks, dtype=torch.int64, device=w.device)
     gh, gl = masks >> L, masks & ((1 << L) - 1)
-    hit = ((h[:, None] & gh) == gh).to(w.dtype)
-    return torch.einsum("bsm,sm->bm", W[..., gl], hit)
+    terms = torch.where((h[:, None] & gh) == gh, W[..., gl], 0.0)
+    per = len(h) if per_part is None else per_part
+    terms = terms.reshape(w.shape[0], -1, per, masks.numel())
+    acc = terms.new_zeros((w.shape[0], terms.shape[1], masks.numel()))
+    for i in range(per):
+        acc = acc + terms[:, :, i]
+    return acc[:, 0] if per_part is None else acc
 
 
 def _padded_table(cliques: tuple, n: int, coef: torch.Tensor, beta: float):
@@ -377,11 +441,12 @@ def lse_partials_reference(cliques: tuple, n: int, coef: torch.Tensor,
 
 def split_shared_bytes(plan: SplitPlan, masks: int = 0) -> int:
     """Dynamic shared memory of a split kernel's block: the plan's tables,
-    their item sums and ``P`` (``lse_kernel``); with ``masks`` monomials,
-    also their masks and sums and ``W`` (``lnz_moments_kernel``)."""
+    their item sums and ``P`` (``lse_kernel``, ``logpot_kernel``); with
+    ``masks`` monomials, also their masks and sums and ``W``
+    (``lnz_moments_kernel``)."""
     U, CI = len(plan.hm), len(plan.c_items) - 1
     MI, G = len(plan.m_items) - 1, len(plan.targets)
-    size = 12 * U + 4 * (MI + 2 * G + 2 + max(CI, MI) + (1 << plan.L))
+    size = 8 * (2 * U + max(CI, MI)) + 4 * (MI + 2 * G + 2 + (1 << plan.L))
     if masks:
         size += _MOMENT_BYTES * masks + 4 * (1 << plan.L)
     return size
@@ -477,7 +542,8 @@ def log_partition(mrf: MRF) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 #: below this many variables map_state_streaming takes the dense argmax of
-#: the table (the JAX package's kernel floor)
+#: the table on the CPU (the JAX package's kernel floor); the card's table
+#: is the split's, so there the map kernel serves every n
 MIN_KERNEL_N = 10
 _NO_STATE = torch.iinfo(torch.int64).max
 
@@ -497,20 +563,31 @@ def map_partials_reference(cliques: tuple, n: int, coef: torch.Tensor,
 _U = 2.0 ** -24
 
 
-def map_tolerance(coef: torch.Tensor, beta: float) -> torch.Tensor:
+def split_gap(coef: torch.Tensor, beta: float) -> torch.Tensor:
     """Per row of ``coef`` ((B, N), N = K << cmax entries), float32 (B,) on
-    its device: ``4 gamma_{N+1} |beta| sum |coef_b|``, with ``gamma_k = k u
-    / (1 - k u)``, widened by 2^-20 for its own rounding. The split and the
-    chain sum the same held entries of row b in two orders, each result
-    within ``gamma_N sum |coef_b|`` of the exact sum (an add rounds only
-    where both operands are nonzero, at most N - 1 times on a path), and
-    ``beta`` rounds once more: each value lies within ``e = gamma_{N+1}
-    |beta| sum |coef_b|`` of the exact one and the two within ``2 e`` of
-    each other, so a state of the chain's maximum has a split value within
-    ``4 e`` of the split's maximum. No host synchronisation."""
+    its device: ``2 e_b``, with ``e_b = gamma_{N+1} |beta| sum |coef_b|``
+    and ``gamma_k = k u / (1 - k u)``, widened by 2^-20 for its own
+    rounding: how far the split's value of a state can lie from the
+    chain's. The two sum the same held entries of row b in two orders,
+    each result within ``gamma_N sum |coef_b|`` of the exact sum (an add
+    rounds only where both operands are nonzero, at most N - 1 times on a
+    path; the split's float64 sums round to float32 once in place of at
+    least one such add, their own float64 error far inside the widening),
+    and ``beta`` rounds once more: each value lies within ``e_b`` of the
+    exact one, and the two within ``2 e_b`` of each other. No host
+    synchronisation."""
     g = (coef.shape[-1] + 1) * _U
-    scale = 4 * g / (1 - g) * abs(beta) * (1 + 2.0 ** -20)
+    scale = 2 * g / (1 - g) * abs(beta) * (1 + 2.0 ** -20)
     return (coef.double().abs().sum(dim=-1) * scale).float()
+
+
+def map_tolerance(coef: torch.Tensor, beta: float) -> torch.Tensor:
+    """``2 * split_gap`` (``4 e_b``) per row: a state of the chain's
+    maximum has a split value within it of the split's maximum (its split
+    value lies within ``2 e_b`` of its chain value, which is at or above
+    the chain value of the split's best state, itself within ``2 e_b`` of
+    that state's split value)."""
+    return 2 * split_gap(coef, beta)
 
 
 def _threshold(M: torch.Tensor, tol: torch.Tensor) -> torch.Tensor:
@@ -617,10 +694,12 @@ def combine_map(v: torch.Tensor, x: torch.Tensor):
 
 def map_state_streaming(mrf: MRF):
     """Exact MAP state by the streaming argmax, no table: ``(state_id,
-    beta * theta^T phi(x))`` as host numbers, the earliest id of equal
-    maxima. Below ``MIN_KERNEL_N`` variables it takes the dense argmax of
-    the table (which also keeps the first maximum)."""
-    if mrf.n < MIN_KERNEL_N:
+    beta * theta^T phi(x))`` as host numbers, the chain's maximum with the
+    earliest id of equal maxima. On the CPU below ``MIN_KERNEL_N``
+    variables it takes the dense argmax of the chain's table (which also
+    keeps the first maximum); on the card the map kernel serves every n,
+    since the card's table is the split's."""
+    if mrf.n < MIN_KERNEL_N and mrf.device.type == "cpu":
         lp = mrf.beta * mrf.all_log_potentials()
         i = int(torch.argmax(lp))
         return i, float(lp[i])
@@ -632,8 +711,10 @@ def map_state_streaming(mrf: MRF):
 def monomial_moments_reference(cliques: tuple, n: int, coef: torch.Tensor,
                                beta: float, lnz: torch.Tensor,
                                masks: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of :func:`monomial_moments`, on any device:
-    the table's weights summed in float64 over each monomial's states."""
+    """Plain PyTorch version of :func:`monomial_moments` by the chain, on
+    any device: the table's weights summed in float64 over each
+    monomial's states. The CPU route; with float64 coefficients (the chain
+    in float64), the card's oracle."""
     x = torch.arange(1 << n, dtype=torch.int64, device=coef.device)
     lp = logpot_table_reference(cliques, n, coef, beta)
     w = torch.exp(lp - lnz[:, None]).double()
@@ -645,15 +726,32 @@ def monomial_moments_reference(cliques: tuple, n: int, coef: torch.Tensor,
     return torch.cat(out, dim=-1)
 
 
-def moments_per_launch(K: int, cmax: int, reserve: int = None) -> int:
-    """Most monomials one launch takes: as many masks and sums as a
-    block's shared memory holds beside ``reserve`` bytes of the kernel's
-    own; by default ``moments_kernel``'s, the structure tables and its
-    tile of states."""
-    if reserve is None:
-        reserve = (_build.structure_bytes(K, cmax)
-                   + _BLOCK_THREADS * _MOMENT_BYTES)
-    return (_build.SHARED_BYTES_LIMIT - reserve) // _MOMENT_BYTES
+def monomial_moments_split_reference(cliques: tuple, n: int,
+                                     coef: torch.Tensor, beta: float,
+                                     lnz: torch.Tensor,
+                                     masks: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the moments kernel's algorithm, on any
+    device: :func:`split_log_potentials_reference` over every sub-block,
+    the weights ``exp(v - lnz)``, :func:`split_moment_sums_reference` per
+    block of ``lse_geometry`` (float32, in the kernel's order), the blocks
+    added in float64 as the wrapper adds them: float64 (B, m)."""
+    L = split_bits(n)
+    per_part = lse_geometry(1 << n)[1]
+    subs = range(1 << (n - L))
+    v = split_log_potentials_reference(split_plan(cliques, n, L), coef,
+                                       beta, subs)
+    w = torch.exp(v - lnz[:, None, None])
+    return split_moment_sums_reference(w, L, subs, masks,
+                                       per_part >> L).sum(
+                                           dim=1, dtype=torch.float64)
+
+
+def moments_per_launch(cliques: tuple, n: int) -> int:
+    """Most monomials one launch of ``lnz_moments_kernel`` (either form)
+    takes: as many masks and sums as a block's shared memory holds beside
+    :func:`lnz_moments_reserve`."""
+    return ((_build.SHARED_BYTES_LIMIT - lnz_moments_reserve(cliques, n))
+            // _MOMENT_BYTES)
 
 
 def monomial_moments(cliques: tuple, n: int, coef: torch.Tensor,
@@ -664,29 +762,33 @@ def monomial_moments(cliques: tuple, n: int, coef: torch.Tensor,
     (B, m). ``lnz`` is float32 (B,); ``masks`` int64 (m,), monomial ``S``
     as the state-id bits of its variables (it holds at ``x`` iff ``(x &
     mask) == mask``). One sweep of the states for every
-    :func:`moments_per_launch` monomials, no table; the float32 per-block
-    partials are added in float64."""
+    :func:`moments_per_launch` monomials, no table; on the card the split
+    and its superset sums (``lnz_moments_kernel`` with ``lnz`` given,
+    :func:`monomial_moments_split_reference`'s algorithm); the float32
+    per-block partials are added in float64."""
     _build.refuse_grad(coef, "coef")
     if coef.device.type == "cpu":
         return monomial_moments_reference(cliques, n, coef, beta, lnz,
                                           masks)
     dev = coef.device
-    # extra: the tile of states and at least one monomial
-    shifts, sizes, B, K, cmax = _build.structure_args(
-        cliques, n, coef, extra=(_BLOCK_THREADS + 1) * _MOMENT_BYTES)
     m = masks.numel()
+    step = moments_per_launch(cliques, n)
+    if step < 1:
+        raise ValueError("the split plan leaves no shared memory for a "
+                         "monomial")
+    plan = split_plan(cliques, n, split_bits(n))
+    tables, B, parts, per_part = _split_args(
+        cliques, n, coef,
+        split_shared_bytes(plan, min(m, step)) + _LNZ_STATIC_BYTES)
     _build.check(lnz, "lnz", torch.float32, (B,), dev)
     _build.check(masks, "masks", torch.int64, (m,), dev)
-    step = moments_per_launch(K, cmax)
-    parts, per_part = lse_geometry(1 << n)
     out = torch.empty((B, m), dtype=torch.float64, device=dev)
     for lo in range(0, m, step):
         hi = min(m, lo + step)
         part = torch.empty((B, parts, hi - lo), dtype=torch.float32,
                            device=dev)
-        _build.launch("qcmrf_moments", dev, _build.ptr(coef),
-                      _build.ptr(shifts), _build.ptr(sizes), B, K, cmax,
-                      1 << n, per_part, parts, beta, _build.ptr(lnz),
+        _build.launch("qcmrf_moments", dev, tables, _build.ptr(coef), B,
+                      coef.shape[1], per_part, parts, beta, _build.ptr(lnz),
                       _build.ptr(masks[lo:hi]), hi - lo, _build.ptr(part))
         LAUNCHES["moments"] += 1
         out[:, lo:hi] = part.sum(dim=1, dtype=torch.float64)
@@ -697,8 +799,6 @@ def monomial_moments(cliques: tuple, n: int, coef: torch.Tensor,
 # Fused lnZ + monomial moments: one sweep by running max
 # --------------------------------------------------------------------------
 
-#: the fused kernel's static shared memory: one float32 tile max a warp
-_LNZ_STATIC_BYTES = (_BLOCK_THREADS // 32) * 4
 
 
 def lnz_moments_partials_reference(cliques: tuple, n: int,
@@ -776,10 +876,7 @@ def lnz_moments_partials(cliques: tuple, n: int, coef: torch.Tensor,
         raise ValueError("masks[0] must be 0, the empty monomial")
     run = (lnz_moments_partials_reference if coef.device.type == "cpu"
            else _lnz_moments_launch)
-    K = len(cliques)
-    cmax = max(len(C) for C in cliques)
-    step = moments_per_launch(K, cmax, reserve=lnz_moments_reserve(
-        cliques, n))
+    step = moments_per_launch(cliques, n)
     if step < 2:
         raise ValueError(f"a launch takes {step} monomials; it needs 2")
     M, S = run(cliques, n, coef, beta, masks[:step])

@@ -19,9 +19,11 @@ the package under ``DIR``, the streaming lnZ sweeps where their main paths
 run them: the lse sweep at n = 28 (grid 4x7) and on bench.py's K27, the
 fused lnZ + moments sweep on K27 (CUDA events, 5 calls after a warm-up),
 one exact-MLE step on K27 (``train_wide_k27_step_ms``), the streaming
-argmax on K27 and the outcome sampler at bench.py's operating point (the
-n=20 grid, 2^27 shots, parts mode; the tree's own keep-probability table),
-and the K27 ``infer`` batch of ``chip_smoke.py`` through
+argmax on K27, the K27 log-potential table (2^27 states), the K27
+moments for a given lnZ (379 monomials), ``sample_exact``'s 20 000 draws
+on K27, the outcome sampler at bench.py's operating point (the n=20 grid,
+2^27 shots, parts mode; the tree's own keep-probability table), and the
+K27 ``infer`` batch of ``chip_smoke.py`` through
 ``infer_cli.main`` (host clock, the second of two runs). Prints one JSON
 line. Needs a CUDA device; the script file is run by its path, not with
 ``-m``.
@@ -70,6 +72,7 @@ def _streaming27(smoke, K, dev) -> dict:
 
     import torch
 
+    from qcmrf_tpu_torch.models import sample
     from qcmrf_tpu_torch.models import train as mtrain
     from qcmrf_tpu_torch.models.mrf import MRF
     from qcmrf_tpu_torch.ops import sampler_kernel as S
@@ -94,6 +97,15 @@ def _streaming27(smoke, K, dev) -> dict:
     ms["train_wide_k27_step"] = smoke.cuda_ms(step, reps=5)
     ms["map_k27"] = smoke.cuda_ms(lambda: K.map_partials(
         k27.cliques, k27.n, coef, k27.beta), reps=5)
+    ms["table_k27"] = smoke.cuda_ms(lambda: K.logpot_table(
+        k27.cliques, k27.n, coef, k27.beta), reps=5)
+    lnz = K.combine_lse(*K.lse_partials(k27.cliques, k27.n, coef,
+                                        k27.beta)).float()
+    ms["moments_k27"] = smoke.cuda_ms(lambda: K.monomial_moments(
+        k27.cliques, k27.n, coef, k27.beta, lnz, masks), reps=5)
+    ms["sample_exact_k27"] = smoke.cuda_ms(lambda: sample.sample_exact(
+        11, k27, smoke.TRAIN_SAMPLES), reps=3)
+    torch.cuda.empty_cache()
     grid = smoke.grid_model(4, 5, 0, dev)
     table = getattr(S, "keep_prob_values", S.keep_prob_table)(
         grid.cliques, grid.n, grid.theta, grid.beta)[None]

@@ -57,16 +57,29 @@ def test_sampler_kernel_matches_plain_version(dev):
                 assert g.is_cuda and torch.equal(g, w), (mode, shots)
 
 
+def check_table(cl, n, coef, beta):
+    """The table kernel on the card: equal to its split plain version bit
+    for bit (both ``fuse_amp`` values), each value within ``split_gap``
+    of the chain's, and two launches bit-equal."""
+    before = kernels.LAUNCHES["logpot"]
+    got = kernels.logpot_table(cl, n, coef, beta)
+    assert kernels.LAUNCHES["logpot"] == before + 1
+    assert got.is_cuda and got.shape == (coef.shape[0], 1 << n)
+    assert torch.equal(got, kernels.logpot_table_split_reference(
+        cl, n, coef, beta))
+    assert torch.equal(got, kernels.logpot_table(cl, n, coef, beta))
+    gap = (got - kernels.logpot_table_reference(cl, n, coef, beta)).abs()
+    assert bool((gap.amax(dim=-1) <= kernels.split_gap(coef, beta)).all())
+    assert torch.equal(
+        kernels.logpot_table(cl, n, coef, beta, True),
+        kernels.logpot_table_split_reference(cl, n, coef, beta, True))
+
+
 def test_table_and_lse_kernels_match_plain_versions(dev):
     m = model(dev)
     coef = kernels.coefficient_table(
         m.cliques, m.n, torch.stack([m.theta, 0.5 * m.theta]))
-    for fuse_amp in (False, True):
-        torch.testing.assert_close(
-            kernels.logpot_table(m.cliques, m.n, coef, 1.7, fuse_amp),
-            kernels.logpot_table_reference(m.cliques, m.n, coef, 1.7,
-                                           fuse_amp),
-            rtol=1e-6, atol=1e-6)
+    check_table(m.cliques, m.n, coef, 1.7)
     got = kernels.combine_lse(*kernels.lse_partials(m.cliques, m.n, coef,
                                                     1.7))
     want = kernels.combine_lse(*kernels.lse_partials_reference(
@@ -265,6 +278,66 @@ def test_moments_kernel_matches_plain_version(dev, n):
         # float32 per-block sums of p(x) against float64 sums: 1e-6
         torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
         assert abs(float(got[0, 0]) - 1.0) < 1e-5  # the empty monomial
+        # one launch: the split plain version's order throughout
+        assert torch.equal(got, kernels.monomial_moments_split_reference(
+            m.cliques, n, coef, m.beta, lnz, masks))
+
+
+def table_model(n, dev):
+    """A ring of 3-, 4- and 5-variable cliques over n variables (one
+    clique of all n below 5)."""
+    if n < 5:
+        theta = -np.abs(np.random.RandomState(n).randn(1 << n)) * 0.4
+        return MRF.create([list(range(n))], theta=theta, device=dev)
+    return mixed_model(n, dev)
+
+
+@pytest.mark.parametrize("n", [1, 5, 10, 12, 16, 20])
+def test_table_kernel_is_the_split_bit_for_bit(dev, n):
+    """Three coefficient rows in one launch: one sub-block below n = 10
+    (n = L, threads past 2^L idle at n < 8), sub-blocks of 2^10 at n = 12
+    and 16, several a block at n = 20."""
+    m = table_model(n, dev)
+    coef = kernels.coefficient_table(
+        m.cliques, n, torch.stack([m.theta, 0.5 * m.theta, -m.theta]))
+    check_table(m.cliques, n, coef, m.beta)
+
+
+def map_cases(n, dev):
+    """(model, what) of the MAP route checks: the tie (two states of one
+    chain value), a random complete graph and theta = 0 (every state of
+    value 0, so the earliest id, 0, wins)."""
+    if n == 1:
+        return [(MRF.create([[0]], theta=[0.3, 0.3], device=dev), "tie"),
+                (MRF.create([[0]], theta=[-0.2, 0.1], device=dev), "one"),
+                (MRF.create([[0]], theta=[0.0, 0.0], device=dev), "zero")]
+    k = complete_model(n, dev, scale=0.3)
+    return [(tie_model(n, dev), "tie"), (k, "complete"),
+            (k.with_theta(np.zeros(k.dimension, np.float32)), "zero")]
+
+
+@pytest.mark.parametrize("n", [1, 4, 8, 9, 16])
+def test_map_routes_return_the_chains_earliest_maximum(dev, n):
+    """``map_state`` and ``map_state_streaming`` on the card (the map
+    kernel at every n, since the card's table is the split's) give the
+    chain's maximum and its earliest id, ties and theta = 0 included."""
+    from qcmrf_tpu_torch.models import sample
+
+    for m, what in map_cases(n, dev):
+        coef = kernels.moebius_coefficients(m)[None]
+        chain = kernels.logpot_table_reference(m.cliques, n, coef, 1.0)[0]
+        want = int(torch.argmax(chain))
+        before = dict(kernels.LAUNCHES)
+        assert int(sample.map_state(m)) == want, what
+        lp = m.beta * chain
+        sid, val = kernels.map_state_streaming(m)
+        assert sid == int(torch.argmax(lp)) and val == float(lp[sid]), what
+        assert kernels.LAUNCHES["map"] == before["map"] + 2
+        assert kernels.LAUNCHES["logpot"] == before["logpot"]
+        if what == "zero":
+            assert want == 0 and sid == 0
+        if what == "tie" and n > 1:
+            assert sid == int("01" * (n // 2), 2) << (n % 2)
 
 
 def wide_model(n, dev, draws=700, seed=4, scale=0.05):
@@ -290,10 +363,7 @@ def test_wide_structure_kernels_match_plain_versions(dev, monkeypatch):
     cl, beta = m.cliques, m.beta
     assert _build.structure_bytes(len(cl), 4) > 48 * 1024
     coef = kernels.moebius_coefficients(m)[None]
-    torch.testing.assert_close(
-        kernels.logpot_table(cl, n, coef, beta),
-        kernels.logpot_table_reference(cl, n, coef, beta),
-        rtol=1e-6, atol=1e-6)
+    check_table(cl, n, coef, beta)
     lnz = kernels.combine_lse(*kernels.lse_partials(cl, n, coef, beta))
     torch.testing.assert_close(lnz, kernels.combine_lse(
         *kernels.lse_partials_reference(cl, n, coef, beta)), rtol=0,
@@ -303,16 +373,24 @@ def test_wide_structure_kernels_match_plain_versions(dev, monkeypatch):
     assert torch.equal(x, wx) and torch.equal(v, wv)
     masks = torch.from_numpy(moebius.monomial_masks(cl, n)).to(dev)
     assert masks.numel() > 1500
-    want = kernels.monomial_moments_reference(cl, n, coef, beta, lnz, masks)
+    # |beta theta^T phi| reaches ~30 here, where the chain's float32
+    # table sits about 7e-6 from the exact moments (its rounding, common
+    # to many states, does not average out): the oracle is the chain in
+    # float64 on the same float32 coefficients
+    want = kernels.monomial_moments_reference(cl, n, coef.double(), beta,
+                                              lnz, masks)
     before = kernels.LAUNCHES["moments"]
     got = kernels.monomial_moments(cl, n, coef, beta, lnz, masks)
     assert kernels.LAUNCHES["moments"] == before + 1
+    assert torch.equal(got, kernels.monomial_moments_split_reference(
+        cl, n, coef, beta, lnz, masks))
     torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
-    monkeypatch.setattr(kernels, "moments_per_launch", lambda K, cmax: 500)
-    got = kernels.monomial_moments(cl, n, coef, beta, lnz, masks)
+    monkeypatch.setattr(kernels, "moments_per_launch", lambda cliques, n: 500)
+    split = kernels.monomial_moments(cl, n, coef, beta, lnz, masks)
     assert (kernels.LAUNCHES["moments"]
             == before + 1 + -(-masks.numel() // 500))
-    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    torch.testing.assert_close(split, want, rtol=0, atol=1e-6)
+    torch.testing.assert_close(split, got, rtol=0, atol=1e-12)
 
 
 def test_infer_k16_streaming_matches_elimination(dev, tmp_path, monkeypatch):
@@ -510,10 +588,10 @@ def test_lowered_chain_matches_unlowered_on_card(dev):
 def test_lnz_moments_kernel_matches_plain_version(dev, n):
     """The fused kernel (one launch) against its plain version and against
     the lse + moments kernels: lnZ within 1e-5, moments within 1e-6. The
-    moments kernel evaluates states by the per-state chain, as the plain
-    lse does, so it is normalised by the chain's lnZ: by the lse kernel's
-    (the split, another order of float32 sums) its probabilities sum to
-    1 only within about 1e-6."""
+    moments kernel evaluates states by the split, as the lse kernel does,
+    so it is normalised by the lse kernel's lnZ: by the chain's (another
+    rounding of the table) its probabilities sum to 1 only within about
+    1e-6."""
 
     for m in (complete_model(n, dev), mixed_model(n, dev)):
         coef = kernels.moebius_coefficients(m)[None]
@@ -530,10 +608,8 @@ def test_lnz_moments_kernel_matches_plain_version(dev, n):
         torch.testing.assert_close(mono, want, rtol=0, atol=1e-6)
         lnz2 = kernels.log_partition(m).reshape(1)
         torch.testing.assert_close(lnz, lnz2.double(), rtol=0, atol=1e-5)
-        chain = kernels.combine_lse(*kernels.lse_partials_reference(
-            m.cliques, n, coef, m.beta))
         torch.testing.assert_close(mono, kernels.monomial_moments(
-            m.cliques, n, coef, m.beta, chain, masks), rtol=0, atol=1e-6)
+            m.cliques, n, coef, m.beta, lnz2, masks), rtol=0, atol=1e-6)
 
 
 def split_cases(dev):
@@ -610,7 +686,7 @@ def test_lnz_moments_split_over_launches(dev, monkeypatch):
     one = kernels.combine_lnz_moments(*kernels.lnz_moments_partials(
         m.cliques, n, coef, m.beta, masks))
     monkeypatch.setattr(kernels, "moments_per_launch",
-                        lambda K, cmax, reserve=0: 500)
+                        lambda cliques, n: 500)
     before = kernels.LAUNCHES["lnz_moments"]
     split = kernels.combine_lnz_moments(*kernels.lnz_moments_partials(
         m.cliques, n, coef, m.beta, masks))

@@ -207,11 +207,20 @@ def test_wrappers_check_inputs_before_launch():
 
 @pytest.mark.parametrize("K,cmax", [(351, 2), (600, 4), (1000, 5)])
 def test_moments_launch_fills_shared_memory(K, cmax):
-    """A moments launch takes as many monomials as fit beside the
-    structure tables and the tile of states, and not one more."""
+    """A moments launch (either form of ``lnz_moments_kernel``) takes as
+    many monomials as fit beside the split's tables, ``P`` and ``W``,
+    and not one more: K distinct random cliques of cmax variables over
+    27, 20 and 16 variables."""
     from qcmrf_tpu_torch.ops import _build
 
-    step = kernels.moments_per_launch(K, cmax)
-    need = _build.structure_bytes(K, cmax) + (step + 256) * 12
+    n = {2: 27, 4: 20, 5: 16}[cmax]
+    rng = np.random.RandomState(K)
+    cl = set()
+    while len(cl) < K:
+        cl.add(tuple(sorted(rng.choice(n, cmax, replace=False).tolist())))
+    cl = tuple(sorted(cl))
+    plan = kernels.split_plan(cl, n, kernels.split_bits(n))
+    step = kernels.moments_per_launch(cl, n)
+    need = kernels.split_shared_bytes(plan, step) + kernels._LNZ_STATIC_BYTES
     assert step > 0
     assert need <= _build.SHARED_BYTES_LIMIT < need + 12

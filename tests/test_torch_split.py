@@ -220,8 +220,7 @@ def test_lnz_moments_reserve_fits_k27_in_one_launch():
     cl = tuple((i, j) for i in range(27) for j in range(i + 1, 27))
     plan = kernels.split_plan(cl, 27, kernels.split_bits(27))
     assert plan.L == 12 and len(plan.hm) == 379 and len(plan.targets) == 79
-    step = kernels.moments_per_launch(len(cl), 2, reserve=(
-        kernels.lnz_moments_reserve(cl, 27)))
+    step = kernels.moments_per_launch(cl, 27)
     assert step >= 379
     need = kernels.split_shared_bytes(plan, 379) + kernels._LNZ_STATIC_BYTES
     assert need <= 227 * 1024

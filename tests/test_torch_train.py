@@ -130,7 +130,7 @@ def test_fused_split_over_launches_matches_one_launch(monkeypatch, step):
 
     monkeypatch.setattr(kernels, "lnz_moments_partials_reference", counted)
     monkeypatch.setattr(kernels, "moments_per_launch",
-                        lambda K, cmax, reserve=0: step)
+                        lambda cliques, n: step)
     got = kernels.combine_lnz_moments(*kernels.lnz_moments_partials(*args))
     m_total = args[4].numel()
     assert len(calls) == 1 + -(-(m_total - step) // (step - 1))
