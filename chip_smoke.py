@@ -10,7 +10,8 @@ kernels' launch counters reset just before it and read just after:
 * ``run`` (analytic engine) samples the 70-circuit suite (scale 0.1,
   10 000 shots) and ``eval`` scores it, both on the GPU;
 * ``run --engine statevector`` runs the 70 gate-level circuits through the
-  whole-circuit kernel (one launch per graph) and ``eval`` scores them;
+  whole-circuit kernel (one launch for the suite's 7 structures) and
+  ``eval`` scores them;
 * ``infer`` answers a batch of lnz, prob, map, mmap and marginals queries,
   with and without evidence, on bench.py's K27 complete graph (every
   query through the streaming lse, map and fused lnz_moments kernels, no
@@ -36,6 +37,11 @@ kernels' launch counters reset just before it and read just after:
   sweeps' moments, and the table and elimination routes driven too;
 * the copy and gate-pass rates at 28 qubits and the float32 FMA peak
   (``runners/bench.py``).
+
+The dense lane kernel (three TF32 products a term on the tensor cores)
+is held to the float64 product of its input at widths 8, 24 and 28: a
+relative 2-norm error of at most 2e-6 and at most 4x that of one float32
+``torch.matmul`` on the same input, a check one TF32 pass fails.
 
 The table, lse and both moments kernels evaluate states through the
 block-invariant split: their bounds come from the split's operation
@@ -77,10 +83,11 @@ SAMPLE_SEED = 1234
 N_SHOTS_CHECK = 1 << 20      # kernel vs plain version, all four modes
 N_SHOTS_RATE = 1 << 27       # bench.py's operating point: 1 GiB of outputs
 
-# NVIDIA's data sheet, H100 SXM at its 700 W limit: device memory rate and
-# float32 rate outside the tensor cores
+# NVIDIA's data sheet, H100 SXM at its 700 W limit: device memory rate,
+# float32 rate outside the tensor cores, dense TF32 rate of the tensor cores
 H100_BYTES_PER_S = 3.35e12
 H100_F32_PER_S = 67e12
+H100_TF32_PER_S = 494.7e12
 
 GATE_WIDTHS = (20, 24, 26, 28, 30, 32)   # bench.py's chains, and 32
 SANDWICH_WIDTH = 24
@@ -586,6 +593,11 @@ def chain_model(nn: int, dev):
 
 
 def phase_circuit_kernel(dev, report):
+    """The whole-circuit kernel against its plain version (the dense
+    engine on the card): each suite graph and the 8-variable chain (width
+    16, its state in the global scratch) alone, and all eight in one
+    launch; then the suite's one call timed on the host's clock and the
+    kernel alone by CUDA events."""
     from qcmrf_tpu_torch.models.suite import generate_suite
     from qcmrf_tpu_torch.ops import circuit_kernel as ck
 
@@ -596,27 +608,38 @@ def phase_circuit_kernel(dev, report):
     cases.append((chain8.cliques, np.stack(
         [chain8.theta.numpy(), 0.5 * chain8.theta.numpy()])))
     print("[circuit kernel] the 7 suite graphs x 10 reps (scale 0.1) and "
-          "the 8-variable chain (width 16)")
+          "the 8-variable chain (width 16): alone, then all in one launch")
     err = 0.0
-    for C, thetas in cases:
+    before = ck.LAUNCHES["circuit"]
+    mixed = ck.batched_circuits_probs(cases, device=dev)
+    require(ck.LAUNCHES["circuit"] == before + 1,
+            "the 8 structures' 72 circuits in one launch")
+    for (C, thetas), one in zip(cases, mixed):
         got = ck.batched_circuit_probs(C, thetas, device=dev)
         want = ck.batched_circuit_probs_reference(C, thetas, device=dev)
-        e = float((got - want).abs().max())
+        e = max(float((g - want).abs().max()) for g in (got, one))
         err = max(err, e)
         # 2e-5 at the suite's widths (<= 10, values ~1e-3); at width 16
         # the values average 2^-15 ~ 3e-5, so 1e-6 there
         tol = 2e-5 if got.shape[1] <= 1 << 10 else 1e-6
-        require(torch.allclose(got, want, rtol=0, atol=tol),
+        require(all(torch.allclose(g, want, rtol=0, atol=tol)
+                    for g in (got, one)),
                 f"graph {[list(c) for c in C]}: kernel == plain version "
-                f"within {tol:.0e} (max |diff| {e:.2e}), shape "
-                f"{tuple(got.shape)}")
+                f"within {tol:.0e}, alone and in the mixed launch (max "
+                f"|diff| {e:.2e}), shape {tuple(got.shape)}")
 
-    def suite70(fn):
-        return lambda: [fn(C, suite.thetas[j], device=dev)
-                        for j, C in enumerate(suite.graphs)]
-
-    ms = cuda_ms(suite70(ck.batched_circuit_probs), reps=20)
-    plain_ms = cuda_ms(suite70(ck.batched_circuit_probs_reference), reps=1)
+    problems = [(C, suite.thetas[j]) for j, C in enumerate(suite.graphs)]
+    ms = cuda_ms(lambda: ck.batched_circuits_probs(problems, device=dev),
+                 reps=50)
+    t0 = time.perf_counter()
+    for _ in range(50):
+        pack = ck.pack_circuits([ck._problem(C, t) for C, t in problems])
+    pack_ms = (time.perf_counter() - t0) / 50 * 1e3
+    buffers = ck.upload(pack, dev)
+    device_ms = cuda_ms(lambda: ck.launch(pack, buffers, 1.0, dev),
+                        reps=200)
+    plain_ms = cuda_ms(lambda: [ck.batched_circuit_probs_reference(
+        C, t, device=dev) for C, t in problems], reps=1)
     nbytes = flops = 0
     for j, C in enumerate(suite.graphs):
         n = max(v for c in C for v in c) + 1
@@ -624,12 +647,17 @@ def phase_circuit_kernel(dev, report):
         B = len(suite.thetas[j])
         nbytes += B * (8 * sum(1 << len(c) for c in C) + 4 * N)
         flops += B * N * (6 * len(C) + 3)
-    print(f"  suite70_gate_level_ms: kernel {ms:.3f} ms (7 launches), "
-          f"plain {plain_ms:.3f} ms")
+    print(f"  suite70_gate_level_ms: {ms:.4f} ms a call (one launch, "
+          f"host packing and one copy included); of it the host's "
+          f"checks and packing {pack_ms:.4f} ms (host clock); the kernel "
+          f"alone {device_ms:.4f} ms (CUDA events); plain {plain_ms:.3f} "
+          "ms")
     report["circuit"] = dict(
-        **bound(nbytes, flops), max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        shape="the 7 suite graphs, (10, 2^w) each, w <= 10: 7 launches "
-              "(suite70_gate_level_ms)")
+        **bound(nbytes, flops), max_abs_err=err, ms=ms,
+        device_ms=device_ms, pack_ms=pack_ms, plain_ms=plain_ms,
+        shape="the 7 suite graphs, (10, 2^w) each, w <= 10: one call, "
+              "one launch (suite70_gate_level_ms); device_ms the launch "
+              "alone, pack_ms the host's checks and packing")
     torch.cuda.empty_cache()
 
 
@@ -1911,29 +1939,101 @@ def row_library(U, q_lo, k, nq, dev):
     return (lambda: torch.matmul(W, X, out=out)), X, out, split
 
 
+def rel_diff(got, want, chunk=1 << 26) -> float:
+    """``|got - want|_2 / |want|_2`` over pairs of planes, in float64."""
+    num = den = 0.0
+    for g, w in zip(got, want):
+        g, w = g.reshape(-1), w.reshape(-1)
+        for lo in range(0, g.numel(), chunk):
+            a, b = g[lo:lo + chunk].double(), w[lo:lo + chunk].double()
+            num += float(((a - b) ** 2).sum())
+            den += float((b ** 2).sum())
+    return (num / den) ** 0.5
+
+
 def hold_library(label, library, apply) -> float:
     """Runs a library call and the kernel (``apply``, in place on the
-    same input split into planes) and requires them within 1e-5; returns
-    the library call's mean ms."""
+    same input split into planes) and requires them within 1e-5 and
+    within a relative 2-norm of 2e-6; returns the library call's mean
+    ms."""
     run, X, out, split = library
     run()
     planes_ = split(X)
     apply(*planes_)
     e = max(float((a - b).abs().max()) for a, b in zip(planes_, split(out)))
-    require(e <= 1e-5, f"{label}: torch.matmul (float32, no TF32) == kernel "
-                       f"within 1e-5 (max |diff| {e:.2e})")
+    rel = rel_diff(planes_, split(out))
+    require(e <= 1e-5 and rel <= 2e-6,
+            f"{label}: torch.matmul (float32, no TF32) == kernel within "
+            f"1e-5 (max |diff| {e:.2e}) and a relative 2-norm of 2e-6 "
+            f"({rel:.2e})")
     del planes_
     return cuda_ms(run, reps=3)
+
+
+def check_lane_float64(dev, ops, report) -> None:
+    """The dense lane kernel against the float64 product of the same
+    input at widths 8, 24 and 28, on the random M, the 7-H wall and the
+    lowered stream's densest lane op given without its factors: a
+    relative 2-norm error of at most 2e-6 and at most 4x that of one
+    float32 torch.matmul (no TF32) on the same input (one TF32 pass is
+    about 3e-4 off: runners/lane_designs.py)."""
+    from qcmrf_tpu_torch.ops import kernels as K
+    from qcmrf_tpu_torch.runners import lane_designs as LD
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    M = next(c[4][0] for c in gate_cases(GATE_PASS_WIDTH)
+             if c[1] == "lane, random complex M")
+    stream = dense_lanes([ops[densest_lane(ops)]])[0]
+    lanes = {"random complex M": M, "the 7-H wall": hadamard_wall(),
+             f"the stream's densest lane op, bare ({stream[0]}, M)":
+             stream[1]}
+    worst = {}
+    for nq in (8, GATE_PASS_WIDTH, LOWERED_WIDTH):
+        for label, lane_op in lanes.items():
+            src = unit_planes(nq, 5, dev)
+            got = K.apply_lane(src[0].clone(), src[1].clone(), lane_op)
+            rel = LD.relative_error(lane_op, src, got)
+            del got
+            X = torch.cat([p.reshape(-1, 128) for p in src], 1)
+            f32 = LD.relative_error(lane_op, src,
+                                    X @ LD.stacked_w(lane_op, dev))
+            del X, src
+            torch.cuda.empty_cache()
+            require(LD.accurate(rel, f32),
+                    f"lane at width {nq}, {label}: {rel:.3e} from the "
+                    f"float64 product, <= {LD.REL_LIMIT:.0e} and <= "
+                    f"{LD.F32_FACTOR:.0f} x float32 torch.matmul's "
+                    f"{f32:.3e}")
+            worst[f"w{nq} {label}"] = dict(rel=rel, f32_rel=f32)
+    report["lane_float64"] = worst
+
+
+def sass_counts(path, kernel: str) -> dict:
+    """Instructions of ``kernel`` (a mangled-name fragment) in the built
+    library by opcode, from ``cuobjdump -sass``."""
+    from qcmrf_tpu_torch.ops import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", str(path)], check=True,
+                          capture_output=True, text=True,
+                          timeout=300).stdout
+    sass = next(f for f in text.split("Function : ")[1:]
+                if kernel in f.splitlines()[0])
+    counts = {}
+    for t in re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", sass):
+        op = t.split()[1] if t.startswith("@") else t.split()[0]
+        counts[op] = counts.get(op, 0) + 1
+    return counts
 
 
 def phase_library_calls(dev, ops, report) -> None:
     """At the main run's width 28: the factored lane kernel against
     torch.matmul on the stream's densest lane op (the same function), the
-    dense lane kernel against torch.matmul on the random M (and timed
-    itself, on the 7-H wall: no main path launches it), and the row kernel
-    against torch.matmul on every (K, qubit) of the lowered chain's row
-    passes; each library call timed, the row call's time weighted by the
-    stream's passes."""
+    dense lane kernel against torch.matmul on the random M (both timed on
+    that M in turns; no main path launches the dense kernel), and the row
+    kernel against torch.matmul on every (K, qubit) of the lowered chain's
+    row passes; each library call timed, the row call's time weighted by
+    the stream's passes."""
     from qcmrf_tpu_torch.ops import kernels as K
 
     nq = LOWERED_WIDTH
@@ -1945,23 +2045,45 @@ def phase_library_calls(dev, ops, report) -> None:
         lambda re, im: K.apply_lane_factored(re, im, densest[2]))
     M = next(c[4][0] for c in gate_cases(GATE_PASS_WIDTH)
              if c[1] == "lane, random complex M")
-    report["lane_library_ms"] = hold_library(
-        f"lane at width {nq}, random complex M", lane_library(M, nq, dev),
-        lambda re, im: K.apply_lane(re, im, M))
+    library = lane_library(M, nq, dev)
+    hold_library(f"lane at width {nq}, random complex M", library,
+                 lambda re, im: K.apply_lane(re, im, M))
     re, im = unit_planes(nq, 9, dev)
-    wall = hadamard_wall()
-    report["lane_w28"] = dict(
-        ms=cuda_ms(lambda: K.apply_lane(re, im, wall), reps=3),
-        library_ms=report["lane_library_ms"],
-        shape=f"2^{nq} values, the 7-H wall as a dense M",
-        **bound(16 << nq, 1024 << nq))
-    del re, im
+    # in turns on the same M and the same card: library, kernel, kernel,
+    # library (the M is not unitary: four passes grow the state ~4x)
+    lib_ms, lane_ms = [], []
+    for timed in ("library", "kernel", "kernel", "library"):
+        if timed == "library":
+            lib_ms.append(cuda_ms(library[0], reps=3))
+        else:
+            lane_ms.append(cuda_ms(lambda: K.apply_lane(re, im, M), reps=3))
+    del re, im, library
     torch.cuda.empty_cache()
-    print(f"  dense lane kernel at 2^{nq} values: "
-          f"{report['lane_w28']['ms']:.4f} ms a pass; torch.matmul "
-          f"{report['lane_library_ms']:.4f} ms (random M); the densest "
-          f"lane op's torch.matmul {report['lane_factored_library_ms']:.4f} "
-          "ms")
+    ops_per_value = 1024
+    report["lane_library_ms"] = sum(lib_ms) / 2
+    report["lane_w28"] = dict(
+        ms=sum(lane_ms) / 2, ms_turns=lane_ms, library_ms_turns=lib_ms,
+        library_ms=report["lane_library_ms"],
+        shape=f"2^{nq} values, a random complex M (the library call on "
+              "the same M, in turns)",
+        bound_ms=3 * ops_per_value * (1 << nq) / H100_TF32_PER_S * 1e3,
+        bound_by="operations",
+        bound_note="3xTF32: three TF32 products a float32 one at the "
+                   "dense TF32 rate; bound_bytes_ms and bound_f32_ms "
+                   "beside it",
+        bound_bytes_ms=(16 << nq) / H100_BYTES_PER_S * 1e3,
+        bound_f32_ms=ops_per_value * (1 << nq) / H100_F32_PER_S * 1e3)
+    row = report["lane_w28"]
+    print(f"  dense lane kernel at 2^{nq} values, random M: "
+          f"{row['ms']:.4f} ms a pass ({lane_ms}); torch.matmul "
+          f"{row['library_ms']:.4f} ms ({lib_ms}); bounds "
+          f"{row['bound_ms']:.3f} (3xTF32 operations), "
+          f"{row['bound_bytes_ms']:.3f} (bytes), {row['bound_f32_ms']:.3f} "
+          f"(float32 FMA); the densest lane op's torch.matmul "
+          f"{report['lane_factored_library_ms']:.4f} ms")
+    require(max(lane_ms) < min(lib_ms),
+            f"dense lane kernel faster than torch.matmul on the same M "
+            f"at width {nq} ({max(lane_ms):.3f} < {min(lib_ms):.3f} ms)")
     rows = [op for op in ops if op[0] in ("rowq", "row2")]
     by_key = {}
     for op in rows:
@@ -2066,6 +2188,7 @@ def phase_gate_kernels(dev, report):
             max_abs_err=max(by_width.values()),
             err_shape=f"max over widths {sorted(by_width)}: {by_width}",
             **row)
+    check_lane_float64(dev, ops, report)
     phase_library_calls(dev, ops, report)
 
 
@@ -2346,8 +2469,13 @@ def gate_entry(kind, report, launches) -> dict:
     dense lane kernel, which the main run no longer launches: at width
     28 on the 7-H wall), its plain version at width 24."""
     w24 = report["gate_w24"][kind]
-    if kind in ("copy", "lane"):
-        row = report[f"{kind}_w28"]
+    if kind == "lane":
+        row = report["lane_w28"]
+        return dict(launches=launches, **{k: v for k, v in row.items()
+                                          if not k.endswith("turns")},
+                    sass=report["lane_sass"], **w24)
+    if kind == "copy":
+        row = report["copy_w28"]
         return dict(launches=launches, ms=row["ms"], bound_ms=row["bound_ms"],
                     bound_by=row["bound_by"], library_ms=row["library_ms"],
                     shape=row["shape"], **w24)
@@ -2470,6 +2598,16 @@ def main() -> int:
     print(f"[build] {path.relative_to(root)} in {build_s:.1f} s "
           f"({len(_build.sources())} sources in parallel)")
     print_ptxas(path)
+    report = {}
+    lane_sass = sass_counts(path, "lane_kernel")
+    report["lane_sass"] = dict(
+        instructions=sum(lane_sass.values()),
+        tensor_core=sum(v for k, v in lane_sass.items()
+                        if k.startswith(("HGMMA", "HMMA"))),
+        by_opcode=dict(sorted(lane_sass.items(), key=lambda kv: -kv[1])[:8]))
+    print(f"  SASS lane_kernel: {report['lane_sass']['instructions']} "
+          f"instructions, {report['lane_sass']['tensor_core']} on the tensor "
+          f"cores (HGMMA); by opcode {report['lane_sass']['by_opcode']}")
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2479,7 +2617,6 @@ def main() -> int:
           f"CUDA {torch.version.cuda}")
     print(smi)
 
-    report = {}
     phase_sampler(dev, report, path)
     phase_logpot(dev, report)
     phase_lnz(dev, report)
@@ -2488,7 +2625,7 @@ def main() -> int:
         "sampler": None, "logpot": None, "lse": None})
     phase_circuit_kernel(dev, report)
     sv = phase_main_path(dev, "statevector", {
-        "circuit": 7, "logpot": None, "lse": None})
+        "circuit": 1, "logpot": None, "lse": None})
     # the table kernel's paths: both run engines, and below the train
     # CLI's own data draw and sample_exact's K27 table (phase_train)
     report["logpot"]["launches_by_path"] = {
@@ -2543,6 +2680,7 @@ def main() -> int:
                      "pass_w32", "infer_k27_batch_s",
                      "infer_k27_query_s", "gate_w24", "lowered", "rates",
                      "copy_w28", "lane_w28", "lane_library_ms",
+                     "lane_float64", "lane_sass",
                      "lane_factored_library_ms", "row_gate_library_ms",
                      "row_library_by_qubit", "train", "fma_peak")}), f,
                   indent=1, default=str)

@@ -321,40 +321,71 @@ hdh_multi_uniform_kernel(const unsigned char* __restrict__ table,
 }
 
 // ---------------------------------------------------------------------------
-// 3. The whole QCMRF circuit, one block per circuit
+// 3. The whole QCMRF circuit, one block per circuit, any mix of structures
 // ---------------------------------------------------------------------------
 // Replaces qcmrf_tpu/ops/circuit_kernel.py::_build_circuit_kernel
-// (_circuit_call). Block b holds circuit b's state: the closed-form
-// H-wall state, then per clique k the fused H·D·H on its ancilla n+1+k as
-// e^{-i nu X} with nu(x) = 2 gamma of x's clique state (one butterfly pass,
-// the (cos, sin) pair read from the host-made trig row), then |psi|^2.
-// State in dynamic shared memory up to width 14 (2^14 x 8 bytes = 128 KB),
-// in a global scratch of the wrapper's at widths 15 and 16. Shared memory
-// is kept where it fits: with the state in global scratch at every width,
-// the suite's 7 launches took 16-22% longer on an H100 (chip_smoke.py's
-// suite70_gate_level_ms).
+// (_circuit_call). Block b runs circuit b of the call: its descriptor
+// names its structure's table, its theta row, its output and, at widths 15
+// and 16, its state in a global scratch of the wrapper's (else the state
+// lives in dynamic shared memory: 2^14 x 8 bytes = 128 KB at width 14).
+// The block first turns its theta row into rotation pairs in shared
+// memory: gamma = arccos(exp(beta theta / 2)) / 2 puts 2 gamma in
+// [0, pi/2], so (cos 2 gamma, sin 2 gamma) = (exp(beta theta / 2),
+// sqrt(-expm1(beta theta))), taken in float64 and rounded to float32 once
+// (no arccos, cos or sin, and no trig table from the host). Then the
+// closed-form H-wall state, per clique k the fused H.D.H on its ancilla
+// n+1+k as e^{-i nu X} with nu(x) = 2 gamma of x's clique state (one
+// butterfly pass), then |psi|^2. One launch serves every circuit of a
+// call, so the 70-circuit suite (7 structures) is one launch: the host
+// packs one buffer (descriptors, tables, thetas) for one copy.
 // Bound on this card: at the suite's widths (<= 10) the launch itself; the
 // work is K passes over 2^w values per block, ~6 float operations per
 // value and pass, and device memory sees only the 4-byte outputs.
+struct CircuitDesc {
+  int64_t theta;      // its first theta (float64 element)
+  int64_t out;        // its first output float
+  int64_t scratch;    // its state's first scratch float; -1: shared memory
+  int32_t structure;  // first word of its structure's table
+  int32_t pad;
+};
+static_assert(sizeof(CircuitDesc) == 32, "circuit descriptor is 32 bytes");
+
+// A structure's table (int32 words): n, K, cmax, width, d (thetas a
+// row), the float32 bits of 2^(-n/2), the K clique sizes, then (K, cmax)
+// qubits, qubit (n - 1) - v of clique slot v.
+constexpr int kStructureHeader = 6;
+
 __global__ void __launch_bounds__(kCircuitThreads)
-circuit_kernel(const float* __restrict__ trig, const int* __restrict__ qubits,
-               const int* __restrict__ sizes, int n, int K, int cmax, int d,
-               int width, float amp, float* __restrict__ scratch,
-               float* __restrict__ out) {
+circuit_kernel(const CircuitDesc* __restrict__ circuits,
+               const int* __restrict__ structures,
+               const double* __restrict__ thetas, double beta,
+               float* __restrict__ scratch, float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int b = blockIdx.x;
+  const CircuitDesc cd = circuits[blockIdx.x];
+  const int* tab = structures + cd.structure;
+  const int n = tab[0], K = tab[1], cmax = tab[2], width = tab[3];
+  const int d = tab[4];
+  const float amp = __int_as_float(tab[5]);
+  const int* sizes = tab + kStructureHeader;
+  const int* qubits = sizes + K;
   const int64_t N = int64_t(1) << width;
-  float* st_re = scratch == nullptr
-                     ? reinterpret_cast<float*>(smem)
-                     : scratch + static_cast<int64_t>(b) * 2 * N;
+  const bool in_shared = cd.scratch < 0;
+  float* st_re = in_shared ? reinterpret_cast<float*>(smem)
+                           : scratch + cd.scratch;
   float* st_im = st_re + N;
+  float2* pairs = reinterpret_cast<float2*>(smem + (in_shared ? 8 * N : 0));
+  const double* th = thetas + cd.theta;
+  for (int i = threadIdx.x; i < d; i += blockDim.x) {
+    const double bt = beta * th[i];
+    pairs[i] = make_float2(__double2float_rn(exp(0.5 * bt)),
+                           __double2float_rn(sqrt(-expm1(bt))));
+  }
   const int64_t nonvar = (N - 1) ^ ((int64_t(1) << n) - 1);
   for (int64_t x = threadIdx.x; x < N; x += blockDim.x) {
     st_re[x] = (x & nonvar) == 0 ? amp : 0.0f;
     st_im[x] = 0.0f;
   }
   __syncthreads();
-  const float* row = trig + static_cast<int64_t>(b) * d * 2;
   int goff = 0;
   for (int k = 0; k < K; ++k) {
     const int anc = n + 1 + k;
@@ -368,10 +399,9 @@ circuit_kernel(const float* __restrict__ trig, const int* __restrict__ qubits,
       for (int i = 0; i < m; ++i) {
         y |= static_cast<int>((x0 >> q[i]) & 1) << (m - 1 - i);
       }
-      const float c = row[2 * (goff + y)];
-      const float s = row[2 * (goff + y) + 1];
+      const float2 cs = pairs[goff + y];
       float r0 = st_re[x0], i0 = st_im[x0], r1 = st_re[x1], i1 = st_im[x1];
-      rx_pair(c, s, r0, i0, r1, i1);
+      rx_pair(cs.x, cs.y, r0, i0, r1, i1);
       st_re[x0] = r0;
       st_im[x0] = i0;
       st_re[x1] = r1;
@@ -380,7 +410,7 @@ circuit_kernel(const float* __restrict__ trig, const int* __restrict__ qubits,
     __syncthreads();
     goff += 1 << m;
   }
-  float* o = out + static_cast<int64_t>(b) * N;
+  float* o = out + cd.out;
   for (int64_t x = threadIdx.x; x < N; x += blockDim.x) {
     o[x] = st_re[x] * st_re[x] + st_im[x] * st_im[x];
   }
@@ -472,16 +502,16 @@ int qcmrf_hdh_multi_uniform(const unsigned char* table, int n_terms, int k,
   return static_cast<int>(err);
 }
 
-int qcmrf_circuit(const float* trig, const int* qubits, const int* sizes,
-                  int B, int n, int K, int cmax, int d, int width, float amp,
-                  float* scratch, float* out, void* stream) {
-  const size_t bytes =
-      scratch == nullptr ? (sizeof(float) * 2) << width : 0;
-  cudaError_t err = allow_shared(circuit_kernel, bytes);
+int qcmrf_circuit(const void* circuits, const int* structures,
+                  const double* thetas, int num_circuits, double beta,
+                  int shared_bytes, float* scratch, float* out,
+                  void* stream) {
+  cudaError_t err = allow_shared(circuit_kernel, shared_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  circuit_kernel<<<B, kCircuitThreads, bytes,
+  circuit_kernel<<<num_circuits, kCircuitThreads, shared_bytes,
                    static_cast<cudaStream_t>(stream)>>>(
-      trig, qubits, sizes, n, K, cmax, d, width, amp, scratch, out);
+      static_cast<const CircuitDesc*>(circuits), structures, thetas, beta,
+      scratch, out);
   return static_cast<int>(cudaGetLastError());
 }
 

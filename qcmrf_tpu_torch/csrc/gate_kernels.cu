@@ -197,105 +197,289 @@ row_gate_kernel(GateMatrix u, float* __restrict__ re, float* __restrict__ im,
 // 3. Lane pass: out = state . M^T on every 128-value row, M complex 128x128
 // ---------------------------------------------------------------------------
 // Replaces qcmrf_tpu/ops/kernels.py::_build_matmul_pair_kernel
-// (_lane_matmul_call): composed 1q gates on qubits 0-6. Full float32 FMAs,
-// no tensor cores and no TF32 (the TPU kernel's bf16-pass emulation is not
-// carried over).
-// Bound on this card: float operations, 128 complex multiply-adds (1024
-// float operations) per value against 16 bytes moved, so the pass is
-// compute-bound at 67 TFLOP/s. Design: one block per SM (about 192 KB of
-// shared memory) holds M^T as two float32 planes (m[l][j] = M[j][l], 128 KB)
-// for all its tiles, and a tile of kLaneRows rows of the state. Warp w owns
-// kWarpRows rows of the tile; lane t owns columns 4t .. 4t+3. Per step of 4
-// l values a thread reads 8 float4 of M^T (consecutive lanes on consecutive
-// 16-byte words: no bank conflict) and, per row, 2 float4 of the state (one
-// address across the warp: a broadcast), then issues 4 * 4 * kWarpRows
-// complex multiply-adds into 2 * 4 * kWarpRows register accumulators. The
-// block reads its whole tile before any thread writes it back, so the
-// update is in place.
-constexpr int kWarpRows = 8;
-constexpr int kLaneRows = (kThreads / 32) * kWarpRows;  // 64
-constexpr int kLaneShared = (2 * 128 * 128 + 2 * kLaneRows * 128) * 4;
+// (_lane_matmul_call) for an M given without factors: composed 1q gates on
+// qubits 0-6. The TPU kernel's bf16-pass emulation is not carried over.
+// Bound on this card: 128 complex multiply-adds (1024 float operations) a
+// value against 16 bytes moved. On the CUDA cores that is the float32 rate
+// (67 TFLOP/s: 4.10 ms at width 28, where an FMA design of this kernel
+// took 7.7 ms and one float32 torch.matmul 5.7); on the tensor cores it is
+// the dense TF32 rate (495 TFLOP/s), three products a value for float32
+// accuracy: 1.67 ms, above the 1.28 ms of bytes.
+// Design (3xTF32 on wgmma): each float32 operand x is split into
+// hi = tf32_rna(x) and lo = tf32_rna(x - hi), and every product is taken
+// as lo_a hi_b + hi_a lo_b + hi_a hi_b by wgmma.mma_async m64n64k8 TF32
+// with float32 accumulators (lo_a lo_b, 2^-22 relative, is dropped). The
+// tensor cores add with truncation: one sum over all 128 l was 1.8e-6
+// from the float64 product on the card, 6x float32's error, so each
+// kLaneFold k-steps (of 8 l) accumulate from zero, smaller terms first,
+// and are added to the running sums by rounded float adds (2.2e-7 at
+// fold 2, float32 torch.matmul 2.9e-7; fold 4 was 3% faster at 4.3e-7,
+// 3.5x float32's error at width 8, too near the card's 4x check). M is split
+// once, when a block starts, into hi and lo TF32 planes in shared memory
+// (wgmma reads B there): 256 KB for all of M, so a cluster of two CTAs
+// splits the output columns, CTA r holding M's rows j = 64 r .. 64 r + 63
+// of both planes (128 KB, K-major without swizzle: core matrices of 8
+// rows x 4 values, 32 along l a row group). A k-step is twelve m64n64k8
+// products from A registers (the state's fragments, read from shared
+// memory and split there). Two warpgroups a CTA take 64 rows each of a
+// 128-row tile, so one runs its products while the other drains and adds
+// its partial sums. The tile passes through a ring of two chunk slots (32
+// l of both planes, rows padded to kLaneStride floats so that the
+// fragments' 8-byte loads hit 32 distinct banks), chunk k + 1 fetched by
+// cp.async while chunk k is multiplied. Within a k-step the k slots hold
+// l in the order 0 2 4 6 1 3 5 7 (M's layout is written so), so the
+// thread of fragment coordinates (g, t) reads l = 2t and 2t + 1 as one
+// float2. out_re = Xr Mr^T - Xi Mi^T takes Xi's fragments with the sign
+// bit flipped. Both CTAs of a cluster read the same tile and meet at a
+// cluster barrier before either writes its half back, so the pass is in
+// place. Designs timed beside it on the card (mma.sync with M split as
+// each fragment is read, one warpgroup a CTA, ...): runners/lane_designs.py.
+constexpr int kLaneThreads = 256;  // two warpgroups
+constexpr int kLaneRows = 128;     // a tile: 64 rows a warpgroup
+constexpr int kLaneStride = 40;    // a slot row: 32 l and padding
+constexpr int kLaneSlot = 2 * kLaneRows * kLaneStride;  // floats
+constexpr int kLaneShared = 2 * 128 * 128 * 4 + 2 * kLaneSlot * 4;
+constexpr int kLaneFold = 2;
 
-__global__ void __launch_bounds__(kThreads, 1)
-lane_kernel(const float* __restrict__ mt, float* __restrict__ re,
+// cvt.rna.tf32.f32 for finite x (ptxas expands the instruction with a
+// NaN / Inf test and a select): half a TF32 ulp added to the magnitude,
+// the 13 low bits cleared.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo to 2^-22 |x|, both TF32
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// The split halves of one fragment: A's four registers or B's two.
+template <int N>
+struct Split {
+  uint32_t hi[N], lo[N];
+};
+
+__device__ __forceinline__ float2 load2(const float* p, int i) {
+  return *reinterpret_cast<const float2*>(p + i);
+}
+
+// 16 bytes global -> shared, without registers; zeros when bytes is 0
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// d (+)= a . B: a the state's (64 x 8) A fragment in registers, B (8 x 64)
+// K-major in shared memory at desc; scale_d 0 starts from zero (d's
+// values are then ignored)
+__device__ __forceinline__ void wgmma_n64(float (&d)[32],
+                                          const uint32_t (&a)[4],
+                                          uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(scale_d));
+}
+
+// wgmma's descriptor of a K-major tile without swizzle at p: core
+// matrices 128 bytes apart along l (the leading byte offset) and 4096
+// bytes apart from one 8-row group to the next (the stride byte offset).
+__device__ __forceinline__ uint64_t smem_desc(const void* p) {
+  constexpr uint64_t kLbo = 128, kSbo = 32 * 128;
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return uint64_t((a & 0x3FFFF) >> 4) | ((kLbo >> 4) << 16) |
+         ((kSbo >> 4) << 32);
+}
+
+// pins the accumulators' registers across the asynchronous products (no
+// instruction: the compiler may not move them while a wgmma is in flight)
+__device__ __forceinline__ void fence_operands(float (&d)[32]) {
+#pragma unroll
+  for (int q = 0; q < 32; ++q) asm volatile("" : "+f"(d[q])::"memory");
+}
+
+// One k-step of 3xTF32 products into (re, im) as N = 64 wgmmas, the
+// small terms first: re += Xr Mr - Xi Mi, im += Xr Mi + Xi Mr; go = 0
+// starts the sums from zero.
+__device__ __forceinline__ void wgmma_kstep(float (&re)[32], float (&im)[32],
+                                            const Split<4>& ar,
+                                            const Split<4>& ai,
+                                            const Split<4>& an,
+                                            uint64_t dh, uint64_t dl,
+                                            int go) {
+  constexpr uint64_t kMi = (64 / 8) * 32 * 128 / 16;  // Mi's first row
+  wgmma_n64(re, ar.lo, dh, go);
+  wgmma_n64(re, ar.hi, dl, 1);
+  wgmma_n64(im, ar.lo, dh + kMi, go);
+  wgmma_n64(im, ar.hi, dl + kMi, 1);
+  wgmma_n64(re, an.lo, dh + kMi, 1);
+  wgmma_n64(re, an.hi, dl + kMi, 1);
+  wgmma_n64(im, ai.lo, dh, 1);
+  wgmma_n64(im, ai.hi, dl, 1);
+  wgmma_n64(re, ar.hi, dh, 1);
+  wgmma_n64(im, ar.hi, dh + kMi, 1);
+  wgmma_n64(re, an.hi, dh + kMi, 1);
+  wgmma_n64(im, ai.hi, dh, 1);
+}
+
+// M's rows j0 .. j0 + 63 of both planes, split into hi and lo, in the
+// wgmma layout; storage row R: R < 64 Mr[j0 + R], else Mi[j0 + R - 64].
+__device__ __forceinline__ void lane_store_b(const float* __restrict__ m,
+                                             int j0, uint32_t* b_hi,
+                                             uint32_t* b_lo) {
+  for (int i = threadIdx.x; i < 128 * 128; i += blockDim.x) {
+    const int R = i >> 7, l = i & 127;
+    const float v = m[(R >> 6) * 128 * 128 + (j0 + (R & 63)) * 128 + l];
+    const int p = l & 7;
+    const int kappa = (p & 1) ? 4 + (p >> 1) : (p >> 1);
+    const int off = ((R >> 3) * 32 + 2 * (l >> 3) + (kappa >> 2)) * 32 +
+                    (R & 7) * 4 + (kappa & 3);
+    uint32_t hi, lo;
+    split_tf32(v, hi, lo);
+    b_hi[off] = hi;
+    b_lo[off] = lo;
+  }
+  // the generic proxy's stores, seen by wgmma's async proxy
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// chunk c of the tile at row0 into a slot by cp.async; one commit group
+__device__ __forceinline__ void lane_fetch(const float* re, const float* im,
+                                           int64_t row0, int64_t rows, int c,
+                                           float* slot) {
+  for (int i = threadIdx.x; i < 2 * kLaneRows * 8; i += blockDim.x) {
+    const int r = (i >> 3) % kLaneRows, q = i & 7;
+    const bool second = i >= kLaneRows * 8;
+    const int64_t row = row0 + r;
+    const float* plane = second ? im : re;
+    cp_async16(slot + (second ? kLaneRows * kLaneStride : 0) +
+                   r * kLaneStride + 4 * q,
+               row < rows ? plane + uint64_t(row) * 128 + 32 * c + 4 * q
+                          : plane,
+               row < rows ? 16 : 0);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kFold>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kLaneThreads, 1)
+lane_kernel(const float* __restrict__ m, float* __restrict__ re,
             float* __restrict__ im, int64_t rows) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* m_re = reinterpret_cast<float*>(smem_raw);
-  float* m_im = m_re + 128 * 128;
-  float* v_re = m_im + 128 * 128;
-  float* v_im = v_re + kLaneRows * 128;
-  {
-    const float4* src = reinterpret_cast<const float4*>(mt);
-    float4* dst = reinterpret_cast<float4*>(m_re);
-    for (int i = threadIdx.x; i < 2 * 128 * 128 / 4; i += blockDim.x) {
-      dst[i] = src[i];
-    }
-  }
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
+  uint32_t* b_hi = reinterpret_cast<uint32_t*>(smem_raw);
+  uint32_t* b_lo = b_hi + 128 * 128;
+  float* slots = reinterpret_cast<float*>(b_lo + 128 * 128);
+  const int j0 = 64 * (blockIdx.x & 1);
+  const int64_t cluster = blockIdx.x >> 1, clusters = gridDim.x >> 1;
   const int64_t num_tiles = (rows + kLaneRows - 1) / kLaneRows;
-  for (int64_t tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
-    const int64_t row0 = tile * kLaneRows;
-    __syncthreads();  // M is loaded; the last tile's reads are done
-    for (int i = threadIdx.x; i < kLaneRows * 32; i += blockDim.x) {
-      const int64_t row = row0 + i / 32;
-      float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
-      if (row < rows) {
-        a = load4(re, uint64_t(row) * 128 + (i % 32) * 4);
-        b = load4(im, uint64_t(row) * 128 + (i % 32) * 4);
-      }
-      reinterpret_cast<float4*>(v_re)[i] = a;
-      reinterpret_cast<float4*>(v_im)[i] = b;
+  // chunk k of this CTA's sequence: tile cluster + (k / 4) clusters,
+  // chunk k % 4, in slot k % 2
+  const int64_t my_tiles =
+      cluster < num_tiles ? (num_tiles - 1 - cluster) / clusters + 1 : 0;
+  const int64_t chunks = 4 * my_tiles;
+  if (chunks > 0) lane_fetch(re, im, cluster * kLaneRows, rows, 0, slots);
+  lane_store_b(m, j0, b_hi, b_lo);
+  const uint64_t d_hi = smem_desc(b_hi);
+  const uint64_t d_lo = smem_desc(b_lo);
+  const int wg = threadIdx.x >> 7;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = 64 * wg + 16 * warp + g;
+  float acc_re[32] = {}, acc_im[32] = {};
+  float part_re[32] = {}, part_im[32] = {};
+  for (int64_t k = 0; k < chunks; ++k) {
+    const int64_t tile = cluster + (k >> 2) * clusters;
+    const int c = static_cast<int>(k & 3);
+    if (k + 1 < chunks) {
+      const int64_t t1 = cluster + ((k + 1) >> 2) * clusters;
+      lane_fetch(re, im, t1 * kLaneRows, rows, static_cast<int>((k + 1) & 3),
+                 slots + ((k + 1) & 1) * kLaneSlot);
+    } else {
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
     }
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
     __syncthreads();
-    float acc_re[kWarpRows][4], acc_im[kWarpRows][4];
+    const float* x_re = slots + (k & 1) * kLaneSlot;
+    const float* x_im = x_re + kLaneRows * kLaneStride;
 #pragma unroll
-    for (int r = 0; r < kWarpRows; ++r) {
+    for (int f = 0; f < 4 / kFold; ++f) {
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        acc_re[r][c] = 0.0f;
-        acc_im[r][c] = 0.0f;
+      for (int s = 0; s < kFold; ++s) {
+        const int ks = 4 * c + kFold * f + s;
+        const int l = 8 * (kFold * f + s) + 2 * t;
+        const float2 r0 = load2(x_re, wr * kLaneStride + l);
+        const float2 r1 = load2(x_re, (wr + 8) * kLaneStride + l);
+        const float2 i0 = load2(x_im, wr * kLaneStride + l);
+        const float2 i1 = load2(x_im, (wr + 8) * kLaneStride + l);
+        const float xr[4] = {r0.x, r1.x, r0.y, r1.y};
+        const float xi[4] = {i0.x, i1.x, i0.y, i1.y};
+        Split<4> ar, ai, an;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          split_tf32(xr[e], ar.hi[e], ar.lo[e]);
+          split_tf32(xi[e], ai.hi[e], ai.lo[e]);
+          an.hi[e] = ai.hi[e] ^ 0x80000000u;
+          an.lo[e] = ai.lo[e] ^ 0x80000000u;
+        }
+        fence_operands(part_re);
+        fence_operands(part_im);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+        wgmma_kstep(part_re, part_im, ar, ai, an, d_hi + 16 * ks,
+                    d_lo + 16 * ks, s == 0 ? 0 : 1);
+        fence_operands(part_re);
+        fence_operands(part_im);
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n"
+                   "wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      fence_operands(part_re);
+      fence_operands(part_im);
+#pragma unroll
+      for (int q = 0; q < 32; ++q) {
+        acc_re[q] += part_re[q];
+        acc_im[q] += part_im[q];
       }
     }
-    const float* wr = v_re + warp * kWarpRows * 128;
-    const float* wi = v_im + warp * kWarpRows * 128;
-#pragma unroll 1
-    for (int l = 0; l < 128; l += 4) {
-      float4 mr[4], mi[4];
+    __syncthreads();  // every warp is done with this slot
+    if (c == 3) {
+      // both CTAs hold the tile: only now may either write its half back
+      asm volatile("barrier.cluster.arrive.release.aligned;\n"
+                   "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+      const int64_t row0 = tile * kLaneRows;
 #pragma unroll
-      for (int d = 0; d < 4; ++d) {
-        mr[d] = load4(m_re, (l + d) * 128 + 4 * lane);
-        mi[d] = load4(m_im, (l + d) * 128 + 4 * lane);
-      }
+      for (int h = 0; h < 2; ++h) {
+        const int64_t row = row0 + wr + 8 * h;
+        if (row < rows) {
 #pragma unroll
-      for (int r = 0; r < kWarpRows; ++r) {
-        float4 xr = load4(wr, r * 128 + l);
-        float4 xi = load4(wi, r * 128 + l);
-#pragma unroll
-        for (int d = 0; d < 4; ++d) {
-          const float a = lane4(xr, d), b = lane4(xi, d);
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const float p = lane4(mr[d], c), q = lane4(mi[d], c);
-            acc_re[r][c] = fmaf(p, a, acc_re[r][c]);
-            acc_re[r][c] = fmaf(-q, b, acc_re[r][c]);
-            acc_im[r][c] = fmaf(p, b, acc_im[r][c]);
-            acc_im[r][c] = fmaf(q, a, acc_im[r][c]);
+          for (int i = 0; i < 8; ++i) {
+            const uint64_t o = uint64_t(row) * 128 + j0 + 8 * i + 2 * t;
+            *reinterpret_cast<float2*>(re + o) = make_float2(
+                acc_re[4 * i + 2 * h], acc_re[4 * i + 2 * h + 1]);
+            *reinterpret_cast<float2*>(im + o) = make_float2(
+                acc_im[4 * i + 2 * h], acc_im[4 * i + 2 * h + 1]);
           }
         }
       }
-    }
 #pragma unroll
-    for (int r = 0; r < kWarpRows; ++r) {
-      const int64_t row = row0 + warp * kWarpRows + r;
-      if (row < rows) {
-        store4(re, uint64_t(row) * 128 + 4 * lane,
-               make_float4(acc_re[r][0], acc_re[r][1], acc_re[r][2],
-                           acc_re[r][3]));
-        store4(im, uint64_t(row) * 128 + 4 * lane,
-               make_float4(acc_im[r][0], acc_im[r][1], acc_im[r][2],
-                           acc_im[r][3]));
-      }
+      for (int q = 0; q < 32; ++q) acc_re[q] = acc_im[q] = 0.0f;
     }
   }
 }
@@ -500,6 +684,24 @@ cudaError_t launch_row(GateMatrix u, float* re, float* im, int64_t num_quads,
   return cudaGetLastError();
 }
 
+// One cluster of two CTAs a pair of SMs, at most one a tile; each CTA
+// holds its half of M for all its tiles.
+template <int kFold>
+cudaError_t launch_lane(const float* m, float* re, float* im, int64_t rows,
+                        cudaStream_t stream) {
+  cudaError_t err = allow_shared(lane_kernel<kFold>, kLaneShared);
+  if (err != cudaSuccess) return err;
+  const int64_t tiles = (rows + kLaneRows - 1) / kLaneRows;
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess) {
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  const int64_t clusters = tiles < sms / 2 ? tiles : sms / 2;
+  lane_kernel<kFold><<<static_cast<unsigned>(2 * clusters), kLaneThreads,
+                       kLaneShared, stream>>>(m, re, im, rows);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -527,19 +729,10 @@ int qcmrf_row_gate(GateMatrix u, int k, float* re, float* im,
   return static_cast<int>(err);
 }
 
-int qcmrf_lane(const float* mt, float* re, float* im, int64_t rows,
+int qcmrf_lane(const float* m, float* re, float* im, int64_t rows,
                void* stream) {
-  cudaError_t err = allow_shared(lane_kernel, kLaneShared);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t tiles = (rows + kLaneRows - 1) / kLaneRows;
-  int dev = 0, sms = 132;
-  if (cudaGetDevice(&dev) == cudaSuccess) {
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  const unsigned blocks = static_cast<unsigned>(tiles < sms ? tiles : sms);
-  lane_kernel<<<blocks, kThreads, kLaneShared,
-                static_cast<cudaStream_t>(stream)>>>(mt, re, im, rows);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_lane<kLaneFold>(
+      m, re, im, rows, static_cast<cudaStream_t>(stream)));
 }
 
 int qcmrf_lane_factored(LaneFactors f, int mask, float* re, float* im,

@@ -37,9 +37,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: entry points opt in past the default 48 KB
 SHARED_BYTES_LIMIT = 227 * 1024
 
-_P, _I, _I64, _U32, _U64, _F = (ctypes.c_void_p, ctypes.c_int,
-                                ctypes.c_int64, ctypes.c_uint32,
-                                ctypes.c_uint64, ctypes.c_float)
+_P, _I, _I64, _U32, _U64, _F, _D = (ctypes.c_void_p, ctypes.c_int,
+                                    ctypes.c_int64, ctypes.c_uint32,
+                                    ctypes.c_uint64, ctypes.c_float,
+                                    ctypes.c_double)
 
 
 class GateMatrix(ctypes.Structure):
@@ -95,14 +96,14 @@ _SIGNATURES = {
     "qcmrf_hdh_multi": (_P, _I, _I, _P, _P, _I64, _I, _P),
     # table, n_terms, k, re, im, num_anchors, a_lo, comp, amp, stream
     "qcmrf_hdh_multi_uniform": (_P, _I, _I, _P, _P, _I64, _I, _U64, _F, _P),
-    # trig, qubits, sizes, B, n, K, cmax, d, width, amp, scratch, out,
-    # stream
-    "qcmrf_circuit": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P),
+    # circuit descriptors, structure tables, thetas, circuits, beta,
+    # shared bytes, scratch, out, stream
+    "qcmrf_circuit": (_P, _P, _P, _I, _D, _I, _P, _P, _P),
     # table, n_terms, re, im, num_groups, stream
     "qcmrf_diag": (_P, _I, _P, _P, _I64, _P),
     # matrix, k, re, im, num_quads, q_lo, stream
     "qcmrf_row_gate": (GateMatrix, _I, _P, _P, _I64, _I, _P),
-    # m^T planes, re, im, rows, stream
+    # M planes (row-major), re, im, rows, stream
     "qcmrf_lane": (_P, _P, _P, _I64, _P),
     # factors, mask of the non-identity factors, re, im, rows, stream
     "qcmrf_lane_factored": (LaneFactors, _I, _P, _P, _I64, _P),

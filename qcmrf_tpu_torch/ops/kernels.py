@@ -64,7 +64,7 @@ of at least 7 qubits:
   (``lane_factored_kernel``);
 * :func:`apply_lane`: ``out = state · Mᵀ`` per 128-value row for a complex
   128x128 ``M`` given without factors (``lane_kernel``, the dense
-  product);
+  product on the tensor cores at float32 accuracy);
 * :func:`copy_planes`: both planes copied, the bytes of a gate pass
   (``copy_kernel``), the rate the passes are held against;
 * :func:`fma_chain_max`: chained float32 FMAs (``fma_peak_kernel``), the
@@ -1446,14 +1446,14 @@ def apply_lane_reference(re, im, M):
 def apply_lane(re, im, M):
     """``out = state · Mᵀ`` on every 128-value row (qubits 0-6), M a
     complex 128x128 matrix given without factors, **in place**; returns
-    the planes. On the card: ``lane_kernel``, the dense product in float32
-    FMAs."""
+    the planes. On the card: ``lane_kernel``, the dense product on the
+    tensor cores in three TF32 products a term (float32 accuracy)."""
     nq, M = _lane_args(re, im, M)
     if re.device.type == "cpu":
         return apply_lane_reference(re, im, M)
-    mt = _device_bytes(np.ascontiguousarray(M.T.real).tobytes()
-                       + np.ascontiguousarray(M.T.imag).tobytes(), re.device)
-    _build.launch("qcmrf_lane", re.device, _build.ptr(mt),
+    m = _device_bytes(np.ascontiguousarray(M.real).tobytes()
+                      + np.ascontiguousarray(M.imag).tobytes(), re.device)
+    _build.launch("qcmrf_lane", re.device, _build.ptr(m),
                   *_launch_ptrs(re, im), (1 << nq) >> 7)
     LAUNCHES["lane"] += 1
     return re, im

@@ -5,6 +5,7 @@ one session on one card (run the variants as A, B, B, A).
     python3 qcmrf_tpu_torch/runners/host_ab.py sandwich24 [--root DIR]
     python3 qcmrf_tpu_torch/runners/host_ab.py lowered28 [--sync-upload]
     python3 qcmrf_tpu_torch/runners/host_ab.py streaming27 [--root DIR]
+    python3 qcmrf_tpu_torch/runners/host_ab.py lane_circuit [--root DIR]
 
 ``sandwich24`` runs ``chip_smoke.py``'s width-24 sandwich cases (k = 1, 2
 and 7, and the write-only k = 7 form: each held against its plain version,
@@ -24,8 +25,15 @@ moments for a given lnZ (379 monomials), ``sample_exact``'s 20 000 draws
 on K27, the outcome sampler at bench.py's operating point (the n=20 grid,
 2^27 shots, parts mode; the tree's own keep-probability table), and the
 K27 ``infer`` batch of ``chip_smoke.py`` through
-``infer_cli.main`` (host clock, the second of two runs). Prints one JSON
-line. Needs a CUDA device; the script file is run by its path, not with
+``infer_cli.main`` (host clock, the second of two runs). ``lane_circuit``
+times, with the package under ``DIR``, the dense lane pass at width 28 on
+``chip_smoke.py``'s random M (CUDA events, 5 passes after a warm-up), the
+suite's 70 gate-level circuits (one ``batched_circuits_probs`` call
+where the package has it, else one ``batched_circuit_probs`` call a
+graph; CUDA events around the calls, so the host's share counts) and
+``run_suite(engine="statevector")`` at 10 000 shots (host clock, 10 runs
+after two warm-ups: the two middle values and every run). Prints one
+JSON line. Needs a CUDA device; the script file is run by its path, not with
 ``-m``.
 """
 
@@ -132,10 +140,48 @@ def _streaming27(smoke, K, dev) -> dict:
     return ms
 
 
+def _lane_circuit(smoke, K, dev) -> dict:
+    """Milliseconds of the dense lane pass at width 28 and of the suite's
+    gate-level circuits (see the module docstring)."""
+    import torch
+
+    from qcmrf_tpu_torch.models.suite import generate_suite
+    from qcmrf_tpu_torch.ops import circuit_kernel as ck
+    from qcmrf_tpu_torch.runners import run_experiment
+
+    M = next(c[4][0] for c in smoke.gate_cases(smoke.GATE_PASS_WIDTH)
+             if c[1] == "lane, random complex M")
+    re, im = smoke.unit_planes(smoke.LOWERED_WIDTH, 9, dev)
+    ms = {"lane_w28": smoke.cuda_ms(lambda: K.apply_lane(re, im, M),
+                                    reps=5)}
+    del re, im
+    torch.cuda.empty_cache()
+    suite = generate_suite(0.1)
+    problems = [(C, suite.thetas[j]) for j, C in enumerate(suite.graphs)]
+    if hasattr(ck, "batched_circuits_probs"):
+        ms["suite70_gate_level"] = smoke.cuda_ms(
+            lambda: ck.batched_circuits_probs(problems, device=dev), reps=50)
+    else:
+        ms["suite70_gate_level"] = smoke.cuda_ms(
+            lambda: [ck.batched_circuit_probs(C, t, device=dev)
+                     for C, t in problems], reps=50)
+    runs = []
+    for _ in range(12):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_experiment.run_suite(suite, shots=10000, engine="statevector",
+                                 device=dev)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3)
+    ms["run_suite_statevector"] = sorted(runs[2:])[4:6]
+    ms["run_suite_statevector_runs"] = runs[2:]
+    return ms
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("case", choices=("sandwich24", "lowered28",
-                                     "streaming27"))
+                                     "streaming27", "lane_circuit"))
     ap.add_argument("--root", type=Path, default=CHECKOUT,
                     help="tree whose qcmrf_tpu_torch package is timed")
     ap.add_argument("--sync-upload", action="store_true")
@@ -161,6 +207,8 @@ def main(argv=None) -> int:
         out["ms"] = {k: v["ms"] for k, v in report["sandwich_w24"].items()}
     elif args.case == "streaming27":
         out["ms"] = _streaming27(smoke, K, dev)
+    elif args.case == "lane_circuit":
+        out["ms"] = _lane_circuit(smoke, K, dev)
     else:
         from qcmrf_tpu_torch.sim import planes
 

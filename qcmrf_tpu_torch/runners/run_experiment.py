@@ -11,9 +11,9 @@ package's evaluation harness reads it.
   closed-form outcome law by one launch of the fused sampler (on the CPU,
   its plain version); circuit ``i`` of the suite draws from Philox key
   ``(--sample-seed, i)``.
-* ``statevector``: the gate-level circuits of one graph's reps run as one
-  launch of the whole-circuit kernel (on the CPU, its plain version, the
-  dense engine), and circuit ``i`` of the suite draws its shots from its
+* ``statevector``: the suite's 70 gate-level circuits run as one launch
+  of the whole-circuit kernel (on the CPU, its plain version, the dense
+  engine), and circuit ``i`` of the suite draws its shots from its
   ``|psi|^2`` by inverse CDF with a ``torch.Generator`` on the run's
   device seeded with ``--sample-seed * 65536 + i``. The probabilities are
   those of the JAX package's dense engine; the counts are not its counts,
@@ -63,6 +63,10 @@ def run_suite(
         raise ValueError(f"unknown engine {engine!r}")
     device = resolve_device(device)
     counts_list: List[Dict[str, int]] = []
+    if engine == "statevector":
+        probs = circuit_kernel.batched_circuits_probs(
+            [(C, suite.thetas[j]) for j, C in enumerate(suite.graphs)],
+            device=device)
     for j, C in enumerate(suite.graphs):
         n = max(v for c in C for v in c) + 1
         width = n + len(C) + 1
@@ -73,9 +77,7 @@ def run_suite(
             for row in keys:
                 counts_list.append(sampler.counts_from_samples(row, width))
         else:
-            probs = circuit_kernel.batched_circuit_probs(
-                C, suite.thetas[j], device=device)
-            for row in probs:
+            for row in probs[j]:
                 counts_list.append(sampler.sample_counts(
                     circuit_seed(seed, len(counts_list)), row, shots,
                     width))

@@ -116,7 +116,8 @@ def test_gpu_platform_raises_without_cuda(platform, tmp_path):
     assert not (tmp_path / "models_0.1.json").exists()
 
 
-@pytest.mark.parametrize("case", ["sandwich24", "lowered28"])
+@pytest.mark.parametrize("case", ["sandwich24", "lowered28",
+                                  "lane_circuit"])
 def test_host_ab_needs_the_card(case, capsys):
     """The A/B timing script exits 1, printing no result, without CUDA."""
     if torch.cuda.is_available():
@@ -174,6 +175,9 @@ def _default_device_calls():
         "circuit_kernel.batched_circuit_probs":
             lambda: circuit_kernel.batched_circuit_probs(
                 [[0, 1]], [[-0.1] * 4]),
+        "circuit_kernel.batched_circuits_probs":
+            lambda: circuit_kernel.batched_circuits_probs(
+                [([[0, 1]], [[-0.1] * 4]), ([[0]], [[-0.2] * 2])]),
         "kernels.apply_hdh_sandwich_multi_uniform":
             lambda: kernels.apply_hdh_sandwich_multi_uniform(
                 9, (0, 1), 7, ((),), ((),), (0.1,)),
