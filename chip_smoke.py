@@ -531,9 +531,11 @@ def phase_suite_shapes(dev):
 
 
 def counters():
-    from qcmrf_tpu_torch.ops import circuit_kernel, kernels, sampler_kernel
+    from qcmrf_tpu_torch.ops import (circuit_kernel, gibbs_kernel, kernels,
+                                     sampler_kernel)
 
-    return (sampler_kernel.LAUNCHES, kernels.LAUNCHES, circuit_kernel.LAUNCHES)
+    return (sampler_kernel.LAUNCHES, kernels.LAUNCHES, circuit_kernel.LAUNCHES,
+            gibbs_kernel.LAUNCHES)
 
 
 def reset_counts() -> None:
@@ -2463,6 +2465,377 @@ def phase_rates(dev, report) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The classical samplers: perturb-and-MAP on the map kernel, the Gibbs chain
+# kernel, elimination's FFBS and PAM, the estimators, and the sampling CLIs
+# ---------------------------------------------------------------------------
+
+PAM_ROWS = 16              # perturbed models a launch, as bench.py times PAM
+FFBS_DRAWS = 65536         # bench.py's exact_sample_n40_per_sec draws
+EVAL_SAMPLES = 10_000      # eval --mode gibbs|pam: the reference's count
+K27_CHAIN = (2000, 10, 100)  # samples, thin, burn: the train CLI's chain
+SUITE_CHAIN_CHECK = (30, 10, 10)  # samples, thin, burn: eval --mode gibbs's
+K27_CHAIN_CHECK = (5, 10, 100)    # K27_CHAIN's thin and burn, fewer samples
+
+
+def pam_n24(dev):
+    """bench.py's PAM model: the 24-chain with 6 triangles, theta =
+    -|randn(RandomState(7))| * 0.5."""
+    cl = ([[i, i + 1] for i in range(23)]
+          + [[3 * i, 3 * i + 1, 3 * i + 2] for i in range(6)])
+    return seeded_model(cl, 7, 0.5, dev)
+
+
+def pam_rows(mrf, seed: int):
+    """The PAM_ROWS perturbed coefficient rows that ``sample_pam*`` draws
+    from a generator seeded ``seed`` (one chunk of rows)."""
+    from qcmrf_tpu_torch.models import sample
+    from qcmrf_tpu_torch.ops import kernels
+
+    g = torch.Generator(device=mrf.device).manual_seed(seed)
+    th = sample._gumbel(g, (PAM_ROWS, mrf.dimension), mrf.device)
+    return kernels.coefficient_table(mrf.cliques, mrf.n,
+                                     th.add_(mrf.beta * mrf.theta))
+
+
+def check_pam_rows(mrf, what: str, seed: int) -> dict:
+    """The map kernel with PAM_ROWS perturbed models in one launch equal to
+    its single-row launches (torch.equal); the launch and one row timed."""
+    from qcmrf_tpu_torch.ops import kernels
+
+    coef = pam_rows(mrf, seed)
+    cl, n = mrf.cliques, mrf.n
+    v, x = kernels.map_partials(cl, n, coef, 1.0)
+    same = all(
+        torch.equal(v1[0], v[r]) and torch.equal(x1[0], x[r])
+        for r in range(PAM_ROWS)
+        for v1, x1 in [kernels.map_partials(cl, n, coef[r:r + 1], 1.0)])
+    require(same, f"{what}: map kernel, {PAM_ROWS} perturbed models in one "
+                  f"launch == {PAM_ROWS} single-row launches (torch.equal)")
+    ms = cuda_ms(lambda: kernels.map_partials(cl, n, coef, 1.0), reps=5)
+    one = cuda_ms(lambda: kernels.map_partials(cl, n, coef[:1], 1.0), reps=5)
+    print(f"  {what}: the {PAM_ROWS}-row launch {ms:.3f} ms "
+          f"({ms / PAM_ROWS:.4f} ms a row), one row {one:.3f} ms")
+    return dict(rows_ms=ms, one_row_ms=one)
+
+
+def gibbs_ops(cliques, n: int) -> float:
+    """Operations of one sweep of the chain: per item of a site, a product
+    and a sum per other slot, a subtraction and an addition; per site the
+    butterfly's 5 additions, the product with beta, exp, the addition, the
+    division and the compare (10), the uniform's conversion and scaling
+    (2), and a quarter of a Philox call (philox_ops(0) operations)."""
+    items = sum(2 * (len(C) - 1) + 2 for C in cliques for _ in C)
+    return items + n * (12 + philox_ops(0) / 4)
+
+
+def site_latency(dev) -> dict:
+    """The latency a site update's dependent chain implies, from the card's
+    own step latencies (``gibbs_kernel.latency_cycles``), for a site whose
+    items fit one per lane (at most 32, as K27's 26 and the suite's 1-2):
+    by data dependence alone, the previous site's bit stored and read back
+    (bit_round_trip), the theta load (ldg_l1), the butterfly's 5 shuffles,
+    p1 from delta, and 5 integer or float operations (the slot word, the
+    address, the difference, its sum, the compare); as the kernel is
+    written, also the 3 dependent shared loads of the site's tables
+    (heads, then its item, then the item's other slot) before the bit's
+    load."""
+    from qcmrf_tpu_torch.ops import gibbs_kernel as gk
+
+    c = gk.latency_cycles(dev)
+    floor = (c["bit_round_trip"] + c["ldg_l1"] + 5 * c["shuffle_add"]
+             + c["p1_tail"] + 5 * c["fadd"])
+    written = floor + 3 * c["shared_load"]
+    ghz = c.pop("sm_ghz")
+    return dict(cycles=c, sm_ghz=ghz, floor_cycles=floor,
+                floor_ns=floor / ghz, as_written_cycles=written,
+                as_written_ns=written / ghz)
+
+
+def check_gibbs_chains(what, mrf, thetas, seed, num, thin, burn) -> dict:
+    """The chain kernel against its plain version at the main path's own
+    ``thin`` and ``burn``: the sampled rows equal (torch.equal), or where
+    two chains part, the first differing decision within 2 ulp of its p1
+    (both rerun at every sweep: ``gibbs_kernel.partings``, which also holds
+    each run's rows to its states after sweeps burn + i * thin); both
+    timed."""
+    from qcmrf_tpu_torch.ops import gibbs_kernel as gk
+
+    args = (seed, mrf.cliques, mrf.n, thetas, mrf.beta, num, thin, burn)
+    got, ms = timed_once(lambda: gk.gibbs_chains(*args))
+    want, plain_ms = timed_once(lambda: gk.gibbs_chains_reference(*args))
+    parts = gk.partings(*args, got, want)
+    sweeps = burn + (num - 1) * thin + 1
+    require(all(gk.within_ulps(u, p1) for _, _, _, u, p1 in parts),
+            f"{what}: {thetas.shape[0]} chains, {num} samples at thin {thin}, "
+            f"burn {burn}: the kernel's rows are its states after sweeps "
+            f"{burn} + i * {thin}, equal to the plain version's on "
+            f"{thetas.shape[0] - len(parts)} chains; {len(parts)} part, each "
+            f"first at a decision within 2 ulp of p1 "
+            f"{[(c, s, v) for c, s, v, _, _ in parts]}")
+    return dict(ms=ms, plain_ms=plain_ms, parted=len(parts),
+                max_abs_err=float((got.float() - want.float()).abs().max()),
+                shape=f"{thetas.shape[0]} chains x {num} samples at thin "
+                      f"{thin}, burn {burn} ({sweeps} sweeps), n={mrf.n}, "
+                      f"{what}")
+
+
+def samplers_main_path(dev, k27_graph, k27_theta_path, tmp) -> dict:
+    """The slice's entry points on the card, the counts reset just before
+    and read just after: eval --mode gibbs and --mode pam on the suite,
+    infer --query sample (exact, gibbs, pam) on K27, the estimators on the
+    n=20 grid, and train's synthetic data on K27 (one Gibbs chain)."""
+    import contextlib
+    import io
+
+    from qcmrf_tpu_torch.evaluation import estimators
+    from qcmrf_tpu_torch.ops import kernels
+    from qcmrf_tpu_torch.runners import eval as run_eval
+    from qcmrf_tpu_torch.runners import infer_cli, train_cli
+
+    queries = os.path.join(tmp, "samples.jsonl")
+    with open(queries, "w") as f:
+        f.write("\n".join(json.dumps(q) for q in (
+            {"query": "sample", "method": "exact", "evidence": "0=1",
+             "num_samples": 64},
+            {"query": "sample", "method": "gibbs", "num_samples": 100},
+            {"query": "sample", "method": "pam", "num_samples": PAM_ROWS})))
+    grid = grid_model(4, 5, 2, dev)
+    grid = grid.with_theta(grid.theta / 3)
+    torch.cuda.synchronize()
+    reset_counts()
+    t = {}
+    with contextlib.redirect_stdout(io.StringIO()):
+        for mode in ("gibbs", "pam"):
+            t0 = time.perf_counter()
+            res = run_eval.main(["--mode", mode, "--scale", "0.1",
+                                 "--num-samples", str(EVAL_SAMPLES),
+                                 "--platform", "gpu", "--kl"])
+            torch.cuda.synchronize()
+            t[mode] = (time.perf_counter() - t0, res)
+        t0 = time.perf_counter()
+        answers = infer_cli.main(["--graph", k27_graph, "--theta",
+                                  k27_theta_path, "--queries", queries,
+                                  "--platform", "gpu"])
+        mu = estimators.clique_marginals_exact(grid)
+        lnz_hat, marg, delta = estimators.estimate_from_circuit(
+            SAMPLE_SEED, grid, 1 << 22)
+        torch.cuda.synchronize()
+        t["infer+estimators"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        train_cli.main(["--graph", k27_graph, "--samples",
+                        str(K27_CHAIN[0]), "--steps", "2", "--outdir",
+                        os.path.join(tmp, "train"), "--platform", "gpu"])
+        torch.cuda.synchronize()
+        t["train"] = time.perf_counter() - t0
+    launches = read_counts()
+    print(f"  main path: eval --mode gibbs {t['gibbs'][0]:.2f} s, --mode pam "
+          f"{t['pam'][0]:.2f} s ({EVAL_SAMPLES} samples a model, 70 models), "
+          f"infer + estimators {t['infer+estimators']:.2f} s, train K27 "
+          f"(synthetic data, 2 steps) {t['train']:.2f} s; launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    for r in t["gibbs"][1]:
+        require(r.mean_f >= 0.99, f"eval --mode gibbs, graph {r.graph}: mean "
+                                  f"fidelity {r.mean_f:.4f} >= 0.99")
+        require(r.successes == [EVAL_SAMPLES / 10_000] * 10,
+                "  delta-hat keeps the reference's fixed norm")
+    for r in t["pam"][1]:
+        print(f"  eval --mode pam, graph {r.graph}: mean fidelity "
+              f"{r.mean_f:.4f} (approximate: no limit)")
+    methods = [a["method"] for a in answers]
+    require(methods == ["exact", "gibbs", "pam"]
+            and [len(a["samples"]) for a in answers] == [64, 100, PAM_ROWS]
+            and all(s[0] == 1 for s in answers[0]["samples"]),
+            f"infer --query sample on K27: methods {methods}, shapes and the "
+            "evidence column")
+    lnz = float(kernels.log_partition(grid))
+    err = float((torch.from_numpy(marg).to(dev) - mu.double()).abs().max())
+    require(abs(lnz_hat - lnz) <= 0.01 and err <= 0.01,
+            f"estimate_from_circuit on the n=20 grid (2^22 shots, delta-hat "
+            f"{delta:.4f}): lnZ-hat {lnz_hat:.5f} vs lnZ {lnz:.5f}; marginals "
+            f"within {err:.4f} of clique_marginals_exact")
+    for k in ("gibbs", "map", "logpot", "lnz_moments", "sampler"):
+        require(launches[k] > 0, f"kernel {k} launched {launches[k]} times "
+                                 "on the samplers' main path")
+    return dict(launches=launches, eval_gibbs_s=t["gibbs"][0],
+                eval_pam_s=t["pam"][0],
+                eval_gibbs_f=[r.mean_f for r in t["gibbs"][1]],
+                eval_pam_f=[r.mean_f for r in t["pam"][1]],
+                infer_estimators_s=t["infer+estimators"],
+                train_k27_s=t["train"])
+
+
+def phase_samplers(dev, report) -> dict:
+    """Slice 3b on the card. The map kernel with PAM_ROWS perturbed models a
+    launch against its single-row launches (bench.py's n=24 PAM model and
+    K27), each K27 PAM draw the argmax of its own perturbed model; the
+    chain kernel against its plain version (a suite graph's 10 reps, and
+    K27); FFBS on the 40-chain and elimination PAM on the 30-chain; the
+    main path (samplers_main_path); the rates. Returns the main path's
+    launch counts."""
+    from qcmrf_tpu_torch.models import elimination, sample
+    from qcmrf_tpu_torch.models.mrf import MRF, chain_mrf
+    from qcmrf_tpu_torch.models.suite import generate_suite
+    from qcmrf_tpu_torch.ops import gibbs_kernel as gk
+    from qcmrf_tpu_torch.ops import kernels
+
+    out = {}
+    print(f"[samplers] perturb-and-MAP: {PAM_ROWS} perturbed models a "
+          "map-kernel launch")
+    m24 = pam_n24(dev)
+    k27 = MRF.create(complete_cliques(INFER_N), theta=k27_theta(), device=dev)
+    out["pam_n24_rows"] = check_pam_rows(m24, "n=24 chain + 6 triangles", 1)
+    out["pam_k27_rows"] = check_pam_rows(k27, "K27", 2)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    ms = cuda_ms(lambda: sample.sample_pam_streaming(gen, m24, PAM_ROWS),
+                 reps=5)
+    out["pam_n24_ms_per_sample"] = ms / PAM_ROWS
+    print(f"  pam_n24_ms_per_sample: {ms / PAM_ROWS:.4f} ms "
+          f"(sample_pam_streaming, {PAM_ROWS} samples in {ms:.3f} ms)")
+    launches_before = kernels.LAUNCHES["map"]
+    bits = sample.sample_conditional(4, k27, PAM_ROWS, {}, method="pam")
+    require(kernels.LAUNCHES["map"] - launches_before == 1,
+            f"K27 PAM (width {INFER_N} > {sample._PAM_ELIM_WIDTH}) through "
+            f"sample_conditional: the streaming sweep, {PAM_ROWS} samples in "
+            "one map launch")
+    coef = pam_rows(k27, 4)
+    ids = gk.ids_from_bits(bits)
+    worst = 0.0
+    for r in range(PAM_ROWS):
+        table = kernels.logpot_table(k27.cliques, INFER_N, coef[r:r + 1],
+                                     1.0)
+        top = float(table.max())
+        del table
+        chain = float(kernels._clique_sum(k27.cliques, INFER_N,
+                                          coef[r:r + 1], ids[r:r + 1])[0, 0])
+        gap = float(kernels.split_gap(coef[r:r + 1], 1.0)[0])
+        worst = max(worst, abs(chain - top) / gap)
+        require(abs(chain - top) <= gap,
+                f"  K27 PAM draw {r}: its chain value {chain:.6f} is the "
+                f"maximum of its perturbed model within split_gap "
+                f"({top:.6f}, gap {gap:.2e})")
+    torch.cuda.empty_cache()
+    ms = cuda_ms(lambda: sample.sample_conditional(gen, k27, PAM_ROWS, {},
+                                                   method="pam"), reps=3)
+    out["pam_k27_ms_per_sample"] = ms / PAM_ROWS
+    print(f"  K27 PAM through sample_conditional: {ms / PAM_ROWS:.4f} ms a "
+          f"sample ({PAM_ROWS} a launch), one row's sweep "
+          f"{out['pam_k27_rows']['one_row_ms']:.3f} ms")
+
+    print("[samplers] exact FFBS on the 40-chain, elimination PAM on the "
+          "30-chain")
+    ce = seeded_model([[i, i + 1] for i in range(39)], 9, 1.0, dev)
+    elimination.sample_exact_elim(0, ce, FFBS_DRAWS)
+    best = math.inf
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        S = elimination.sample_exact_elim(i + 1, ce, FFBS_DRAWS)
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    out["exact_sample_n40_per_sec"] = FFBS_DRAWS / best
+    for v in (0, 19, 39):
+        mean = float(S[:, v].double().mean())
+        true = float(elimination.conditional_prob(ce, v, 1))
+        require(abs(mean - true) <= 0.02,
+                f"FFBS n=40, variable {v}: mean {mean:.4f} vs "
+                f"conditional_prob {true:.4f} within 0.02")
+    print(f"  exact_sample_n40_per_sec: {FFBS_DRAWS / best:.0f} "
+          f"({FFBS_DRAWS} draws in {best * 1e3:.3f} ms, best of 3)")
+    c30 = seeded_model([[i, i + 1] for i in range(29)], 8, 2.0, dev)
+    P, ms = timed_once(lambda: elimination.sample_pam(1, c30, 200))
+    require(tuple(P.shape) == (200, 30) and bool(((P == 0) | (P == 1)).all()),
+            f"elimination PAM on the 30-chain: 200 samples of 30 bits "
+            f"({ms:.2f} ms)")
+    out["elim_pam_n30_ms"] = ms
+
+    print("[samplers] the chain kernel against its plain version")
+    suite = generate_suite(0.1)
+    g5 = MRF.create(suite.graphs[5], theta=suite.thetas[5][0], device=dev)
+    th5 = torch.tensor(np.asarray(suite.thetas[5], np.float32), device=dev)
+    chk = check_gibbs_chains("suite graph [[0,1,2],[2,3,4]], its 10 reps", g5,
+                             th5, 7, *SUITE_CHAIN_CHECK)
+    rng = np.random.RandomState(3)
+    th27 = (k27.theta[None] - torch.from_numpy(np.abs(rng.randn(
+        4, k27.dimension)).astype(np.float32)).to(dev) * 0.05).contiguous()
+    chk27 = check_gibbs_chains("K27, 4 perturbed thetas", k27, th27, 8,
+                               *K27_CHAIN_CHECK)
+    print(f"  plain version {chk['plain_ms']:.1f} ms, kernel "
+          f"{chk['ms']:.3f} ms at {chk['shape']}; K27: plain "
+          f"{chk27['plain_ms']:.1f} ms, kernel {chk27['ms']:.3f} ms")
+    num, thin, burn = K27_CHAIN
+    sweeps = burn + (num - 1) * thin + 1
+    args = (9, k27.cliques, INFER_N, k27.theta[None].contiguous(), 1.0, num,
+            thin, burn)
+    chain = gk.gibbs_chains(*args)
+    ms = cuda_ms(lambda: gk.gibbs_chains(*args), reps=3)
+    sites = sweeps * INFER_N
+    mu = kernels.lnz_and_moments(k27.cliques, INFER_N, k27.theta, 1.0)[1]
+    # P(x_0 = 1) and P(x_v = 1) from the first clique (0, 1)'s block
+    p0, p1 = float(mu[2] + mu[3]), float(mu[1] + mu[3])
+    means = chain[0].double().mean(dim=0)
+    require(abs(float(means[0]) - p0) <= 0.05
+            and abs(float(means[1]) - p1) <= 0.05,
+            f"K27 chain ({num} samples, thin {thin}, burn {burn}): means of "
+            f"x0, x1 {float(means[0]):.4f}, {float(means[1]):.4f} vs the "
+            f"exact {p0:.4f}, {p1:.4f} within 0.05")
+    ops = gibbs_ops(k27.cliques, INFER_N)
+    b = bound(4 * k27.dimension + num * INFER_N, sweeps * ops)
+    n_chk, thin_chk, burn_chk = SUITE_CHAIN_CHECK
+    sweeps_chk = burn_chk + (n_chk - 1) * thin_chk + 1
+    b_plain = bound(4 * th5.numel() + th5.shape[0] * n_chk * 5,
+                    th5.shape[0] * sweeps_chk * gibbs_ops(g5.cliques, 5))
+    lat = site_latency(dev)
+    ns_site = ms * 1e6 / sites
+    ms_suite = cuda_ms(lambda: gk.gibbs_chains(
+        7, g5.cliques, 5, th5, g5.beta, *SUITE_CHAIN_CHECK), reps=5)
+    ns_site_suite = ms_suite * 1e6 / (sweeps_chk * 5)
+    print(f"  K27 chain, {num} samples thin {thin} burn {burn} ({sweeps} "
+          f"sweeps, one chain): {ms:.3f} ms, {ns_site:.1f} ns a site update "
+          f"({ns_site * lat['sm_ghz']:.0f} cycles at the probe's "
+          f"{lat['sm_ghz']:.3f} GHz); the suite graph's 10 chains "
+          f"{ms_suite:.3f} ms warm, {ns_site_suite:.1f} ns a site update "
+          f"(its cold call {chk['ms']:.3f} ms); {ops / INFER_N:.1f} "
+          f"operations a site update; the card's rate bounds the K27 run "
+          f"at {b['bound_ms']:.4f} ms ({b['bound_by']}), but one chain is "
+          f"bound by its dependent latency: {lat['floor_cycles']:.0f} cycles "
+          f"= {lat['floor_ns']:.1f} ns a site update by data dependence "
+          f"alone, {lat['as_written_cycles']:.0f} cycles = "
+          f"{lat['as_written_ns']:.1f} ns with the kernel's dependent table "
+          f"loads (probe: "
+          f"{ {k: round(v, 1) for k, v in lat['cycles'].items()} })")
+    report["gibbs"] = dict(
+        max_abs_err=max(chk["max_abs_err"], chk27["max_abs_err"]),
+        parted_chains=chk["parted"] + chk27["parted"],
+        ms=ms, plain_ms=chk["plain_ms"], **b,
+        shape=f"one K27 chain, {num} samples at thin {thin}, burn {burn}: "
+              f"{sweeps} sweeps, {sites} site updates",
+        ns_per_site_update=ns_site,
+        latency_bound_ns_per_site_update=lat["floor_ns"],
+        latency_as_written_ns_per_site_update=lat["as_written_ns"],
+        latency_cycles=lat["cycles"], sm_ghz=lat["sm_ghz"],
+        ns_per_site_update_suite=ns_site_suite,
+        ops_per_site_update=ops / INFER_N,
+        plain_shape=chk["shape"], ms_at_plain_shape=ms_suite,
+        cold_ms_at_plain_shape=chk["ms"],
+        bound_ms_at_plain_shape=b_plain["bound_ms"],
+        k27_check=dict(plain_ms=chk27["plain_ms"], ms=chk27["ms"],
+                       shape=chk27["shape"]))
+    with tempfile.TemporaryDirectory() as tmp:
+        graph = os.path.join(tmp, "k27.json")
+        theta_path = os.path.join(tmp, "theta.json")
+        with open(graph, "w") as f:
+            json.dump(complete_cliques(INFER_N), f)
+        with open(theta_path, "w") as f:
+            json.dump(k27_theta().tolist(), f)
+        print("[samplers] main path")
+        main = samplers_main_path(dev, graph, theta_path, tmp)
+    out.update({k: v for k, v in main.items() if k != "launches"})
+    out["k27_chain_ms_per_site_update"] = ms / sites
+    report["samplers"] = out
+    return main["launches"]
+
+
 def gate_entry(kind, report, launches) -> dict:
     """A generic gate kernel's line: its mean time and bound per launch in
     the lowered width-28 main run (the copy: at the rates' width 28; the
@@ -2504,6 +2877,8 @@ REPLACES = {
     "diag": "qcmrf_tpu/ops/kernels.py:1340",
     "copy": "qcmrf_tpu/runners/bench.py:177",
     "fma_peak": "bench.py:405",
+    "gibbs": "qcmrf_tpu/models/sample.py:77 (sample_gibbs: a lax.scan, "
+             "not a TPU kernel)",
 }
 ALSO_REPLACES = {
     "logpot": ["qcmrf_tpu/ops/kernels.py:257 (the split loop kernel)"],
@@ -2511,6 +2886,8 @@ ALSO_REPLACES = {
                   "qcmrf_tpu/ops/kernels.py:1675 (at k=2)"],
     "row_gate": ["qcmrf_tpu/ops/kernels.py:1176 (at K=2)"],
     "diag": ["qcmrf_tpu/ops/kernels.py:1275 (at one term)"],
+    "gibbs": ["qcmrf_tpu/models/sample.py:150 (sample_gibbs_bits: a "
+              "lax.scan, not a TPU kernel)"],
 }
 SOURCES = {
     "sampler": "qcmrf_kernels.cu", "logpot": "qcmrf_kernels.cu",
@@ -2522,7 +2899,7 @@ SOURCES = {
     "lane_factored": "gate_kernels.cu", "lane": "gate_kernels.cu",
     "row_gate": "gate_kernels.cu",
     "diag": "gate_kernels.cu", "copy": "gate_kernels.cu",
-    "fma_peak": "gate_kernels.cu",
+    "fma_peak": "gate_kernels.cu", "gibbs": "gibbs_kernels.cu",
 }
 
 
@@ -2564,7 +2941,7 @@ KERNEL_NAMES = ("sampler_kernel", "logpot_kernel", "lse_kernel",
                 "hdh_multi_kernel", "hdh_multi_uniform_kernel",
                 "circuit_kernel", "diag_kernel", "row_gate_kernel",
                 "lane_kernel", "lane_factored_kernel", "copy_kernel",
-                "fma_peak_kernel")
+                "fma_peak_kernel", "gibbs_kernel")
 
 
 def print_ptxas(path) -> None:
@@ -2632,6 +3009,7 @@ def main() -> int:
         "run analytic": launches["logpot"], "run statevector": sv["logpot"]}
     infer = phase_infer(dev, report)
     train = phase_train(dev, report)
+    smp = phase_samplers(dev, report)
     phase_sandwich_kernels(dev, report)
     phase_gate_level(dev, report)
     gate = report["main_gate_level"]
@@ -2641,7 +3019,17 @@ def main() -> int:
     rates = phase_rates(dev, report)
 
     kernels_line = []
+    report["logpot"]["launches_by_path"]["samplers"] = smp["logpot"]
     launches["logpot"] = sum(report["logpot"]["launches_by_path"].values())
+    for k, by in (("sampler", {"run analytic": launches["sampler"]}),
+                  ("map", {"infer K27": infer["map"]}),
+                  ("lnz_moments", {"train K27": train["lnz_moments"]})):
+        by["samplers"] = smp[k]
+        report[k]["launches_by_path"] = by
+    launches["sampler"] = sum(report["sampler"]["launches_by_path"].values())
+    infer["map"] = sum(report["map"]["launches_by_path"].values())
+    train["lnz_moments"] = sum(
+        report["lnz_moments"]["launches_by_path"].values())
     for k in ("sampler", "logpot", "lse"):
         kernels_line.append(dict(launches=launches[k], library_ms=None,
                                  **report[k]))
@@ -2661,11 +3049,14 @@ def main() -> int:
     kernels_line.append(gate_entry("copy", report, rates["copy"]))
     kernels_line.append(dict(launches=rates["fma_peak"], library_ms=None,
                              **report["fma_peak"]))
+    # the chain has no TPU kernel and no one PyTorch call
+    kernels_line.append(dict(launches=smp["gibbs"], library_ms=None,
+                             **report["gibbs"]))
     for k, entry in zip(("sampler", "logpot", "lse", "hdh_multi",
                          "hdh_multi_uniform", "circuit", "map", "moments",
                          "lnz_moments", "lane_factored", "lane", "row_gate",
                          "diag", "copy",
-                         "fma_peak"), kernels_line):
+                         "fma_peak", "gibbs"), kernels_line):
         entry.update(name=k, route="cuda",
                      source=f"qcmrf_tpu_torch/csrc/{SOURCES[k]}",
                      replaces=REPLACES[k])
@@ -2682,7 +3073,8 @@ def main() -> int:
                      "copy_w28", "lane_w28", "lane_library_ms",
                      "lane_float64", "lane_sass",
                      "lane_factored_library_ms", "row_gate_library_ms",
-                     "row_library_by_qubit", "train", "fma_peak")}), f,
+                     "row_library_by_qubit", "train", "fma_peak",
+                     "samplers", "gibbs")}), f,
                   indent=1, default=str)
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(f"[card] {smi}")

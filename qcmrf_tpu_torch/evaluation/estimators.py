@@ -1,18 +1,68 @@
-"""Shot-based estimators (the ported part of
-:mod:`qcmrf_tpu.evaluation.estimators`).
+"""Shot-based estimators: the partition function and clique marginals
+(port of :mod:`qcmrf_tpu.evaluation.estimators`).
 
-:func:`clique_marginals_from_samples` serves shot-gradient training and
-the empirical moments of state-id data. The rest of the module (counts
-and parts estimators of Z, exact marginals by autodiff,
-``estimate_from_circuit``) comes with slice 3b of ROADMAP.md.
+The QCMRF circuit is a sampler and an estimator at once: the
+post-selection success rate ``delta = accepted / shots`` estimates ``Z /
+2**n``, and the post-selected samples are Gibbs draws, so the clique
+marginals are empirical sufficient-statistic frequencies. The counts and
+parts estimators run on the host; :func:`clique_marginals_exact` is the
+fused lnZ + moments sweep (``lnz_moments_kernel`` on the card) and
+:func:`estimate_from_circuit` the fused outcome sampler
+(``sampler_kernel``).
 """
 
 from __future__ import annotations
+
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
 from qcmrf_tpu_torch.models.mrf import MRF
+
+
+def success_rate_from_counts(counts: Dict[str, float], n: int) -> float:
+    """delta-hat = accepted mass / total mass: a key is accepted when its
+    integer value is below ``2**n`` (its ancilla bits all 0)."""
+    total = 0.0
+    accepted = 0.0
+    for k, v in counts.items():
+        total += v
+        if int(k, 2) < (1 << n):
+            accepted += v
+    return accepted / total if total else 0.0
+
+
+def log_partition_from_counts(counts: Dict[str, float], n: int) -> float:
+    """ln Z-hat = ln(delta-hat) + n ln 2."""
+    delta = success_rate_from_counts(counts, n)
+    if delta <= 0:
+        return float("-inf")
+    return float(np.log(delta) + n * np.log(2.0))
+
+
+def log_partition_from_parts(a_mask, n: int) -> float:
+    """ln Z-hat from the fused sampler's ancilla bitmasks (a shot is
+    accepted where its mask is 0)."""
+    a = np.asarray(a_mask.cpu() if isinstance(a_mask, torch.Tensor)
+                   else a_mask)
+    delta = float((a == 0).mean())
+    if delta <= 0:
+        return float("-inf")
+    return float(np.log(delta) + n * np.log(2.0))
+
+
+def clique_marginals_exact(mrf: MRF) -> torch.Tensor:
+    """Exact marginal probability of every clique state, ``E_p[phi]``
+    (d,) in theta's dtype on ``mrf``'s device: the moments of one fused
+    lnZ + moments sweep (:func:`kernels.lnz_and_moments`, the
+    ``lnz_moments_kernel`` on the card), where the JAX package takes the
+    gradient of lnZ through a chunked table. Not differentiable."""
+    from qcmrf_tpu_torch.ops import kernels
+
+    with torch.no_grad():
+        return kernels.lnz_and_moments(mrf.cliques, mrf.n,
+                                       mrf.theta.detach(), mrf.beta)[1]
 
 
 def clique_marginals_from_samples(mrf: MRF, x, accepted=None) -> torch.Tensor:
@@ -32,3 +82,18 @@ def clique_marginals_from_samples(mrf: MRF, x, accepted=None) -> torch.Tensor:
     out.index_add_(0, idx, torch.ones(idx.shape, dtype=torch.float64,
                                       device=dev))
     return out / max(x.shape[0], 1)
+
+
+def estimate_from_circuit(seed: int, mrf: MRF,
+                          shots: int) -> Tuple[float, np.ndarray, float]:
+    """One call: run the circuit's outcome sampler
+    (:func:`analytic.sample_postselected`), post-select, estimate.
+    Returns ``(lnZ-hat, clique marginals-hat (d,) float64 numpy,
+    delta-hat)``."""
+    from qcmrf_tpu_torch.sim import analytic
+
+    x, acc = analytic.sample_postselected(seed, mrf, shots)
+    delta = float(acc.double().mean())
+    lnz = float(np.log(max(delta, 1e-300)) + mrf.n * np.log(2.0))
+    marg = clique_marginals_from_samples(mrf, x, acc)
+    return lnz, marg.cpu().numpy(), delta

@@ -1,5 +1,5 @@
 """Evaluation harness: fidelity / success-rate tables over a result suite
-(port of :mod:`qcmrf_tpu.evaluation.harness`, ``mode="file"``).
+(port of :mod:`qcmrf_tpu.evaluation.harness`).
 
 Same result-format sniffing (a dict with ``quasi_dists`` -> hardware with
 norm 1; a bare list -> raw counts with norm 10 000), same post-selection
@@ -12,6 +12,13 @@ on ``device``, both on one coefficient table. The exact success rate
 ``Z / 2**n`` of each rep is kept beside the measured one in
 :attr:`GraphResult.exact_deltas`, for callers that hold the sampler to
 the exact law; the printed table keeps the JAX package's columns.
+
+The ``gibbs`` and ``pam`` modes histogram the classical samplers in place
+of a result file: per graph, the reps' Gibbs chains run as one launch of
+the chain kernel (thin 10, burn 10, each rep's chain keyed by its suite
+index), and each rep's perturb-and-MAP samples as rows of one map-kernel
+launch. Both keep the reference's fixed norm: delta-hat is the histogram's
+count over 10 000, whatever ``num_samples`` is.
 """
 
 from __future__ import annotations
@@ -23,10 +30,12 @@ import os
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from qcmrf_tpu_torch.evaluation import metrics
 from qcmrf_tpu_torch.models.suite import ModelSuite, SHOTS
 from qcmrf_tpu_torch.sim import batch as sbatch
+from qcmrf_tpu_torch.utils.config import resolve_device
 from qcmrf_tpu_torch.utils.table import format_table
 
 @dataclasses.dataclass
@@ -76,32 +85,65 @@ def load_result_dists(path: str):
     return results_file, SHOTS
 
 
+def _sampled_counts(mode: str, cliques, n: int, thetas, idx: int,
+                    num_samples: int, seed: int, gen, device):
+    """Counts ``(reps, 2**n)`` float64 of the reps' samples: the Gibbs
+    chains in one launch, or each rep's perturb-and-MAP draw."""
+    from qcmrf_tpu_torch.models import sample as msample
+    from qcmrf_tpu_torch.models.mrf import MRF
+    from qcmrf_tpu_torch.ops import gibbs_kernel
+
+    reps = len(thetas)
+    if mode == "gibbs":
+        th = torch.tensor(np.asarray(thetas, np.float32), device=device)
+        cl = tuple(tuple(int(v) for v in c) for c in cliques)
+        bits = gibbs_kernel.gibbs_chains(
+            seed, cl, n, th, 1.0, num_samples, thin=10, burn=10,
+            chain_ids=range(idx, idx + reps))
+        ids = gibbs_kernel.ids_from_bits(bits)
+    else:
+        ids = torch.stack([msample.sample_pam(
+            gen, MRF.create(cliques, theta=th, device=device), num_samples)
+            for th in thetas]).long()
+    counts = torch.zeros((reps, 1 << n), dtype=torch.float64, device=device)
+    counts.scatter_add_(1, ids, torch.ones(ids.shape, dtype=torch.float64,
+                                           device=device))
+    return counts.cpu().numpy()
+
+
 def evaluate_suite(
     suite: ModelSuite,
     dists: Optional[Sequence[Dict[str, float]]] = None,
     norm: float = SHOTS,
     mode: str = "file",
     native: bool = False,
-    device="cpu",
+    device=None,
+    num_samples: int = SHOTS,
+    seed: int = 0,
 ) -> List[GraphResult]:
-    """Evaluate every (graph, rep) model against measured distributions
-    ``dists`` (one per circuit, suite order); returns per-graph aggregates.
+    """Evaluate every (graph, rep) model; returns per-graph aggregates.
 
-    Only ``mode='file'`` is ported; ``'gibbs'``/``'pam'`` and ``native``
-    raise :class:`NotImplementedError`.
+    ``mode='file'`` compares against measured distributions ``dists`` (one
+    per circuit, suite order), on the CPU unless ``device`` names another;
+    ``'gibbs'``/``'pam'`` histogram ``num_samples`` draws of the classical
+    samplers instead, on ``device`` or else the current CUDA device
+    (raising where there is none), ``seed`` keying the chains and seeding
+    the PAM generator, success rate over the fixed norm 10 000. ``native``
+    (the C++ engine) raises :class:`NotImplementedError`.
     """
     if native:
         raise NotImplementedError(
             "--native binds the C++ engine, which the port brings with "
-            "slice 3b (sampling) of ROADMAP.md")
-    if mode in ("gibbs", "pam"):
-        raise NotImplementedError(
-            f"mode {mode!r} needs the classical samplers, which the port "
-            "brings with slice 3b (sampling) of ROADMAP.md")
-    if mode != "file":
+            "slice 3c (AIS and the native engine) of ROADMAP.md")
+    if mode not in ("file", "gibbs", "pam"):
         raise ValueError(f"unknown mode {mode!r}")
-    if dists is None:
+    if mode == "file" and dists is None:
         raise ValueError("mode='file' requires result distributions")
+    device = resolve_device("cpu" if device is None and mode == "file"
+                            else device)
+    gen = None
+    if mode == "pam":
+        gen = torch.Generator(device=device).manual_seed(int(seed))
 
     out: List[GraphResult] = []
     idx = 0
@@ -115,19 +157,30 @@ def evaluate_suite(
         N = 1 << n
         deltas = np.exp(lnz.cpu().numpy().astype(np.float64)
                         - n * math.log(2.0))
+        if mode != "file":
+            sampled = _sampled_counts(mode, C, n, thetas, idx, num_samples,
+                                      seed, gen, device)
         for i in range(len(thetas)):
             p = p_all[i]
-            q = np.zeros(N)
-            Z = 0.0
-            for k, v in dists[idx].items():
-                kid = int(k, 2)
-                if kid < N:
-                    q[kid] = v
-                    Z += v
+            if mode == "file":
+                q = np.zeros(N)
+                Z = 0.0
+                for k, v in dists[idx].items():
+                    kid = int(k, 2)
+                    if kid < N:
+                        q[kid] = v
+                        Z += v
+                this_norm = norm
+            else:
+                q = sampled[i]
+                Z = q.sum()
+                # the reference's fixed norm: the histogram's count over
+                # 10 000, not over num_samples
+                this_norm = SHOTS
             q = q / Z if Z != 0 else q
             mF = float(metrics.fidelity(p, q))
             gr.fidelities.append(max(min(mF, 1.0), 0.0))
-            gr.successes.append(float(Z / norm))
+            gr.successes.append(float(Z / this_norm))
             gr.kls.append(float(metrics.kl(p, q)))
             gr.exact_deltas.append(float(deltas[i]))
             idx += 1

@@ -25,11 +25,17 @@ The caps (why each exists):
   every step's factor table; 2^28 floats = 1 GB.
 * ``CIRCUIT_SAMPLER_MAX_N``: circuit shot samplers return int32 state
   ids, so quantum-in-the-loop training caps at n = 30.
+* ``PAM_ELIM_WIDTH``: perturb-and-MAP by max-product elimination keeps a
+  ``2^width`` traceback table a sample; wider structures take the
+  streaming argmax sweep.
 
-One departure from the JAX package: for ``query="sample"`` it selects
-``sampler:pam`` even where that sampler is marked infeasible (width past
-``ELIM_WIDTH_CAP`` and n past ``STREAMING_MAX_N``); here ``selected`` is
-then ``None``, as for every other query with no feasible backend.
+Departures from the JAX package, all for ``query="sample"``, where its
+``selected`` disagrees with what the infer CLI runs: ``selected`` follows
+the CLI's routing (:func:`sample_method`) on the evidence-reduced
+structure, for the ``method`` asked (the JAX package judges the unreduced
+structure and ignores ``--method``), and it is ``None`` where no sampler
+is feasible (the JAX package selects ``sampler:pam`` there). The
+samplers' feasibility entries are judged on the reduced structure too.
 """
 
 from __future__ import annotations
@@ -59,6 +65,9 @@ SAMPLER_TABLE_FLOATS_CAP = 1 << 28
 #: circuit shot samplers return int32 state ids (``--grad shots``).
 CIRCUIT_SAMPLER_MAX_N = 30
 
+#: widest structure whose PAM samples come from max-product elimination.
+PAM_ELIM_WIDTH = 16
+
 
 def big_n_threshold() -> int:
     """n above which the train CLI's data travels as bit arrays (int32
@@ -71,18 +80,72 @@ def _entry(ok: bool, reason: str) -> Dict:
     return {"feasible": bool(ok), "reason": reason}
 
 
+def reduce_structure(cliques: Sequence[Sequence[int]], n: int,
+                     evidence: dict):
+    """The structure of the evidence-reduced model, host only: ``(scopes,
+    reduced)``. ``scopes[k]`` is clique k's unobserved variables in its own
+    order, relabelled onto the free variables taken in ascending order
+    (``free[i]`` becomes ``i``); it is empty where the evidence observes
+    the whole clique. ``reduced`` is the reduced model's ``(cliques, n)``:
+    the non-empty scopes, or ``((0,),)`` (a zero-potential clique) when
+    free variables remain in no clique; ``None`` when every variable is
+    observed. ``moments.reduce_evidence`` slices theta along it."""
+    ev = {int(v) for v in evidence}
+    free = [v for v in range(n) if v not in ev]
+    rank = {v: i for i, v in enumerate(free)}
+    scopes = [tuple(rank[int(v)] for v in C if int(v) not in ev)
+              for C in cliques]
+    if not free:
+        return scopes, None
+    return scopes, (tuple(C for C in scopes if C) or ((0,),), len(free))
+
+
+def _sampler_sizes(cliques, n: int, evidence: dict):
+    """(free variables, induced width, stored-factor floats) of the
+    reduced structure; zeros when every variable is observed."""
+    from qcmrf_tpu_torch.models import elimination
+
+    _, red = reduce_structure(cliques, n, evidence)
+    if red is None:
+        return 0, 0, 0
+    rc, rn = red
+    return (rn, elimination.induced_width(rc, rn),
+            elimination.plan_table_floats(rc, rn))
+
+
+def sample_method(cliques: Sequence[Sequence[int]], n: int, evidence: dict,
+                  method: str = "exact"):
+    """``(method, note)``: the sampler ``infer --query sample`` runs for
+    ``method``. ``exact`` past the table cap (``EXACT_TABLE_HARD_N`` free
+    variables) stays exact where the reduced structure has a bounded
+    ancestral plan (``ELIM_WIDTH_CAP``, ``SAMPLER_TABLE_FLOATS_CAP``), else
+    it goes to ``pam`` and ``note`` says why (else ``None``). Host only;
+    the caps are read at call time."""
+    nf = n - len(evidence)
+    if method != "exact" or nf <= EXACT_TABLE_HARD_N:
+        return method, None
+    rn, width, floats = _sampler_sizes(cliques, n, evidence)
+    if width <= ELIM_WIDTH_CAP and floats <= SAMPLER_TABLE_FLOATS_CAP:
+        return method, None
+    return "pam", (
+        f"method 'exact' needs an enumerable table (2^{nf} free states > "
+        f"cap 2^{EXACT_TABLE_HARD_N}) or a bounded reduced elimination "
+        f"plan (width cap {ELIM_WIDTH_CAP}, stored-factor cap "
+        f"{SAMPLER_TABLE_FLOATS_CAP:.3g} floats); routed to 'pam'")
+
+
 def explain(cliques: Sequence[Sequence[int]], n: int,
             evidence: Optional[dict] = None,
             query: str = "lnz",
             max_vars: Optional[Sequence[int]] = None,
-            mesh: bool = False) -> Dict:
+            mesh: bool = False, method: str = "exact") -> Dict:
     """Feasibility of every backend for one (structure, query) — the
     printable capability matrix behind ``infer --explain``.
 
     Returns ``{"n", "induced_width", "query", "backends": {name:
     {"feasible", "reason"}}, "selected": name_or_None}`` where
-    ``selected`` is the backend the infer CLI's routing would use.
-    Host-side analysis only — never initializes a device backend, so
+    ``selected`` is the backend the infer CLI's routing would use (for
+    ``query="sample"``, with sampler ``method``). Host-side analysis only — never initializes a device backend, so
     it is safe to call before platform resolution.
     """
     from qcmrf_tpu_torch.models import elimination
@@ -140,24 +203,25 @@ def explain(cliques: Sequence[Sequence[int]], n: int,
         selected = ("elimination" if fits_elim
                     else "streaming" if stream_ok else None)
     elif query == "sample":
-        # exact route: enumerable table on the reduced model, or a
-        # bounded ancestral plan (the CLI evaluates the reduced model;
-        # the unreduced bounds here give the conservative answer)
+        # every sampler runs on the evidence-reduced model: an enumerable
+        # table or a bounded ancestral plan for exact; for PAM the
+        # streaming sweep's n cap or elimination's PAM width
+        rn, rwidth, rfloats = _sampler_sizes(cl, n, evidence)
         exact_ok = nf <= EXACT_TABLE_HARD_N or (
-            width <= ELIM_WIDTH_CAP
-            and elimination.plan_table_floats(cl, n)
-            <= SAMPLER_TABLE_FLOATS_CAP)
+            rwidth <= ELIM_WIDTH_CAP and rfloats <= SAMPLER_TABLE_FLOATS_CAP)
         b["sampler:exact"] = _entry(
             exact_ok,
             f"2^{nf} free states vs table cap 2^{EXACT_TABLE_HARD_N}; "
             f"ancestral plan needs width <= {ELIM_WIDTH_CAP} and "
             f"<= {SAMPLER_TABLE_FLOATS_CAP:.3g} stored floats")
         b["sampler:gibbs"] = _entry(True, "bit-array chain, any n")
-        pam_ok = width <= ELIM_WIDTH_CAP or n <= STREAMING_MAX_N
+        pam_ok = rn <= STREAMING_MAX_N or rwidth <= PAM_ELIM_WIDTH
         b["sampler:pam"] = _entry(
             pam_ok, "Gumbel perturbation + MAP (elimination or streaming)")
-        selected = ("sampler:exact" if exact_ok
-                    else "sampler:pam" if pam_ok else None)
+        run, _ = sample_method(cl, n, evidence, method)
+        selected = (None if run not in ("exact", "gibbs", "pam")
+                    or not b[f"sampler:{run}"]["feasible"]
+                    else f"sampler:{run}")
     b["circuit-shots"] = _entry(
         n <= CIRCUIT_SAMPLER_MAX_N,
         f"int32 state ids cap circuit sampling at n="

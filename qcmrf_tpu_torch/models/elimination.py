@@ -22,8 +22,10 @@ Planner: :func:`min_degree_order`, :func:`induced_width`,
 :func:`log_partition`, :func:`log_partition_clamped`,
 :func:`conditional_prob`, :func:`clique_marginals`,
 :func:`map_state_bits` (max-product with traceback) and
-:func:`marginal_map`. The samplers (forward filtering / backward sampling
-and perturb-and-MAP) come with slice 3b of ROADMAP.md.
+:func:`marginal_map`. Samplers: :func:`sample_exact_elim` (forward
+filtering, backward sampling) and :func:`sample_pam` (perturb-and-MAP by
+max-product batched over the samples), torch ops on batched tensors as
+the JAX package's are jnp code.
 """
 
 from __future__ import annotations
@@ -35,7 +37,8 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from qcmrf_tpu_torch.models.capability import MMAP_WIDTH_CAP
+from qcmrf_tpu_torch.models.capability import (MMAP_WIDTH_CAP,
+                                               SAMPLER_TABLE_FLOATS_CAP)
 from qcmrf_tpu_torch.models.mrf import MRF
 
 
@@ -146,19 +149,25 @@ def plan_table_floats(cliques, n: int) -> int:
 def _clique_log_factor(theta: torch.Tensor, beta: float, cliques,
                        k: int) -> torch.Tensor:
     """Clique k's ``beta * theta`` table as a log-factor over its sorted
-    scope (theta layout: clique order, first variable slowest)."""
+    scope (theta layout: clique order, first variable slowest). A batch of
+    thetas ``(B, d)`` gives a batch of factors ``(B, 2, ..., 2)``."""
     C = cliques[k]
     m = len(C)
     off = sum(1 << len(c) for c in cliques[:k])
-    tab = (beta * theta[off: off + (1 << m)]).reshape((2,) * m)
+    lead = theta.shape[:-1]
+    tab = (beta * theta[..., off: off + (1 << m)]).reshape(
+        *lead, *(2,) * m)
     # target axis j holds sorted(C)[j]; its source axis is argsort(C)[j]
-    return tab.permute(*[int(a) for a in np.argsort(C)])
+    b = len(lead)
+    return tab.permute(*range(b), *[b + int(a) for a in np.argsort(C)])
 
 
 def _expand(f: torch.Tensor, scope: Tuple[int, ...],
             target: Tuple[int, ...]) -> torch.Tensor:
-    """Broadcast a log-factor over ``scope`` to the superset ``target``."""
-    return f.reshape([2 if u in scope else 1 for u in target])
+    """Broadcast a log-factor over ``scope`` to the superset ``target``
+    (leading batch axes kept)."""
+    lead = f.shape[:f.dim() - len(scope)]
+    return f.reshape(*lead, *[2 if u in scope else 1 for u in target])
 
 
 def _combine_step(st: _Step, clique_scopes, clique_factors, step_results,
@@ -309,12 +318,17 @@ def clique_marginals(mrf: MRF) -> torch.Tensor:
 
 def _gather_bits(table: torch.Tensor, scope: Tuple[int, ...],
                  bits: torch.Tensor) -> torch.Tensor:
-    """``table[bits[scope[0]], bits[scope[1]], ...]`` on the device."""
-    idx = torch.zeros((), dtype=torch.int64, device=bits.device)
+    """``table[bits[scope[0]], bits[scope[1]], ...]`` on the device; with
+    a batch (``bits`` (B, n), ``table`` (B, 2, ..., 2) or one table for
+    all rows), one entry a row."""
     m = len(scope)
+    idx = torch.zeros(bits.shape[:-1], dtype=torch.int64, device=bits.device)
     for i, u in enumerate(scope):
-        idx = idx + (bits[u] << (m - 1 - i))
-    return table.reshape(-1)[idx]
+        idx = idx + (bits[..., u] << (m - 1 - i))
+    if bits.dim() == 1:
+        return table.reshape(-1)[idx]
+    flat = table.reshape(-1, 1 << m).expand(bits.shape[0], -1)
+    return flat.gather(1, idx[:, None])[:, 0]
 
 
 def map_state_bits(mrf: MRF) -> torch.Tensor:
@@ -438,15 +452,109 @@ def marginal_map(mrf: MRF, max_vars, evidence: dict = None,
     return assignment, float(const)
 
 
-def sample_exact_elim(*args, **kwargs):
-    """Exact ancestral sampling over the elimination plan: slice 3b."""
-    raise NotImplementedError(
-        "elimination's ancestral sampler comes to the port with slice 3b "
-        "(sampling) of ROADMAP.md")
+# --------------------------------------------------------------------------
+# Samplers: forward filtering and backward sampling, and perturb-and-MAP by
+# batched max-product elimination.
+# --------------------------------------------------------------------------
 
 
-def sample_pam(*args, **kwargs):
-    """Perturb-and-MAP by max-product elimination: slice 3b."""
-    raise NotImplementedError(
-        "elimination's perturb-and-MAP sampler comes to the port with slice "
-        "3b (sampling) of ROADMAP.md")
+def sample_exact_elim(generator, mrf: MRF, num_samples: int,
+                      table_floats_cap: int = SAMPLER_TABLE_FLOATS_CAP
+                      ) -> torch.Tensor:
+    """IID exact samples from the Gibbs distribution as int32 bit rows
+    ``(num_samples, n)`` for bounded induced width, at any n: one forward
+    sum-product pass that keeps each step's combined factor before its sum,
+    then backward draws, all samples at once, in reverse elimination order:
+    every variable of a step's out-scope is drawn already, so the step's
+    variable is a Bernoulli of the two entries of its stored factor at
+    those bits. A variable in no factor is a uniform bit. The stored
+    factors take :func:`plan_table_floats` floats; past
+    ``table_floats_cap`` this raises (``None`` forces it). ``generator``:
+    a ``torch.Generator`` on the model's device or an integer seed."""
+    from qcmrf_tpu_torch.models.sample import _generator
+
+    if table_floats_cap is not None:
+        tf = plan_table_floats(mrf.cliques, mrf.n)
+        if tf > table_floats_cap:
+            raise ValueError(
+                f"ancestral sampling stores every elimination step's "
+                f"factor: {tf:.3g} floats here (width "
+                f"{induced_width(mrf.cliques, mrf.n)} x ~{mrf.n} steps)"
+                f" > cap {table_floats_cap:.3g}; add evidence to shrink "
+                f"the model or pass table_floats_cap=None to force it")
+    cliques, n = mrf.cliques, mrf.n
+    dev = mrf.device
+    gen = _generator(generator, dev)
+    steps, _ = _structure_plan(cliques, n)
+    theta = mrf.theta.detach()
+    factors = [_clique_log_factor(theta, mrf.beta, cliques, k)
+               for k in range(len(cliques))]
+    scopes = [tuple(sorted(C)) for C in cliques]
+    accs: List[torch.Tensor] = []
+    results: List[torch.Tensor] = []
+    with torch.no_grad():
+        for st in steps:
+            acc = _combine_step(st, scopes, factors, results, steps, theta)
+            accs.append(acc)
+            results.append(torch.logsumexp(acc, dim=st.axis))
+        bits = torch.zeros((num_samples, n), dtype=torch.int64, device=dev)
+        for st, acc in zip(reversed(steps), reversed(accs)):
+            t = acc.movedim(st.axis, -1)
+            l0 = _gather_bits(t[..., 0], st.out_scope, bits)
+            l1 = _gather_bits(t[..., 1], st.out_scope, bits)
+            u = torch.rand(num_samples, generator=gen, device=dev)
+            bits[:, st.scope[st.axis]] = (u < torch.sigmoid(l1 - l0)).long()
+        decided = {st.scope[st.axis] for st in steps}
+        iso = [v for v in range(n) if v not in decided]
+        if iso:
+            bits[:, iso] = (torch.rand((num_samples, len(iso)), generator=gen,
+                                       device=dev) < 0.5).long()
+    return bits.to(torch.int32)
+
+
+def _map_bits_batched(cliques, n: int, thetas: torch.Tensor) -> torch.Tensor:
+    """MAP bits int64 ``(B, n)`` of the models ``thetas`` (B, d) at beta 1,
+    by max-product elimination batched over the rows (ties: bit 0)."""
+    steps, _ = _structure_plan(cliques, n)
+    factors = [_clique_log_factor(thetas, 1.0, cliques, k)
+               for k in range(len(cliques))]
+    scopes = [tuple(sorted(C)) for C in cliques]
+    results: List[torch.Tensor] = []
+    argmaxes: List[torch.Tensor] = []
+    for st in steps:
+        acc = _combine_step(st, scopes, factors, results, steps, thetas)
+        acc = acc.expand(thetas.shape[0], *acc.shape[-len(st.scope):])
+        dim = st.axis - len(st.scope)
+        results.append(acc.amax(dim=dim))
+        argmaxes.append(acc.argmax(dim=dim))
+    bits = torch.zeros((thetas.shape[0], n), dtype=torch.int64,
+                       device=thetas.device)
+    for st, am in zip(reversed(steps), reversed(argmaxes)):
+        bits[:, st.scope[st.axis]] = _gather_bits(am, st.out_scope, bits)
+    return bits
+
+
+def sample_pam(generator, mrf: MRF, num_samples: int,
+               _max_chunk_states: int = 1 << 22) -> torch.Tensor:
+    """Low-order perturb-and-MAP samples as int32 bit rows ``(num_samples,
+    n)`` for bounded induced width, at any n: IID Gumbel noise on every
+    clique-state weight of ``beta * theta``, then the exact MAP of each
+    perturbed model by max-product elimination batched over the samples,
+    in chunks of samples whose per-step tables stay within
+    ``_max_chunk_states`` entries (chunk * 2^width); the noise is drawn for
+    all samples first, so the chunking does not change the samples."""
+    from qcmrf_tpu_torch.models.sample import _generator, _gumbel
+
+    dev = mrf.device
+    gen = _generator(generator, dev)
+    with torch.no_grad():
+        g = _gumbel(gen, (num_samples, mrf.dimension), dev)
+        thetas = g.add_(mrf.beta * mrf.theta.detach())
+        width = induced_width(mrf.cliques, mrf.n)
+        per = max(1, _max_chunk_states >> width)
+        out = torch.empty((num_samples, mrf.n), dtype=torch.int32,
+                          device=dev)
+        for lo in range(0, num_samples, per):
+            out[lo:lo + per] = _map_bits_batched(
+                mrf.cliques, mrf.n, thetas[lo:lo + per])
+    return out

@@ -38,6 +38,7 @@ import torch
 
 from qcmrf_tpu_torch.models import elimination as _ve
 from qcmrf_tpu_torch.models.capability import STREAMING_MAX_N as _MAX_N
+from qcmrf_tpu_torch.models.capability import reduce_structure
 from qcmrf_tpu_torch.models.mrf import MRF
 from qcmrf_tpu_torch.utils import moebius
 
@@ -131,34 +132,31 @@ def reduce_evidence(mrf: MRF, evidence: dict):
     variable is observed."""
     _ve._validate_evidence(mrf.n, evidence)
     ev = {int(v): int(b) for v, b in evidence.items()}
-    free = [v for v in range(mrf.n) if v not in ev]
-    rank = {v: i for i, v in enumerate(free)}
+    scopes, structure = reduce_structure(mrf.cliques, mrf.n, ev)
     const = torch.zeros((), dtype=mrf.theta.dtype, device=mrf.device)
-    new_cliques, new_thetas = [], []
+    new_thetas = []
     off = 0
-    for C in mrf.cliques:
+    for C, scope in zip(mrf.cliques, scopes):
         c = len(C)
         tab = mrf.theta[off: off + (1 << c)].reshape((2,) * c)
         tab = tab[tuple(ev[v] if v in ev else slice(None) for v in C)]
-        scope = [rank[v] for v in C if v not in ev]
         if scope:
-            new_cliques.append(scope)
             new_thetas.append(tab.reshape(-1))
         else:
             const = const + tab.reshape(())
         off += 1 << c
-    nf = len(free)
-    if not new_cliques:
-        if nf == 0:
-            return None, const
+    if structure is None:
+        return None, const
+    new_cliques, nf = structure
+    if not new_thetas:
         # every clique folded into the constant, but free variables remain:
-        # they are in no clique, so keep them with one zero-potential clique
-        new_cliques = [[0]]
+        # they are in no clique, so the one zero-potential clique holds them
         new_thetas = [torch.zeros((2,), dtype=mrf.theta.dtype,
                                   device=mrf.device)]
     # n=nf explicitly: a free variable in no reduced clique still counts
-    red = MRF.create(new_cliques, theta=torch.cat(new_thetas),
-                     beta=mrf.beta, n=nf, device=mrf.device)
+    red = MRF.create([list(C) for C in new_cliques],
+                     theta=torch.cat(new_thetas), beta=mrf.beta, n=nf,
+                     device=mrf.device)
     return red, const
 
 

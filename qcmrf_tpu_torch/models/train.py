@@ -24,7 +24,7 @@ across.
 
 Not ported here: the sharded step (:func:`make_sharded_train_step`,
 :func:`fit_mle_sharded`, slice 6) and AIS-moment training
-(:func:`make_ais_train_step`, slice 3b); they raise.
+(:func:`make_ais_train_step`, slice 3c); they raise.
 """
 
 from __future__ import annotations
@@ -222,10 +222,10 @@ def fit_mle_shots(mrf0: MRF, data, seed: int, steps: int = 200,
 
 
 def make_ais_train_step(*args, **kwargs):
-    """``make_ais_train_step`` of the JAX package: slice 3b."""
+    """``make_ais_train_step`` of the JAX package: slice 3c."""
     raise NotImplementedError(
         "make_ais_train_step (AIS-moment training) comes to the port with "
-        "slice 3b (sampling) of ROADMAP.md")
+        "slice 3c (AIS and the native engine) of ROADMAP.md")
 
 
 # --------------------------------------------------------------------------

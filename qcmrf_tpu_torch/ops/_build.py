@@ -111,6 +111,13 @@ _SIGNATURES = {
     "qcmrf_copy": (_P, _P, _P, _P, _I64, _P),
     # x, b, steps, num_quads, block_max, out (or null), stream
     "qcmrf_fma_peak": (_P, _F, _I, _I64, _P, _P, _P),
+    # seed, chain ids, thetas, d, beta, n, heads, items, n_items, others,
+    # n_others, evidence (or null), C, sweeps, burn, thin, num_samples, out,
+    # shared bytes, stream
+    "qcmrf_gibbs": (_U32, _P, _P, _I64, _F, _I, _P, _P, _I, _P, _I, _P, _I,
+                    _I, _I, _I, _I, _P, _I, _P),
+    # chase, steps, beta, out (8 int64), sink (32 int32), stream
+    "qcmrf_gibbs_latency": (_P, _I, _F, _P, _P, _P),
 }
 
 

@@ -546,6 +546,9 @@ def log_partition(mrf: MRF) -> torch.Tensor:
 #: is the split's, so there the map kernel serves every n
 MIN_KERNEL_N = 10
 _NO_STATE = torch.iinfo(torch.int64).max
+#: coefficient rows one launch of the map kernel takes (its grid's y
+#: dimension, capped at 65535 by the card); map_partials splits past it
+MAX_LAUNCH_ROWS = 65535
 
 
 def map_partials_reference(cliques: tuple, n: int, coef: torch.Tensor,
@@ -652,7 +655,8 @@ def map_partials(cliques: tuple, n: int, coef: torch.Tensor, beta: float,
     ``parts``), the chain's values (:func:`map_partials_reference` bit for
     bit). :func:`combine_map` finishes. No table is written: on the card
     the states are screened through the split and the chain evaluates the
-    candidates (``map_kernel``). ``candidates``, an int64 (B, parts)
+    candidates (``map_kernel``), at most ``MAX_LAUNCH_ROWS`` rows a launch,
+    each row the same in any launch. ``candidates``, an int64 (B, parts)
     tensor, receives each block's candidates; on a CPU tensor it makes the
     plain version that of the split algorithm
     (:func:`map_partials_split_reference`)."""
@@ -664,10 +668,12 @@ def map_partials(cliques: tuple, n: int, coef: torch.Tensor, beta: float,
                                             candidates=candidates)
     dev = coef.device
     L = split_bits(n)
-    shifts, sizes, B, K, cmax = _build.structure_args(
-        cliques, n, coef,
+    B = coef.shape[0]
+    shifts, sizes, _, K, cmax = _build.structure_args(
+        cliques, n, coef[:MAX_LAUNCH_ROWS],
         extra=split_shared_bytes(split_plan(cliques, n, L))
         + _MAP_STATIC_BYTES)
+    _build.check(coef, "coef", torch.float32, (B, K << cmax), dev)
     _, tables = _device_plan(cliques, n, L, dev)
     parts, per_part = lse_geometry(1 << n)
     if candidates is not None:
@@ -675,13 +681,17 @@ def map_partials(cliques: tuple, n: int, coef: torch.Tensor, beta: float,
     tol = map_tolerance(coef, beta)
     v = torch.empty((B, parts), dtype=torch.float32, device=dev)
     x = torch.empty((B, parts), dtype=torch.int64, device=dev)
-    _build.launch("qcmrf_map", dev, tables, _build.ptr(coef),
-                  _build.ptr(shifts), _build.ptr(sizes), B, K, cmax,
-                  per_part, parts, beta, _build.ptr(tol), _build.ptr(v),
-                  _build.ptr(x),
-                  _build.ptr(candidates) if candidates is not None
-                  else _build.ctypes.c_void_p(0))
-    LAUNCHES["map"] += 1
+    # grid.y holds a launch's rows: at most MAX_LAUNCH_ROWS a launch
+    for lo in range(0, B, MAX_LAUNCH_ROWS):
+        rows = slice(lo, min(B, lo + MAX_LAUNCH_ROWS))
+        _build.launch("qcmrf_map", dev, tables, _build.ptr(coef[rows]),
+                      _build.ptr(shifts), _build.ptr(sizes),
+                      rows.stop - lo, K, cmax, per_part, parts, beta,
+                      _build.ptr(tol[rows]), _build.ptr(v[rows]),
+                      _build.ptr(x[rows]),
+                      _build.ptr(candidates[rows]) if candidates is not None
+                      else _build.ctypes.c_void_p(0))
+        LAUNCHES["map"] += 1
     return v, x
 
 

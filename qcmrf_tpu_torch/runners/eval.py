@@ -1,10 +1,14 @@
-"""Evaluation CLI (port of :mod:`qcmrf_tpu.runners.eval`, ``--mode file``)::
+"""Evaluation CLI (port of :mod:`qcmrf_tpu.runners.eval`)::
 
     python -m qcmrf_tpu_torch eval --results result_analytic_0.1.json \\
         --scale 0.1 --res-root <dir holding res_0.1/> [--kl] [--platform gpu]
+    python -m qcmrf_tpu_torch eval --mode gibbs|pam --scale 0.1 \\
+        [--num-samples 10000] [--platform cpu]
 
 Prints the fidelity / success-rate table and returns the per-graph
-results.
+results. ``--mode file`` evaluates on the host unless ``--platform``
+names the card (the JAX CLI's default); the sampling modes run the
+samplers on the card unless ``--platform cpu`` is given.
 """
 
 from __future__ import annotations
@@ -33,10 +37,10 @@ def main(argv: Optional[List[str]] = None) -> List[GraphResult]:
     parser.add_argument("--scale", type=str, default="0.1",
                         help="Variance of parameter prior.")
     parser.add_argument("--mode", type=str, default="file",
-                        help="file (gibbs and pam are not ported yet).")
+                        help="file or gibbs or pam.")
     parser.add_argument("--native", action="store_true",
                         help="Use the C++ engine for gibbs/pam sampling "
-                             "(not ported yet).")
+                             "(slice 3c, not ported yet).")
     parser.add_argument("--res-root", type=str, default=".",
                         help="Directory containing res_{scale}/ folders.")
     parser.add_argument("--kl", action="store_true",
@@ -45,20 +49,28 @@ def main(argv: Optional[List[str]] = None) -> List[GraphResult]:
                         help="Override the counts normalization (10000 "
                              "for raw counts); pass the actual shot count "
                              "for files produced with --shots != 10000.")
-    parser.add_argument("--platform", type=str, default="cpu",
+    parser.add_argument("--platform", type=str, default=None,
                         choices=["cpu", "gpu", "default"],
-                        help="Device for the exact Gibbs tables and lnZ; "
-                             "'default' means 'gpu'.")
+                        help="Device for the exact Gibbs tables, lnZ and "
+                             "the samplers; 'default' means 'gpu'. Unset: "
+                             "'cpu' for --mode file, 'default' for the "
+                             "sampling modes.")
     parser.add_argument("--num-samples", type=int, default=10_000,
-                        help="gibbs/pam modes: samples to histogram (not "
-                             "ported yet).")
+                        help="gibbs/pam modes: samples to histogram (the "
+                             "success column divides by the fixed 10000 "
+                             "norm, as the reference does).")
+    parser.add_argument("--seed", type=int, default=0,
+                        help="gibbs/pam modes: keys the chains and seeds "
+                             "the perturbations.")
     from qcmrf_tpu_torch.utils.config import (
         parse_with_config,
         resolve_platform,
     )
 
     args = parse_with_config(parser, argv)
-    device = resolve_platform(args.platform)
+    platform = args.platform or ("cpu" if args.mode == "file"
+                                 else "default")
+    device = resolve_platform(platform)
 
     # suite: prefer the stored models file, else regenerate
     res_dir = os.path.join(args.res_root, f"res_{args.scale}")
@@ -78,7 +90,8 @@ def main(argv: Optional[List[str]] = None) -> List[GraphResult]:
         norm = args.norm
 
     results = evaluate_suite(suite, dists=dists, norm=norm, mode=args.mode,
-                             native=args.native, device=device)
+                             native=args.native, device=device,
+                             num_samples=args.num_samples, seed=args.seed)
     print(results_table(results, with_kl=args.kl))
     return results
 

@@ -1,5 +1,5 @@
-"""``python -m qcmrf_tpu_torch infer``: serve exact inference queries on a
-model (port of :mod:`qcmrf_tpu.runners.infer_cli`, same flags and JSON).
+"""``python -m qcmrf_tpu_torch infer``: serve inference queries on a model
+(port of :mod:`qcmrf_tpu.runners.infer_cli`, same flags and JSON).
 
 Load a model (a ``{'cliques', 'theta'}`` JSON such as the train CLI's
 ``fitted_model.json``, or ``--graph``) and answer:
@@ -9,6 +9,7 @@ Load a model (a ``{'cliques', 'theta'}`` JSON such as the train CLI's
     map        evidence-constrained MAP state
     mmap       marginal MAP over --max-vars (the rest summed out)
     marginals  clique-marginal tables E[phi | evidence] (theta layout)
+    sample     conditional samples as bit rows (--method exact|gibbs|pam)
 
 Backends route by structure: induced width up to
 ``capability.ELIM_WIDTH_CAP`` goes through variable elimination (any n);
@@ -20,9 +21,8 @@ file.jsonl`` answers a batch of per-query overrides in one process (JSONL
 out, ``index`` echoes the line order).
 
 ``--platform default`` means the card, as for ``run``: the JAX package's
-``default`` serves n <= 26 on the host, the port does not. ``--query
-sample`` and ``--method gibbs|pam|ais`` come with slice 3b and ``--mesh``
-with slice 6 of ROADMAP.md.
+``default`` serves n <= 26 on the host, the port does not. ``--method
+ais`` comes with slice 3c and ``--mesh`` with slice 6 of ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -94,16 +94,12 @@ def _validate_method(query: str, method: str, where: str = "") -> None:
             f"(--query {query} is answered by its exact backend)")
 
 
-def _check_ported(query: str, method: str, where: str = "") -> None:
+def _check_ported(method: str, where: str = "") -> None:
     """Exit, naming the slice, on what the port does not serve yet."""
-    if query == "sample":
-        raise SystemExit(
-            f"{where}--query sample comes to the port with slice 3b "
-            "(sampling) of ROADMAP.md")
     if method == "ais":
         raise SystemExit(
-            f"{where}--method ais comes to the port with slice 3b "
-            "(sampling, AIS included) of ROADMAP.md")
+            f"{where}--method ais comes to the port with slice 3c (AIS "
+            "and the native engine) of ROADMAP.md")
 
 
 def _floats(t) -> list:
@@ -145,8 +141,8 @@ def main(argv: Optional[List[str]] = None):
     parser.add_argument("--num-samples", type=int, default=100)
     parser.add_argument("--method", type=str, default="exact",
                         choices=["exact", "gibbs", "pam", "ais"],
-                        help="sampler for --query sample (slice 3b); 'ais' "
-                             "comes with slice 3b too")
+                        help="sampler for --query sample; 'ais' (lnz, "
+                             "marginals, prob) comes with slice 3c")
     parser.add_argument("--ais-chains", type=int, default=256)
     parser.add_argument("--ais-temps", type=int, default=128)
     parser.add_argument("--sample-seed", type=int, default=0)
@@ -236,7 +232,8 @@ def main(argv: Optional[List[str]] = None):
                   args.max_vars.replace(";", ",").split(",") if v.strip()]
         report = capability.explain(
             cliques, n_vars, evidence=_parse_assignments(args.evidence),
-            query=args.query, max_vars=mv, mesh=args.mesh is not None)
+            query=args.query, max_vars=mv, mesh=args.mesh is not None,
+            method=args.method)
         _emit([report], args.out)
         return report
 
@@ -245,11 +242,10 @@ def main(argv: Optional[List[str]] = None):
                          "multi-device layer) of ROADMAP.md")
     if args.queries:
         for i, spec in enumerate(batch_specs):
-            _check_ported(spec.get("query", args.query),
-                          spec.get("method", args.method),
+            _check_ported(spec.get("method", args.method),
                           where=f"--queries line {i + 1}: ")
     else:
-        _check_ported(args.query, args.method)
+        _check_ported(args.method)
 
     device = resolve_platform(args.platform)
     from qcmrf_tpu_torch.models.mrf import MRF
@@ -304,8 +300,10 @@ def _answer(mrf, args, beta) -> dict:
     max_n = capability.STREAMING_MAX_N
     width = elimination.induced_width(mrf.cliques, mrf.n)
     use_streaming = width > cap
-    if use_streaming and mrf.n > max_n and args.query != "mmap":
-        # mmap routes on its own (constrained) width below
+    if use_streaming and mrf.n > max_n and args.query not in ("mmap",
+                                                              "sample"):
+        # mmap routes on its own (constrained) width below, and a
+        # sampler's feasibility is per method on the reduced model
         raise SystemExit(
             f"n={mrf.n} needs the streaming sweep (induced width {width} "
             f"> elimination cap {cap}, or --mesh), which caps at "
@@ -405,6 +403,20 @@ def _answer(mrf, args, beta) -> dict:
         else:
             mu = elimination.clique_marginals(mrf)
         result["marginals"] = _floats(mu)
+    elif args.query == "sample":
+        method, note = capability.sample_method(mrf.cliques, mrf.n,
+                                                evidence, args.method)
+        try:
+            bits = msample.sample_conditional(
+                args.sample_seed, mrf, args.num_samples, evidence,
+                method=method)
+        except ValueError as e:
+            # a sampler with no feasible backend explains its limits
+            raise SystemExit(str(e))
+        result["method"] = method
+        if note:
+            result["note"] = note
+        result["samples"] = bits.cpu().numpy().astype(np.int32).tolist()
     return result
 
 

@@ -22,9 +22,12 @@ set by group-lasso MLE first (:mod:`models.structure`).
 
 ``--platform default`` means the card, as for ``run`` and ``infer``: the
 JAX package's "small fits go to the host" is not carried over.
-``--mesh`` comes with slice 6, ``--grad ais`` and synthetic data where
-the JAX package would draw it with a Gibbs chain or perturb-and-MAP (n >
-22, or bit arrays past the threshold) with slice 3b: pass ``--data``.
+Without ``--data`` the CLI draws its data from a random ground-truth
+model: ``sample_exact`` up to n = 22, one Gibbs chain (thin 10, burn 100,
+the chain kernel) past it; past the threshold, as bit arrays, elimination's
+perturb-and-MAP, or the chain where the structure is wider than the
+elimination cap. ``--mesh`` comes with slice 6 and ``--grad ais`` with
+slice 3c.
 """
 
 from __future__ import annotations
@@ -137,15 +140,15 @@ def main(argv: Optional[List[str]] = None) -> str:
                         help="model-moment term of the NLL gradient: "
                              "exact inference, or post-selected circuit "
                              "shots (quantum-in-the-loop training); 'ais' "
-                             "comes with slice 3b")
+                             "comes with slice 3c")
     parser.add_argument("--grad-shots", type=int, default=1 << 14,
                         help="shots per step for --grad shots")
     parser.add_argument("--ais-chains", type=int, default=256,
-                        help="--grad ais (slice 3b)")
+                        help="--grad ais (slice 3c)")
     parser.add_argument("--ais-temps", type=int, default=64,
-                        help="--grad ais (slice 3b)")
+                        help="--grad ais (slice 3c)")
     parser.add_argument("--ais-ess-frac", type=float, default=0.1,
-                        help="--grad ais (slice 3b)")
+                        help="--grad ais (slice 3c)")
     parser.add_argument("--mesh", type=str, default=None,
                         help="AxB device mesh (slice 6)")
     parser.add_argument("--platform", type=str, default="default",
@@ -187,7 +190,7 @@ def main(argv: Optional[List[str]] = None) -> str:
             f"streaming sweep, which tops out at n={max_n} (the JAX "
             "package's int32 block ids) — the JAX package trains there on "
             "AIS moment estimates (--grad ais), which come to the port "
-            "with slice 3b")
+            "with slice 3c")
     if big and args.grad == "shots":
         raise SystemExit("--grad shots needs the circuit sampler's int32 "
                          f"state ids (n <= {capability.CIRCUIT_SAMPLER_MAX_N})")
@@ -197,13 +200,8 @@ def main(argv: Optional[List[str]] = None) -> str:
                          "serve fixed structures")
     if args.grad == "ais":
         raise SystemExit("--grad ais (AIS-moment training) comes to the "
-                         "port with slice 3b (sampling) of ROADMAP.md")
-    if not args.data and (big or n > 22):
-        raise SystemExit(
-            f"synthetic data at n={n} comes from the Gibbs chain or "
-            "perturb-and-MAP samplers (sample_gibbs, sample_gibbs_bits, "
-            "sample_pam), which come to the port with slice 3b (sampling) "
-            "of ROADMAP.md; pass --data")
+                         "port with slice 3c (AIS and the native engine) of "
+                         "ROADMAP.md")
 
     device = resolve_platform(args.platform)
     import torch
@@ -229,10 +227,30 @@ def main(argv: Optional[List[str]] = None) -> str:
                     f"0/1 per sample); got shape {data.shape}")
         else:
             data = torch.as_tensor(loaded, dtype=torch.int64, device=device)
+    elif big:
+        # ground truth at large n, as bit arrays: elimination's
+        # perturb-and-MAP for bounded width; a wide structure takes the
+        # bit-array Gibbs chain (approximate: pass --data where exactness
+        # matters)
+        true = template.with_theta(
+            -np.abs(rng.randn(template.dimension)).astype(np.float32))
+        if wide:
+            data = msample.sample_gibbs_bits(args.data_seed, true,
+                                             args.samples, thin=10, burn=100)
+        else:
+            data = elimination.sample_pam(args.data_seed, true, args.samples)
+        data = data.cpu().numpy().astype(np.uint8)
+        with open(os.path.join(args.outdir, "data.json"), "w") as f:
+            json.dump(data.tolist(), f)
     else:
         true = template.with_theta(
             -np.abs(rng.randn(template.dimension)).astype(np.float32))
-        data = msample.sample_exact(args.data_seed, true, args.samples)
+        if n > 22:
+            # no 2^n table at this size: one Gibbs chain, thinned by 10
+            data = msample.sample_gibbs(args.data_seed, true, args.samples,
+                                        thin=10, burn=100)
+        else:
+            data = msample.sample_exact(args.data_seed, true, args.samples)
         with open(os.path.join(args.outdir, "data.json"), "w") as f:
             json.dump(data.cpu().tolist(), f)
 

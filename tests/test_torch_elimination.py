@@ -6,6 +6,7 @@ summed in another order); MAP bits are equal."""
 
 import json
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -131,10 +132,11 @@ def test_errors_match_jax():
     jm, m = models("star9")
     with pytest.raises(ValueError, match="width_cap"):
         elimination.marginal_map(m, list(range(1, 9)), width_cap=4)
-    with pytest.raises(NotImplementedError, match="slice 3b"):
-        elimination.sample_exact_elim(None, m, 4)
-    with pytest.raises(NotImplementedError, match="slice 3b"):
-        elimination.sample_pam(None, m, 4)
+    with pytest.raises(ValueError, match="stores every elimination"):
+        elimination.sample_exact_elim(0, m, 4, table_floats_cap=10)
+    with pytest.raises(ValueError, match="stores every elimination"):
+        jelim.sample_exact_elim(jax.random.PRNGKey(0), jm, 4,
+                                table_floats_cap=10)
 
 
 QUERIES = ("lnz", "prob", "map", "mmap", "marginals", "sample")

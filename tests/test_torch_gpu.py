@@ -859,3 +859,146 @@ def test_fma_peak_kernel_matches_plain_version(dev):
         kernels.fma_chain_max(z, -1.0, steps=steps, out=out)
         assert bool((out == value).all())
     assert bench.fma_peak_tflops(dev, reps=2) > 1.0
+
+
+# ---- slice 3b: the samplers ------------------------------------------------------
+
+
+def pam_n24(dev):
+    """bench.py's PAM model: the 24-chain with 6 triangles, theta =
+    -|randn(RandomState(7))| * 0.5."""
+    cl = ([[i, i + 1] for i in range(23)]
+          + [[3 * i, 3 * i + 1, 3 * i + 2] for i in range(6)])
+    d = sum(1 << len(C) for C in cl)
+    theta = -np.abs(np.random.RandomState(7).randn(d)).astype(np.float32) * 0.5
+    return MRF.create(cl, theta=theta, device=dev)
+
+
+def perturbed_rows(m, rows, seed):
+    """``rows`` Gumbel-perturbed coefficient rows of ``m``, as PAM draws
+    them."""
+    from qcmrf_tpu_torch.models import sample
+
+    g = torch.Generator(device=m.device).manual_seed(seed)
+    th = sample._gumbel(g, (rows, m.dimension), m.device) + m.beta * m.theta
+    return kernels.coefficient_table(m.cliques, m.n, th)
+
+
+@pytest.mark.parametrize("which", ["pam_n24", "K27"])
+def test_map_kernel_rows_equal_single_row_launches(dev, which):
+    """16 independent perturbed models in one launch == 16 launches of one
+    row each (torch.equal)."""
+    if which == "K27":
+        m = complete_model(27, dev)
+    else:
+        m = pam_n24(dev)
+    coef = perturbed_rows(m, 16, 1)
+    before = kernels.LAUNCHES["map"]
+    v, x = kernels.map_partials(m.cliques, m.n, coef, 1.0)
+    assert kernels.LAUNCHES["map"] == before + 1
+    for r in range(16):
+        v1, x1 = kernels.map_partials(m.cliques, m.n, coef[r:r + 1], 1.0)
+        assert torch.equal(v1[0], v[r]) and torch.equal(x1[0], x[r]), r
+
+
+def test_map_kernel_splits_rows_past_the_grid_limit(dev):
+    """70 000 rows (grid.y takes 65 535): two launches, every row equal to
+    the plain version's."""
+    m = chain_mrf(8, theta=-np.abs(np.random.RandomState(2).randn(28)),
+                  device=dev)
+    coef = perturbed_rows(m, 70_000, 2)
+    before = kernels.LAUNCHES["map"]
+    v, x = kernels.map_partials(m.cliques, m.n, coef, 1.0)
+    assert kernels.LAUNCHES["map"] == before + 2
+    wv, wx = kernels.map_partials_reference(m.cliques, m.n, coef, 1.0)
+    assert torch.equal(v, wv) and torch.equal(x, wx)
+
+
+@pytest.mark.parametrize("case", ["suite", "evidence", "K12", "K27"])
+def test_gibbs_kernel_matches_plain_version(dev, case):
+    """At the main path's own thin and burn (eval --mode gibbs: thin 10,
+    burn 10 on a suite graph's 10 chains; train's chain: thin 10, burn 100,
+    on K12 and K27) the sampled rows equal the plain version's, and are
+    the chains' states after sweeps burn + i * thin; where two runs part,
+    the first differing decision lies within 2 ulp of its p1."""
+    from qcmrf_tpu_torch.ops import gibbs_kernel
+
+    ev = None
+    chains, num, thin, burn = 10, 15, 10, 100
+    if case in ("K12", "K27"):
+        m = complete_model(int(case[1:]), dev)
+        chains = 4 if case == "K27" else chains
+        num = 5
+    else:
+        suite = generate_suite(0.1)
+        m = MRF.create(suite.graphs[5], theta=suite.thetas[5][0], device=dev)
+        burn = 10
+        if case == "evidence":
+            ev = torch.tensor([-1, 1, -1, -1, 0], dtype=torch.int8)
+    rng = np.random.RandomState(4)
+    thetas = (m.theta[None] - torch.from_numpy(np.abs(rng.randn(
+        chains, m.dimension)).astype(np.float32)).to(dev) * 0.3).contiguous()
+    args = (11, m.cliques, m.n, thetas, m.beta, num, thin, burn)
+    ids = range(3, 3 + chains)
+    before = gibbs_kernel.LAUNCHES["gibbs"]
+    got = gibbs_kernel.gibbs_chains(*args, evidence_mask=ev, chain_ids=ids)
+    assert gibbs_kernel.LAUNCHES["gibbs"] == before + 1
+    want = gibbs_kernel.gibbs_chains_reference(*args, evidence_mask=ev,
+                                               chain_ids=ids)
+    assert got.is_cuda and got.shape == want.shape == (chains, num, m.n)
+    for c, s, v, u, p1 in gibbs_kernel.partings(
+            *args, got, want, evidence_mask=ev, chain_ids=ids):
+        assert gibbs_kernel.within_ulps(u, p1), (c, s, v, u, p1)
+    if ev is not None:
+        assert bool((got[..., 1] == 1).all() and (got[..., 4] == 0).all())
+
+
+def test_gibbs_latency_probe(dev):
+    """The probe times every step, at a clock an H100 can run."""
+    from qcmrf_tpu_torch.ops import gibbs_kernel
+
+    lat = gibbs_kernel.latency_cycles(dev, steps=256)
+    assert all(lat[k] > 0 for k in gibbs_kernel.LATENCY_STEPS), lat
+    assert 0.5 < lat["sm_ghz"] < 2.5, lat
+
+
+def test_samplers_on_card(dev):
+    """The public samplers on the card: PAM's two forms equal from one
+    generator seed, FFBS on the 40-chain within 0.02 of elimination's
+    marginals, sample_conditional's evidence clamped by every method."""
+    from qcmrf_tpu_torch.models import elimination, sample
+    from qcmrf_tpu_torch.ops import gibbs_kernel
+
+    m = pam_n24(dev)
+    ids = sample.sample_pam(3, m, 16)
+    bits = sample.sample_pam_streaming(3, m, 16)
+    assert ids.is_cuda and torch.equal(
+        bits, ((ids.long()[:, None] >> (23 - torch.arange(24, device=dev)))
+               & 1).int())
+    ce = chain_mrf(40, theta=-np.abs(np.random.RandomState(9).randn(156)),
+                   device=dev)
+    S = elimination.sample_exact_elim(0, ce, 65536).float()
+    for v in (0, 17, 39):
+        assert abs(float(S[:, v].mean())
+                   - float(elimination.conditional_prob(ce, v, 1))) < 0.02
+    before = gibbs_kernel.LAUNCHES["gibbs"]
+    for method in ("exact", "gibbs", "pam"):
+        b = sample.sample_conditional(1, m, 20, {0: 1, 5: 0}, method=method)
+        assert b.is_cuda and b.shape == (20, 24)
+        assert bool((b[:, 0] == 1).all() and (b[:, 5] == 0).all())
+    assert gibbs_kernel.LAUNCHES["gibbs"] == before + 1
+
+
+def test_build_fails_loudly(dev, tmp_path, monkeypatch):
+    """A source nvcc refuses stops the build with its log: no library,
+    no fallback."""
+    from qcmrf_tpu_torch.ops import _build
+
+    src = tmp_path / "csrc"
+    src.mkdir()
+    (src / "broken.cu").write_text("this is not CUDA\n")
+    monkeypatch.setattr(_build, "CSRC", src)
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        _build.build()
+    assert not _build.library_path().exists()

@@ -141,12 +141,12 @@ def test_cli_dispatch(k10, capsys):
 
 
 def test_unported_options_name_their_slices(k10, tmp_path):
-    cases = ((["--query", "sample"], "slice 3b"),
-             (["--query", "sample", "--method", "pam"], "slice 3b"),
-             (["--query", "lnz", "--method", "ais"], "slice 3b"),
+    cases = ((["--query", "lnz", "--method", "ais"], "slice 3c"),
+             (["--query", "marginals", "--method", "ais"], "slice 3c"),
              (["--query", "lnz", "--mesh", "2x1"], "slice 6"),
-             (batch(tmp_path, [{"query": "lnz"}, {"query": "sample"}]),
-              "line 2: --query sample comes to the port with slice 3b"))
+             (batch(tmp_path, [{"query": "lnz"},
+                               {"query": "prob", "method": "ais"}]),
+              "line 2: --method ais comes to the port with slice 3c"))
     for argv, match in cases:
         with pytest.raises(SystemExit, match=match):
             infer_cli.main(k10 + argv + ["--platform", "cpu"])

@@ -266,7 +266,6 @@ def test_unported_options_name_their_slices():
             fn(*args, mesh=object())
     with pytest.raises(NotImplementedError, match="slice 6"):
         moments.conditional_prob_streaming(m, 0, 1, {}, mesh=object())
-    for name in ("sample_gibbs", "sample_gibbs_bits", "sample_pam",
-                 "sample_pam_streaming", "sample_conditional"):
-        with pytest.raises(NotImplementedError, match="slice 3b"):
-            getattr(sample, name)(None, m, 4)
+    with pytest.raises(NotImplementedError, match="slice 6"):
+        sample.sample_conditional(0, m, 4, {0: 1}, method="pam",
+                                  mesh=object())

@@ -185,6 +185,8 @@ def _default_device_calls():
             lambda: batch.batched_joint_probs([[0, 1]], [[-0.1] * 4]),
         "run_experiment.run_suite": lambda: run_experiment.run_suite(
             generate_suite(0.1), shots=10, engine="statevector"),
+        "harness.evaluate_suite": lambda: harness.evaluate_suite(
+            generate_suite(0.1, reps=1), mode="gibbs", num_samples=10),
     }
 
 
@@ -208,13 +210,15 @@ def test_unported_options_name_their_slice(run_dir, tmp_path):
                            ("calibrated:torino", "slice 5")):
         with pytest.raises(NotImplementedError, match=slice_):
             run_experiment.run_suite(suite, shots=10, engine=engine)
-    for argv in (["--mode", "gibbs"], ["--mode", "pam"], ["--native"]):
-        with pytest.raises(NotImplementedError, match="slice 3b"):
+    for argv in (["--native"],
+                 ["--mode", "gibbs", "--native", "--platform", "cpu"],
+                 ["--mode", "pam", "--native", "--platform", "cpu"]):
+        with pytest.raises(NotImplementedError, match="slice 3c"):
             run_eval.main(["--results", "result_analytic_0.1.json",
                            "--scale", "0.1", "--res-root", str(run_dir)]
                           + argv)
-    with pytest.raises(NotImplementedError):
-        harness.evaluate_suite(suite, dists=[{}] * 70, mode="pam")
+    with pytest.raises(NotImplementedError, match="slice 3c"):
+        harness.evaluate_suite(suite, mode="pam", native=True)
 
 
 def test_cli_dispatch_and_config(tmp_path, capsys):

@@ -498,7 +498,7 @@ def test_sample_exact_two_stage_moments_at_n12(monkeypatch):
 def test_unported_routes_name_their_slices():
     for fn, slice_ in ((train.make_sharded_train_step, "slice 6"),
                        (train.fit_mle_sharded, "slice 6"),
-                       (train.make_ais_train_step, "slice 3b")):
+                       (train.make_ais_train_step, "slice 3c")):
         with pytest.raises(NotImplementedError, match=slice_):
             fn(None, None)
     raw = torch.zeros(4, requires_grad=True)
