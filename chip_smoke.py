@@ -2520,51 +2520,86 @@ def check_pam_rows(mrf, what: str, seed: int) -> dict:
 
 
 def gibbs_ops(cliques, n: int) -> float:
-    """Operations of one sweep of the chain: per item of a site, a product
-    and a sum per other slot, a subtraction and an addition; per site the
-    butterfly's 5 additions, the product with beta, exp, the addition, the
-    division and the compare (10), the uniform's conversion and scaling
-    (2), and a quarter of a Philox call (philox_ops(0) operations)."""
+    """Operations one sweep of the chain needs, whatever decides its bits:
+    per item of a site, a product and a sum per other slot, a subtraction
+    and an addition; per site the butterfly's 5 additions, the product with
+    beta, exp, the addition, the division and the compare (10), the
+    uniform's conversion and scaling (2), and a quarter of a Philox call
+    (philox_ops(0) operations). The kernel's threshold (two float64
+    logarithms a site) is its way of deciding, not work the function
+    needs, and stays out."""
     items = sum(2 * (len(C) - 1) + 2 for C in cliques for _ in C)
     return items + n * (12 + philox_ops(0) / 4)
 
 
 def site_latency(dev) -> dict:
-    """The latency a site update's dependent chain implies, from the card's
-    own step latencies (``gibbs_kernel.latency_cycles``), for a site whose
-    items fit one per lane (at most 32, as K27's 26 and the suite's 1-2):
-    by data dependence alone, the previous site's bit stored and read back
-    (bit_round_trip), the theta load (ldg_l1), the butterfly's 5 shuffles,
-    p1 from delta, and 5 integer or float operations (the slot word, the
-    address, the difference, its sum, the compare); as the kernel is
-    written, also the 3 dependent shared loads of the site's tables
-    (heads, then its item, then the item's other slot) before the bit's
-    load."""
+    """The latency a site update's dependent path implies, from the card's
+    own step latencies (``gibbs_kernel.latency_cycles``). This design, for
+    a site of I <= 2^k <= 32 items: the decision and the next slot word
+    from the register state (decide_slot_word: the product with beta, the
+    compare, the state's select, the shifts and masks), the D load
+    (shared_load: the address and the load) and k butterfly levels
+    (shuffle_add); ``floor_k`` for k = 0..5 (K27: 5; the suite: 0-2).
+    For comparison, a design that decides by p1 and keeps the state in
+    shared memory: the bit stored and read back, the theta load, 5 levels,
+    p1 from delta and 5 operations (``p1_design_floor_ns``), and with
+    three dependent table loads (``p1_design_as_written_ns``). The
+    producer warp's latency for a pass (philox_threshold: a ring group,
+    at most 32 site updates, one a lane) is printed beside it."""
     from qcmrf_tpu_torch.ops import gibbs_kernel as gk
 
     c = gk.latency_cycles(dev)
-    floor = (c["bit_round_trip"] + c["ldg_l1"] + 5 * c["shuffle_add"]
-             + c["p1_tail"] + 5 * c["fadd"])
-    written = floor + 3 * c["shared_load"]
     ghz = c.pop("sm_ghz")
+    floor = {k: c["decide_slot_word"] + c["shared_load"]
+             + k * c["shuffle_add"] for k in range(6)}
+    p1 = (c["bit_round_trip"] + c["ldg_l1"] + 5 * c["shuffle_add"]
+          + c["p1_tail"] + 5 * c["fadd"])
     return dict(cycles=c, sm_ghz=ghz, floor_cycles=floor,
-                floor_ns=floor / ghz, as_written_cycles=written,
-                as_written_ns=written / ghz)
+                floor_ns={k: v / ghz for k, v in floor.items()},
+                p1_design_floor_ns=p1 / ghz,
+                p1_design_as_written_ns=(p1 + 3 * c["shared_load"]) / ghz)
 
 
-def check_gibbs_chains(what, mrf, thetas, seed, num, thin, burn) -> dict:
+def wide_model(n: int, extra, dev):
+    """An n-chain with triangles every 5 variables and ``extra`` cliques,
+    theta = -|randn(RandomState(6))| * 0.4."""
+    cl = ([[i, i + 1] for i in range(n - 1)]
+          + [[i, i + 1, i + 2] for i in range(0, n - 2, 5)] + list(extra))
+    return seeded_model(cl, 6, 0.4, dev)
+
+
+def wide_evidence(n: int, dev):
+    ev = torch.full((n,), -1, dtype=torch.int8, device=dev)
+    ev[1], ev[n - 3] = 1, 0
+    return ev
+
+
+def check_gibbs_chains(what, mrf, thetas, seed, num, thin, burn,
+                       evidence_mask=None, chain_ids=None) -> dict:
     """The chain kernel against its plain version at the main path's own
     ``thin`` and ``burn``: the sampled rows equal (torch.equal), or where
     two chains part, the first differing decision within 2 ulp of its p1
     (both rerun at every sweep: ``gibbs_kernel.partings``, which also holds
     each run's rows to its states after sweeps burn + i * thin); both
-    timed."""
+    timed. ``thetas`` None: 3 chains, the model's theta less 0.3 |randn|
+    (RandomState(4)) each."""
     from qcmrf_tpu_torch.ops import gibbs_kernel as gk
 
+    if thetas is None:
+        rng = np.random.RandomState(4)
+        thetas = (mrf.theta[None] - torch.from_numpy(np.abs(rng.randn(
+            3, mrf.dimension)).astype(np.float32)).to(mrf.device)
+            * 0.3).contiguous()
     args = (seed, mrf.cliques, mrf.n, thetas, mrf.beta, num, thin, burn)
-    got, ms = timed_once(lambda: gk.gibbs_chains(*args))
-    want, plain_ms = timed_once(lambda: gk.gibbs_chains_reference(*args))
-    parts = gk.partings(*args, got, want)
+    kw = dict(evidence_mask=evidence_mask, chain_ids=chain_ids)
+    got, ms = timed_once(lambda: gk.gibbs_chains(*args, **kw))
+    want, plain_ms = timed_once(lambda: gk.gibbs_chains_reference(*args,
+                                                                  **kw))
+    parts = gk.partings(*args, got, want, **kw)
+    if evidence_mask is not None:
+        for v in torch.nonzero(evidence_mask >= 0)[:, 0].tolist():
+            require(bool((got[..., v] == evidence_mask[v]).all()),
+                    f"{what}: clamped site {v} keeps its bit")
     sweeps = burn + (num - 1) * thin + 1
     require(all(gk.within_ulps(u, p1) for _, _, _, u, p1 in parts),
             f"{what}: {thetas.shape[0]} chains, {num} samples at thin {thin}, "
@@ -2589,6 +2624,7 @@ def samplers_main_path(dev, k27_graph, k27_theta_path, tmp) -> dict:
     import io
 
     from qcmrf_tpu_torch.evaluation import estimators
+    from qcmrf_tpu_torch.ops import gibbs_kernel as gk
     from qcmrf_tpu_torch.ops import kernels
     from qcmrf_tpu_torch.runners import eval as run_eval
     from qcmrf_tpu_torch.runners import infer_cli, train_cli
@@ -2607,12 +2643,14 @@ def samplers_main_path(dev, k27_graph, k27_theta_path, tmp) -> dict:
     t = {}
     with contextlib.redirect_stdout(io.StringIO()):
         for mode in ("gibbs", "pam"):
+            before = gk.LAUNCHES["gibbs"]
             t0 = time.perf_counter()
             res = run_eval.main(["--mode", mode, "--scale", "0.1",
                                  "--num-samples", str(EVAL_SAMPLES),
                                  "--platform", "gpu", "--kl"])
             torch.cuda.synchronize()
             t[mode] = (time.perf_counter() - t0, res)
+            t[mode + "_chain_launches"] = gk.LAUNCHES["gibbs"] - before
         t0 = time.perf_counter()
         answers = infer_cli.main(["--graph", k27_graph, "--theta",
                                   k27_theta_path, "--queries", queries,
@@ -2634,6 +2672,9 @@ def samplers_main_path(dev, k27_graph, k27_theta_path, tmp) -> dict:
           f"infer + estimators {t['infer+estimators']:.2f} s, train K27 "
           f"(synthetic data, 2 steps) {t['train']:.2f} s; launches "
           f"{ {k: v for k, v in launches.items() if v} }")
+    require(t["gibbs_chain_launches"] == 1,
+            f"eval --mode gibbs: the suite's 70 chains in "
+            f"{t['gibbs_chain_launches']} chain launch (1)")
     for r in t["gibbs"][1]:
         require(r.mean_f >= 0.99, f"eval --mode gibbs, graph {r.graph}: mean "
                                   f"fidelity {r.mean_f:.4f} >= 0.99")
@@ -2658,6 +2699,7 @@ def samplers_main_path(dev, k27_graph, k27_theta_path, tmp) -> dict:
         require(launches[k] > 0, f"kernel {k} launched {launches[k]} times "
                                  "on the samplers' main path")
     return dict(launches=launches, eval_gibbs_s=t["gibbs"][0],
+                eval_gibbs_chain_launches=t["gibbs_chain_launches"],
                 eval_pam_s=t["pam"][0],
                 eval_gibbs_f=[r.mean_f for r in t["gibbs"][1]],
                 eval_pam_f=[r.mean_f for r in t["pam"][1]],
@@ -2753,8 +2795,48 @@ def phase_samplers(dev, report) -> dict:
     suite = generate_suite(0.1)
     g5 = MRF.create(suite.graphs[5], theta=suite.thetas[5][0], device=dev)
     th5 = torch.tensor(np.asarray(suite.thetas[5], np.float32), device=dev)
-    chk = check_gibbs_chains("suite graph [[0,1,2],[2,3,4]], its 10 reps", g5,
-                             th5, 7, *SUITE_CHAIN_CHECK)
+    suite_models, alone, idx = [], [], 0
+    for j, C in enumerate(suite.graphs):
+        g = MRF.create(C, theta=suite.thetas[j][0], device=dev)
+        th = torch.tensor(np.asarray(suite.thetas[j], np.float32),
+                          device=dev)
+        ids = range(idx, idx + th.shape[0])
+        idx += th.shape[0]
+        suite_models.append((g.cliques, g.n, th))
+        alone.append(gk.gibbs_chains(7, g.cliques, g.n, th, 1.0,
+                                     *SUITE_CHAIN_CHECK, chain_ids=ids))
+        one = check_gibbs_chains(f"suite graph {C}, its 10 reps", g, th, 7,
+                                 *SUITE_CHAIN_CHECK, chain_ids=ids)
+        if j == 5:
+            chk = one
+    launches = gk.LAUNCHES["gibbs"]
+    rows, ms_multi = timed_once(lambda: gk.gibbs_chains_multi(
+        7, suite_models, 1.0, *SUITE_CHAIN_CHECK))
+    require(gk.LAUNCHES["gibbs"] - launches == 1
+            and all(torch.equal(a, b) for a, b in zip(alone, rows)),
+            f"the suite's {idx} chains of 7 structures in one launch "
+            f"({ms_multi:.3f} ms cold) == the 7 per-graph launches "
+            "(torch.equal), each held to its plain version above")
+    wide = check_gibbs_chains(
+        "an 80-variable chain with triangles (the state in shared memory), "
+        "2 clamped sites", wide_model(80, [], dev), None, 8,
+        *SUITE_CHAIN_CHECK, evidence_mask=wide_evidence(80, dev))
+    deep = check_gibbs_chains(
+        "a 20-variable chain and a 16-variable clique (its differences in "
+        "device memory)", wide_model(20, [list(range(2, 18))], dev), None,
+        8, *SUITE_CHAIN_CHECK, evidence_mask=wide_evidence(20, dev))
+    thr = gk.device_thresholds(dev)
+    k24 = torch.arange(1 << 24, dtype=torch.int64)
+    thr_cpu = gk.thresholds_of(k24)
+    cpu_parts = int((thr.cpu() != thr_cpu).sum())
+    lo = torch.minimum(thr.cpu(), thr_cpu)
+    hi = torch.maximum(thr.cpu(), thr_cpu)
+    require(torch.equal(thr, gk.thresholds_of(k24.to(dev)))
+            and torch.equal(torch.nextafter(lo, hi), hi),
+            f"the kernel's threshold of every u = k 2^-24 (2^24 of them) == "
+            f"the plain version's on the card; on the CPU {cpu_parts} differ, "
+            f"each by one float32 step")
+    del thr, thr_cpu, lo, hi
     rng = np.random.RandomState(3)
     th27 = (k27.theta[None] - torch.from_numpy(np.abs(rng.randn(
         4, k27.dimension)).astype(np.float32)).to(dev) * 0.05).contiguous()
@@ -2790,31 +2872,52 @@ def phase_samplers(dev, report) -> dict:
     ms_suite = cuda_ms(lambda: gk.gibbs_chains(
         7, g5.cliques, 5, th5, g5.beta, *SUITE_CHAIN_CHECK), reps=5)
     ns_site_suite = ms_suite * 1e6 / (sweeps_chk * 5)
+    e_sweeps = 10 + (EVAL_SAMPLES - 1) * 10 + 1
+    ms_eval = cuda_ms(lambda: gk.gibbs_chains_multi(
+        0, suite_models, 1.0, EVAL_SAMPLES, 10, 10), reps=2)
+    ns_site_eval = ms_eval * 1e6 / (e_sweeps * 5)
+    fl = lat["floor_ns"]
     print(f"  K27 chain, {num} samples thin {thin} burn {burn} ({sweeps} "
           f"sweeps, one chain): {ms:.3f} ms, {ns_site:.1f} ns a site update "
           f"({ns_site * lat['sm_ghz']:.0f} cycles at the probe's "
           f"{lat['sm_ghz']:.3f} GHz); the suite graph's 10 chains "
           f"{ms_suite:.3f} ms warm, {ns_site_suite:.1f} ns a site update "
-          f"(its cold call {chk['ms']:.3f} ms); {ops / INFER_N:.1f} "
-          f"operations a site update; the card's rate bounds the K27 run "
-          f"at {b['bound_ms']:.4f} ms ({b['bound_by']}), but one chain is "
-          f"bound by its dependent latency: {lat['floor_cycles']:.0f} cycles "
-          f"= {lat['floor_ns']:.1f} ns a site update by data dependence "
-          f"alone, {lat['as_written_cycles']:.0f} cycles = "
-          f"{lat['as_written_ns']:.1f} ns with the kernel's dependent table "
-          f"loads (probe: "
-          f"{ {k: round(v, 1) for k, v in lat['cycles'].items()} })")
+          f"(its cold call {chk['ms']:.3f} ms); eval --mode gibbs's one "
+          f"launch (70 chains, {e_sweeps} sweeps, n <= 5) {ms_eval:.3f} ms, "
+          f"{ns_site_eval:.1f} ns a site of its 5-variable graphs; "
+          f"{ops / INFER_N:.1f} operations a site update; the card's rate "
+          f"bounds the K27 run at {b['bound_ms']:.4f} ms ({b['bound_by']}), "
+          f"but one chain is bound by its dependent latency: this design's "
+          f"floor {lat['floor_cycles'][5]:.0f} cycles = {fl[5]:.1f} ns a K27 "
+          f"site (5 levels), {fl[1]:.1f} ns a suite site of 2 items, "
+          f"{fl[0]:.1f} of one; the producer "
+          f"{lat['cycles']['philox_threshold'] / lat['sm_ghz']:.1f} ns a "
+          f"pass (deciding by p1 with the state in shared memory: "
+          f"{lat['p1_design_floor_ns']:.1f} by data dependence, "
+          f"{lat['p1_design_as_written_ns']:.1f} with three table loads; "
+          f"probe: {({k: round(v, 1) for k, v in lat['cycles'].items()})})")
     report["gibbs"] = dict(
-        max_abs_err=max(chk["max_abs_err"], chk27["max_abs_err"]),
-        parted_chains=chk["parted"] + chk27["parted"],
+        max_abs_err=max(chk["max_abs_err"], chk27["max_abs_err"],
+                        wide["max_abs_err"], deep["max_abs_err"]),
+        parted_chains=chk["parted"] + chk27["parted"] + wide["parted"]
+        + deep["parted"],
         ms=ms, plain_ms=chk["plain_ms"], **b,
         shape=f"one K27 chain, {num} samples at thin {thin}, burn {burn}: "
               f"{sweeps} sweeps, {sites} site updates",
         ns_per_site_update=ns_site,
-        latency_bound_ns_per_site_update=lat["floor_ns"],
-        latency_as_written_ns_per_site_update=lat["as_written_ns"],
+        latency_bound_ns_per_site_update=lat["floor_ns"][5],
+        latency_bound_ns_by_levels=lat["floor_ns"],
+        p1_design_latency_bound_ns=lat["p1_design_floor_ns"],
+        p1_design_as_written_ns=lat["p1_design_as_written_ns"],
         latency_cycles=lat["cycles"], sm_ghz=lat["sm_ghz"],
         ns_per_site_update_suite=ns_site_suite,
+        eval_launch_ms=ms_eval, ns_per_site_update_eval=ns_site_eval,
+        suite_one_launch_cold_ms=ms_multi,
+        wide_check=dict(ms=wide["ms"], plain_ms=wide["plain_ms"],
+                        parted=wide["parted"], shape=wide["shape"]),
+        device_delta_check=dict(ms=deep["ms"], plain_ms=deep["plain_ms"],
+                                parted=deep["parted"], shape=deep["shape"]),
+        thresholds_cpu_parts=cpu_parts,
         ops_per_site_update=ops / INFER_N,
         plain_shape=chk["shape"], ms_at_plain_shape=ms_suite,
         cold_ms_at_plain_shape=chk["ms"],
@@ -2952,8 +3055,13 @@ def print_ptxas(path) -> None:
         if "Compiling entry function" in line:
             name = next((k for k in KERNEL_NAMES
                          if f"{len(k)}{k}" in line), None)
+            g = re.search(r"gibbs_kernelILb([01])ELb([01])E", line)
             m = re.search(r"ILi(\d+)E(?:Lb([01])E)?", line)
-            if name and m:
+            if g:
+                name += (f"<{('shared', 'word')[int(g.group(1))]} state, "
+                         f"D in {('device', 'shared')[int(g.group(2))]} "
+                         "memory>")
+            elif name and m:
                 given = {"0": ", fused", "1": ", lnZ given"}
                 name += f"<{m.group(1)}{given.get(m.group(2), '')}>"
         elif name and ("registers" in line or "spill" in line):

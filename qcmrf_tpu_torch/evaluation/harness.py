@@ -14,8 +14,8 @@ on ``device``, both on one coefficient table. The exact success rate
 the exact law; the printed table keeps the JAX package's columns.
 
 The ``gibbs`` and ``pam`` modes histogram the classical samplers in place
-of a result file: per graph, the reps' Gibbs chains run as one launch of
-the chain kernel (thin 10, burn 10, each rep's chain keyed by its suite
+of a result file: every rep's Gibbs chain of the suite runs in one launch
+of the chain kernel (thin 10, burn 10, each chain keyed by its suite
 index), and each rep's perturb-and-MAP samples as rows of one map-kernel
 launch. Both keep the reference's fixed norm: delta-hat is the histogram's
 count over 10 000, whatever ``num_samples`` is.
@@ -85,30 +85,45 @@ def load_result_dists(path: str):
     return results_file, SHOTS
 
 
-def _sampled_counts(mode: str, cliques, n: int, thetas, idx: int,
-                    num_samples: int, seed: int, gen, device):
-    """Counts ``(reps, 2**n)`` float64 of the reps' samples: the Gibbs
-    chains in one launch, or each rep's perturb-and-MAP draw."""
-    from qcmrf_tpu_torch.models import sample as msample
-    from qcmrf_tpu_torch.models.mrf import MRF
+def _histograms(ids: torch.Tensor, n: int):
+    """Counts ``(reps, 2**n)`` float64 of the reps' sample ids."""
+    counts = torch.zeros((ids.shape[0], 1 << n), dtype=torch.float64,
+                         device=ids.device)
+    counts.scatter_add_(1, ids, torch.ones(ids.shape, dtype=torch.float64,
+                                           device=ids.device))
+    return counts.cpu().numpy()
+
+
+def _gibbs_counts(suite: ModelSuite, num_samples: int, seed: int, device):
+    """Per graph, the counts of its reps' Gibbs chains (thin 10, burn 10),
+    every chain of the suite in one launch, each keyed by its suite
+    index."""
     from qcmrf_tpu_torch.ops import gibbs_kernel
 
-    reps = len(thetas)
-    if mode == "gibbs":
-        th = torch.tensor(np.asarray(thetas, np.float32), device=device)
-        cl = tuple(tuple(int(v) for v in c) for c in cliques)
-        bits = gibbs_kernel.gibbs_chains(
-            seed, cl, n, th, 1.0, num_samples, thin=10, burn=10,
-            chain_ids=range(idx, idx + reps))
-        ids = gibbs_kernel.ids_from_bits(bits)
-    else:
-        ids = torch.stack([msample.sample_pam(
-            gen, MRF.create(cliques, theta=th, device=device), num_samples)
-            for th in thetas]).long()
-    counts = torch.zeros((reps, 1 << n), dtype=torch.float64, device=device)
-    counts.scatter_add_(1, ids, torch.ones(ids.shape, dtype=torch.float64,
-                                           device=device))
-    return counts.cpu().numpy()
+    models = []
+    for j, C in enumerate(suite.graphs):
+        cl = tuple(tuple(int(v) for v in c) for c in C)
+        n = max(v for c in cl for v in c) + 1
+        models.append((cl, n, torch.tensor(
+            np.asarray(suite.thetas[j], np.float32), device=device)))
+    chains = sum(m[2].shape[0] for m in models)
+    rows = gibbs_kernel.gibbs_chains_multi(seed, models, 1.0, num_samples,
+                                           thin=10, burn=10,
+                                           chain_ids=range(chains))
+    return [_histograms(gibbs_kernel.ids_from_bits(b), m[1])
+            for b, m in zip(rows, models)]
+
+
+def _pam_counts(cliques, n: int, thetas, num_samples: int, gen, device):
+    """Counts ``(reps, 2**n)`` float64 of each rep's perturb-and-MAP
+    draws."""
+    from qcmrf_tpu_torch.models import sample as msample
+    from qcmrf_tpu_torch.models.mrf import MRF
+
+    ids = torch.stack([msample.sample_pam(
+        gen, MRF.create(cliques, theta=th, device=device), num_samples)
+        for th in thetas]).long()
+    return _histograms(ids, n)
 
 
 def evaluate_suite(
@@ -144,6 +159,8 @@ def evaluate_suite(
     gen = None
     if mode == "pam":
         gen = torch.Generator(device=device).manual_seed(int(seed))
+    if mode == "gibbs":
+        gibbs_counts = _gibbs_counts(suite, num_samples, seed, device)
 
     out: List[GraphResult] = []
     idx = 0
@@ -157,9 +174,10 @@ def evaluate_suite(
         N = 1 << n
         deltas = np.exp(lnz.cpu().numpy().astype(np.float64)
                         - n * math.log(2.0))
-        if mode != "file":
-            sampled = _sampled_counts(mode, C, n, thetas, idx, num_samples,
-                                      seed, gen, device)
+        if mode == "gibbs":
+            sampled = gibbs_counts[j]
+        elif mode == "pam":
+            sampled = _pam_counts(C, n, thetas, num_samples, gen, device)
         for i in range(len(thetas)):
             p = p_all[i]
             if mode == "file":

@@ -111,12 +111,14 @@ _SIGNATURES = {
     "qcmrf_copy": (_P, _P, _P, _P, _I64, _P),
     # x, b, steps, num_quads, block_max, out (or null), stream
     "qcmrf_fma_peak": (_P, _F, _I, _I64, _P, _P, _P),
-    # seed, chain ids, thetas, d, beta, n, heads, items, n_items, others,
-    # n_others, evidence (or null), C, sweeps, burn, thin, num_samples, out,
-    # shared bytes, stream
-    "qcmrf_gibbs": (_U32, _P, _P, _I64, _F, _I, _P, _P, _I, _P, _I, _P, _I,
-                    _I, _I, _I, _I, _P, _I, _P),
-    # chase, steps, beta, out (8 int64), sink (32 int32), stream
+    # chains, C, structures, records, lane table, meta, others, evidence,
+    # thetas, D tables (or null), out, beta, seed, sweeps, burn, thin,
+    # num_samples, register state, shared bytes, stream
+    "qcmrf_gibbs": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _U32, _I,
+                    _I, _I, _I, _I, _I, _P),
+    # count, out (count float32), stream
+    "qcmrf_gibbs_thresholds": (_I, _P, _P),
+    # chase, steps, beta, out (10 int64), sink (32 int32), stream
     "qcmrf_gibbs_latency": (_P, _I, _F, _P, _P, _P),
 }
 

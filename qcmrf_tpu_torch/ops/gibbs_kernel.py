@@ -1,35 +1,42 @@
 """Systematic-scan Gibbs chains in one launch (the chains of
 :func:`qcmrf_tpu.models.sample.sample_gibbs` and ``sample_gibbs_bits``).
 
-:func:`gibbs_chains` runs C independent single-site chains of one clique
-structure, chain c on the model ``(cliques, n, thetas[c], beta)``: each
-sweep visits the sites in order, variable 0 first, and draws site v from
+:func:`gibbs_chains_multi` runs chains of several clique structures in one
+launch, each structure's chains on their own thetas; :func:`gibbs_chains`
+is its one-structure call: C independent single-site chains of ``(cliques,
+n)``, chain c on the model ``(cliques, n, thetas[c], beta)``. Each sweep
+visits the free sites in order, variable 0 first, and draws site v from
 ``p(x_v = 1 | rest) = sigmoid(beta * delta)``, ``delta`` the difference of
 the log-potential with x_v = 1 and with x_v = 0, summed over the cliques
-that hold v only (:func:`chain_tables`: a host-built list of (clique,
-slot) items per variable, the JAX package's ``bits_site_delta_fn``).
+that hold v only (the JAX package's ``bits_site_delta_fn``).
 
 Random words come from Philox4x32-10 keyed on ``(seed, chain id)``: the
-bit of site v in sweep s is ``u < p1``, ``u = (w >> 8) * 2^-24`` and ``w``
-word ``v % 4`` of counter ``(s, v // 4, 0, 0)``; the initial bit of a free
-site is bit 0 of word ``v % 4`` of counter ``(0, v // 4, 1, 0)``. A chain's
-draws depend on its seed and id only, not on the other chains of its
-launch. The JAX package draws from ``jax.random`` keys: the two agree in
-distribution, not draw for draw.
+uniform of site v in sweep s is ``u = (w >> 8) * 2^-24``, ``w`` word ``v %
+4`` of counter ``(s, v // 4, 0, 0)``; the initial bit of a free site is
+bit 0 of word ``v % 4`` of counter ``(0, v // 4, 1, 0)``. A chain's draws
+depend on its seed and id only, not on the other chains or structures of
+its launch. The bit is ``x >= T(u)``, ``x = beta * delta`` in float32 and
+``T(u)`` (:func:`thresholds_of`) the least float32 above ``logit(u)``
+evaluated in float64: exactly ``u < sigmoid(x)`` for a float32 ``x``,
+decided without exp or division. It differs from the float32 test ``u <
+1 / (1 + exp(-x))`` only where ``u`` lies within an ulp of that p1. The
+JAX package draws from ``jax.random`` keys: the two agree in distribution,
+not draw for draw.
 
-On a CUDA tensor :func:`gibbs_chains` launches ``gibbs_kernel`` of
-``csrc/gibbs_kernels.cu`` (one warp a chain, the structure tables in
-shared memory, a site's items over the warp's lanes); on a CPU tensor it
-runs :func:`gibbs_chains_reference`, the same Philox words and the same
-float32 sums in the same order (:func:`warp_sum`) in plain PyTorch,
-vectorised over the chains. The JAX package has no Pallas
-kernel here: its chains are ``lax.scan`` loops.
+On CUDA tensors :func:`gibbs_chains_multi` launches ``gibbs_kernel`` of
+``csrc/gibbs_kernels.cu`` on the tables of :func:`chain_pack` (two warps a
+chain: one updates the sites, with the state of n <= 64 variables in a
+64-bit register word, the other computes the next sweep's thresholds); on
+CPU tensors it runs :func:`gibbs_chains_reference` once a structure, the
+same chains from theta directly (the sums in :func:`warp_sum`'s order),
+independent of the tables. The JAX package has no Pallas kernel here: its
+chains are ``lax.scan`` loops.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -39,6 +46,14 @@ from qcmrf_tpu_torch.ops.sampler_kernel import philox4x32_10
 
 #: launches of the CUDA kernel, bumped where it is launched
 LAUNCHES = {"gibbs": 0}
+
+#: the kernel holds a chain's state as one 64-bit word up to this n
+REG_STATE_MAX_N = 64
+#: the fast loop's largest n: bit 63 of the word stays 0 for unused slots
+FAST_MAX_N = 63
+#: other slots an item's record packs (6 bits each) on the word path
+_INLINE = 4
+_STRUCT_INTS = 12
 
 _MASK32 = 0xFFFFFFFF
 _U24 = 2.0 ** -24
@@ -56,29 +71,31 @@ class ChainTables(NamedTuple):
     items: np.ndarray
     others: np.ndarray
 
-    @property
-    def shared_bytes(self) -> int:
-        """The kernel's shared memory: the tables, then a float32 uniform,
-        the evidence and the state a site."""
-        n = len(self.heads) - 1
-        return (16 * len(self.items) + 8 * len(self.others) + 4 * (n + 1)
-                + 6 * n)
+
+def _theta_offsets(cliques: tuple) -> np.ndarray:
+    offs = np.cumsum([0] + [1 << len(C) for C in cliques])
+    if offs[-1] > 0x7FFFFFFF:
+        raise ValueError(f"theta of {offs[-1]} entries; the chain takes "
+                         "int32 offsets")
+    return offs
+
+
+def _site_items(cliques: tuple, n: int):
+    """The (clique, slot) items of each variable, in clique order."""
+    touch = [[] for _ in range(n)]
+    for k, C in enumerate(cliques):
+        for j in range(len(C)):
+            touch[C[j]].append((k, j))
+    return touch
 
 
 @functools.lru_cache(maxsize=256)
 def chain_tables(cliques: tuple, n: int) -> ChainTables:
     """The site tables of ``(cliques, n)``."""
-    offs = np.cumsum([0] + [1 << len(C) for C in cliques])
-    if offs[-1] > 0x7FFFFFFF:
-        raise ValueError(f"theta of {offs[-1]} entries; the chain takes "
-                         "int32 offsets")
-    touch = [[] for _ in range(n)]
-    for k, C in enumerate(cliques):
-        for j in range(len(C)):
-            touch[C[j]].append((k, j))
+    offs = _theta_offsets(cliques)
     heads, items, others = [0], [], []
-    for v in range(n):
-        for k, j in touch[v]:
+    for v, touch in enumerate(_site_items(cliques, n)):
+        for k, j in touch:
             C = cliques[k]
             m = len(C)
             begin = len(others)
@@ -89,6 +106,136 @@ def chain_tables(cliques: tuple, n: int) -> ChainTables:
     return ChainTables(np.asarray(heads, np.int32),
                        np.asarray(items, np.int32).reshape(-1, 4),
                        np.asarray(others, np.int32).reshape(-1, 2))
+
+
+class ChainPack(NamedTuple):
+    """The kernel's tables of several structures, concatenated (numpy; the
+    layout ``csrc/gibbs_kernels.cu`` documents at ``GibbsArgs``):
+    ``structs`` (S, 12) int32 per structure n, free sites, first meta row,
+    D entries (the zero entry's index), evidence offset (-1: none), first
+    and end record, 1 where an item has 6 or more other slots, the fast
+    loop's ``K | C << 4 | 1 << 8`` (0: the general loop) and its first
+    lane-table row; ``records`` (R, 4) int32 one an item of a free site;
+    ``lanes`` (L, 4) int32 the fast loop's rows, 32 a free site, the free
+    sites repeated for the G sweeps of a threshold group; ``meta``
+    (F + S, 2) int32 one a free site and one ending each structure;
+    ``others`` (M,) int32 the other slots of items that do not pack them;
+    ``evidence`` (E,) int8; ``reg_state`` whether every n <=
+    :data:`REG_STATE_MAX_N`."""
+
+    structs: np.ndarray
+    records: np.ndarray
+    lanes: np.ndarray
+    meta: np.ndarray
+    others: np.ndarray
+    evidence: np.ndarray
+    reg_state: bool
+
+    def shared_bytes(self, delta_in_shared: bool) -> int:
+        """The launch's dynamic shared memory: the largest structure's
+        threshold ring (two groups of G = 32 // free sites sweeps, at least
+        1), D and the fast loop's lane table where D is in shared memory,
+        and the state bytes past the word path."""
+        n, free, dl, fast = (self.structs[:, i].astype(np.int64)
+                             for i in (0, 1, 3, 8))
+        group = _ring_group(free)
+        need = 8 * group * free
+        if delta_in_shared:
+            need = (need + 4 * (dl + 1)
+                    + np.where(fast > 0, 512 * group * free, 0))
+        return int((need + (0 if self.reg_state else n)).max())
+
+
+def _ring_group(free):
+    """G, the sweeps a group of the kernel's threshold ring holds (and the
+    fast loop's lane table repeats): 32 // free sites, at least 1."""
+    free = np.asarray(free)
+    return np.where((free > 0) & (free < 32), 32 // np.maximum(free, 1), 1)
+
+
+def _site_levels(items: int) -> int:
+    """k: the butterfly's levels for a site of ``items`` items."""
+    return 5 if items > 32 else max(0, (items - 1).bit_length())
+
+
+@functools.lru_cache(maxsize=64)
+def chain_pack(structures: tuple) -> ChainPack:
+    """The tables of ``structures``, a tuple of ``(cliques, n, evidence)``
+    (evidence a tuple of -1, 0, 1 a site, or None)."""
+    reg = all(n <= REG_STATE_MAX_N for _, n, _ in structures)
+    structs, records, lanes, meta, others, evidence = [], [], [], [], [], []
+    for cliques, n, ev in structures:
+        if n >= 1 << 24:
+            raise ValueError(f"n={n}: the chain takes n < 2^24")
+        offs = _theta_offsets(cliques)
+        ev_off = -1
+        if ev is not None:
+            ev_off = len(evidence)
+            evidence += ev
+        meta0, rec_lo, dl, big = len(meta), len(records), 0, 0
+        sites = []   # per free site: v and its items' (D base, others)
+        for v, touch in enumerate(_site_items(cliques, n)):
+            if ev is not None and ev[v] >= 0:
+                continue
+            meta.append((len(records), v | _site_levels(len(touch)) << 24))
+            sites.append((v, []))
+            for k, j in touch:
+                C = cliques[k]
+                m = len(C)
+                c, pos = m - 1, m - 1 - j
+                # the other slots by increasing bit in the slot word
+                oth = [C[jj] for jj in range(m - 1, -1, -1) if jj != j]
+                if reg and c <= _INLINE:
+                    w = sum(var << (6 * i) for i, var in enumerate(oth))
+                else:
+                    w = len(others)
+                    others += oth
+                records.append((dl & _MASK32, offs[k],
+                                c | pos << 8 | (dl >> 32) << 16, w))
+                sites[-1][1].append((dl, oth))
+                dl += 1 << c
+                big |= c >= 6
+        if dl >= 1 << 47:
+            raise ValueError(f"{dl} difference entries; the chain takes "
+                             "fewer than 2^47")
+        meta.append((len(records), 0))
+        lane0 = len(lanes)
+        fast = _lane_table(sites, n, dl, lanes) if reg else 0
+        structs.append((n, len(sites), meta0, dl, ev_off, rec_lo,
+                        len(records), big, fast, lane0, 0, 0))
+
+    def i32(rows, width):
+        return (np.asarray(rows, np.int64).reshape(-1, width)
+                .astype(np.uint32).view(np.int32))
+
+    return ChainPack(i32(structs, _STRUCT_INTS), i32(records, 4),
+                     i32(lanes, 4), i32(meta, 2),
+                     np.asarray(others, np.int32),
+                     np.asarray(evidence, np.int8), reg)
+
+
+def _lane_table(sites, n: int, dl: int, lanes: list) -> int:
+    """Append the fast loop's lane table of one structure's free ``sites``
+    (v and its items' D bases and other slots), repeated G times
+    (:func:`_ring_group`), to ``lanes`` and return ``K | C << 4 | 1 <<
+    8``; or 0, appending nothing, where the structure needs the general
+    loop (no free site, n > :data:`FAST_MAX_N`, a site of more than 32
+    items, an item of more than :data:`_INLINE` other slots)."""
+    items = [it for _, its in sites for it in its]
+    if (not sites or n > FAST_MAX_N or any(len(its) > 32 for _, its in sites)
+            or any(len(oth) > _INLINE for _, oth in items)):
+        return 0
+    K = max([_site_levels(len(its)) for _, its in sites] + [0])
+    C = max([len(oth) for _, oth in items] + [0])
+    for v, its in sites * int(_ring_group(len(sites))):
+        mask = 1 << v
+        for lane in range(32):
+            q = lane % (1 << K)
+            base, oth = its[q] if q < len(its) else (dl, [])
+            packed = sum((oth[i] if i < len(oth) else 63) << (6 * i)
+                         for i in range(C))
+            lanes.append((base, packed, mask & _MASK32, mask >> 32))
+    return K | C << 4 | 1 << 8
 
 
 def _chain_keys(chain_ids, C: int, device) -> torch.Tensor:
@@ -113,6 +260,37 @@ def site_uniforms(seed: int, keys: torch.Tensor, sweep: int,
     """The uniforms ``u`` float32 (C, n) of sweep ``sweep`` of the chains
     keyed ``keys`` (int64 (C,) chain ids)."""
     return (_words(seed, keys, sweep, n, 0) >> 8).to(torch.float32) * _U24
+
+
+def thresholds_of(k: torch.Tensor) -> torch.Tensor:
+    """``T(u)`` float32 for ``u = k * 2^-24`` (``k`` int64, 0 <= k <
+    2^24): the least float32 strictly above ``logit(u) = log(k) - log(2^24
+    - k)`` in float64, so that ``x >= T(u)`` exactly when ``x >
+    logit(u)``; ``T(0)`` is -FLT_MAX. The kernel's ``site_threshold``."""
+    L = torch.log(k.double()) - torch.log(((1 << 24) - k).double())
+    t = L.float()
+    up = torch.nextafter(t, torch.full_like(t, float("inf")))
+    return torch.where(t.double() <= L, up, t)
+
+
+def site_thresholds(seed: int, keys: torch.Tensor, sweep: int,
+                    n: int) -> torch.Tensor:
+    """The thresholds float32 (C, n) of sweep ``sweep``: the bit of site v
+    is ``beta * delta >= T``, the draw ``u < sigmoid(beta * delta)`` of
+    :func:`site_uniforms`' u."""
+    return thresholds_of(_words(seed, keys, sweep, n, 0) >> 8)
+
+
+def device_thresholds(device) -> torch.Tensor:
+    """``T(k * 2^-24)`` of every k < 2^24, float32 on ``device``, from the
+    kernel's own ``site_threshold`` (a check of the card: the sampler
+    never calls it)."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError("device_thresholds runs on a CUDA device")
+    out = torch.empty(1 << 24, dtype=torch.float32, device=dev)
+    _build.launch("qcmrf_gibbs_thresholds", dev, 1 << 24, _build.ptr(out))
+    return out
 
 
 def initial_bits(seed: int, keys: torch.Tensor, n: int,
@@ -150,9 +328,9 @@ def _site_gathers(cliques: tuple, n: int, device: torch.device):
 
 
 def warp_sum(x: torch.Tensor) -> torch.Tensor:
-    """``gibbs_kernel``'s float32 sum of the rows of ``x`` (C, I): lane l
-    of a warp adds entries l, l + 32, ... in turn from 0, then the 32 lane
-    sums are added pairwise, halves first (the shuffle butterfly)."""
+    """The float32 sum of the rows of ``x`` (C, I) in a warp's order: lane
+    l adds entries l, l + 32, ... in turn from 0, then the 32 lane sums are
+    added pairwise, halves first (the full shuffle butterfly)."""
     C, items = x.shape
     rounds = max(1, -(-items // 32))
     lanes = torch.zeros((C, rounds * 32), dtype=x.dtype, device=x.device)
@@ -163,6 +341,30 @@ def warp_sum(x: torch.Tensor) -> torch.Tensor:
         acc = acc + lanes[:, r]
     for half in (16, 8, 4, 2, 1):
         acc = acc[:, :half] + acc[:, half:2 * half]
+    return acc[:, 0]
+
+
+def lane_sum(x: torch.Tensor) -> torch.Tensor:
+    """``gibbs_kernel``'s float32 sum of a site's item differences ``x``
+    (C, I): with I <= 2^k <= 32 (k least), lane l takes item l mod 2^k
+    (0.0 past I) and k butterfly levels add them, halves first; past 32
+    items, lane l adds items l, l + 32, ... in turn, then 5 levels. Equal
+    to :func:`warp_sum` (its skipped levels add exact zeros)."""
+    C, items = x.shape
+    if items == 0:
+        return torch.zeros(C, dtype=x.dtype, device=x.device)
+    K = _site_levels(items)
+    rounds = -(-items // (1 << K))
+    lanes = torch.zeros((C, rounds << K), dtype=x.dtype, device=x.device)
+    lanes[:, :items] = x
+    lanes = lanes.reshape(C, rounds, 1 << K)
+    acc = lanes[:, 0]
+    for r in range(1, rounds):
+        acc = acc + lanes[:, r]
+    width = 1 << K
+    while width > 1:
+        width //= 2
+        acc = acc[:, :width] + acc[:, width:2 * width]
     return acc[:, 0]
 
 
@@ -187,8 +389,8 @@ def site_probabilities(cliques: tuple, n: int, thetas: torch.Tensor,
                        beta: float, bits: torch.Tensor,
                        v: int) -> torch.Tensor:
     """``p1 = 1 / (1 + exp(-beta * delta))`` float32 (C,) at site ``v`` of
-    the states ``bits``: the kernel's float32 arithmetic on
-    :func:`site_deltas`."""
+    the states ``bits``, from :func:`site_deltas` (the law the threshold
+    decides, and the criterion :func:`first_decisions` reports)."""
     delta = site_deltas(cliques, n, thetas, bits, v)
     return torch.reciprocal(1 + torch.exp(-(delta * beta)))
 
@@ -225,9 +427,10 @@ def gibbs_chains_reference(seed: int, cliques: tuple, n: int,
                            num_samples: int, thin: int, burn: int,
                            evidence_mask=None,
                            chain_ids=None) -> torch.Tensor:
-    """Plain PyTorch version of :func:`gibbs_chains`, on any device: the
-    same Philox words and the same float32 arithmetic in the same order,
-    vectorised over the chains, a Python loop over sweeps and sites."""
+    """Plain PyTorch version of :func:`gibbs_chains`, on any device, from
+    theta directly: the same Philox words, the same float32 sums
+    (:func:`site_deltas`) and the same thresholds, vectorised over the
+    chains, a Python loop over sweeps and sites."""
     sweeps = _check(cliques, n, thetas, num_samples, thin, burn)
     dev = thetas.device
     C = thetas.shape[0]
@@ -237,13 +440,138 @@ def gibbs_chains_reference(seed: int, cliques: tuple, n: int,
     bits = initial_bits(seed, keys, n, ev)
     out = torch.empty((C, num_samples, n), dtype=torch.int8, device=dev)
     for s in range(sweeps):
-        u = site_uniforms(seed, keys, s, n)
+        t = site_thresholds(seed, keys, s, n)
         for v in free:
-            p1 = site_probabilities(cliques, n, thetas, beta, bits, v)
-            bits[:, v] = (u[:, v] < p1).to(torch.int64)
+            x = site_deltas(cliques, n, thetas, bits, v) * beta
+            bits[:, v] = (x >= t[:, v]).to(torch.int64)
         if s >= burn and (s - burn) % thin == 0:
             out[:, (s - burn) // thin] = bits.to(torch.int8)
     return out
+
+
+class ChainModel(NamedTuple):
+    """One structure of a :func:`gibbs_chains_multi` call: its chains run
+    on ``thetas`` (float32 (C, d)); ``evidence_mask`` int8 (n,) holds -1 at
+    a free site and the clamped bit at a clamped one, or is None."""
+
+    cliques: tuple
+    n: int
+    thetas: torch.Tensor
+    evidence_mask: Optional[object] = None
+
+
+def _prepare(models, num_samples, thin, burn, chain_ids, keys_on=None):
+    """Checked models, the structures' key for :func:`chain_pack`, the
+    chain keys (on ``keys_on``, default the thetas' device) and the sweep
+    count."""
+    models = [ChainModel(*m) for m in models]
+    if not models:
+        raise ValueError("no structures")
+    dev = models[0].thetas.device
+    sweeps = None
+    structures, evs = [], []
+    for m in models:
+        _build.refuse_grad(m.thetas, "thetas")
+        if m.thetas.device != dev:
+            raise ValueError(f"thetas on {m.thetas.device} and {dev}")
+        sweeps = _check(m.cliques, m.n, m.thetas, num_samples, thin, burn)
+        ev = _evidence(m.evidence_mask, m.n, "cpu")
+        evs.append(ev)
+        structures.append((m.cliques, m.n, None if ev is None
+                           else tuple(int(e) for e in ev.tolist())))
+    C = sum(m.thetas.shape[0] for m in models)
+    keys = _chain_keys(chain_ids, C, keys_on or dev)
+    return models, evs, tuple(structures), keys, sweeps
+
+
+@functools.lru_cache(maxsize=64)
+def _device_pack(structures: tuple, device: torch.device):
+    """``chain_pack(structures)``'s tables on ``device`` (one dummy row
+    where a table is empty)."""
+    pack = chain_pack(structures)
+    return tuple(torch.from_numpy(np.ascontiguousarray(
+        a if len(a) else np.zeros((1,) + a.shape[1:], a.dtype))).to(device)
+        for a in (pack.structs, pack.records, pack.lanes, pack.meta,
+                  pack.others, pack.evidence))
+
+
+def gibbs_chains_multi(seed: int, models, beta: float, num_samples: int,
+                       thin: int, burn: int, chain_ids=None) -> list:
+    """The chains of several structures in one launch: ``models`` a
+    sequence of :class:`ChainModel` (or ``(cliques, n, thetas[,
+    evidence_mask])`` tuples), structure s's C_s chains on its ``thetas``
+    rows, at inverse temperature ``beta``. Returns per structure the states
+    after sweeps ``burn + i * thin``, ``i < num_samples``, as int8 bits
+    (C_s, num_samples, n_s) on the thetas' device (views of one buffer).
+    ``seed`` (uint32) and ``chain_ids`` (one int a chain over all
+    structures in order, default 0 .. C-1) key each chain's Philox stream,
+    so a chain's rows equal those of a launch of its structure alone with
+    the same id. On CPU tensors: :func:`gibbs_chains_reference` a
+    structure.
+
+    One launch takes one state layout and one home of D for all its
+    structures: where one structure has more than
+    :data:`REG_STATE_MAX_N` variables, every structure of the launch keeps
+    its state in shared memory, and where the D tables of one do not fit
+    in shared memory, every structure's D lives in device memory. The rows
+    are the same either way; group such structures into their own call to
+    keep the others on the word path and the fast loop."""
+    models, evs, structures, keys, sweeps = _prepare(
+        models, num_samples, thin, burn, chain_ids, keys_on="cpu")
+    dev = models[0].thetas.device
+    if dev.type == "cpu":
+        outs, c0 = [], 0
+        for m, ev in zip(models, evs):
+            C = m.thetas.shape[0]
+            outs.append(gibbs_chains_reference(
+                seed, m.cliques, m.n, m.thetas, beta, num_samples, thin,
+                burn, ev, keys[c0:c0 + C]))
+            c0 += C
+        return outs
+    pack = chain_pack(structures)
+    delta_in_shared = pack.shared_bytes(True) <= _build.SHARED_BYTES_LIMIT
+    smem = pack.shared_bytes(delta_in_shared)
+    if smem > _build.SHARED_BYTES_LIMIT:
+        raise ValueError(f"the chain needs {smem} bytes of shared memory; a "
+                         f"block holds at most {_build.SHARED_BYTES_LIMIT}")
+    structs, records, lanes, meta, others, evidence = _device_pack(
+        structures, dev)
+    Cs = np.array([m.thetas.shape[0] for m in models], np.int64)
+    ns = pack.structs[:, 0].astype(np.int64)
+    ds = np.array([m.thetas.shape[1] for m in models], np.int64)
+    dls = pack.structs[:, 3].astype(np.int64) + 1
+    which = np.repeat(np.arange(len(models)), Cs)
+    rank = np.arange(Cs.sum()) - np.repeat(np.cumsum(Cs) - Cs, Cs)
+
+    def offsets(per_chain):
+        first = np.cumsum(Cs * per_chain) - Cs * per_chain
+        return first[which] + rank * per_chain[which]
+
+    chains = np.stack([offsets(ds), offsets(num_samples * ns),
+                       offsets(dls) if not delta_in_shared
+                       else np.zeros(len(which), np.int64),
+                       (keys.numpy() & _MASK32) | which << 32], axis=1)
+    # through pinned memory: a pageable copy would wait for the stream
+    chains = torch.from_numpy(chains).pin_memory().to(dev, non_blocking=True)
+    thetas = (models[0].thetas.contiguous() if len(models) == 1 else
+              torch.cat([m.thetas.reshape(-1) for m in models]))
+    out = torch.empty(int((Cs * num_samples * ns).sum()), dtype=torch.int8,
+                      device=dev)
+    delta = (None if delta_in_shared else
+             torch.empty(int((Cs * dls).sum()), dtype=torch.float32,
+                         device=dev))
+    _build.launch("qcmrf_gibbs", dev, _build.ptr(chains), len(which),
+                  _build.ptr(structs), _build.ptr(records), _build.ptr(lanes),
+                  _build.ptr(meta), _build.ptr(others), _build.ptr(evidence),
+                  _build.ptr(thetas),
+                  _build.ctypes.c_void_p(0) if delta is None
+                  else _build.ptr(delta), _build.ptr(out), float(beta),
+                  seed & _MASK32, sweeps, burn, thin, num_samples,
+                  int(pack.reg_state), smem)
+    LAUNCHES["gibbs"] += 1
+    views = out.split((Cs * num_samples * ns).tolist())
+    return [b.view(int(C), num_samples, int(n))
+            for b, C, n in zip(views, Cs, ns)]
 
 
 def gibbs_chains(seed: int, cliques: tuple, n: int, thetas: torch.Tensor,
@@ -256,50 +584,15 @@ def gibbs_chains(seed: int, cliques: tuple, n: int, thetas: torch.Tensor,
     device. ``seed`` (uint32) and ``chain_ids`` (C ints, default 0 .. C-1)
     key each chain's Philox stream. ``evidence_mask``, int8 (n,), holds -1
     at a free site and the clamped bit at a clamped one (never updated).
-    On a CPU tensor: :func:`gibbs_chains_reference`."""
-    _build.refuse_grad(thetas, "thetas")
-    if thetas.device.type == "cpu":
-        return gibbs_chains_reference(seed, cliques, n, thetas, beta,
-                                      num_samples, thin, burn,
-                                      evidence_mask, chain_ids)
-    sweeps = _check(cliques, n, thetas, num_samples, thin, burn)
-    dev = thetas.device
-    C = thetas.shape[0]
-    _build.check(thetas, "thetas", torch.float32, thetas.shape, dev)
-    tab = chain_tables(cliques, n)
-    smem = tab.shared_bytes
-    if smem > _build.SHARED_BYTES_LIMIT:
-        raise ValueError(f"the chain's tables need {smem} bytes of shared "
-                         f"memory; a block holds at most "
-                         f"{_build.SHARED_BYTES_LIMIT}")
-    heads, items, others = _device_tables(cliques, n, dev)
-    keys = _chain_keys(chain_ids, C, dev).to(torch.int32).contiguous()
-    ev = _evidence(evidence_mask, n, dev)
-    out = torch.empty((C, num_samples, n), dtype=torch.int8, device=dev)
-    _build.launch("qcmrf_gibbs", dev, seed & _MASK32, _build.ptr(keys),
-                  _build.ptr(thetas), thetas.shape[1], float(beta), n,
-                  _build.ptr(heads), _build.ptr(items), len(tab.items),
-                  _build.ptr(others), len(tab.others),
-                  _build.ptr(ev) if ev is not None
-                  else _build.ctypes.c_void_p(0), C, sweeps, burn, thin,
-                  num_samples, _build.ptr(out), smem)
-    LAUNCHES["gibbs"] += 1
-    return out
-
-
-@functools.lru_cache(maxsize=256)
-def _device_tables(cliques: tuple, n: int, device: torch.device):
-    """``(heads, items, others)`` on ``device`` (one dummy row where a
-    table is empty)."""
-    tab = chain_tables(cliques, n)
-    return tuple(torch.from_numpy(np.ascontiguousarray(
-        a if len(a) else np.zeros((1,) + a.shape[1:], np.int32))).to(device)
-        for a in tab)
+    The one-structure call of :func:`gibbs_chains_multi`."""
+    return gibbs_chains_multi(seed, [(cliques, n, thetas, evidence_mask)],
+                              beta, num_samples, thin, burn, chain_ids)[0]
 
 
 #: the steps that ``gibbs_latency_kernel`` times, in its order
 LATENCY_STEPS = ("shared_load", "ldg_l1", "shuffle_add", "p1_tail",
-                 "bit_round_trip", "fadd")
+                 "bit_round_trip", "fadd", "decide_slot_word",
+                 "philox_threshold")
 
 
 def latency_cycles(device, steps: int = 4096) -> dict:
@@ -311,13 +604,14 @@ def latency_cycles(device, steps: int = 4096) -> dict:
     if dev.type != "cuda":
         raise ValueError("the latency probe runs on a CUDA device")
     chase = torch.roll(torch.arange(256, dtype=torch.int32), -1).to(dev)
-    out = torch.zeros(8, dtype=torch.int64, device=dev)
+    k = len(LATENCY_STEPS)
+    out = torch.zeros(k + 2, dtype=torch.int64, device=dev)
     sink = torch.empty(32, dtype=torch.int32, device=dev)
     _build.launch("qcmrf_gibbs_latency", dev, _build.ptr(chase), steps, 1.0,
                   _build.ptr(out), _build.ptr(sink))
     o = out.cpu().tolist()
-    cycles = {k: o[i] / steps for i, k in enumerate(LATENCY_STEPS)}
-    return dict(cycles, sm_ghz=o[6] / o[7])
+    cycles = {name: o[i] / steps for i, name in enumerate(LATENCY_STEPS)}
+    return dict(cycles, sm_ghz=o[k] / o[k + 1])
 
 
 def ids_from_bits(bits: torch.Tensor) -> torch.Tensor:

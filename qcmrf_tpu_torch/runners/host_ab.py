@@ -6,6 +6,7 @@ one session on one card (run the variants as A, B, B, A).
     python3 qcmrf_tpu_torch/runners/host_ab.py lowered28 [--sync-upload]
     python3 qcmrf_tpu_torch/runners/host_ab.py streaming27 [--root DIR]
     python3 qcmrf_tpu_torch/runners/host_ab.py lane_circuit [--root DIR]
+    python3 qcmrf_tpu_torch/runners/host_ab.py gibbs [--root DIR]
 
 ``sandwich24`` runs ``chip_smoke.py``'s width-24 sandwich cases (k = 1, 2
 and 7, and the write-only k = 7 form: each held against its plain version,
@@ -32,8 +33,16 @@ suite's 70 gate-level circuits (one ``batched_circuits_probs`` call
 where the package has it, else one ``batched_circuit_probs`` call a
 graph; CUDA events around the calls, so the host's share counts) and
 ``run_suite(engine="statevector")`` at 10 000 shots (host clock, 10 runs
-after two warm-ups: the two middle values and every run). Prints one
-JSON line. Needs a CUDA device; the script file is run by its path, not with
+after two warm-ups: the two middle values and every run). ``gibbs``
+times, with the package under ``DIR``, the chain kernel where its main
+paths run it: one K27 chain of 2 000 samples at thin 10, burn 100
+(``train``'s; CUDA events, 3 calls after a warm-up), the suite's 70
+chains at ``eval --mode gibbs``'s 10 000 samples, thin 10, burn 10 (one
+``gibbs_chains_multi`` call where the package has it, else one
+``gibbs_chains`` call a graph; CUDA events, 3 calls after a warm-up), and
+``evaluate_suite(mode="gibbs")`` at 10 000 samples (host clock, 5 runs
+after a warm-up: the middle value and every run). Prints one JSON
+line. Needs a CUDA device; the script file is run by its path, not with
 ``-m``.
 """
 
@@ -178,10 +187,52 @@ def _lane_circuit(smoke, K, dev) -> dict:
     return ms
 
 
+def _gibbs(smoke, dev) -> dict:
+    """Milliseconds of the chain kernel's main-path calls (see the module
+    docstring)."""
+    import numpy as np
+    import torch
+
+    from qcmrf_tpu_torch.evaluation import harness
+    from qcmrf_tpu_torch.models.suite import generate_suite
+    from qcmrf_tpu_torch.ops import gibbs_kernel as gk
+
+    cl = tuple(tuple(c) for c in smoke.complete_cliques(smoke.INFER_N))
+    theta = torch.from_numpy(smoke.k27_theta()).to(dev)[None].contiguous()
+    ms = {"k27_chain": smoke.cuda_ms(lambda: gk.gibbs_chains(
+        9, cl, smoke.INFER_N, theta, 1.0, *smoke.K27_CHAIN), reps=3)}
+    suite = generate_suite(0.1)
+    models = [(tuple(tuple(v) for v in C), max(v for c in C for v in c) + 1,
+               torch.tensor(np.asarray(suite.thetas[j], np.float32),
+                            device=dev))
+              for j, C in enumerate(suite.graphs)]
+    shape = (smoke.EVAL_SAMPLES, 10, 10)
+    if hasattr(gk, "gibbs_chains_multi"):
+        ms["suite_chains"] = smoke.cuda_ms(
+            lambda: gk.gibbs_chains_multi(0, models, 1.0, *shape), reps=3)
+    else:
+        ids = np.cumsum([0] + [m[2].shape[0] for m in models])
+        ms["suite_chains"] = smoke.cuda_ms(lambda: [
+            gk.gibbs_chains(0, *m, 1.0, *shape,
+                            chain_ids=range(ids[j], ids[j + 1]))
+            for j, m in enumerate(models)], reps=3)
+    runs = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        harness.evaluate_suite(suite, mode="gibbs",
+                               num_samples=smoke.EVAL_SAMPLES, device=dev)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3)
+    ms["eval_gibbs"] = sorted(runs[1:])[2]
+    ms["eval_gibbs_runs"] = runs[1:]
+    return ms
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("case", choices=("sandwich24", "lowered28",
-                                     "streaming27", "lane_circuit"))
+                                     "streaming27", "lane_circuit", "gibbs"))
     ap.add_argument("--root", type=Path, default=CHECKOUT,
                     help="tree whose qcmrf_tpu_torch package is timed")
     ap.add_argument("--sync-upload", action="store_true")
@@ -209,6 +260,8 @@ def main(argv=None) -> int:
         out["ms"] = _streaming27(smoke, K, dev)
     elif args.case == "lane_circuit":
         out["ms"] = _lane_circuit(smoke, K, dev)
+    elif args.case == "gibbs":
+        out["ms"] = _gibbs(smoke, dev)
     else:
         from qcmrf_tpu_torch.sim import planes
 

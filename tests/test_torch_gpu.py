@@ -914,27 +914,57 @@ def test_map_kernel_splits_rows_past_the_grid_limit(dev):
     assert torch.equal(v, wv) and torch.equal(x, wx)
 
 
-@pytest.mark.parametrize("case", ["suite", "evidence", "K12", "K27"])
+def wide_chain(n, extra=()):
+    """An n-chain with triangles every 5 variables and ``extra`` cliques."""
+    return ([[i, i + 1] for i in range(n - 1)]
+            + [[i, i + 1, i + 2] for i in range(0, n - 2, 5)] + list(extra))
+
+
+@pytest.mark.parametrize("case", ["suite", "evidence", "clamped", "K12",
+                                  "K27", "K40",
+                                  "word_general", "small_general", "wide",
+                                  "device_delta", "wide_device_delta"])
 def test_gibbs_kernel_matches_plain_version(dev, case):
     """At the main path's own thin and burn (eval --mode gibbs: thin 10,
     burn 10 on a suite graph's 10 chains; train's chain: thin 10, burn 100,
     on K12 and K27) the sampled rows equal the plain version's, and are
     the chains' states after sweeps burn + i * thin; where two runs part,
-    the first differing decision lies within 2 ulp of its p1."""
+    the first differing decision lies within 2 ulp of its p1. The same
+    on the general loop: sites of 39 items (K40), a 64-variable word with
+    a 6-variable clique, 7 free sites and a 6-variable clique (a ring
+    group of 4 sweeps), every site clamped, past 64 variables (the state
+    in shared memory, clamped sites) and with a 16-variable clique (its
+    differences in device memory)."""
     from qcmrf_tpu_torch.ops import gibbs_kernel
 
     ev = None
     chains, num, thin, burn = 10, 15, 10, 100
-    if case in ("K12", "K27"):
+    if case in ("K12", "K27", "K40"):
         m = complete_model(int(case[1:]), dev)
-        chains = 4 if case == "K27" else chains
+        chains = 4 if case != "K12" else chains
         num = 5
+    elif case in ("word_general", "small_general", "wide", "device_delta",
+                  "wide_device_delta"):
+        n = {"word_general": 64, "small_general": 8,
+             "device_delta": 20}.get(case, 70)
+        big = {"wide": [], "word_general": [[5, 9, 20, 33, 47, 63]],
+               "small_general": [[0, 2, 3, 4, 6, 7]],
+               "device_delta": [list(range(2, 18))]}.get(
+                   case, [list(range(2, 34, 2))])
+        cl = wide_chain(n, big)
+        m = MRF.create(cl, theta=-np.abs(np.random.RandomState(6).randn(
+            sum(1 << len(c) for c in cl))) * 0.4, device=dev)
+        chains, num, burn = 3, 6, 10
+        ev = torch.full((n,), -1, dtype=torch.int8)
+        ev[1], ev[n - 3] = 1, 0
     else:
         suite = generate_suite(0.1)
         m = MRF.create(suite.graphs[5], theta=suite.thetas[5][0], device=dev)
         burn = 10
         if case == "evidence":
             ev = torch.tensor([-1, 1, -1, -1, 0], dtype=torch.int8)
+        elif case == "clamped":
+            ev = torch.tensor([0, 1, 1, 0, 1], dtype=torch.int8)
     rng = np.random.RandomState(4)
     thetas = (m.theta[None] - torch.from_numpy(np.abs(rng.randn(
         chains, m.dimension)).astype(np.float32)).to(dev) * 0.3).contiguous()
@@ -950,7 +980,62 @@ def test_gibbs_kernel_matches_plain_version(dev, case):
             *args, got, want, evidence_mask=ev, chain_ids=ids):
         assert gibbs_kernel.within_ulps(u, p1), (c, s, v, u, p1)
     if ev is not None:
-        assert bool((got[..., 1] == 1).all() and (got[..., 4] == 0).all())
+        clamped = torch.nonzero(ev >= 0)[:, 0].tolist()
+        for v in clamped:
+            assert bool((got[..., v] == ev[v]).all()), v
+    pack = gibbs_kernel.chain_pack(((m.cliques, m.n, None if ev is None else
+                                     tuple(ev.tolist())),))
+    from qcmrf_tpu_torch.ops import _build
+    in_shared = pack.shared_bytes(True) <= _build.SHARED_BYTES_LIMIT
+    assert pack.reg_state == (m.n <= 64)
+    assert in_shared == ("delta" not in case)
+    fast = case in ("suite", "evidence", "K12", "K27")
+    assert bool(pack.structs[0, 8]) == fast
+
+
+def test_gibbs_multi_launch_equals_per_graph_launches(dev):
+    """The suite's 70 chains in one launch (eval --mode gibbs's call) equal
+    the seven per-graph launches with the same chain ids (torch.equal),
+    and eval --mode gibbs makes exactly that one chain launch."""
+    from qcmrf_tpu_torch.evaluation import harness
+    from qcmrf_tpu_torch.ops import gibbs_kernel
+
+    suite = generate_suite(0.1)
+    models, idx, alone = [], 0, []
+    for j, C in enumerate(suite.graphs):
+        cl = tuple(tuple(c) for c in C)
+        n = max(v for c in C for v in c) + 1
+        th = torch.tensor(np.asarray(suite.thetas[j], np.float32),
+                          device=dev)
+        models.append((cl, n, th))
+        alone.append(gibbs_kernel.gibbs_chains(
+            5, cl, n, th, 1.0, 20, 10, 10,
+            chain_ids=range(idx, idx + th.shape[0])))
+        idx += th.shape[0]
+    before = gibbs_kernel.LAUNCHES["gibbs"]
+    rows = gibbs_kernel.gibbs_chains_multi(5, models, 1.0, 20, 10, 10)
+    assert gibbs_kernel.LAUNCHES["gibbs"] == before + 1
+    for a, b in zip(alone, rows):
+        assert torch.equal(a, b)
+    before = gibbs_kernel.LAUNCHES["gibbs"]
+    res = harness.evaluate_suite(suite, mode="gibbs", num_samples=200,
+                                 device=dev)
+    assert gibbs_kernel.LAUNCHES["gibbs"] == before + 1 and len(res) == 7
+
+
+def test_gibbs_thresholds_match_plain_version(dev):
+    """The kernel's threshold T(k * 2^-24) of every k < 2^24 equals the
+    plain version's computed on the card; the CPU's float64 logarithm may
+    part from the card's in the last bit, so there a threshold is equal or
+    one float32 step away."""
+    from qcmrf_tpu_torch.ops import gibbs_kernel
+
+    got = gibbs_kernel.device_thresholds(dev)
+    k = torch.arange(1 << 24, dtype=torch.int64)
+    assert torch.equal(got, gibbs_kernel.thresholds_of(k.to(dev)))
+    cpu, got = gibbs_kernel.thresholds_of(k), got.cpu()
+    lo, hi = torch.minimum(cpu, got), torch.maximum(cpu, got)
+    assert torch.equal(torch.nextafter(lo, hi), hi)
 
 
 def test_gibbs_latency_probe(dev):

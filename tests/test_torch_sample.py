@@ -104,14 +104,13 @@ def test_gibbs_chain_streams_and_evidence():
     clamped = gibbs_kernel.gibbs_chains(3, m.cliques, m.n, thetas, m.beta, 6,
                                         2, 4, evidence_mask=ev)
     assert bool((clamped[..., 1] == 1).all() and (clamped[..., 3] == 0).all())
-    # one sweep by hand: the site uniforms and probabilities in order
+    # one sweep by hand: the site thresholds and deltas in order
     keys = torch.arange(4)
     bits = gibbs_kernel.initial_bits(3, keys, m.n)
-    u = gibbs_kernel.site_uniforms(3, keys, 0, m.n)
+    t = gibbs_kernel.site_thresholds(3, keys, 0, m.n)
     for v in range(m.n):
-        p1 = gibbs_kernel.site_probabilities(m.cliques, m.n, thetas, m.beta,
-                                             bits, v)
-        bits[:, v] = (u[:, v] < p1).long()
+        delta = gibbs_kernel.site_deltas(m.cliques, m.n, thetas, bits, v)
+        bits[:, v] = (delta * m.beta >= t[:, v]).long()
     first = gibbs_kernel.gibbs_chains(3, m.cliques, m.n, thetas, m.beta, 1,
                                       1, 0)
     assert torch.equal(first[:, 0].long(), bits)
@@ -589,3 +588,172 @@ def test_warp_sum_is_the_kernels_order(items):
         lanes = lanes[:, :half] + lanes[:, half:]
     got = gibbs_kernel.warp_sum(torch.from_numpy(x))
     assert torch.equal(got, torch.from_numpy(lanes[:, 0]))
+
+
+# ---- the chain kernel's decision rule, tables and butterfly ----------------
+
+
+def _neighbours(t: torch.Tensor, steps: int) -> torch.Tensor:
+    """float32 ``t`` moved ``steps`` floats up (or down, steps < 0)."""
+    to = torch.full_like(t, float("inf") if steps > 0 else float("-inf"))
+    for _ in range(abs(steps)):
+        t = torch.nextafter(t, to)
+    return t
+
+
+@pytest.mark.parametrize("beta", [0.0, 0.6, 1.0, 2.5])
+def test_threshold_rule_agrees_with_p1_within_2_ulp(beta):
+    """x = beta * delta >= T(u) against the float32 test u < 1 / (1 +
+    exp(-x)), over u = k * 2^-24 (k = 0, the smallest, the largest, 0.5
+    and random) and x at T(u) and its neighbours, 0, -0, past 88 (where
+    exp overflows) and the float32 extremes: the two differ only where u
+    lies within 2 ulp of p1; at beta = 0 the rule is u < 0.5 exactly."""
+    rng = np.random.RandomState(int(beta * 10))
+    ks = np.unique(np.concatenate([
+        np.arange(0, 64), (1 << 24) - 1 - np.arange(64),
+        [1 << 23, (1 << 23) - 1, (1 << 23) + 1],
+        rng.randint(0, 1 << 24, 4000)]))
+    k = torch.from_numpy(ks.astype(np.int64))
+    T = gibbs_kernel.thresholds_of(k)
+    u = k.to(torch.float32) * 2.0 ** -24
+    fixed = torch.tensor([0.0, -0.0, 1e-30, -1e-30, 16.6, -16.6, 17.0,
+                          -17.0, 87.9, -87.9, 88.8, -88.8, 100.0, -100.0,
+                          1e30, -1e30, 3.4028235e38, -3.4028235e38])
+    xs = [fixed[None].expand(len(k), -1)]
+    if beta:
+        xs += [(_neighbours(T, s) / beta)[:, None] for s in range(-3, 4)]
+    x = torch.cat(xs, dim=1)
+    xb = x * beta
+    new = xb >= T[:, None]
+    p1 = torch.reciprocal(1 + torch.exp(-xb))
+    old = u[:, None] < p1
+    for i, j in torch.nonzero(new != old).tolist():
+        assert gibbs_kernel.within_ulps(float(u[i]), float(p1[i, j])), (
+            int(k[i]), float(x[i, j]), float(p1[i, j]))
+    assert bool(torch.isfinite(T).all()) and float(T[0]) < -3e38
+    if beta == 0.0:
+        assert torch.equal(new, (u < 0.5)[:, None].expand_as(new))
+    else:
+        # the rule is x > logit(u) exactly: T(u) and the float below it
+        assert bool(((_neighbours(T, -1) * 1.0) < T).all())
+        assert bool((T.double() > torch.log(k.double())
+                     - torch.log(((1 << 24) - k).double())).all())
+
+
+def _suite_models():
+    suite = generate_suite(0.1)
+    return [(tuple(tuple(int(v) for v in c) for c in C),
+             max(v for c in C for v in c) + 1,
+             torch.tensor(np.asarray(suite.thetas[j], np.float32)))
+            for j, C in enumerate(suite.graphs)]
+
+
+def _wide_models():
+    """Past 64 variables (the state in shared memory), clamped sites, an
+    item of 7 other slots and a site of 40 items; and a complete graph
+    whose sites hold 11 items (not a power of 2)."""
+    rng = np.random.RandomState(5)
+    cl = (tuple((i, i + 1) for i in range(69)) + ((1, 30, 50, 66, 67, 68,
+                                                   69, 2),)
+          + tuple((7, v) for v in range(20, 59)))
+    d = sum(1 << len(c) for c in cl)
+    ev = [-1] * 70
+    ev[10], ev[61] = 1, 0
+    k12 = tuple((i, j) for i in range(12) for j in range(i + 1, 12))
+    return [(cl, 70, torch.from_numpy(
+                (rng.randn(3, d) * 0.4).astype(np.float32)), ev),
+            (k12, 12, torch.from_numpy(
+                (rng.randn(2, 4 * len(k12)) * 0.3).astype(np.float32)))]
+
+
+@pytest.mark.parametrize("case", ["suite", "wide"])
+def test_multi_reference_equals_the_per_structure_references(case):
+    """gibbs_chains_multi of several structures on CPU tensors equals each
+    structure's plain version (gibbs_chains_reference) row for row, each
+    chain keyed by its index over the launch, and the evidence of each
+    structure clamps its own sites."""
+    models = _suite_models() if case == "suite" else _wide_models()
+    rows = gibbs_kernel.gibbs_chains_multi(9, models, 1.1, 3, 2, 2)
+    c0 = 0
+    for m, got in zip(models, rows):
+        C = m[2].shape[0]
+        want = gibbs_kernel.gibbs_chains_reference(
+            9, m[0], m[1], m[2], 1.1, 3, 2, 2,
+            evidence_mask=m[3] if len(m) > 3 else None,
+            chain_ids=range(c0, c0 + C))
+        assert got.shape == want.shape and torch.equal(got, want)
+        c0 += C
+    if case == "wide":
+        assert not gibbs_kernel.chain_pack(
+            ((models[0][0], 70, tuple(models[0][3])),)).reg_state
+        assert bool((rows[0][..., 10] == 1).all()
+                    and (rows[0][..., 61] == 0).all())
+
+
+def test_chain_pack_tables():
+    """The packed tables of the suite's triangle pair [[0,1,2],[2,3,4]]:
+    a meta row a free site with its butterfly levels, one record an item
+    with its D entries, the other slots by increasing bit in the slot
+    word, packed 6 bits each on the word path; the fast loop's lane
+    table."""
+    cl = ((0, 1, 2), (2, 3, 4))
+    pack = gibbs_kernel.chain_pack(((cl, 5, (-1, -1, -1, 1, -1)),))
+    assert pack.reg_state
+    assert pack.structs[0].tolist() == [5, 4, 0, 20, 0, 0, 5, 0,
+                                        1 | 2 << 4 | 1 << 8, 0, 0, 0]
+    sites = [(int(r), int(t) & 0xFFFFFF, int(t) >> 24)
+             for r, t in pack.meta[:5]]
+    assert sites == [(0, 0, 0), (1, 1, 0), (2, 2, 1), (4, 4, 0), (5, 0, 0)]
+    # site 2's items: slot 2 of (0, 1, 2), then slot 0 of (2, 3, 4)
+    x, off, z, w = pack.records[2].tolist()
+    assert (x, off, z & 0xFF, z >> 8 & 0xFF, w) == (8, 0, 2, 0, 1 | 0 << 6)
+    x, off, z, w = pack.records[3].tolist()
+    assert (x, off, z & 0xFF, z >> 8 & 0xFF, w) == (12, 8, 2, 2, 4 | 3 << 6)
+    # the fast loop's lane table (K = 1, C = 2): lane l takes item l mod 2
+    # of a site, the zero entry past its items, and the site's bit; the 4
+    # free sites repeated for the 8 sweeps of a threshold group
+    lanes = pack.lanes.reshape(32, 32, 4)
+    assert np.array_equal(lanes, np.tile(lanes[:4], (8, 1, 1)))
+    assert lanes[2, ::2].tolist() == [[8, 1 | 0 << 6, 4, 0]] * 16
+    assert lanes[2, 1::2].tolist() == [[12, 4 | 3 << 6, 4, 0]] * 16
+    assert lanes[0, 1::2].tolist() == [[20, 63 | 63 << 6, 1, 0]] * 16
+
+
+@pytest.mark.parametrize("items", [0, 1, 2, 3, 5, 11, 16, 17, 26, 32, 33,
+                                   45, 70])
+def test_shallow_butterfly_equals_warp_sum(items):
+    """The kernel's lane sum (item l mod 2^k on lane l, k levels) equals
+    warp_sum, the full 5-level butterfly, to the bit."""
+    x = torch.from_numpy(np.random.RandomState(items).randn(
+        5, items).astype(np.float32))
+    x[:, :items // 3] *= 1e-6
+    assert torch.equal(gibbs_kernel.lane_sum(x), gibbs_kernel.warp_sum(x))
+
+
+def test_eval_gibbs_is_one_chain_call(monkeypatch):
+    """evaluate_suite's gibbs mode runs the suite's 70 chains in one
+    gibbs_chains_multi call, each keyed by its suite index: its counts
+    equal the per-graph route's (each graph's reps through the plain
+    version with chain ids idx .. idx + reps), at 12 samples."""
+    calls = []
+    real = gibbs_kernel.gibbs_chains_multi
+
+    def spy(*args, **kwargs):
+        calls.append(len(args[1]))
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(gibbs_kernel, "gibbs_chains_multi", spy)
+    suite = generate_suite(0.1)
+    res = harness.evaluate_suite(suite, mode="gibbs", num_samples=12,
+                                 seed=4, device="cpu")
+    assert calls == [7] and len(res) == 7
+    got = harness._gibbs_counts(suite, 12, 4, "cpu")
+    idx = 0
+    for (cl, n, th), counts in zip(_suite_models(), got):
+        bits = gibbs_kernel.gibbs_chains_reference(
+            4, cl, n, th, 1.0, 12, 10, 10,
+            chain_ids=range(idx, idx + th.shape[0]))
+        ids = gibbs_kernel.ids_from_bits(bits).numpy()
+        want = np.stack([np.bincount(r, minlength=1 << n) for r in ids])
+        assert np.array_equal(counts, want)
+        idx += th.shape[0]

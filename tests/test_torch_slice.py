@@ -117,7 +117,7 @@ def test_gpu_platform_raises_without_cuda(platform, tmp_path):
 
 
 @pytest.mark.parametrize("case", ["sandwich24", "lowered28",
-                                  "lane_circuit"])
+                                  "lane_circuit", "gibbs"])
 def test_host_ab_needs_the_card(case, capsys):
     """The A/B timing script exits 1, printing no result, without CUDA."""
     if torch.cuda.is_available():
