@@ -36,7 +36,14 @@ kernels' launch counters reset just before it and read just after:
   lse + moments sweeps it replaces, the gradient held against the two
   sweeps' moments, and the table and elimination routes driven too;
 * the copy and gate-pass rates at 28 qubits and the float32 FMA peak
-  (``runners/bench.py``).
+  (``runners/bench.py``);
+* AIS (phase ais) on the past-both-caps flagship of tests/test_ais.py, K27
+  beside a disjoint 21-variable chain (n = 48): the chain kernel's AIS
+  mode against its plain version at 256 chains x 96 rungs, lnZ, pooled
+  marginals and 100 training steps at JAX's slow-pin bars against the
+  blocks' exact targets, then ``infer --method ais`` (lnz, marginals,
+  prob: one AIS launch each), ``train --grad ais`` with ``--resume`` (one
+  a step) and ``eval --mode gibbs|pam --native`` (the C++ engine).
 
 The dense lane kernel (three TF32 products a term on the tensor cores)
 is held to the float64 product of its input at widths 8, 24 and 28: a
@@ -1312,7 +1319,8 @@ def time_k27_queries(cliques, theta, dev) -> list:
     for q in INFER_QUERIES:
         args = argparse.Namespace(query=q["query"],
                                   evidence=q.get("evidence", ""),
-                                  of=q.get("of"), max_vars=q.get("max_vars"))
+                                  of=q.get("of"), max_vars=q.get("max_vars"),
+                                  method="exact")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         infer_cli._answer(mrf, args, 1.0)
@@ -2939,6 +2947,339 @@ def phase_samplers(dev, report) -> dict:
     return main["launches"]
 
 
+AIS_CHAINS, AIS_TEMPS = 256, 96   # the slow pin's settings: 256 x 96
+AIS_POOL_SEEDS = (1, 2, 3, 4)     # marginals pooled over 4 runs
+AIS_TRAIN_STEPS = 100             # Adam 0.08, x 0.25 after 60 updates
+AIS_CHECK_WIDE = (32, 16, 2)      # chains, rungs, sweeps a rung: n = 80
+
+
+def disjoint_blocks(dev):
+    """The past-both-caps flagship (tests/test_ais.py::_disjoint_blocks):
+    block A the complete pairwise graph on 27 variables, block B a disjoint
+    21-variable chain; n = 48, 371 cliques, dimension 1484, theta =
+    -|randn(RandomState(1))| * 0.3. Returns (joint, A, B, dim A)."""
+    from qcmrf_tpu_torch.models.mrf import MRF
+
+    A = complete_cliques(27)
+    B = [[i, i + 1] for i in range(20)]
+    d = 4 * (len(A) + len(B))
+    theta = (-np.abs(np.random.RandomState(1).randn(d)) * 0.3).astype(
+        np.float32)
+    dA = 4 * len(A)
+    joint = MRF.create(A + [[i + 27, j + 27] for i, j in B], theta=theta,
+                       device=dev)
+    mA = MRF.create(A, theta=theta[:dA], device=dev)
+    mB = MRF.create(B, theta=theta[dA:], device=dev)
+    return joint, mA, mB, dA
+
+
+def ais_ops(cliques, n: int, chains: int, temps: int, spt: int) -> float:
+    """Operations the AIS chains need: per sweep a Gibbs sweep's
+    (gibbs_ops), per rung theta^T phi(x) (a shift and an or a slot, a
+    load's index and an addition a clique) and the weight step (2)."""
+    rung = sum(2 * len(C) + 2 for C in cliques) + 2
+    return chains * temps * (spt * gibbs_ops(cliques, n) + rung)
+
+
+def check_ais_mode(what, mrf, chains, temps, spt, seed) -> dict:
+    """The AIS mode against its plain version on the card at (chains,
+    temps, spt): final states equal row for row (or, where a chain parts,
+    a decision of the plain run within 2 ulp of p1) and log-weights within
+    1e-5 relative; both timed once."""
+    from qcmrf_tpu_torch.ops import gibbs_kernel as gk
+
+    args = (seed, mrf.cliques, mrf.n, mrf.theta, mrf.beta, chains, temps,
+            spt)
+    (w, b), ms = timed_once(lambda: gk.ais_chains(*args))
+    (w0, b0), plain_ms = timed_once(lambda: gk.ais_chains_reference(*args))
+    parts = gk.ais_partings(seed, mrf.cliques, mrf.n, mrf.theta, mrf.beta,
+                            temps, spt, b, b0)
+    same = (b == b0).all(dim=1)
+    rel = float(((w - w0).abs() / w0.abs().clamp(min=1.0))[same].max())
+    require(all(gk.within_ulps(u, p1) for _, _, _, u, p1 in parts)
+            and rel <= 1e-5,
+            f"{what}: AIS mode, {chains} chains x {temps} rungs x {spt} "
+            f"sweeps in one launch ({ms:.3f} ms cold; plain version "
+            f"{plain_ms:.1f} ms): final states equal on "
+            f"{chains - len(parts)} chains, {len(parts)} part (each at a "
+            f"decision within 2 ulp of p1); log-weights within {rel:.2e} "
+            "relative (<= 1e-5)")
+    return dict(ms=ms, plain_ms=plain_ms, parted=len(parts),
+                max_abs_err=float((w - w0).abs()[same].max()),
+                shape=f"{chains} chains x {temps} rungs x {spt} sweeps, "
+                      f"n={mrf.n}, {what}")
+
+
+def ais_main_path(dev, joint, tmp, lnz_exact, mu_seed, p_exact) -> dict:
+    """The slice's entry points through ``__main__``, the counts reset just
+    before and read just after: infer --method ais (lnz, marginals, prob),
+    each one AIS launch; train --grad ais, 3 steps then --resume to 5, one
+    AIS launch a step; eval --mode gibbs|pam --native on the suite. The
+    answers against the exact ones: lnZ within max(4 stderr, 5e-3); the
+    marginals (at --sample-seed AIS_POOL_SEEDS[0]) within 1e-5 of
+    ``mu_seed``, the library's marginals at that seed, which the slow pin
+    pools and holds to its bars; P(x47 = 1 | x0 = 1) (x0 in block A, x47 in the
+    disjoint block B) within max(4 sqrt(p (1 - p) / ESS), 5e-3) of
+    ``p_exact``, block B's elimination answer."""
+    import contextlib
+    import io
+
+    from qcmrf_tpu_torch import __main__ as cli
+    from qcmrf_tpu_torch.ops import gibbs_kernel as gk
+
+    model = os.path.join(tmp, "blocks48.json")
+    with open(model, "w") as f:
+        json.dump({"cliques": [list(C) for C in joint.cliques],
+                   "theta": joint.theta.cpu().double().tolist()}, f)
+    graph = os.path.join(tmp, "blocks48_graph.json")
+    with open(graph, "w") as f:
+        json.dump([list(C) for C in joint.cliques], f)
+    torch.cuda.synchronize()
+    reset_counts()
+    t, answers, per_query = {}, {}, {}
+    with contextlib.redirect_stdout(io.StringIO()):
+        for q, extra in (("lnz", []),
+                         ("marginals", ["--sample-seed",
+                                        str(AIS_POOL_SEEDS[0])]),
+                         ("prob", ["--of", f"{joint.n - 1}=1",
+                                   "--evidence", "0=1"])):
+            out = os.path.join(tmp, f"{q}.json")
+            before = gk.LAUNCHES["gibbs_ais"]
+            t0 = time.perf_counter()
+            rc = cli.main(["infer", "--model", model, "--query", q,
+                           "--method", "ais", "--ais-chains",
+                           str(AIS_CHAINS), "--ais-temps", str(AIS_TEMPS),
+                           "--platform", "gpu", "--out", out] + extra)
+            torch.cuda.synchronize()
+            t["infer_" + q] = time.perf_counter() - t0
+            per_query[q] = gk.LAUNCHES["gibbs_ais"] - before
+            require(rc == 0, f"infer --method ais --query {q} exits 0")
+            with open(out) as f:
+                answers[q] = json.load(f)
+        train_dir = os.path.join(tmp, "train")
+        steps = {}
+        for n_steps, extra in ((3, []), (5, ["--resume"])):
+            before = gk.LAUNCHES["gibbs_ais"]
+            t0 = time.perf_counter()
+            rc = cli.main(["train", "--graph", graph, "--samples", "2000",
+                           "--steps", str(n_steps), "--grad", "ais",
+                           "--ais-chains", str(AIS_CHAINS), "--ais-temps",
+                           str(AIS_TEMPS), "--lr", "0.05", "--outdir",
+                           train_dir, "--checkpoint-every", "3",
+                           "--platform", "gpu"] + extra)
+            torch.cuda.synchronize()
+            t[f"train_{n_steps}"] = time.perf_counter() - t0
+            steps[n_steps] = gk.LAUNCHES["gibbs_ais"] - before
+            require(rc == 0, f"train --grad ais --steps {n_steps} "
+                             f"{' '.join(extra)} exits 0")
+        with open(os.path.join(train_dir, "fitted_model.json")) as f:
+            fitted = json.load(f)
+        evals = {}
+        for mode in ("gibbs", "pam"):
+            before = gk.LAUNCHES["gibbs"]
+            t0 = time.perf_counter()
+            from qcmrf_tpu_torch.runners import eval as run_eval
+
+            evals[mode] = run_eval.main(["--mode", mode, "--native",
+                                         "--scale", "0.1", "--platform",
+                                         "gpu"])
+            torch.cuda.synchronize()
+            t["eval_native_" + mode] = time.perf_counter() - t0
+            require(gk.LAUNCHES["gibbs"] == before,
+                    f"eval --mode {mode} --native: no chain launch (the C++ "
+                    "engine samples)")
+    launches = read_counts()
+    print(f"  main path: infer --method ais lnz {t['infer_lnz']:.3f} s, "
+          f"marginals {t['infer_marginals']:.3f} s, prob "
+          f"{t['infer_prob']:.3f} s; train --grad ais 3 steps "
+          f"{t['train_3']:.2f} s (its data: one Gibbs chain), --resume to 5 "
+          f"{t['train_5']:.2f} s; eval --native gibbs "
+          f"{t['eval_native_gibbs']:.2f} s, pam {t['eval_native_pam']:.2f} "
+          f"s; launches { {k: v for k, v in launches.items() if v} }")
+    for q, count in per_query.items():
+        require(count == 1 and answers[q]["backend"] == "ais",
+                f"infer --method ais --query {q}: {count} AIS launch (1), "
+                f"ESS {answers[q]['ais']['ess']:.1f}")
+    lnz, se = answers["lnz"]["lnz"], answers["lnz"]["ais"]["stderr"]
+    require(set(answers["lnz"]["ais"]) == {"chains", "temps", "seed", "ess",
+                                           "stderr"}
+            and abs(lnz - lnz_exact) <= max(4 * se, 5e-3),
+            f"infer --query lnz: {lnz:.5f} vs exact {lnz_exact:.5f}, |diff| "
+            f"{abs(lnz - lnz_exact):.5f} <= max(4 stderr, 5e-3) = "
+            f"{max(4 * se, 5e-3):.5f}")
+    mu = torch.tensor(answers["marginals"]["marginals"], dtype=torch.float64)
+    gap = float((mu - mu_seed.double().cpu()).abs().max())
+    # the same draws; the scatter's atomic adds may sum in another order
+    require(mu.shape == (joint.dimension,) and gap <= 1e-5,
+            f"infer --query marginals --sample-seed {AIS_POOL_SEEDS[0]}: "
+            f"{joint.dimension} marginals within {gap:.1e} (<= 1e-5) of "
+            "ais_clique_marginals at that seed (pooled in the slow pin)")
+    p, ess_p = answers["prob"]["prob"], answers["prob"]["ais"]["ess"]
+    bar = max(4 * math.sqrt(p_exact * (1 - p_exact) / ess_p), 5e-3)
+    require(abs(p - p_exact) <= bar,
+            f"infer --query prob: P(x{joint.n - 1} = 1 | x0 = 1) {p:.4f} vs "
+            f"block B's elimination {p_exact:.4f}, |diff| "
+            f"{abs(p - p_exact):.4f} <= max(4 sqrt(p (1 - p) / ESS), 5e-3) "
+            f"= {bar:.4f} (ESS {ess_p:.1f})")
+    require(steps == {3: 3, 5: 2} and fitted["ais_skipped_steps"] == 0
+            and fitted["final_ess"] > 0.1 * AIS_CHAINS
+            and "final_nll" not in fitted,
+            f"train --grad ais: one AIS launch a step (3, then 2 resumed), "
+            f"final ESS {fitted['final_ess']:.1f}, "
+            f"{fitted['ais_skipped_steps']} skipped")
+    for r in evals["gibbs"]:
+        require(r.mean_f >= 0.99, f"eval --mode gibbs --native, graph "
+                                  f"{r.graph}: mean fidelity {r.mean_f:.4f}")
+    for r in evals["pam"]:
+        print(f"  eval --mode pam --native, graph {r.graph}: mean fidelity "
+              f"{r.mean_f:.4f}")
+    require(launches["gibbs_ais"] == 8,
+            f"AIS mode launched {launches['gibbs_ais']} times on the main "
+            "path (3 queries + 5 steps)")
+    return dict(launches=launches, seconds=t,
+                eval_native_gibbs_f=[r.mean_f for r in evals["gibbs"]],
+                eval_native_pam_f=[r.mean_f for r in evals["pam"]],
+                lnz_query=answers["lnz"], prob_query=answers["prob"],
+                prob_exact=p_exact)
+
+
+def phase_ais(dev, report) -> dict:
+    """Slice 3c on the card: the AIS mode against its plain version (the
+    n = 48 blocks at the main path's 256 x 96, the word state's fast loop;
+    an 80-variable chain, the state in shared memory), timed beside the
+    dependent-path floor; the slow pin of tests/test_ais.py (lnZ,
+    marginals pooled over 4 seeds, 100 training steps) against the
+    blocks' exact targets (lse and lnz_moments kernels on block A,
+    elimination on block B); then the main path (ais_main_path)."""
+    from qcmrf_tpu_torch.models import ais, elimination
+    from qcmrf_tpu_torch.models import train as mtrain
+    from qcmrf_tpu_torch.models.mrf import MRF
+    from qcmrf_tpu_torch.ops import gibbs_kernel as gk
+    from qcmrf_tpu_torch.ops import kernels
+
+    out = {}
+    joint, mA, mB, dA = disjoint_blocks(dev)
+    n, M, T = joint.n, AIS_CHAINS, AIS_TEMPS
+    print(f"[ais] the n={n} blocks (K27 and a 21-chain, "
+          f"{len(joint.cliques)} cliques), {M} chains x {T} rungs")
+    lnz_exact = (float(kernels.log_partition(mA))
+                 + float(elimination.log_partition(mB)))
+    muA = kernels.lnz_and_moments(mA.cliques, mA.n, mA.theta, 1.0)[1]
+    muB = elimination.clique_marginals(mB)
+    mu_exact = torch.cat([muA.float(), muB.float()])
+    require(48 * math.log(2.0) - lnz_exact > 10.0,
+            f"exact lnZ {lnz_exact:.4f} (lse kernel on A + elimination on "
+            f"B) lies {48 * math.log(2.0) - lnz_exact:.2f} nats below n ln 2")
+    pack = gk.chain_pack(((joint.cliques, n, None),))
+    smem, _, packed = gk.ais_shared_bytes(joint.cliques, n)
+    # the runtime's occupancy of the launched instantiation at its shared
+    # memory (registers, shared memory and the block limit together)
+    per_sm = gk.ais_resident_blocks(joint.cliques, n, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    require(pack.reg_state and bool(pack.structs[0, 8]) and packed
+            and sms * per_sm >= M,
+            f"word state, fast loop (K | C << 4 = {pack.structs[0, 8] & 255}),"
+            f" packed cliques, {smem} bytes of shared memory a block: "
+            f"{per_sm} blocks an SM by cudaOccupancyMaxActiveBlocksPer"
+            f"Multiprocessor, {sms * per_sm} resident >= {M} chains")
+    main = check_ais_mode("the n=48 blocks", joint, M, T, 1, 7)
+    wide = check_ais_mode("an 80-variable chain with triangles (the state "
+                          "in shared memory)", wide_model(80, [], dev),
+                          *AIS_CHECK_WIDE, 8)
+    ms = cuda_ms(lambda: gk.ais_chains(0, joint.cliques, n, joint.theta,
+                                       1.0, M, T, 1), reps=5)
+    lat = site_latency(dev)
+    sites = T * n
+    ns_site = ms * 1e6 / sites
+    floor_ms = sites * lat["floor_ns"][5] * 1e-6
+    b = bound(4 * joint.dimension + M * (n + 4),
+              ais_ops(joint.cliques, n, M, T, 1))
+    print(f"  AIS launch {ms:.3f} ms by CUDA events ({M} chains in "
+          f"parallel, {sites} site updates each): {ns_site:.1f} ns a site "
+          f"update against this design's floor {lat['floor_ns'][5]:.1f} ns "
+          f"(5 levels, every site of the fast loop; {floor_ms:.3f} ms a "
+          f"chain); rate bound {b['bound_ms']:.4f} ms ({b['bound_by']}); "
+          f"plain version {main['plain_ms']:.1f} ms")
+    report["gibbs_ais"] = dict(
+        ms=ms, plain_ms=main["plain_ms"], **b,
+        max_abs_err=max(main["max_abs_err"], wide["max_abs_err"]),
+        parted_chains=main["parted"] + wide["parted"],
+        shape=main["shape"], ns_per_site_update=ns_site,
+        latency_bound_ns_per_site_update=lat["floor_ns"][5],
+        latency_bound_ms=floor_ms, shared_bytes=smem,
+        resident_blocks=sms * per_sm, cold_ms=main["ms"],
+        wide_check=wide)
+
+    print("[ais] the slow pin: lnZ, pooled marginals, training")
+    (lnz, d), lnz_ms = timed_once(lambda: ais.ais_log_partition(
+        0, joint, M, T, return_diagnostics=True))
+    ess, se = float(d["ess"]), float(d["stderr"])
+    require(ess > 25.6 and abs(float(lnz) - lnz_exact) <= max(4 * se, 5e-3),
+            f"lnZ-hat {float(lnz):.5f} vs exact {lnz_exact:.5f}: |diff| "
+            f"{abs(float(lnz) - lnz_exact):.5f} <= max(4 stderr, 5e-3) = "
+            f"{max(4 * se, 5e-3):.5f}; ESS {ess:.1f} > 25.6 ({lnz_ms:.3f} ms)")
+    mus = []
+    for k in AIS_POOL_SEEDS:
+        mu, dm = ais.ais_clique_marginals(k, joint, M, T,
+                                          return_diagnostics=True)
+        require(float(dm["ess"]) > 25.6,
+                f"  marginals seed {k}: ESS {float(dm['ess']):.1f} > 25.6")
+        mus.append(mu)
+    err = (torch.stack(mus).mean(dim=0) - mu_exact).abs()
+    require(float(err.max()) < 0.06 and float(err.mean()) < 0.015,
+            f"marginals pooled over {len(mus)} seeds: max error "
+            f"{float(err.max()):.4f} < 0.06, mean {float(err.mean()):.5f} < "
+            "0.015")
+    template = MRF.create([list(C) for C in joint.cliques], device=dev)
+    raw = mtrain._from_theta(torch.full((template.dimension,), -0.5,
+                                        device=dev), True).requires_grad_()
+    opt = mtrain.adam([raw], 0.08)
+    step = mtrain.make_ais_train_step(template, opt, mu_exact, M, T)
+    skips, applied, tail = 0, 0, []
+    t0 = time.perf_counter()
+    for i in range(AIS_TRAIN_STEPS):
+        info = step(2, i)
+        skips += int(info["skipped"])
+        applied += int(not info["skipped"])
+        if applied == 60:
+            opt.param_groups[0]["lr"] = 0.08 * 0.25
+        if i >= AIS_TRAIN_STEPS - 30:
+            tail.append(mtrain._to_theta(raw, True).detach())
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    theta_fit = torch.stack(tail).mean(dim=0)
+    fitA = mA.with_theta(theta_fit[:dA])
+    gA = (kernels.lnz_and_moments(fitA.cliques, fitA.n, fitA.theta, 1.0)[1]
+          - muA).abs().max()
+    tB = MRF.create(mB.cliques, device=dev)
+    rawB = mtrain._from_theta(torch.full((tB.dimension,), -0.5, device=dev),
+                              True).requires_grad_()
+    stepB = mtrain.make_moment_train_step(tB, mtrain.adam([rawB], 0.1), muB)
+    for _ in range(250):
+        stepB()
+    fitB = elimination.clique_marginals(
+        tB.with_theta(mtrain._to_theta(rawB, True).detach()))
+    gB = (elimination.clique_marginals(tB.with_theta(theta_fit[dA:]))
+          - fitB).abs().max()
+    require(skips < 20 and float(gA) < 0.08 and float(gB) < 0.08,
+            f"{AIS_TRAIN_STEPS} AIS steps at {M} x {T} ({train_s:.2f} s, "
+            f"{skips} skipped < 20): block A's exact moment gap at the "
+            f"Polyak fit {float(gA):.4f} < 0.08 (lnz_moments kernel); block "
+            f"B's marginals vs an elimination fit {float(gB):.4f} < 0.08")
+    out.update(lnz_hat=float(lnz), lnz_exact=lnz_exact, ess=ess, stderr=se,
+               marg_max_err=float(err.max()), marg_mean_err=float(err.mean()),
+               train_skips=skips, train_gap_A=float(gA),
+               train_gap_B=float(gB), train_s=train_s,
+               ais_lnz_call_ms=lnz_ms)
+    pB = float(elimination.conditional_prob(mB, joint.n - 1 - 27, 1))
+    with tempfile.TemporaryDirectory() as tmp:
+        print("[ais] main path")
+        mp = ais_main_path(dev, joint, tmp, lnz_exact, mus[0], pB)
+    out.update({k: v for k, v in mp.items() if k != "launches"})
+    report["ais"] = out
+    return mp["launches"]
+
+
 def gate_entry(kind, report, launches) -> dict:
     """A generic gate kernel's line: its mean time and bound per launch in
     the lowered width-28 main run (the copy: at the rates' width 28; the
@@ -2982,6 +3323,8 @@ REPLACES = {
     "fma_peak": "bench.py:405",
     "gibbs": "qcmrf_tpu/models/sample.py:77 (sample_gibbs: a lax.scan, "
              "not a TPU kernel)",
+    "gibbs_ais": "qcmrf_tpu/models/ais.py:57 (_ais_body, lax.scan; no "
+                 "Pallas kernel)",
 }
 ALSO_REPLACES = {
     "logpot": ["qcmrf_tpu/ops/kernels.py:257 (the split loop kernel)"],
@@ -3003,6 +3346,7 @@ SOURCES = {
     "row_gate": "gate_kernels.cu",
     "diag": "gate_kernels.cu", "copy": "gate_kernels.cu",
     "fma_peak": "gate_kernels.cu", "gibbs": "gibbs_kernels.cu",
+    "gibbs_ais": "gibbs_kernels.cu",
 }
 
 
@@ -3055,12 +3399,13 @@ def print_ptxas(path) -> None:
         if "Compiling entry function" in line:
             name = next((k for k in KERNEL_NAMES
                          if f"{len(k)}{k}" in line), None)
-            g = re.search(r"gibbs_kernelILb([01])ELb([01])E", line)
+            g = re.search(r"gibbs_kernelILb([01])ELb([01])ELb([01])E",
+                          line)
             m = re.search(r"ILi(\d+)E(?:Lb([01])E)?", line)
             if g:
                 name += (f"<{('shared', 'word')[int(g.group(1))]} state, "
                          f"D in {('device', 'shared')[int(g.group(2))]} "
-                         "memory>")
+                         f"memory{('', ', AIS')[int(g.group(3))]}>")
             elif name and m:
                 given = {"0": ", fused", "1": ", lnZ given"}
                 name += f"<{m.group(1)}{given.get(m.group(2), '')}>"
@@ -3118,6 +3463,7 @@ def main() -> int:
     infer = phase_infer(dev, report)
     train = phase_train(dev, report)
     smp = phase_samplers(dev, report)
+    ais_path = phase_ais(dev, report)
     phase_sandwich_kernels(dev, report)
     phase_gate_level(dev, report)
     gate = report["main_gate_level"]
@@ -3160,11 +3506,14 @@ def main() -> int:
     # the chain has no TPU kernel and no one PyTorch call
     kernels_line.append(dict(launches=smp["gibbs"], library_ms=None,
                              **report["gibbs"]))
+    # the AIS mode: no TPU kernel and no one PyTorch call either
+    kernels_line.append(dict(launches=ais_path["gibbs_ais"], library_ms=None,
+                             **report["gibbs_ais"]))
     for k, entry in zip(("sampler", "logpot", "lse", "hdh_multi",
                          "hdh_multi_uniform", "circuit", "map", "moments",
                          "lnz_moments", "lane_factored", "lane", "row_gate",
                          "diag", "copy",
-                         "fma_peak", "gibbs"), kernels_line):
+                         "fma_peak", "gibbs", "gibbs_ais"), kernels_line):
         entry.update(name=k, route="cuda",
                      source=f"qcmrf_tpu_torch/csrc/{SOURCES[k]}",
                      replaces=REPLACES[k])
@@ -3182,7 +3531,7 @@ def main() -> int:
                      "lane_float64", "lane_sass",
                      "lane_factored_library_ms", "row_gate_library_ms",
                      "row_library_by_qubit", "train", "fma_peak",
-                     "samplers", "gibbs")}), f,
+                     "samplers", "gibbs", "ais", "gibbs_ais")}), f,
                   indent=1, default=str)
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(f"[card] {smi}")

@@ -2,13 +2,15 @@
 
 Commands:
     run       experiment driver (counts JSON), analytic and statevector engines
-    eval      evaluation tables, --mode file
-    infer     exact inference queries: lnz, prob, map, mmap, marginals
-    train     exact-MLE training (exact and shot gradients, bit-array
-              data past n = 30, structure learning), with checkpoints
+    eval      evaluation tables: --mode file, or the classical samplers
+              (--mode gibbs|pam, --native for the C++ engine)
+    infer     inference queries: lnz, prob, map, mmap, marginals, sample
+              (--method ais: annealed importance sampling, no cap)
+    train     MLE training (exact, shot and AIS gradients, bit-array data
+              past n = 30, structure learning), with checkpoints
 
-The JAX package's whisker and bench commands, and infer's sample query,
-come to the port with later slices of ROADMAP.md.
+The JAX package's whisker and bench commands come to the port with later
+slices of ROADMAP.md.
 """
 
 from __future__ import annotations

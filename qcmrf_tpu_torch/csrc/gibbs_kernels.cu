@@ -58,6 +58,21 @@
 // in rounds, long slot lists, D in device memory, and past 64 variables
 // the state as a byte a site in shared memory (template kRegState =
 // false), where lane 0 stores the bit and the warp syncs.
+//
+// AIS mode (template kAis, entry point qcmrf_gibbs_ais): the chains of
+// annealed importance sampling (qcmrf_tpu/models/ais.py::_ais_body, a
+// lax.scan over rungs; no Pallas kernel), every rung of every chain in one
+// launch. Chain c starts from the same uniform initial state; rung t = 0 ..
+// T-1 first adds w_t * theta^T phi(x) to the chain's log-weight, then runs
+// per_temp sweeps deciding fl(s_t * delta) >= T(u), where the schedule
+// sched[t] = s_t = fl(beta_{t+1} * beta) and sched[T + t] = w_t =
+// fl(fl(beta_{t+1} - beta_t) * beta) comes from the wrapper (beta_t the
+// float32 linear schedule). Sweep t * per_temp + j draws from counter
+// (t * per_temp + j, v / 4, 0, 0), so the producer warp and the thresholds
+// are those of a Gibbs chain of T * per_temp sweeps. theta^T phi(x) is
+// summed in a warp's order: lane l adds cliques l, l + 32, ... in turn,
+// then the 5-level butterfly (gibbs_kernel.py::warp_sum). The launch writes
+// each chain's final state (its `out` row) and log-weight, no samples.
 
 #include <cstdint>
 
@@ -160,7 +175,20 @@ struct GibbsArgs {
   float beta;
   uint32_t seed;
   int sweeps, burn, thin, num_samples;
+  // AIS mode only (null and 0 otherwise): the schedule (2 x temps floats:
+  // the sweeps' scales, then the rungs' weight factors), the structure's
+  // cliques (int4 a clique: theta offset, first variable in `vars`, size,
+  // and where `packed` its variables 6 bits each, the first lowest), the
+  // rungs' sweeps, and the chains' log-weights (C floats)
+  const float* sched;
+  const int4* cliques;
+  const int* vars;
+  int num_cliques, packed, temps, per_temp;
+  float* logw;
 };
+
+// The largest clique whose variables pack into one record (6 bits each).
+constexpr int kPackedClique = 5;
 
 // theta's full slot word for entry e of an item: e with a 0 inserted at
 // bit pos.
@@ -364,7 +392,7 @@ struct FastArgs {
 template <int kK, int kC>
 __device__ __forceinline__ uint64_t fast_update(const FastArgs& f,
                                                 const int4& row, float tv,
-                                                uint64_t st) {
+                                                uint64_t st, float scale) {
   uint32_t y = 0;
 #pragma unroll
   for (int q = 0; q < kC; ++q)
@@ -376,11 +404,63 @@ __device__ __forceinline__ uint64_t fast_update(const FastArgs& f,
   const uint64_t m = static_cast<uint64_t>(static_cast<uint32_t>(row.w))
                          << 32 |
                      static_cast<uint32_t>(row.z);
-  return __fmul_rn(f.beta, acc) >= tv ? (st | m) : (st & ~m);
+  return __fmul_rn(scale, acc) >= tv ? (st | m) : (st & ~m);
 }
 
-template <int kK, int kC>
-__device__ __forceinline__ void fast_chain(const FastArgs& f, uint64_t st) {
+// AIS: the rung's log-weight step, logw + w_rung * theta^T phi(x), every
+// lane with the same value. theta^T phi(x) in a warp's order: lane l adds
+// cliques l, l + 32, ... in turn from 0.0, then the 5-level butterfly. On
+// the word path with packed cliques a clique is one record load (`recs`,
+// the records in shared memory) and one theta load, the loop unrolled so
+// that several cliques' loads are in flight at once (a rung would
+// otherwise wait on three dependent device loads a clique: the record, its
+// variables, the theta entry).
+template <bool kRegState>
+__device__ __forceinline__ float rung_weight(const GibbsArgs& a,
+                                             const int4* recs,
+                                             const float* th, int rung,
+                                             uint64_t st,
+                                             const unsigned char* bits,
+                                             float logw) {
+  const int lane = threadIdx.x & 31;
+  float acc = 0.0f;
+  if (kRegState && a.packed) {
+#pragma unroll 4
+    for (int k = lane; k < a.num_cliques; k += 32) {
+      const int4 q = recs[k];
+      const uint32_t p = static_cast<uint32_t>(q.w);
+      uint32_t idx = 0;
+#pragma unroll
+      for (int j = 0; j < kPackedClique; ++j)
+        if (j < q.z) idx = idx << 1 | state_bit(st, (p >> (6 * j)) & 63u);
+      acc = __fadd_rn(acc, __ldg(th + q.x + idx));
+    }
+  } else {
+    for (int k = lane; k < a.num_cliques; k += 32) {
+      const int4 q = __ldg(a.cliques + k);
+      uint32_t idx = 0;
+      for (int j = 0; j < q.z; ++j) {
+        const int var = __ldg(a.vars + q.y + j);
+        idx = idx << 1 | (kRegState ? state_bit(st, var) : bits[var]);
+      }
+      acc = __fadd_rn(acc, __ldg(th + q.x + idx));
+    }
+  }
+  acc = butterfly(acc, 5);
+  return __fadd_rn(logw, __fmul_rn(__ldg(a.sched + a.temps + rung), acc));
+}
+
+// One chain on the fast loop: the ring's groups in turn, the lane table's
+// rows prefetched a row ahead. Gibbs mode runs a group's updates in
+// segments, each ending where a sample's sweep does (`at`) or with the
+// group; AIS mode runs it sweep by sweep, each at its rung's scale, the
+// rung's log-weight step (rung_weight) before its first sweep.
+template <bool kAis, int kK, int kC>
+__device__ __forceinline__ uint64_t fast_chain(const FastArgs& f,
+                                               const GibbsArgs& a,
+                                               const int4* recs,
+                                               const float* th, uint64_t st,
+                                               float& logw) {
   const int lane = threadIdx.x & 31;
   const Ring& r = f.ring;
   const int per = r.G * f.n_free;   // site updates of a full group
@@ -391,58 +471,92 @@ __device__ __forceinline__ void fast_chain(const FastArgs& f, uint64_t st) {
     wait_full(g);
     const float* t = r.slot(g);
     const int s0 = g * r.G;
-    const int count = min(r.G, f.sweeps - s0) * f.n_free;
-    // the updates run in segments, each ending where a sample's sweep does
-    // (`at`) or with the group
-    int at = next_sample - s0 < r.G ? (next_sample - s0 + 1) * f.n_free - 1
-                                    : count;
-    for (int e = 0; e < count;) {
-      const int stop = at < count ? at + 1 : count;
-      for (; e < stop; ++e) {
-        const int4 nxt = f.lt[(e + 1 == per ? 0 : e + 1) * 32 + lane];
-        st = fast_update<kK, kC>(f, cur, t[e], st);
-        cur = nxt;
+    if constexpr (kAis) {
+      const int nsw = min(r.G, f.sweeps - s0);
+      int e = 0;
+      for (int j = 0; j < nsw; ++j) {
+        const int s = s0 + j;
+        const int rung = s / a.per_temp;
+        if (s == rung * a.per_temp)
+          logw = rung_weight<true>(a, recs, th, rung, st, nullptr, logw);
+        const float scale = __ldg(a.sched + rung);
+        for (const int stop = e + f.n_free; e < stop; ++e) {
+          const int4 nxt = f.lt[(e + 1 == per ? 0 : e + 1) * 32 + lane];
+          st = fast_update<kK, kC>(f, cur, t[e], st, scale);
+          cur = nxt;
+        }
       }
-      if (stop == at + 1) {
-        if (lane < f.n)
-          out[lane] = static_cast<signed char>(state_bit(st, lane));
-        if (lane + 32 < f.n)
-          out[lane + 32] = static_cast<signed char>(state_bit(st, lane + 32));
-        out += f.n;
-        next_sample += f.thin;
-        at = next_sample - s0 < r.G ? (next_sample - s0 + 1) * f.n_free - 1
-                                    : count;
+    } else {
+      const int count = min(r.G, f.sweeps - s0) * f.n_free;
+      int at = next_sample - s0 < r.G ? (next_sample - s0 + 1) * f.n_free - 1
+                                      : count;
+      for (int e = 0; e < count;) {
+        const int stop = at < count ? at + 1 : count;
+        for (; e < stop; ++e) {
+          const int4 nxt = f.lt[(e + 1 == per ? 0 : e + 1) * 32 + lane];
+          st = fast_update<kK, kC>(f, cur, t[e], st, f.beta);
+          cur = nxt;
+        }
+        if (stop == at + 1) {
+          if (lane < f.n)
+            out[lane] = static_cast<signed char>(state_bit(st, lane));
+          if (lane + 32 < f.n)
+            out[lane + 32] =
+                static_cast<signed char>(state_bit(st, lane + 32));
+          out += f.n;
+          next_sample += f.thin;
+          at = next_sample - s0 < r.G
+                   ? (next_sample - s0 + 1) * f.n_free - 1
+                   : count;
+        }
       }
     }
     if (g + 2 < r.groups) arrive_empty(g);
   }
+  return st;
 }
 
-template <int kK>
-__device__ __forceinline__ void fast_chains_c(int C, const FastArgs& f,
-                                              uint64_t st) {
+template <bool kAis, int kK>
+__device__ __forceinline__ uint64_t fast_chains_c(
+    int C, const FastArgs& f, const GibbsArgs& a, const int4* recs,
+    const float* th, uint64_t st, float& logw) {
   switch (C) {
-    case 0: fast_chain<kK, 0>(f, st); break;
-    case 1: fast_chain<kK, 1>(f, st); break;
-    case 2: fast_chain<kK, 2>(f, st); break;
-    case 3: fast_chain<kK, 3>(f, st); break;
-    default: fast_chain<kK, 4>(f, st); break;
+    case 0: return fast_chain<kAis, kK, 0>(f, a, recs, th, st, logw);
+    case 1: return fast_chain<kAis, kK, 1>(f, a, recs, th, st, logw);
+    case 2: return fast_chain<kAis, kK, 2>(f, a, recs, th, st, logw);
+    case 3: return fast_chain<kAis, kK, 3>(f, a, recs, th, st, logw);
+    default: return fast_chain<kAis, kK, 4>(f, a, recs, th, st, logw);
   }
 }
 
-__device__ __forceinline__ void fast_chains(int K, int C, const FastArgs& f,
-                                            uint64_t st) {
+template <bool kAis>
+__device__ __forceinline__ uint64_t fast_chains(
+    int K, int C, const FastArgs& f, const GibbsArgs& a, const int4* recs,
+    const float* th, uint64_t st, float& logw) {
   switch (K) {
-    case 0: fast_chains_c<0>(C, f, st); break;
-    case 1: fast_chains_c<1>(C, f, st); break;
-    case 2: fast_chains_c<2>(C, f, st); break;
-    case 3: fast_chains_c<3>(C, f, st); break;
-    case 4: fast_chains_c<4>(C, f, st); break;
-    default: fast_chains_c<5>(C, f, st); break;
+    case 0: return fast_chains_c<kAis, 0>(C, f, a, recs, th, st, logw);
+    case 1: return fast_chains_c<kAis, 1>(C, f, a, recs, th, st, logw);
+    case 2: return fast_chains_c<kAis, 2>(C, f, a, recs, th, st, logw);
+    case 3: return fast_chains_c<kAis, 3>(C, f, a, recs, th, st, logw);
+    case 4: return fast_chains_c<kAis, 4>(C, f, a, recs, th, st, logw);
+    default: return fast_chains_c<kAis, 5>(C, f, a, recs, th, st, logw);
   }
 }
 
-template <bool kRegState, bool kDeltaShared>
+// AIS: the chain's final state into its `out` row and its log-weight.
+template <bool kRegState>
+__device__ __forceinline__ void ais_finish(const GibbsArgs& a,
+                                           signed char* out, int n,
+                                           uint64_t st,
+                                           const unsigned char* bits,
+                                           float logw) {
+  const int lane = threadIdx.x & 31;
+  for (int v = lane; v < n; v += 32)
+    out[v] = static_cast<signed char>(kRegState ? state_bit(st, v) : bits[v]);
+  if (lane == 0) a.logw[blockIdx.x] = logw;
+}
+
+template <bool kRegState, bool kDeltaShared, bool kAis>
 __global__ void __launch_bounds__(64) gibbs_kernel(GibbsArgs a) {
   extern __shared__ float smem[];
   const int c = blockIdx.x;
@@ -465,6 +579,19 @@ __global__ void __launch_bounds__(64) gibbs_kernel(GibbsArgs a) {
       after_ring + (kDeltaShared ? zero + 1 : 0));
   for (int i = threadIdx.x; i < lane_rows; i += blockDim.x)
     s_lanes[i] = __ldg(a.lanes + sd[9] + i);
+  // AIS on the word path with packed cliques: the clique records in shared
+  // memory past the state bytes' place (none on the word path), on a
+  // 16-byte boundary
+  const int4* recs = a.cliques;
+  if constexpr (kAis && kRegState) {
+    if (a.packed) {
+      int4* s_recs = reinterpret_cast<int4*>(
+          (reinterpret_cast<uintptr_t>(s_bits) + 15) & ~uintptr_t{15});
+      for (int i = threadIdx.x; i < a.num_cliques; i += blockDim.x)
+        s_recs[i] = __ldg(a.cliques + i);
+      recs = s_recs;
+    }
+  }
   build_delta(a, sd, a.thetas + cd[0], dl);
   __syncthreads();
 
@@ -509,11 +636,15 @@ __global__ void __launch_bounds__(64) gibbs_kernel(GibbsArgs a) {
   if (!kRegState) __syncwarp();
 
   signed char* out = a.out + cd[1];
+  const float* th = a.thetas + cd[0];
+  float logw = 0.0f;
   if constexpr (kRegState && kDeltaShared) {
     if (sd[8]) {
       const FastArgs f{s_lanes, ring, dl, out, a.beta, n, n_free,
                        a.sweeps, a.burn, a.thin};
-      fast_chains(sd[8] & 15, (sd[8] >> 4) & 15, f, st);
+      st = fast_chains<kAis>(sd[8] & 15, (sd[8] >> 4) & 15, f, a, recs,
+                             th, st, logw);
+      if constexpr (kAis) ais_finish<true>(a, out, n, st, s_bits, logw);
       return;
     }
   }
@@ -521,6 +652,13 @@ __global__ void __launch_bounds__(64) gibbs_kernel(GibbsArgs a) {
   Site cur = n_free ? load_site(a, meta0, lane, zero) : Site{};
   RingCursor thr(ring);
   for (int s = 0; s < a.sweeps; ++s) {
+    float scale = a.beta;
+    if constexpr (kAis) {
+      const int rung = s / a.per_temp;
+      if (s == rung * a.per_temp)
+        logw = rung_weight<kRegState>(a, recs, th, rung, st, s_bits, logw);
+      scale = __ldg(a.sched + rung);
+    }
     const float* t = thr.begin();
     for (int i = 0; i < n_free; ++i) {
       const float tv = t[i];
@@ -533,7 +671,7 @@ __global__ void __launch_bounds__(64) gibbs_kernel(GibbsArgs a) {
         acc = __fadd_rn(acc, item_delta<kRegState, kDeltaShared>(
                                  a, __ldg(a.records + it), st, s_bits, dl));
       acc = butterfly(acc, cur.k);
-      const bool bit = __fmul_rn(a.beta, acc) >= tv;
+      const bool bit = __fmul_rn(scale, acc) >= tv;
       if (kRegState) {
         st = bit ? (st | cur.mask) : (st & ~cur.mask);
       } else {
@@ -543,7 +681,7 @@ __global__ void __launch_bounds__(64) gibbs_kernel(GibbsArgs a) {
       cur = nxt;
     }
     thr.end();
-    if (s == next_sample) {
+    if (!kAis && s == next_sample) {
       signed char* row = out + static_cast<long long>(
                                    (s - a.burn) / a.thin) * n;
       for (int v = lane; v < n; v += 32)
@@ -553,17 +691,26 @@ __global__ void __launch_bounds__(64) gibbs_kernel(GibbsArgs a) {
       if (!kRegState) __syncwarp();
     }
   }
+  if constexpr (kAis) ais_finish<kRegState>(a, out, n, st, s_bits, logw);
 }
 
-template <bool kRegState, bool kDeltaShared>
+// The instantiation, with its dynamic shared memory raised to smem_bytes
+// past the default 48 KB.
+template <bool kRegState, bool kDeltaShared, bool kAis>
+cudaError_t gibbs_instance(int smem_bytes, void (**k)(GibbsArgs)) {
+  *k = gibbs_kernel<kRegState, kDeltaShared, kAis>;
+  if (smem_bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      *k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+}
+
+template <bool kRegState, bool kDeltaShared, bool kAis>
 cudaError_t launch_gibbs(const GibbsArgs& a, int C, int smem_bytes,
                          cudaStream_t stream) {
-  auto* k = gibbs_kernel<kRegState, kDeltaShared>;
-  if (smem_bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    if (e != cudaSuccess) return e;
-  }
+  void (*k)(GibbsArgs);
+  const cudaError_t e =
+      gibbs_instance<kRegState, kDeltaShared, kAis>(smem_bytes, &k);
+  if (e != cudaSuccess) return e;
   k<<<C, 64, smem_bytes, stream>>>(a);
   return cudaGetLastError();
 }
@@ -678,6 +825,40 @@ __global__ void __launch_bounds__(32) gibbs_latency_kernel(
   }
 }
 
+template <bool kAis>
+int launch_mode(const GibbsArgs& a, int C, int reg_state, int smem_bytes,
+                void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (reg_state) {
+    e = a.delta ? launch_gibbs<true, false, kAis>(a, C, smem_bytes, s)
+                : launch_gibbs<true, true, kAis>(a, C, smem_bytes, s);
+  } else {
+    e = a.delta ? launch_gibbs<false, false, kAis>(a, C, smem_bytes, s)
+                : launch_gibbs<false, true, kAis>(a, C, smem_bytes, s);
+  }
+  return static_cast<int>(e);
+}
+
+// Blocks of the AIS mode's instantiation for (reg_state, D in shared
+// memory) that one SM holds at once with smem_bytes of dynamic shared
+// memory, as the runtime reports them for this card.
+cudaError_t ais_occupancy(int reg_state, int delta_shared, int smem_bytes,
+                          int* blocks) {
+  void (*k)(GibbsArgs);
+  cudaError_t e;
+  if (reg_state) {
+    e = delta_shared ? gibbs_instance<true, true, true>(smem_bytes, &k)
+                     : gibbs_instance<true, false, true>(smem_bytes, &k);
+  } else {
+    e = delta_shared ? gibbs_instance<false, true, true>(smem_bytes, &k)
+                     : gibbs_instance<false, false, true>(smem_bytes, &k);
+  }
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k, 64,
+                                                       smem_bytes);
+}
+
 }  // namespace
 
 extern "C" {
@@ -706,17 +887,38 @@ int qcmrf_gibbs(const long long* chains, int C, const int* structs,
                     reinterpret_cast<const int4*>(lanes),
                     reinterpret_cast<const int2*>(meta), others, evidence,
                     thetas, delta, out, beta, seed, sweeps, burn, thin,
-                    num_samples};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (reg_state) {
-    e = delta ? launch_gibbs<true, false>(a, C, smem_bytes, s)
-              : launch_gibbs<true, true>(a, C, smem_bytes, s);
-  } else {
-    e = delta ? launch_gibbs<false, false>(a, C, smem_bytes, s)
-              : launch_gibbs<false, true>(a, C, smem_bytes, s);
-  }
-  return static_cast<int>(e);
+                    num_samples, nullptr, nullptr, nullptr, 0, 0, 0, 0,
+                    nullptr};
+  return launch_mode<false>(a, C, reg_state, smem_bytes, stream);
+}
+
+// AIS mode: C chains of one structure, no evidence; out (C x n) the final
+// states, logw (C) the log-weights; temps rungs of per_temp sweeps; packed
+// 1 where every clique record packs its variables (word state only).
+int qcmrf_gibbs_ais(const long long* chains, int C, const int* structs,
+                    const int* records, const int* lanes, const int* meta,
+                    const int* others, const float* thetas, float* delta,
+                    signed char* out, const float* sched, const int* cliques,
+                    const int* vars, int num_cliques, int packed, int temps,
+                    int per_temp, float* logw, uint32_t seed, int reg_state,
+                    int smem_bytes, void* stream) {
+  const int sweeps = temps * per_temp;
+  const GibbsArgs a{chains, structs, reinterpret_cast<const int4*>(records),
+                    reinterpret_cast<const int4*>(lanes),
+                    reinterpret_cast<const int2*>(meta), others, nullptr,
+                    thetas, delta, out, 0.0f, seed, sweeps, sweeps - 1, 1, 1,
+                    sched, reinterpret_cast<const int4*>(cliques), vars,
+                    num_cliques, packed, temps, per_temp, logw};
+  return launch_mode<true>(a, C, reg_state, smem_bytes, stream);
+}
+
+// The AIS mode's resident blocks an SM (ais_occupancy) into *blocks; the
+// stream is unused.
+int qcmrf_gibbs_ais_occupancy(int reg_state, int delta_shared, int smem_bytes,
+                              int* blocks, void* stream) {
+  (void)stream;
+  return static_cast<int>(
+      ais_occupancy(reg_state, delta_shared, smem_bytes, blocks));
 }
 
 }  // extern "C"

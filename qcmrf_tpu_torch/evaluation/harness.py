@@ -18,7 +18,11 @@ of a result file: every rep's Gibbs chain of the suite runs in one launch
 of the chain kernel (thin 10, burn 10, each chain keyed by its suite
 index), and each rep's perturb-and-MAP samples as rows of one map-kernel
 launch. Both keep the reference's fixed norm: delta-hat is the histogram's
-count over 10 000, whatever ``num_samples`` is.
+count over 10 000, whatever ``num_samples`` is. With ``native=True`` both
+modes sample through the C++ engine instead (:mod:`qcmrf_tpu_torch.native.
+kiopto`, on the host): rep i's Gibbs chain of ``num_samples * 10 + 10``
+sweeps thinned ``[::10][1:]``, or its perturb-and-MAP draws, seeded
+``seed + i`` (``i`` the rep's suite index).
 """
 
 from __future__ import annotations
@@ -114,6 +118,28 @@ def _gibbs_counts(suite: ModelSuite, num_samples: int, seed: int, device):
             for b, m in zip(rows, models)]
 
 
+def _native_counts(cliques, n: int, thetas, num_samples: int, pam: bool,
+                   seed: int):
+    """Counts ``(reps, 2**n)`` float64 of ``num_samples`` draws a rep from
+    the C++ engine, rep r seeded ``seed + r``: perturb-and-MAP directly,
+    or the reference's Gibbs flow, a chain of ``num * 10 + 10`` sweeps
+    thinned ``[::10][1:]``."""
+    from qcmrf_tpu_torch.native import kiopto as px
+
+    counts = []
+    for r, theta in enumerate(thetas):
+        b = px.backend(cliques, np.array([2] * n))
+        px.weights(b)[:] = np.asarray(theta, np.float32).astype(np.float64)
+        if pam:
+            S = px.sample(b, pam=True, num=num_samples, seed=seed + r)
+        else:
+            S = px.sample(b, num=num_samples * 10 + 10,
+                          seed=seed + r)[::10][1:][:num_samples]
+        ids = (S * (1 << np.arange(n - 1, -1, -1))).sum(axis=1)
+        counts.append(np.bincount(ids, minlength=1 << n).astype(np.float64))
+    return np.stack(counts)
+
+
 def _pam_counts(cliques, n: int, thetas, num_samples: int, gen, device):
     """Counts ``(reps, 2**n)`` float64 of each rep's perturb-and-MAP
     draws."""
@@ -139,27 +165,24 @@ def evaluate_suite(
     """Evaluate every (graph, rep) model; returns per-graph aggregates.
 
     ``mode='file'`` compares against measured distributions ``dists`` (one
-    per circuit, suite order), on the CPU unless ``device`` names another;
-    ``'gibbs'``/``'pam'`` histogram ``num_samples`` draws of the classical
-    samplers instead, on ``device`` or else the current CUDA device
-    (raising where there is none), ``seed`` keying the chains and seeding
-    the PAM generator, success rate over the fixed norm 10 000. ``native``
-    (the C++ engine) raises :class:`NotImplementedError`.
+    per circuit, suite order); ``'gibbs'``/``'pam'`` histogram
+    ``num_samples`` draws of the classical samplers instead, ``seed``
+    keying the chains and seeding the PAM generator, success rate over the
+    fixed norm 10 000; ``native`` draws them from the C++ engine on the
+    host, rep i seeded ``seed + i``. The exact distributions, and the
+    samplers unless ``native``, run on ``device`` or else the current CUDA
+    device (raising where there is none).
     """
-    if native:
-        raise NotImplementedError(
-            "--native binds the C++ engine, which the port brings with "
-            "slice 3c (AIS and the native engine) of ROADMAP.md")
     if mode not in ("file", "gibbs", "pam"):
         raise ValueError(f"unknown mode {mode!r}")
     if mode == "file" and dists is None:
         raise ValueError("mode='file' requires result distributions")
-    device = resolve_device("cpu" if device is None and mode == "file"
-                            else device)
+    device = resolve_device(device)
+    native = native and mode != "file"
     gen = None
-    if mode == "pam":
+    if mode == "pam" and not native:
         gen = torch.Generator(device=device).manual_seed(int(seed))
-    if mode == "gibbs":
+    if mode == "gibbs" and not native:
         gibbs_counts = _gibbs_counts(suite, num_samples, seed, device)
 
     out: List[GraphResult] = []
@@ -174,7 +197,10 @@ def evaluate_suite(
         N = 1 << n
         deltas = np.exp(lnz.cpu().numpy().astype(np.float64)
                         - n * math.log(2.0))
-        if mode == "gibbs":
+        if native:
+            sampled = _native_counts(C, n, thetas, num_samples,
+                                     mode == "pam", seed + idx)
+        elif mode == "gibbs":
             sampled = gibbs_counts[j]
         elif mode == "pam":
             sampled = _pam_counts(C, n, thetas, num_samples, gen, device)

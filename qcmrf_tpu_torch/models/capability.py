@@ -36,6 +36,9 @@ structure, for the ``method`` asked (the JAX package judges the unreduced
 structure and ignores ``--method``), and it is ``None`` where no sampler
 is feasible (the JAX package selects ``sampler:pam`` there). The
 samplers' feasibility entries are judged on the reduced structure too.
+Likewise for ``method="ais"`` on lnz, prob and marginals: ``selected`` is
+``ais``, the backend the CLI runs whatever the structure (the JAX package
+ignores the method and names the exact backend).
 """
 
 from __future__ import annotations
@@ -176,7 +179,9 @@ def explain(cliques: Sequence[Sequence[int]], n: int,
         f"serves lnz, marginals and prob only, not {query!r}")
 
     selected = None
-    if query in ("lnz", "prob", "map", "marginals"):
+    if method == "ais" and query in ais_queries:
+        selected = "ais"
+    elif query in ("lnz", "prob", "map", "marginals"):
         if not wide and not mesh:
             selected = "elimination"
         elif n <= STREAMING_MAX_N:

@@ -12,6 +12,10 @@ comes from autograd through the lnZ router (:func:`make_lnz_fn`):
 * past the width cap, the same fused sweep as
   :func:`qcmrf_tpu_torch.models.moments.log_partition_streaming`.
 
+Two steps take the model moments from samplers instead: post-selected
+circuit shots (:func:`make_shots_train_step`) and, past both exact caps,
+annealed importance sampling (:func:`make_ais_train_step`, ESS-gated).
+
 optax becomes ``torch.optim``: :func:`adam` is ``torch.optim.Adam`` with
 optax's update (betas 0.9 and 0.999, eps 1e-8 outside the square root, no
 weight decay), and ``optax.sgd`` is ``torch.optim.SGD``. ``raw``, the
@@ -23,8 +27,7 @@ does. ``theta <= 0`` is kept by a softplus reparameterisation when
 across.
 
 Not ported here: the sharded step (:func:`make_sharded_train_step`,
-:func:`fit_mle_sharded`, slice 6) and AIS-moment training
-(:func:`make_ais_train_step`, slice 3c); they raise.
+:func:`fit_mle_sharded`, slice 6); they raise.
 """
 
 from __future__ import annotations
@@ -221,11 +224,57 @@ def fit_mle_shots(mrf0: MRF, data, seed: int, steps: int = 200,
     return mrf0.with_theta(_to_theta(raw, nonpositive).detach()), delta
 
 
-def make_ais_train_step(*args, **kwargs):
-    """``make_ais_train_step`` of the JAX package: slice 3c."""
-    raise NotImplementedError(
-        "make_ais_train_step (AIS-moment training) comes to the port with "
-        "slice 3c (AIS and the native engine) of ROADMAP.md")
+# --------------------------------------------------------------------------
+# AIS-moment training: past both exact caps (induced width beyond
+# elimination and n beyond the streaming sweeps)
+# --------------------------------------------------------------------------
+
+
+def make_ais_train_step(template: MRF, optimizer: torch.optim.Optimizer,
+                        data_marg, num_chains: int = 256,
+                        num_temps: int = 64, sweeps_per_temp: int = 1,
+                        ess_min_frac: float = 0.1, nonpositive: bool = True,
+                        mesh=None) -> Callable:
+    """Stochastic-moment MLE step with no structural cap: ``step(seed,
+    stream=0) -> info``. The gradient ``beta * (E_model[phi] - mu_hat)``
+    takes the model moments from AIS clique marginals at the pre-update
+    theta (:func:`qcmrf_tpu_torch.models.ais.ais_clique_marginals`, Philox
+    ``(seed, stream)``) and goes through the reparameterisation's backward.
+
+    ESS gate: where ``ess < ess_min_frac * num_chains`` the step is
+    skipped, ``raw`` and the optimizer state untouched (a collapsed weight
+    set gives a gradient closer to noise than signal; more rungs are the
+    remedy). ``info`` is ``{"ess", "skipped"}``. ``mesh`` (the chains
+    sharded) comes with slice 6."""
+    from qcmrf_tpu_torch.models import ais as mais
+
+    if mesh is not None:
+        raise NotImplementedError(
+            "AIS moments sharded over a device mesh come to the port with "
+            "slice 6 (the multi-device layer) of ROADMAP.md")
+    raw = _raw_of(optimizer)
+    data_marg = torch.as_tensor(data_marg, dtype=torch.float32,
+                                device=raw.device)
+    ess_min = float(ess_min_frac) * float(num_chains)
+
+    def step(seed: int, stream: int = 0) -> dict:
+        with torch.no_grad():
+            m = template.with_theta(_to_theta(raw, nonpositive))
+            model_marg, diag = mais.ais_clique_marginals(
+                seed, m, num_chains=num_chains, num_temps=num_temps,
+                sweeps_per_temp=sweeps_per_temp, return_diagnostics=True,
+                stream=stream)
+        ess = float(diag["ess"])
+        if ess < ess_min:
+            return {"ess": ess, "skipped": True}
+        optimizer.zero_grad()
+        _to_theta(raw, nonpositive).backward(
+            template.beta * (torch.as_tensor(model_marg, dtype=torch.float32,
+                                             device=raw.device) - data_marg))
+        optimizer.step()
+        return {"ess": ess, "skipped": False}
+
+    return step
 
 
 # --------------------------------------------------------------------------

@@ -116,6 +116,15 @@ _SIGNATURES = {
     # num_samples, register state, shared bytes, stream
     "qcmrf_gibbs": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _U32, _I,
                     _I, _I, _I, _I, _I, _P),
+    # chains, C, structures, records, lane table, meta, others, thetas, D
+    # tables (or null), out, schedule, cliques, variables, cliques' count,
+    # packed cliques, rungs, sweeps a rung, log-weights, seed, register
+    # state, shared bytes, stream
+    "qcmrf_gibbs_ais": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _I, _I, _I, _I, _P, _U32, _I, _I, _P),
+    # register state, D in shared memory, shared bytes, out (one int32),
+    # stream (unused)
+    "qcmrf_gibbs_ais_occupancy": (_I, _I, _I, _P, _P),
     # count, out (count float32), stream
     "qcmrf_gibbs_thresholds": (_I, _P, _P),
     # chase, steps, beta, out (10 int64), sink (32 int32), stream

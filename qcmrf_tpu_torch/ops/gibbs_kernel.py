@@ -31,6 +31,12 @@ CPU tensors it runs :func:`gibbs_chains_reference` once a structure, the
 same chains from theta directly (the sums in :func:`warp_sum`'s order),
 independent of the tables. The JAX package has no Pallas kernel here: its
 chains are ``lax.scan`` loops.
+
+:func:`ais_chains` is the kernel's AIS mode (the chains of
+:mod:`qcmrf_tpu_torch.models.ais`): M chains of one structure, every rung
+of every chain in one launch, each rung a weight step at the chain's state
+then sweeps at the rung's inverse temperature; :func:`ais_chains_reference`
+is its plain version.
 """
 
 from __future__ import annotations
@@ -44,8 +50,9 @@ import torch
 from qcmrf_tpu_torch.ops import _build
 from qcmrf_tpu_torch.ops.sampler_kernel import philox4x32_10
 
-#: launches of the CUDA kernel, bumped where it is launched
-LAUNCHES = {"gibbs": 0}
+#: launches of the CUDA kernel (Gibbs mode, AIS mode), bumped where it is
+#: launched
+LAUNCHES = {"gibbs": 0, "gibbs_ais": 0}
 
 #: the kernel holds a chain's state as one 64-bit word up to this n
 REG_STATE_MAX_N = 64
@@ -587,6 +594,268 @@ def gibbs_chains(seed: int, cliques: tuple, n: int, thetas: torch.Tensor,
     The one-structure call of :func:`gibbs_chains_multi`."""
     return gibbs_chains_multi(seed, [(cliques, n, thetas, evidence_mask)],
                               beta, num_samples, thin, burn, chain_ids)[0]
+
+
+def ais_betas(num_temps: int) -> torch.Tensor:
+    """The linear schedule beta_0 .. beta_T, float32 (T + 1,) on the CPU,
+    bit-equal to ``jnp.linspace(0, 1, T + 1)``: ``fl(t * fl(1 / T))`` for
+    t < T, then 1."""
+    if num_temps < 1:
+        raise ValueError(f"num_temps={num_temps}: AIS takes at least 1 rung")
+    betas = (torch.arange(num_temps + 1, dtype=torch.float32)
+             * (torch.tensor(1.0) / num_temps))
+    betas[-1] = 1.0
+    return betas
+
+
+def ais_schedule(num_temps: int, beta: float) -> torch.Tensor:
+    """The kernel's schedule, float32 (2, T) on the CPU: row 0 each rung's
+    sweep scale ``fl(beta_{t+1} * beta)``, row 1 its weight factor
+    ``fl(fl(beta_{t+1} - beta_t) * beta)`` (the JAX body's ``(b_cur -
+    b_prev) * beta``)."""
+    betas = ais_betas(num_temps)
+    b = torch.tensor(beta, dtype=torch.float32)
+    return torch.stack([betas[1:] * b, (betas[1:] - betas[:-1]) * b])
+
+
+#: the AIS weight step packs a clique's variables, 6 bits each, into one
+#: word up to this size (n <= FAST_MAX_N)
+PACKED_CLIQUE = 5
+
+
+@functools.lru_cache(maxsize=64)
+def ais_cliques(cliques: tuple, n: int):
+    """The kernel's clique table of a structure (int32 numpy): ``rows`` (K,
+    4) a clique's theta offset, its first variable in ``vars``, its size and
+    its variables packed 6 bits each, the first lowest (0 where a clique
+    does not pack); ``vars`` the cliques' variables in order; ``packed``
+    whether every clique packs (n <= :data:`FAST_MAX_N`, cliques of at most
+    :data:`PACKED_CLIQUE` variables), so that the word path reads one record
+    a clique."""
+    offs = _theta_offsets(cliques)
+    firsts = np.cumsum([0] + [len(C) for C in cliques])[:-1]
+    packed = (n <= FAST_MAX_N
+              and all(len(C) <= PACKED_CLIQUE for C in cliques))
+    rows = [(offs[k], firsts[k], len(C),
+             sum(v << (6 * j) for j, v in enumerate(C)) if packed else 0)
+            for k, C in enumerate(cliques)]
+    return (np.asarray(rows, np.int32).reshape(-1, 4),
+            np.asarray([v for C in cliques for v in C], np.int32), packed)
+
+
+@functools.lru_cache(maxsize=64)
+def _clique_gathers(cliques: tuple, device: torch.device):
+    """``(vars, weights, offsets)`` int64 on ``device``: (K, cmax) each
+    clique's variables (padded with its first at weight 0), their bits in
+    the slot word, and (K,) the cliques' theta offsets."""
+    cmax = max(len(C) for C in cliques)
+    vars_ = np.asarray([list(C) + [C[0]] * (cmax - len(C)) for C in cliques],
+                       np.int64)
+    weights = np.asarray([[1 << (len(C) - 1 - j) if j < len(C) else 0
+                           for j in range(cmax)] for C in cliques], np.int64)
+    return tuple(torch.from_numpy(a).to(device) for a in (
+        vars_, weights, _theta_offsets(cliques)[:-1].astype(np.int64)))
+
+
+def ais_shared_bytes(cliques: tuple, n: int):
+    """``(bytes, D in shared memory, packed)`` of an AIS launch on ``(cliques,
+    n)``: a Gibbs launch's shared memory (:meth:`ChainPack.shared_bytes`)
+    and, where the cliques pack on the word path, their records on a
+    16-byte boundary."""
+    pack = chain_pack(((cliques, n, None),))
+    packed = ais_cliques(cliques, n)[2] and pack.reg_state
+    in_shared = pack.shared_bytes(True) <= _build.SHARED_BYTES_LIMIT
+    return (pack.shared_bytes(in_shared)
+            + (16 * len(cliques) + 15 if packed else 0), in_shared, packed)
+
+
+def clique_indices(cliques: tuple, bits: torch.Tensor) -> torch.Tensor:
+    """Flat theta indices int64 (C, K) of each row of ``bits`` (int (C, n)):
+    clique k's offset plus its slot word, variable ``C[0]`` the most
+    significant bit."""
+    vars_, weights, offs = _clique_gathers(cliques, bits.device)
+    return (bits.to(torch.int64)[:, vars_] * weights).sum(dim=-1) + offs
+
+
+def rung_logpots(cliques: tuple, theta: torch.Tensor,
+                 bits: torch.Tensor) -> torch.Tensor:
+    """``theta^T phi(x)`` float32 (C,) of the rows of ``bits``, summed in a
+    warp's order (:func:`warp_sum` over the cliques): the AIS kernel's
+    weight step."""
+    return warp_sum(theta[clique_indices(cliques, bits)])
+
+
+def _ais_check(cliques, n, theta, num_chains, num_temps, sweeps_per_temp):
+    d = sum(1 << len(C) for C in cliques)
+    if theta.dim() != 1 or theta.shape[0] != d:
+        raise ValueError(f"theta has shape {tuple(theta.shape)}, expected "
+                         f"({d},)")
+    if theta.dtype != torch.float32:
+        raise ValueError(f"theta has dtype {theta.dtype}, expected "
+                         "torch.float32")
+    if num_chains < 1 or num_temps < 1 or sweeps_per_temp < 1:
+        raise ValueError("need num_chains, num_temps and sweeps_per_temp "
+                         ">= 1")
+    if num_temps * sweeps_per_temp > 0x7FFFFFFF or not cliques or n < 1:
+        raise ValueError(f"{num_temps} x {sweeps_per_temp} sweeps of n={n} "
+                         "sites: out of range")
+
+
+def ais_chains_reference(seed: int, cliques: tuple, n: int,
+                         theta: torch.Tensor, beta: float, num_chains: int,
+                         num_temps: int, sweeps_per_temp: int,
+                         chain_ids=None, near: bool = False):
+    """Plain PyTorch version of :func:`ais_chains`, on any device, from
+    theta directly: the same Philox words and thresholds as a Gibbs chain
+    of T * sweeps_per_temp sweeps, the same float32 sums
+    (:func:`site_deltas`, :func:`rung_logpots`) and the same schedule
+    (:func:`ais_schedule`), vectorised over the chains, a Python loop over
+    rungs, sweeps and sites. With ``near`` it returns a third item: for
+    each chain its first decision within 2 float32 ulp of its p1 (where
+    the kernel could decide the other way) as ``(sweep, site, u, p1)``, or
+    ``(-1, -1, nan, nan)`` where its run had none."""
+    _ais_check(cliques, n, theta, num_chains, num_temps, sweeps_per_temp)
+    _build.refuse_grad(theta, "theta")
+    dev = theta.device
+    keys = _chain_keys(chain_ids, num_chains, dev)
+    sched = ais_schedule(num_temps, beta).to(dev)
+    thetas = theta[None].expand(num_chains, -1)
+    bits = initial_bits(seed, keys, n)
+    logw = torch.zeros(num_chains, dtype=torch.float32, device=dev)
+    hit = torch.full((num_chains, 4), float("nan"), dtype=torch.float64,
+                     device=dev)
+    hit[:, :2] = -1
+    s = 0
+    for t in range(num_temps):
+        logw = logw + sched[1, t] * rung_logpots(cliques, theta, bits)
+        for _ in range(sweeps_per_temp):
+            thr = site_thresholds(seed, keys, s, n)
+            u = site_uniforms(seed, keys, s, n) if near else None
+            for v in range(n):
+                x = site_deltas(cliques, n, thetas, bits, v) * sched[0, t]
+                if near:
+                    p1 = torch.reciprocal(1 + torch.exp(-x))
+                    ulp = torch.nextafter(p1, torch.full_like(p1, 2.0)) - p1
+                    new = (hit[:, 0] < 0) & (
+                        (u[:, v].double() - p1.double()).abs()
+                        <= 2 * ulp.double())
+                    hit[new] = torch.stack([
+                        torch.full_like(p1, s, dtype=torch.float64),
+                        torch.full_like(p1, v, dtype=torch.float64),
+                        u[:, v].double(), p1.double()], dim=1)[new]
+                bits[:, v] = (x >= thr[:, v]).to(torch.int64)
+            s += 1
+    if not near:
+        return logw, bits.to(torch.int8)
+    first = [(int(a), int(b), float(c), float(d)) for a, b, c, d in
+             hit.tolist()]
+    return logw, bits.to(torch.int8), first
+
+
+def ais_partings(seed: int, cliques: tuple, n: int, theta: torch.Tensor,
+                 beta: float, num_temps: int, sweeps_per_temp: int,
+                 got: torch.Tensor, want: torch.Tensor, chain_ids=None):
+    """Holds ``got``, :func:`ais_chains`' final states, to ``want``, the
+    plain version's at the same arguments (int8 (M, n)): for each chain
+    whose states differ, the plain version's first decision within 2
+    float32 ulp of its p1 (``ais_chains_reference(near=True)``) as
+    ``(chain, sweep, site, u, p1)``, ``(chain, -1, -1, nan, nan)`` where
+    its run had none (which :func:`within_ulps` refuses). The kernel
+    writes no states between rungs, so this names a decision that could
+    part the runs, not the one that did. Empty where ``got`` equals
+    ``want``."""
+    rows = torch.nonzero((got != want).any(dim=1))[:, 0]
+    if not len(rows):
+        return []
+    keys = _chain_keys(chain_ids, got.shape[0], theta.device)
+    first = ais_chains_reference(seed, cliques, n, theta, beta, len(rows),
+                                 num_temps, sweeps_per_temp,
+                                 keys[rows.to(keys.device)], near=True)[2]
+    return [(c, *f) for c, f in zip(rows.tolist(), first)]
+
+
+@functools.lru_cache(maxsize=64)
+def _ais_device_tables(cliques: tuple, n: int, num_temps: int, beta: float,
+                       device: torch.device):
+    """:func:`ais_cliques`' tables and :func:`ais_schedule` on ``device``,
+    kept: a pageable copy a call would wait for the stream's work before
+    it."""
+    rows, vars_, _ = ais_cliques(cliques, n)
+    return (torch.from_numpy(rows).to(device),
+            torch.from_numpy(vars_).to(device),
+            ais_schedule(num_temps, beta).to(device))
+
+
+def ais_chains(seed: int, cliques: tuple, n: int, theta: torch.Tensor,
+               beta: float, num_chains: int, num_temps: int,
+               sweeps_per_temp: int = 1, chain_ids=None):
+    """The chains of annealed importance sampling on the model ``(cliques,
+    n, theta, beta)``: ``(logw, bits)``, the log-weights float32 (M,) and
+    the final states int8 (M, n) on ``theta``'s device. Each chain starts
+    uniform; rung t = 0 .. T-1 adds ``(beta_{t+1} - beta_t) * beta *
+    theta^T phi(x)`` to its log-weight, then runs ``sweeps_per_temp``
+    sweeps at ``beta_{t+1} * beta`` (:func:`ais_schedule`). ``seed``
+    (uint32) and ``chain_ids`` (M ints, default 0 .. M-1) key each chain's
+    Philox stream; sweep ``t * sweeps_per_temp + j`` draws as sweep of that
+    number of a Gibbs chain. On a CUDA tensor one launch of the chain
+    kernel's AIS mode for every rung of every chain; on a CPU tensor
+    :func:`ais_chains_reference`."""
+    _ais_check(cliques, n, theta, num_chains, num_temps, sweeps_per_temp)
+    _build.refuse_grad(theta, "theta")
+    dev = theta.device
+    if dev.type == "cpu":
+        return ais_chains_reference(seed, cliques, n, theta, beta,
+                                    num_chains, num_temps, sweeps_per_temp,
+                                    chain_ids)
+    structures = ((cliques, n, None),)
+    pack = chain_pack(structures)
+    smem, delta_in_shared, packed = ais_shared_bytes(cliques, n)
+    if smem > _build.SHARED_BYTES_LIMIT:
+        raise ValueError(f"the chain needs {smem} bytes of shared memory; a "
+                         f"block holds at most {_build.SHARED_BYTES_LIMIT}")
+    structs, records, lanes, meta, others, _ = _device_pack(structures, dev)
+    rows, vars_, sched = _ais_device_tables(cliques, n, num_temps,
+                                            float(beta), dev)
+    keys = _chain_keys(chain_ids, num_chains, "cpu").numpy()
+    M = num_chains
+    dl = int(pack.structs[0, 3]) + 1
+    chains = np.stack([np.zeros(M, np.int64), np.arange(M) * n,
+                       np.zeros(M, np.int64) if delta_in_shared
+                       else np.arange(M) * dl, keys & _MASK32], axis=1)
+    chains = torch.from_numpy(chains).pin_memory().to(dev, non_blocking=True)
+    theta = theta.contiguous()
+    out = torch.empty((M, n), dtype=torch.int8, device=dev)
+    logw = torch.empty(M, dtype=torch.float32, device=dev)
+    delta = (None if delta_in_shared else
+             torch.empty(M * dl, dtype=torch.float32, device=dev))
+    _build.launch("qcmrf_gibbs_ais", dev, _build.ptr(chains), M,
+                  _build.ptr(structs), _build.ptr(records), _build.ptr(lanes),
+                  _build.ptr(meta), _build.ptr(others), _build.ptr(theta),
+                  _build.ctypes.c_void_p(0) if delta is None
+                  else _build.ptr(delta), _build.ptr(out), _build.ptr(sched),
+                  _build.ptr(rows), _build.ptr(vars_), len(cliques),
+                  int(packed), num_temps,
+                  sweeps_per_temp, _build.ptr(logw),
+                  seed & _MASK32, int(pack.reg_state), smem)
+    LAUNCHES["gibbs_ais"] += 1
+    return logw, out
+
+
+def ais_resident_blocks(cliques: tuple, n: int, device) -> int:
+    """Blocks of an :func:`ais_chains` launch on ``(cliques, n)`` that one SM
+    of ``device`` holds at once: the CUDA runtime's occupancy of the
+    instantiation that launch runs, at its shared-memory size
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"occupancy is the card's; got device {device}")
+    pack = chain_pack(((cliques, n, None),))
+    smem, delta_in_shared, _ = ais_shared_bytes(cliques, n)
+    blocks = _build.ctypes.c_int(0)
+    _build.launch("qcmrf_gibbs_ais_occupancy", device, int(pack.reg_state),
+                  int(delta_in_shared), smem,
+                  _build.ctypes.c_void_p(_build.ctypes.addressof(blocks)))
+    return blocks.value
 
 
 #: the steps that ``gibbs_latency_kernel`` times, in its order

@@ -6,9 +6,11 @@
         [--num-samples 10000] [--platform cpu]
 
 Prints the fidelity / success-rate table and returns the per-graph
-results. ``--mode file`` evaluates on the host unless ``--platform``
-names the card (the JAX CLI's default); the sampling modes run the
-samplers on the card unless ``--platform cpu`` is given.
+results. Every mode runs on the card unless ``--platform cpu`` is given
+(the JAX CLI's ``cpu`` default for ``--mode file`` is not carried over);
+``--native`` draws the gibbs/pam samples from the C++ engine on the host
+(``qcmrf_tpu_torch/native``), the exact distributions staying on the
+platform's device.
 """
 
 from __future__ import annotations
@@ -39,8 +41,7 @@ def main(argv: Optional[List[str]] = None) -> List[GraphResult]:
     parser.add_argument("--mode", type=str, default="file",
                         help="file or gibbs or pam.")
     parser.add_argument("--native", action="store_true",
-                        help="Use the C++ engine for gibbs/pam sampling "
-                             "(slice 3c, not ported yet).")
+                        help="Use the C++ engine for gibbs/pam sampling.")
     parser.add_argument("--res-root", type=str, default=".",
                         help="Directory containing res_{scale}/ folders.")
     parser.add_argument("--kl", action="store_true",
@@ -52,9 +53,8 @@ def main(argv: Optional[List[str]] = None) -> List[GraphResult]:
     parser.add_argument("--platform", type=str, default=None,
                         choices=["cpu", "gpu", "default"],
                         help="Device for the exact Gibbs tables, lnZ and "
-                             "the samplers; 'default' means 'gpu'. Unset: "
-                             "'cpu' for --mode file, 'default' for the "
-                             "sampling modes.")
+                             "the samplers; 'default' (also when unset) "
+                             "means 'gpu'.")
     parser.add_argument("--num-samples", type=int, default=10_000,
                         help="gibbs/pam modes: samples to histogram (the "
                              "success column divides by the fixed 10000 "
@@ -68,9 +68,7 @@ def main(argv: Optional[List[str]] = None) -> List[GraphResult]:
     )
 
     args = parse_with_config(parser, argv)
-    platform = args.platform or ("cpu" if args.mode == "file"
-                                 else "default")
-    device = resolve_platform(platform)
+    device = resolve_platform(args.platform or "default")
 
     # suite: prefer the stored models file, else regenerate
     res_dir = os.path.join(args.res_root, f"res_{args.scale}")

@@ -4,7 +4,9 @@
 Load a model (a ``{'cliques', 'theta'}`` JSON such as the train CLI's
 ``fitted_model.json``, or ``--graph``) and answer:
 
-    lnz        log-partition (or the evidence's log-mass with --evidence)
+    lnz        log-partition (or the evidence's log-mass with --evidence);
+               --method ais estimates it by annealed importance sampling
+               with an ESS and stderr report, at any structure and size
     prob       P(x_v = b | evidence)         (--of v=b)
     map        evidence-constrained MAP state
     mmap       marginal MAP over --max-vars (the rest summed out)
@@ -14,15 +16,18 @@ Load a model (a ``{'cliques', 'theta'}`` JSON such as the train CLI's
 Backends route by structure: induced width up to
 ``capability.ELIM_WIDTH_CAP`` goes through variable elimination (any n);
 wider structures go through the streaming sweeps (n <= 47): the
-streaming logsumexp, argmax and monomial-moments kernels. ``--explain``
-prints the capability matrix instead of answering, on the host only.
+streaming logsumexp, argmax and monomial-moments kernels. ``--method
+ais`` (lnz, prob, marginals) has no cap: one launch of the chain kernel's
+AIS mode on the evidence-reduced model, seeded by ``--sample-seed``.
+``--explain`` prints the capability matrix instead of answering, on the
+host only.
 Output is one JSON object on stdout (and ``--out``); ``--queries
 file.jsonl`` answers a batch of per-query overrides in one process (JSONL
 out, ``index`` echoes the line order).
 
 ``--platform default`` means the card, as for ``run``: the JAX package's
-``default`` serves n <= 26 on the host, the port does not. ``--method
-ais`` comes with slice 3c and ``--mesh`` with slice 6 of ROADMAP.md.
+``default`` serves n <= 26 on the host, the port does not. ``--mesh``
+comes with slice 6 of ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -94,16 +99,17 @@ def _validate_method(query: str, method: str, where: str = "") -> None:
             f"(--query {query} is answered by its exact backend)")
 
 
-def _check_ported(method: str, where: str = "") -> None:
-    """Exit, naming the slice, on what the port does not serve yet."""
-    if method == "ais":
-        raise SystemExit(
-            f"{where}--method ais comes to the port with slice 3c (AIS "
-            "and the native engine) of ROADMAP.md")
-
-
 def _floats(t) -> list:
     return t.detach().cpu().double().numpy().tolist()
+
+
+def _ais_report(args, diag, stderr: bool = False) -> dict:
+    """``result["ais"]``: the JAX CLI's keys, ``stderr`` for lnz only."""
+    out = {"chains": int(args.ais_chains), "temps": args.ais_temps,
+           "seed": args.sample_seed, "ess": float(diag["ess"])}
+    if stderr:
+        out["stderr"] = float(diag["stderr"])
+    return out
 
 
 def main(argv: Optional[List[str]] = None):
@@ -141,8 +147,10 @@ def main(argv: Optional[List[str]] = None):
     parser.add_argument("--num-samples", type=int, default=100)
     parser.add_argument("--method", type=str, default="exact",
                         choices=["exact", "gibbs", "pam", "ais"],
-                        help="sampler for --query sample; 'ais' (lnz, "
-                             "marginals, prob) comes with slice 3c")
+                        help="sampler for --query sample; 'ais' on "
+                             "--query lnz/marginals/prob estimates by "
+                             "annealed importance sampling (any "
+                             "structure and size)")
     parser.add_argument("--ais-chains", type=int, default=256)
     parser.add_argument("--ais-temps", type=int, default=128)
     parser.add_argument("--sample-seed", type=int, default=0)
@@ -240,12 +248,6 @@ def main(argv: Optional[List[str]] = None):
     if args.mesh is not None:
         raise SystemExit("--mesh comes to the port with slice 6 (the "
                          "multi-device layer) of ROADMAP.md")
-    if args.queries:
-        for i, spec in enumerate(batch_specs):
-            _check_ported(spec.get("method", args.method),
-                          where=f"--queries line {i + 1}: ")
-    else:
-        _check_ported(args.method)
 
     device = resolve_platform(args.platform)
     from qcmrf_tpu_torch.models.mrf import MRF
@@ -289,6 +291,7 @@ def _emit(results, out) -> None:
 def _answer(mrf, args, beta) -> dict:
     """Answer one query namespace against a loaded model. The caps are
     read from :mod:`capability` at call time."""
+    from qcmrf_tpu_torch.models import ais as mais
     from qcmrf_tpu_torch.models import capability, elimination, moments
     from qcmrf_tpu_torch.models import sample as msample
 
@@ -300,10 +303,13 @@ def _answer(mrf, args, beta) -> dict:
     max_n = capability.STREAMING_MAX_N
     width = elimination.induced_width(mrf.cliques, mrf.n)
     use_streaming = width > cap
-    if use_streaming and mrf.n > max_n and args.query not in ("mmap",
-                                                              "sample"):
-        # mmap routes on its own (constrained) width below, and a
-        # sampler's feasibility is per method on the reduced model
+    ais_q = args.method == "ais" and args.query in ("lnz", "marginals",
+                                                    "prob")
+    if (use_streaming and mrf.n > max_n
+            and args.query not in ("mmap", "sample") and not ais_q):
+        # mmap routes on its own (constrained) width below, a sampler's
+        # feasibility is per method on the reduced model, and AIS has no
+        # cap
         raise SystemExit(
             f"n={mrf.n} needs the streaming sweep (induced width {width} "
             f"> elimination cap {cap}, or --mesh), which caps at "
@@ -315,7 +321,22 @@ def _answer(mrf, args, beta) -> dict:
               "backend": "streaming" if use_streaming else "elimination"}
 
     if args.query == "lnz":
-        if use_streaming:
+        if ais_q:
+            # AIS on the evidence-reduced model: log mass = beta * const +
+            # lnZ(reduced); every variable observed leaves the constant
+            red, const = (moments.reduce_evidence(mrf, evidence)
+                          if evidence else (mrf, 0.0))
+            if red is not None:
+                lnz_red, diag = mais.ais_log_partition(
+                    args.sample_seed, red, num_chains=args.ais_chains,
+                    num_temps=args.ais_temps, return_diagnostics=True)
+            else:
+                lnz_red, diag = 0.0, {"ess": float(args.ais_chains),
+                                      "stderr": 0.0}
+            val = float(beta) * float(const) + float(lnz_red)
+            result["backend"] = "ais"
+            result["ais"] = _ais_report(args, diag, stderr=True)
+        elif use_streaming:
             val = moments.log_partition_clamped_streaming(mrf, evidence)
         else:
             val = elimination.log_partition_clamped(mrf, evidence)
@@ -327,10 +348,32 @@ def _answer(mrf, args, beta) -> dict:
         if len(of) != 1:
             raise SystemExit("--of takes exactly one assignment")
         (v, b), = of.items()
-        fn = (moments.conditional_prob_streaming if use_streaming
-              else elimination.conditional_prob)
+        if ais_q:
+            # the final states' weighted indicator on the reduced model
+            result["backend"] = "ais"
+            if v in evidence:
+                p = 1.0 if evidence[v] == b else 0.0
+                diag = {"ess": float(args.ais_chains)}
+            else:
+                red, _ = (moments.reduce_evidence(mrf, evidence)
+                          if evidence else (mrf, 0.0))
+                if red is None:
+                    raise SystemExit("--query prob: all variables are "
+                                     "observed but the queried one is "
+                                     "not in the evidence — impossible")
+                free = [u for u in range(mrf.n)
+                        if u not in {int(w) for w in evidence}]
+                p, diag = mais.ais_event_prob(
+                    args.sample_seed, red, free.index(v), b,
+                    num_chains=args.ais_chains, num_temps=args.ais_temps,
+                    return_diagnostics=True)
+            result["ais"] = _ais_report(args, diag)
+        else:
+            fn = (moments.conditional_prob_streaming if use_streaming
+                  else elimination.conditional_prob)
+            p = fn(mrf, v, b, evidence)
         result["of"] = f"{v}={b}"
-        result["prob"] = float(fn(mrf, v, b, evidence))
+        result["prob"] = float(p)
     elif args.query == "map":
         if use_streaming:
             sid, val = msample.map_state_clamped(mrf, evidence)
@@ -391,7 +434,22 @@ def _answer(mrf, args, beta) -> dict:
         result["max_vars"] = {str(v): b for v, b in assignment.items()}
         result["log_mass"] = float(val)
     elif args.query == "marginals":
-        if use_streaming:
+        if ais_q:
+            # the weighted scatter of the final states, re-embedded through
+            # the evidence reduction as on the exact routes
+            red, _ = (moments.reduce_evidence(mrf, evidence)
+                      if evidence else (mrf, 0.0))
+            if red is not None:
+                rmom, diag = mais.ais_clique_marginals(
+                    args.sample_seed, red, num_chains=args.ais_chains,
+                    num_temps=args.ais_temps, return_diagnostics=True)
+            else:
+                rmom, diag = np.zeros((0,)), {"ess": float(args.ais_chains)}
+            mu = (moments.embed_clamped_marginals(mrf, evidence, rmom)
+                  if evidence else rmom)
+            result["backend"] = "ais"
+            result["ais"] = _ais_report(args, diag)
+        elif use_streaming:
             mu = moments.clique_marginals_clamped_streaming(mrf, evidence)
         elif evidence:
             # clamp exactly, then bounded-width marginals on the reduced

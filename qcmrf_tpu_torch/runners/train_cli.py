@@ -17,8 +17,14 @@ mean NLL (enumeration to n = 22, then elimination or the streaming fused
 sweep), ``--grad shots`` takes the model moments from post-selected
 circuit shots (the sampler kernel), bit-array data past the threshold
 trains on its sufficient statistics (:func:`models.train.
-make_moment_train_step`), and ``--learn-structure`` selects the clique
-set by group-lasso MLE first (:mod:`models.structure`).
+make_moment_train_step`), ``--grad ais`` takes the model moments from
+annealed importance sampling at any size (one launch of the chain
+kernel's AIS mode a step, ESS-gated; ``fitted_model.json`` then holds
+``final_ess`` and ``ais_skipped_steps`` in place of ``final_nll``), and
+``--learn-structure`` selects the clique set by group-lasso MLE first
+(:mod:`models.structure`). The shot and AIS gradients draw step s on the
+Philox keys ``(data_seed + 1, s)`` and ``(data_seed + 2, s)``: a resumed
+run continues their streams.
 
 ``--platform default`` means the card, as for ``run`` and ``infer``: the
 JAX package's "small fits go to the host" is not carried over.
@@ -26,8 +32,7 @@ Without ``--data`` the CLI draws its data from a random ground-truth
 model: ``sample_exact`` up to n = 22, one Gibbs chain (thin 10, burn 100,
 the chain kernel) past it; past the threshold, as bit arrays, elimination's
 perturb-and-MAP, or the chain where the structure is wider than the
-elimination cap. ``--mesh`` comes with slice 6 and ``--grad ais`` with
-slice 3c.
+elimination cap. ``--mesh`` comes with slice 6.
 """
 
 from __future__ import annotations
@@ -129,7 +134,7 @@ def main(argv: Optional[List[str]] = None) -> str:
     parser.add_argument("--steps", type=int, default=500)
     parser.add_argument("--lr", type=float, default=0.05)
     # dest distinct from the config's suite seed: this seed drives data
-    # generation and the shot gradient only
+    # generation and the shot and AIS gradients only
     parser.add_argument("--data-seed", "--seed",
                         dest="data_seed", type=int, default=0)
     parser.add_argument("--outdir", type=str, default="./train_out")
@@ -138,17 +143,24 @@ def main(argv: Optional[List[str]] = None) -> str:
     parser.add_argument("--grad", type=str, default="exact",
                         choices=["exact", "shots", "ais"],
                         help="model-moment term of the NLL gradient: "
-                             "exact inference, or post-selected circuit "
-                             "shots (quantum-in-the-loop training); 'ais' "
-                             "comes with slice 3c")
+                             "exact inference, post-selected circuit "
+                             "shots (quantum-in-the-loop training), or "
+                             "annealed-importance-sampling moments, the "
+                             "route past both exact backends (induced "
+                             "width > elimination cap and n > streaming "
+                             "cap)")
     parser.add_argument("--grad-shots", type=int, default=1 << 14,
                         help="shots per step for --grad shots")
     parser.add_argument("--ais-chains", type=int, default=256,
-                        help="--grad ais (slice 3c)")
+                        help="--grad ais: importance chains per step")
     parser.add_argument("--ais-temps", type=int, default=64,
-                        help="--grad ais (slice 3c)")
+                        help="--grad ais: annealing rungs per step (raise "
+                             "under strong coupling or a low ESS)")
     parser.add_argument("--ais-ess-frac", type=float, default=0.1,
-                        help="--grad ais (slice 3c)")
+                        help="--grad ais: skip a step whose effective "
+                             "sample size falls below this fraction of "
+                             "--ais-chains (collapsed weights give "
+                             "noise-dominated gradients)")
     parser.add_argument("--mesh", type=str, default=None,
                         help="AxB device mesh (slice 6)")
     parser.add_argument("--platform", type=str, default="default",
@@ -188,9 +200,8 @@ def main(argv: Optional[List[str]] = None) -> str:
         raise SystemExit(
             f"n={n} with induced width past the elimination cap needs the "
             f"streaming sweep, which tops out at n={max_n} (the JAX "
-            "package's int32 block ids) — the JAX package trains there on "
-            "AIS moment estimates (--grad ais), which come to the port "
-            "with slice 3c")
+            "package's int32 block ids) — pass --grad ais to train on AIS "
+            "moment estimates (ESS-gated, no structural cap)")
     if big and args.grad == "shots":
         raise SystemExit("--grad shots needs the circuit sampler's int32 "
                          f"state ids (n <= {capability.CIRCUIT_SAMPLER_MAX_N})")
@@ -198,10 +209,6 @@ def main(argv: Optional[List[str]] = None) -> str:
         raise SystemExit("--learn-structure selects by the exact NLL "
                          "gradient (--grad exact); shots/ais gradients "
                          "serve fixed structures")
-    if args.grad == "ais":
-        raise SystemExit("--grad ais (AIS-moment training) comes to the "
-                         "port with slice 3c (AIS and the native engine) of "
-                         "ROADMAP.md")
 
     device = resolve_platform(args.platform)
     import torch
@@ -307,7 +314,34 @@ def main(argv: Optional[List[str]] = None) -> str:
         start = _restore(ckpt, saved[-1], raw, opt)
         print(f"resumed from step {start}")
 
-    if big:
+    loss_label = "nll"
+    ais_skips = 0
+    if args.grad == "ais":
+        # the model moments from AIS: the one gradient with no structural
+        # cap; the data term is the data's sufficient statistics
+        from qcmrf_tpu_torch.evaluation.estimators import (
+            clique_marginals_from_samples)
+
+        mu_hat = (mtrain.empirical_moments_from_bits(template, data) if big
+                  else clique_marginals_from_samples(template, data))
+        ais_step = mtrain.make_ais_train_step(
+            template, opt, mu_hat, num_chains=args.ais_chains,
+            num_temps=args.ais_temps, ess_min_frac=args.ais_ess_frac)
+        loss_label = "ess"
+
+        def step_fn(batch, s):
+            nonlocal ais_skips
+            # step s on the Philox key (data_seed + 2, s): a resumed run
+            # continues the stream
+            info = ais_step(args.data_seed + 2, s)
+            if info["skipped"]:
+                ais_skips += 1
+                print(f"warning: AIS ESS {info['ess']:.1f} < "
+                      f"{args.ais_ess_frac:.2f} * {args.ais_chains} — step "
+                      "skipped (collapsed importance weights; raise "
+                      "--ais-temps)", file=sys.stderr)
+            return info["ess"]
+    elif big:
         moment_step = mtrain.make_moment_train_step(
             template, opt, mtrain.empirical_moments_from_bits(template, data))
 
@@ -343,14 +377,20 @@ def main(argv: Optional[List[str]] = None) -> str:
         loss = step_fn(data, s)
         if (s + 1) % args.checkpoint_every == 0 or s + 1 == args.steps:
             _save(ckpt, s + 1, raw, opt)
-            print(f"step {s + 1}: nll={float(loss):.4f} (checkpointed)")
+            print(f"step {s + 1}: {loss_label}={float(loss):.4f} "
+                  "(checkpointed)")
 
     theta = mtrain._to_theta(raw, True).detach()
     out_path = os.path.join(args.outdir, "fitted_model.json")
+    out_doc = {"cliques": cliques, "theta": theta.cpu().double().tolist()}
+    if args.grad == "ais":
+        # no exact NLL exists in this regime: the estimator's health instead
+        out_doc["final_ess"] = float(loss)
+        out_doc["ais_skipped_steps"] = ais_skips
+    else:
+        out_doc["final_nll"] = float(loss)
     with open(out_path, "w") as f:
-        json.dump({"cliques": cliques,
-                   "theta": theta.cpu().double().tolist(),
-                   "final_nll": float(loss)}, f, indent=2)
+        json.dump(out_doc, f, indent=2)
     print(f"wrote {out_path}")
     return out_path
 

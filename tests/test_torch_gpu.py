@@ -1087,3 +1087,95 @@ def test_build_fails_loudly(dev, tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc failed"):
         _build.build()
     assert not _build.library_path().exists()
+
+
+def disjoint_blocks(dev):
+    """The past-both-caps flagship: K27 and a disjoint 21-variable chain,
+    n = 48, 371 cliques, theta = -|randn(RandomState(1))| * 0.3."""
+    A = [[i, j] for i in range(27) for j in range(i + 1, 27)]
+    B = [[i + 27, i + 28] for i in range(20)]
+    theta = -np.abs(np.random.RandomState(1).randn(4 * (len(A) + len(B))))
+    return MRF.create(A + B, theta=(theta * 0.3).astype(np.float32),
+                      device=dev)
+
+
+@pytest.mark.parametrize("case", ["blocks48", "suite", "small_general",
+                                  "wide80", "device_delta"])
+def test_ais_mode_matches_plain_version(dev, case):
+    """The chain kernel's AIS mode in one launch against its plain version:
+    the final states equal row for row (where a chain parts, the plain
+    run has a decision within 2 ulp of p1) and the log-weights within 1e-5
+    relative, on the word path's fast loop (the n = 48 blocks; a suite
+    graph, whose ring groups of 6 sweeps hold rung boundaries), its general
+    loop (a 6-variable clique), the state in shared memory (an 80-variable
+    chain with triangles) and D in device memory (a 16-variable clique)."""
+    from qcmrf_tpu_torch.ops import _build, gibbs_kernel as gk
+
+    M, T, spt, beta = 16, 8, 1, 1.0
+    if case == "blocks48":
+        m = disjoint_blocks(dev)
+    elif case == "suite":
+        suite = generate_suite(0.1)
+        m = MRF.create(suite.graphs[5], theta=suite.thetas[5][0], device=dev)
+        T, spt, beta = 7, 2, 0.9
+    else:
+        n = {"small_general": 8, "wide80": 80, "device_delta": 20}[case]
+        big = {"small_general": [[0, 2, 3, 4, 6, 7]],
+               "device_delta": [list(range(2, 18))]}.get(case, [])
+        cl = wide_chain(n, big)
+        m = MRF.create(cl, theta=-np.abs(np.random.RandomState(6).randn(
+            sum(1 << len(c) for c in cl))) * 0.4, device=dev)
+        M, T, spt = 8, 5, 3
+    args = (13, m.cliques, m.n, m.theta, beta, M, T, spt)
+    ids = range(5, 5 + M)
+    before = gk.LAUNCHES["gibbs_ais"]
+    logw, bits = gk.ais_chains(*args, chain_ids=ids)
+    assert gk.LAUNCHES["gibbs_ais"] == before + 1
+    want_w, want_b = gk.ais_chains_reference(*args, chain_ids=ids)
+    assert bits.is_cuda and bits.shape == want_b.shape == (M, m.n)
+    parts = gk.ais_partings(13, m.cliques, m.n, m.theta, beta, T, spt,
+                            bits, want_b, chain_ids=ids)
+    for c, s, v, u, p1 in parts:
+        assert gk.within_ulps(u, p1), (c, s, v, u, p1)
+    same = (bits == want_b).all(dim=1)
+    err = (logw - want_w).abs() / want_w.abs().clamp(min=1.0)
+    assert float(err[same].max()) <= 1e-5
+    pack = gk.chain_pack(((m.cliques, m.n, None),))
+    assert pack.reg_state == (m.n <= 64)
+    assert bool(pack.structs[0, 8]) == (case in ("blocks48", "suite"))
+    in_shared = pack.shared_bytes(True) <= _build.SHARED_BYTES_LIMIT
+    assert in_shared == (case != "device_delta")
+    # the runtime's occupancy of the instantiation this launch ran
+    assert gk.ais_resident_blocks(m.cliques, m.n, dev) >= 1
+
+
+def test_ais_estimators_on_card(dev):
+    """Every AIS estimate is one launch of the AIS mode, on the card, and
+    agrees with the exact answer at the JAX tests' bars."""
+    from qcmrf_tpu_torch.models import ais, elimination
+    from qcmrf_tpu_torch.models import train as mtrain
+    from qcmrf_tpu_torch.ops import gibbs_kernel as gk
+
+    m = model(dev, 3, 3, seed=1, scale=0.4)
+    before = gk.LAUNCHES["gibbs_ais"]
+    lnz, d = ais.ais_log_partition(0, m, 256, 128, return_diagnostics=True)
+    assert gk.LAUNCHES["gibbs_ais"] == before + 1 and lnz.is_cuda
+    exact = float(elimination.log_partition(m))
+    assert abs(float(lnz) - exact) < max(4 * float(d["stderr"]), 0.02)
+    mu, d = ais.ais_clique_marginals(3, m, 512, 96, return_diagnostics=True)
+    err = (mu - elimination.clique_marginals(m)).abs()
+    assert float(d["ess"]) > 64 and float(err.max()) < 0.08
+    # the JAX test's event model: a 6-chain closed by (0, 3)
+    cl = [[i, i + 1] for i in range(5)] + [[0, 3]]
+    me = MRF.create(cl, theta=-np.abs(np.random.RandomState(8).randn(
+        24)).astype(np.float32) * 0.4, device=dev)
+    p, d = ais.ais_event_prob(0, me, 2, 1, 512, 64, return_diagnostics=True)
+    assert float(d["ess"]) > 51.2
+    assert abs(float(p) - float(elimination.conditional_prob(me, 2, 1,
+                                                             {}))) < 0.05
+    raw = mtrain._from_theta(torch.full((m.dimension,), -0.5, device=dev),
+                             True).requires_grad_()
+    step = mtrain.make_ais_train_step(m, mtrain.adam([raw], 0.1),
+                                      elimination.clique_marginals(m), 64, 8)
+    info = step(0, 1)
+    assert not info["skipped"] and gk.LAUNCHES["gibbs_ais"] == before + 4

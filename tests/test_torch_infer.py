@@ -141,12 +141,13 @@ def test_cli_dispatch(k10, capsys):
 
 
 def test_unported_options_name_their_slices(k10, tmp_path):
-    cases = ((["--query", "lnz", "--method", "ais"], "slice 3c"),
-             (["--query", "marginals", "--method", "ais"], "slice 3c"),
-             (["--query", "lnz", "--mesh", "2x1"], "slice 6"),
+    cases = ((["--query", "lnz", "--mesh", "2x1"], "slice 6"),
+             (["--query", "marginals", "--method", "ais", "--mesh", "2x1"],
+              "slice 6"),
              (batch(tmp_path, [{"query": "lnz"},
-                               {"query": "prob", "method": "ais"}]),
-              "line 2: --method ais comes to the port with slice 3c"))
+                               {"query": "map", "method": "ais"}]),
+              "line 2: --method ais serves --query lnz, marginals and "
+              "prob only"))
     for argv, match in cases:
         with pytest.raises(SystemExit, match=match):
             infer_cli.main(k10 + argv + ["--platform", "cpu"])

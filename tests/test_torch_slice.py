@@ -4,6 +4,7 @@ the port's ``eval`` scores them the same, and the platform choices behave
 as documented."""
 
 import json
+import os
 import subprocess
 import sys
 
@@ -57,7 +58,8 @@ def test_run_file_scores_under_jax_harness(run_dir):
 def test_port_eval_matches_jax_field_by_field(run_dir, capsys):
     results = run_eval.main([
         "--results", "result_analytic_0.1.json", "--scale", "0.1",
-        "--res-root", str(run_dir), "--norm", str(SHOTS), "--kl"])
+        "--res-root", str(run_dir), "--norm", str(SHOTS), "--kl",
+        "--platform", "cpu"])
     table = capsys.readouterr().out
     path = run_dir / "res_0.1" / "result_analytic_0.1.json"
     dists, _ = jharness.load_result_dists(str(path))
@@ -137,6 +139,17 @@ def _chain12():
     return compile_qcmrf(mrf, with_measurements=False)
 
 
+def _file_mode_root() -> str:
+    """A res_0.1/r.json of one all-zeros count per suite circuit."""
+    import tempfile
+
+    root = tempfile.mkdtemp()
+    os.makedirs(os.path.join(root, "res_0.1"))
+    with open(os.path.join(root, "res_0.1", "r.json"), "w") as f:
+        json.dump([{"0": 10_000}] * 70, f)
+    return root
+
+
 def _default_device_calls():
     import tempfile
 
@@ -187,6 +200,13 @@ def _default_device_calls():
             generate_suite(0.1), shots=10, engine="statevector"),
         "harness.evaluate_suite": lambda: harness.evaluate_suite(
             generate_suite(0.1, reps=1), mode="gibbs", num_samples=10),
+        "harness.evaluate_suite(mode='file')":
+            lambda: harness.evaluate_suite(
+                generate_suite(0.1, reps=1), dists=[{"0": 1.0}] * 7,
+                mode="file"),
+        "eval.main(--mode file)": lambda: run_eval.main(
+            ["--results", "r.json", "--scale", "0.1", "--res-root",
+             _file_mode_root()]),
     }
 
 
@@ -205,20 +225,23 @@ def test_entry_points_default_to_the_card(entry):
 
 
 def test_unported_options_name_their_slice(run_dir, tmp_path):
+    from qcmrf_tpu_torch.models import ais
+    from qcmrf_tpu_torch.models.mrf import chain_mrf
+
     suite = generate_suite(0.1)
     for engine, slice_ in (("noisy:torino", "slice 5"),
                            ("calibrated:torino", "slice 5")):
         with pytest.raises(NotImplementedError, match=slice_):
             run_experiment.run_suite(suite, shots=10, engine=engine)
-    for argv in (["--native"],
-                 ["--mode", "gibbs", "--native", "--platform", "cpu"],
-                 ["--mode", "pam", "--native", "--platform", "cpu"]):
-        with pytest.raises(NotImplementedError, match="slice 3c"):
-            run_eval.main(["--results", "result_analytic_0.1.json",
-                           "--scale", "0.1", "--res-root", str(run_dir)]
-                          + argv)
-    with pytest.raises(NotImplementedError, match="slice 3c"):
-        harness.evaluate_suite(suite, mode="pam", native=True)
+    m = chain_mrf(3, device="cpu")
+    for fn in (ais.ais_log_partition, ais.ais_clique_marginals):
+        with pytest.raises(NotImplementedError, match="slice 6"):
+            fn(0, m, 4, 2, mesh=object())
+    # file mode ignores --native, as the JAX harness does
+    results = run_eval.main(["--results", "result_analytic_0.1.json",
+                             "--scale", "0.1", "--res-root", str(run_dir),
+                             "--native", "--platform", "cpu"])
+    assert len(results) == 7
 
 
 def test_cli_dispatch_and_config(tmp_path, capsys):
@@ -235,7 +258,7 @@ def test_cli_dispatch_and_config(tmp_path, capsys):
     assert all(sum(c.values()) == 32 for c in counts)
     assert cli.main(["eval", "--results", "result_analytic_0.1.json",
                      "--scale", "0.1", "--res-root", str(tmp_path),
-                     "--norm", "32"]) == 0
+                     "--norm", "32", "--platform", "cpu"]) == 0
     assert "success rate" in capsys.readouterr().out
     cfg.write_text(json.dumps({"shots": 32, "shot_count": 4}))
     with pytest.raises(SystemExit, match="shot_count"):
@@ -259,6 +282,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "import qcmrf_tpu_torch.evaluation.estimators\n"
             "import qcmrf_tpu_torch.runners.train_cli\n"
             "import qcmrf_tpu_torch.runners.bench\n"
+            "import qcmrf_tpu_torch.models.ais\n"
+            "import qcmrf_tpu_torch.native.kiopto\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'qcmrf_tpu.')) or m == 'qcmrf_tpu']\n"
             "assert not bad, bad\n"
@@ -309,7 +334,7 @@ def test_statevector_run_follows_jax_dense_probabilities(sv_dir):
 def test_statevector_run_evaluates(sv_dir):
     results = run_eval.main([
         "--results", "result_statevector_0.1.json", "--scale", "0.1",
-        "--res-root", str(sv_dir), "--kl"])
+        "--res-root", str(sv_dir), "--kl", "--platform", "cpu"])
     assert len(results) == 7
     for r in results:
         assert r.mean_f >= 0.99, (r.graph, r.mean_f)

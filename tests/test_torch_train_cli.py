@@ -215,16 +215,17 @@ def test_shots_gradient_mode(tmp_path):
 
 def test_unported_options_name_their_slices(tmp_path, monkeypatch, ids5):
     for argv, match in ((["--mesh", "2x1"], "slice 6"),
-                        (["--grad", "ais"], "slice 3c"),
-                        (["--graph", "chain:24", "--grad", "ais"],
-                         "slice 3c")):
+                        (["--grad", "ais", "--mesh", "2x1"], "slice 6"),
+                        (["--graph", "chain:24", "--grad", "ais", "--mesh",
+                          "1x1"], "slice 6")):
         with pytest.raises(SystemExit, match=match):
             train_cli.main(["--steps", "1", "--platform", "cpu",
                             "--outdir", str(tmp_path)] + argv)
     monkeypatch.setenv("QCMRF_BIG_N_THRESHOLD", "5")
-    with pytest.raises(SystemExit, match="slice 3c"):
+    with pytest.raises(SystemExit, match="slice 6"):
         train_cli.main(["--graph", "chain:7", "--steps", "1", "--platform",
-                        "cpu", "--grad", "ais", "--outdir", str(tmp_path)])
+                        "cpu", "--grad", "ais", "--mesh", "2x1",
+                        "--outdir", str(tmp_path)])
 
 
 def test_guards_match_jax(tmp_path):
