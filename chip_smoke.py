@@ -43,7 +43,16 @@ kernels' launch counters reset just before it and read just after:
   marginals and 100 training steps at JAX's slow-pin bars against the
   blocks' exact targets, then ``infer --method ais`` (lnz, marginals,
   prob: one AIS launch each), ``train --grad ais`` with ``--resume`` (one
-  a step) and ``eval --mode gibbs|pam --native`` (the C++ engine).
+  a step) and ``eval --mode gibbs|pam --native`` (the C++ engine);
+* noise emulation (phase noise): the density engine on the card against
+  the same code on CPU tensors (1e-5), its batch of a graph's 10 reps
+  against 10 single evolutions (1e-6) and its noiseless diagonal against
+  the circuit kernel (1e-5), on every suite graph; ``run --engine
+  noisy:torino`` and ``calibrated:torino`` (scale 0.1, 10 000 shots) then
+  ``eval``, each graph's mean delta-hat within 0.02 of its expected mean
+  acceptance, the logpot and lse launches of the calibrated path counted;
+  ``whisker`` from the noisy files of the three scales; the width-10
+  evolution timed alone and as a batch of 10 reps.
 
 The dense lane kernel (three TF32 products a term on the tensor cores)
 is held to the float64 product of its input at widths 8, 24 and 28: a
@@ -78,6 +87,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -3280,6 +3290,236 @@ def phase_ais(dev, report) -> dict:
     return mp["launches"]
 
 
+NOISE_SCALES = (0.1, 0.25, 0.5)  # whisker's three scales
+NOISE_SHOTS = 10_000
+NOISE_WIDE = 3                   # graph 3, the chain of 5: width 10
+
+
+def density_parity(suite, model, dev) -> dict:
+    """The density engine on the card against the same code on CPU
+    tensors, its batch against single evolutions, and its noiseless
+    diagonal against the statevector route (the circuit kernel)."""
+    from qcmrf_tpu_torch.models.mrf import MRF
+    from qcmrf_tpu_torch.noise import physical
+    from qcmrf_tpu_torch.ops import circuit_kernel
+
+    worst = dict(card_vs_cpu=0.0, batch_vs_single=0.0, noiseless_vs_sv=0.0)
+    sv = circuit_kernel.batched_circuits_probs(
+        [(C, suite.thetas[g]) for g, C in enumerate(suite.graphs)],
+        device=dev)
+    for g, C in enumerate(suite.graphs):
+        thetas = suite.thetas[g]
+        mults = physical.rep_multipliers(model, g, len(thetas))
+        lams = [model.lam[g] * u for u in mults]
+        mrfs = [MRF.create(C, theta=t, device=dev) for t in thetas]
+        one = physical.gate_noisy_probs(mrfs[0], lams[0])
+        host = physical.gate_noisy_probs(
+            MRF.create(C, theta=thetas[0], device="cpu"), lams[0])
+        batch = physical.gate_noisy_probs_batch(mrfs, lams)
+        singles = torch.stack([physical.gate_noisy_probs(m, lam)
+                               for m, lam in zip(mrfs, lams)])
+        clean = physical.gate_noisy_probs_batch(mrfs, [0.0] * len(mrfs))
+        errs = dict(
+            card_vs_cpu=float((one.cpu() - host).abs().max()),
+            batch_vs_single=float((batch - singles).abs().max()),
+            noiseless_vs_sv=float((clean - sv[g].double()).abs().max()))
+        print(f"  graph {g} (width {int(one.numel()).bit_length() - 1}): "
+              + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+        require(one.is_cuda and errs["card_vs_cpu"] <= 1e-5,
+                f"graph {g}: card vs CPU {errs['card_vs_cpu']:.2e} <= 1e-5")
+        require(errs["batch_vs_single"] <= 1e-6,
+                f"graph {g}: batch vs single {errs['batch_vs_single']:.2e} "
+                "<= 1e-6")
+        require(errs["noiseless_vs_sv"] <= 1e-5,
+                f"graph {g}: noiseless vs statevector "
+                f"{errs['noiseless_vs_sv']:.2e} <= 1e-5")
+        for k, v in errs.items():
+            worst[k] = max(worst[k], v)
+    return worst
+
+
+def expected_acceptance(engine, suite, dev) -> list:
+    """Each graph's mean expected delta of a mitigated engine on the card,
+    at the multipliers the run uses: the accepted mass of the mitigated
+    quasi-distribution's expectation (mitigation is linear)."""
+    from qcmrf_tpu_torch.models.mrf import MRF
+    from qcmrf_tpu_torch.noise import backends, channels, physical
+
+    out = []
+    for g, C in enumerate(suite.graphs):
+        mrfs = [MRF.create(C, theta=t, device=dev) for t in suite.thetas[g]]
+        n = mrfs[0].n
+        width = n + len(C) + 1
+        bits = backends.measured_bits(mrfs[0])
+        if engine == "noisy:torino":
+            pre = backends.preset("torino")
+            qs = [channels.apply_readout_confusion(
+                backends.noisy_outcome_probs(m, pre).double(),
+                [pre.readout] * len(bits), width, bits, invert=True)
+                for m in mrfs]
+        else:
+            model = physical.load_physical("torino", suite.scale)
+            mults = physical.rep_multipliers(model, g, len(mrfs))
+            probs = physical.gate_noisy_probs_batch(
+                mrfs, [model.lam[g] * u for u in mults])
+            qs = [physical.expected_quasi(m, model, g, probs[r], mults[r])
+                  for r, m in enumerate(mrfs)]
+        out.append(float(np.mean([float(q[: 1 << n].sum() / q.sum())
+                                  for q in qs])))
+    return out
+
+
+def run_noise_engine(engine, scale, root, dev) -> dict:
+    """``run --engine <engine>`` of the suite at ``scale`` on the card,
+    then ``eval``; the launch counts of the whole path."""
+    from qcmrf_tpu_torch.runners import eval as run_eval
+    from qcmrf_tpu_torch.runners import run_experiment
+
+    out_dir = os.path.join(root, f"res_{scale:g}")
+    reset_counts()
+    t0 = time.perf_counter()
+    path = run_experiment.main([
+        "--scale", f"{scale:g}", "--shots", str(NOISE_SHOTS), "--platform",
+        "gpu", "--engine", engine, "--sample-seed", "0", "--outdir",
+        out_dir])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    results = run_eval.main([
+        "--results", os.path.basename(path), "--scale", f"{scale:g}",
+        "--res-root", root, "--platform", "gpu", "--kl"])
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    launches = read_counts()
+    with open(path) as f:
+        d = json.load(f)
+    require(set(d) == {"quasi_dists", "metadata"}
+            and len(d["quasi_dists"]) == 70,
+            f"{engine}: 70 quasi-distributions and their metadata")
+    return dict(path=path, run_s=run_s, eval_s=eval_s, results=results,
+                launches=launches,
+                negatives=sum(v < 0 for q in d["quasi_dists"]
+                              for v in q.values()))
+
+
+def time_wide_evolution(suite, model, dev) -> dict:
+    """Graph 3 (width 10) at the torino 0.1 budget: one evolution and its
+    10 reps batched by CUDA events, the bytes a gate pass moves, and the
+    same single evolution on CPU tensors by the host clock."""
+    from qcmrf_tpu_torch.models.mrf import MRF
+    from qcmrf_tpu_torch.noise import physical
+
+    g = NOISE_WIDE
+    C, thetas = suite.graphs[g], suite.thetas[g]
+    mults = physical.rep_multipliers(model, g, len(thetas))
+    lams = [model.lam[g] * u for u in mults]
+    mrfs = [MRF.create(C, theta=t, device=dev) for t in thetas]
+    lcs = [physical.lowered_for_noise(m) for m in mrfs]
+    w = lcs[0].num_qubits
+    gates = [x.name for x in lcs[0].gates if x.name not in ("measure",)]
+    counts = {k: gates.count(k) for k in sorted(set(gates))}
+    single_ms = cuda_ms(lambda: physical.gate_noisy_probs(
+        mrfs[0], lams[0], lowered=lcs[0]), 5)
+    batch_ms = cuda_ms(lambda: physical.gate_noisy_probs_batch(
+        mrfs, lams, lowered=lcs), 5)
+    host = MRF.create(C, theta=thetas[0], device="cpu")
+    host_lc = physical.lowered_for_noise(host)
+    t0 = time.perf_counter()
+    physical.gate_noisy_probs(host, lams[0], lowered=host_lc)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    pass_bytes = 2 * (1 << (2 * w)) * 8   # rho read once, written once
+    non_diag = sum(v for k, v in counts.items() if k != "rz")
+    row = dict(width=w, gates=counts, single_ms=single_ms,
+               batch10_ms=batch_ms, batch10_per_rep_ms=batch_ms / 10,
+               cpu_tensors_single_ms=cpu_ms, pass_bytes=pass_bytes,
+               batch10_pass_bytes=10 * pass_bytes,
+               non_diagonal_gates=non_diag,
+               single_floor_ms=non_diag * pass_bytes / H100_BYTES_PER_S * 1e3,
+               batch10_floor_ms=non_diag * 10 * pass_bytes
+               / H100_BYTES_PER_S * 1e3)
+    print(f"  width-{w} evolution (graph {g}, {len(gates)} lowered gates "
+          f"{counts}): alone {single_ms:.3f} ms, 10 reps batched "
+          f"{batch_ms:.3f} ms ({batch_ms / 10:.3f} a rep) by CUDA events; a "
+          f"gate pass moves {pass_bytes / 2**20:.0f} MiB alone, "
+          f"{10 * pass_bytes / 2**20:.0f} MiB batched: {non_diag} "
+          f"non-diagonal gates, one pass each, at least "
+          f"{row['single_floor_ms']:.3f} / {row['batch10_floor_ms']:.3f} ms")
+    print(f"  (on CPU tensors, host clock, not a card figure: the same single "
+          f"evolution {cpu_ms:.1f} ms)")
+    return row
+
+
+def phase_noise(dev, report) -> dict:
+    """Slice 5 on the card: the density engine against the same code on
+    CPU tensors, its batch against single evolutions and its noiseless
+    diagonal against the circuit kernel; then ``run --engine
+    noisy:torino`` and ``calibrated:torino`` at scale 0.1 and 10 000 shots,
+    each through ``run_experiment.main`` and ``eval`` on the card (the row
+    2 and row 4 launches counted), each graph's mean delta-hat within 0.02
+    of its expected mean acceptance; ``whisker`` from the three scales'
+    noisy files; the width-10 evolution timed alone and batched."""
+    from qcmrf_tpu_torch.models.suite import generate_suite
+    from qcmrf_tpu_torch.noise import physical
+    from qcmrf_tpu_torch.viz import whisker
+
+    out = {}
+    suite = generate_suite(0.1)
+    model = physical.load_physical("torino", 0.1)
+    print("[noise] density engine, first rep of each suite graph at the "
+          "torino 0.1 budget: card vs CPU tensors (<= 1e-5), 10 reps batched"
+          " vs single (<= 1e-6), noiseless vs the circuit kernel (<= 1e-5)")
+    out["parity"] = density_parity(suite, model, dev)
+    with tempfile.TemporaryDirectory() as root:
+        for engine in ("noisy:torino", "calibrated:torino"):
+            r = run_noise_engine(engine, 0.1, root, dev)
+            want = expected_acceptance(engine, suite, dev)
+            rows = []
+            for res, exp in zip(r["results"], want):
+                gap = abs(res.mean_delta - exp)
+                rows.append(dict(graph=res.graph, mean_f=res.mean_f,
+                                 mean_delta=res.mean_delta,
+                                 expected_delta=exp, mean_kl=res.mean_kl))
+                print(f"  [{engine}] graph {res.graph}: F {res.mean_f:.4f} "
+                      f"delta-hat {res.mean_delta:.4f} (expected {exp:.4f}, "
+                      f"|gap| {gap:.4f}) KL {res.mean_kl:.4f}")
+                require(gap <= 0.02, f"{engine} graph {res.graph}: mean "
+                                     f"delta-hat within 0.02 of {exp:.4f}")
+            lp, ls = r["launches"]["logpot"], r["launches"]["lse"]
+            print(f"  [{engine}] run {r['run_s']:.3f} s, eval {r['eval_s']:.3f}"
+                  f" s on the card (host clock, ending in a synchronise); "
+                  f"{r['negatives']} negative quasi-probabilities; launches "
+                  f"during run -> eval: logpot {lp}, lse {ls}")
+            require(lp > 0 and ls > 0, f"{engine}: eval launched the logpot "
+                                       f"({lp}) and lse ({ls}) kernels")
+            out[engine] = dict(run_s=r["run_s"], eval_s=r["eval_s"],
+                               launches={"logpot": lp, "lse": ls},
+                               negatives=r["negatives"], graphs=rows)
+            if engine == "noisy:torino":
+                shutil.copy(r["path"], os.path.join(
+                    root, "res_0.1", "result_noisy_torino.json"))
+        for scale in NOISE_SCALES[1:]:
+            r = run_noise_engine("noisy:torino", scale, root, dev)
+            shutil.copy(r["path"], os.path.join(
+                root, f"res_{scale:g}", "result_noisy_torino.json"))
+        pdf = os.path.join(root, "success_noisy_torino.pdf")
+        t0 = time.perf_counter()
+        whisker.main(["--backend", "noisy_torino", "--res-root", root,
+                      "--platform", "gpu", "--out", pdf])
+        torch.cuda.synchronize()
+        out["whisker_s"] = time.perf_counter() - t0
+        size = os.path.getsize(pdf)
+        import importlib.util
+
+        out["renderer"] = ("matplotlib" if importlib.util.find_spec(
+            "matplotlib") else "plain")
+        print(f"  whisker --backend noisy_torino: {out['whisker_s']:.3f} s, "
+              f"{size} bytes of PDF ({out['renderer']} renderer)")
+        require(size > 1000, "whisker wrote its PDF")
+    out["wide"] = time_wide_evolution(suite, model, dev)
+    report["noise"] = out
+    return out
+
+
 def gate_entry(kind, report, launches) -> dict:
     """A generic gate kernel's line: its mean time and bound per launch in
     the lowered width-28 main run (the copy: at the rates' width 28; the
@@ -3464,6 +3704,7 @@ def main() -> int:
     train = phase_train(dev, report)
     smp = phase_samplers(dev, report)
     ais_path = phase_ais(dev, report)
+    noise = phase_noise(dev, report)
     phase_sandwich_kernels(dev, report)
     phase_gate_level(dev, report)
     gate = report["main_gate_level"]
@@ -3474,7 +3715,13 @@ def main() -> int:
 
     kernels_line = []
     report["logpot"]["launches_by_path"]["samplers"] = smp["logpot"]
+    # the noise path: run --engine calibrated:torino -> eval
+    cal = noise["calibrated:torino"]["launches"]
+    report["logpot"]["launches_by_path"]["noise"] = cal["logpot"]
+    report["lse"]["launches_by_path"] = {"run analytic": launches["lse"],
+                                         "noise": cal["lse"]}
     launches["logpot"] = sum(report["logpot"]["launches_by_path"].values())
+    launches["lse"] = sum(report["lse"]["launches_by_path"].values())
     for k, by in (("sampler", {"run analytic": launches["sampler"]}),
                   ("map", {"infer K27": infer["map"]}),
                   ("lnz_moments", {"train K27": train["lnz_moments"]})):
@@ -3531,7 +3778,7 @@ def main() -> int:
                      "lane_float64", "lane_sass",
                      "lane_factored_library_ms", "row_gate_library_ms",
                      "row_library_by_qubit", "train", "fma_peak",
-                     "samplers", "gibbs", "ais", "gibbs_ais")}), f,
+                     "samplers", "gibbs", "ais", "gibbs_ais", "noise")}), f,
                   indent=1, default=str)
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(f"[card] {smi}")

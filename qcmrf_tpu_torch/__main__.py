@@ -1,16 +1,18 @@
 """Unified CLI: ``python -m qcmrf_tpu_torch <command> [args]``.
 
 Commands:
-    run       experiment driver (counts JSON), analytic and statevector engines
+    run       experiment driver (counts JSON): analytic and statevector
+              engines, noisy:<preset> and calibrated:<hw> hardware emulation
     eval      evaluation tables: --mode file, or the classical samplers
               (--mode gibbs|pam, --native for the C++ engine)
+    whisker   success-rate figures (success_<backend>.pdf)
     infer     inference queries: lnz, prob, map, mmap, marginals, sample
               (--method ais: annealed importance sampling, no cap)
     train     MLE training (exact, shot and AIS gradients, bit-array data
               past n = 30, structure learning), with checkpoints
 
-The JAX package's whisker and bench commands come to the port with later
-slices of ROADMAP.md.
+The JAX package's bench command comes to the port with a later slice of
+ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -30,6 +32,10 @@ def main(argv=None) -> int:
         m(rest)
     elif cmd == "eval":
         from qcmrf_tpu_torch.runners.eval import main as m
+
+        m(rest)
+    elif cmd == "whisker":
+        from qcmrf_tpu_torch.viz.whisker import main as m
 
         m(rest)
     elif cmd == "infer":

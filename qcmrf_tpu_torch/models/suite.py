@@ -113,3 +113,8 @@ def reference_models_path(scale: float, root: str) -> str:
     if os.path.isfile(p):
         return p
     return os.path.join(root, f"res_{scale:g}", "models.json")
+
+
+def reference_results_path(scale: float, backend: str, root: str) -> str:
+    """``<root>/res_{scale}/result_{backend}.json``."""
+    return os.path.join(root, f"res_{scale:g}", f"result_{backend}.json")

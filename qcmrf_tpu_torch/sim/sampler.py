@@ -56,6 +56,12 @@ def counts_to_probs(counts: Dict[str, float], width: int) -> np.ndarray:
     return out
 
 
+def circuit_seed(seed: int, i: int) -> int:
+    """Generator seed of suite circuit ``i`` under the statevector and
+    noisy engines."""
+    return seed * 65536 + i
+
+
 def sample_counts(seed: int, probs: torch.Tensor, shots: int,
                   width: int) -> Dict[str, int]:
     """One-call helper: multinomial shots -> counts dict."""

@@ -1179,3 +1179,77 @@ def test_ais_estimators_on_card(dev):
                                       elimination.clique_marginals(m), 64, 8)
     info = step(0, 1)
     assert not info["skipped"] and gk.LAUNCHES["gibbs_ais"] == before + 4
+
+
+@pytest.mark.parametrize("g", range(7))
+def test_density_engine_on_card_matches_cpu_tensors(dev, g):
+    """The density engine on the card against the same code on CPU
+    tensors (1e-5), a graph's 10 reps batched against single evolutions
+    (1e-6) and its noiseless diagonal against the circuit kernel (1e-5)."""
+    from qcmrf_tpu_torch.noise import physical
+
+    suite = generate_suite(0.1)
+    model_ = physical.load_physical("torino", 0.1)
+    C, thetas = suite.graphs[g], suite.thetas[g]
+    mults = physical.rep_multipliers(model_, g, len(thetas))
+    lams = [model_.lam[g] * u for u in mults]
+    mrfs = [MRF.create(C, theta=t, device=dev) for t in thetas]
+    one = physical.gate_noisy_probs(mrfs[0], lams[0])
+    host = physical.gate_noisy_probs(
+        MRF.create(C, theta=thetas[0], device="cpu"), lams[0])
+    assert one.is_cuda and one.dtype == torch.float64
+    assert float((one.cpu() - host).abs().max()) <= 1e-5
+    batch = physical.gate_noisy_probs_batch(mrfs, lams)
+    for r in range(len(mrfs)):
+        single = physical.gate_noisy_probs(mrfs[r], lams[r])
+        assert float((batch[r] - single).abs().max()) <= 1e-6
+    clean = physical.gate_noisy_probs_batch(mrfs, [0.0] * len(mrfs))
+    sv = circuit_kernel.batched_circuits_probs([(C, thetas)], device=dev)[0]
+    assert float((clean - sv.double()).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("engine", ["noisy:torino", "calibrated:torino"])
+def test_noise_engines_on_card(dev, tmp_path, engine):
+    """``run --engine noisy:torino | calibrated:torino`` on the card at
+    1 000 shots, then ``eval`` on the card: the hardware schema, and each
+    graph's mean delta-hat within 0.03 of its expected mean acceptance
+    (about 4 sigma of 1 000 shots over 10 reps)."""
+    from qcmrf_tpu_torch.noise import backends, channels, physical
+    from qcmrf_tpu_torch.ops import kernels
+    from qcmrf_tpu_torch.runners import eval as run_eval
+
+    out = run_experiment.main([
+        "--scale", "0.1", "--shots", "1000", "--platform", "gpu",
+        "--engine", engine, "--outdir", str(tmp_path / "res_0.1")])
+    import json
+
+    d = json.loads(open(out).read())
+    assert set(d) == {"quasi_dists", "metadata"}
+    assert len(d["quasi_dists"]) == 70
+    before = dict(kernels.LAUNCHES)
+    results = run_eval.main([
+        "--results", out.rsplit("/", 1)[1], "--scale", "0.1", "--res-root",
+        str(tmp_path), "--platform", "gpu"])
+    assert kernels.LAUNCHES["logpot"] > before["logpot"]
+    assert kernels.LAUNCHES["lse"] > before["lse"]
+    suite = generate_suite(0.1)
+    for g, (C, res) in enumerate(zip(suite.graphs, results)):
+        mrfs = [MRF.create(C, theta=t, device=dev) for t in suite.thetas[g]]
+        n, width = mrfs[0].n, mrfs[0].n + len(C) + 1
+        bits = backends.measured_bits(mrfs[0])
+        if engine == "noisy:torino":
+            pre = backends.preset("torino")
+            qs = [channels.apply_readout_confusion(
+                backends.noisy_outcome_probs(m, pre).double(),
+                [pre.readout] * len(bits), width, bits, invert=True)
+                for m in mrfs]
+        else:
+            pm = physical.load_physical("torino", 0.1)
+            mults = physical.rep_multipliers(pm, g, len(mrfs))
+            probs = physical.gate_noisy_probs_batch(
+                mrfs, [pm.lam[g] * u for u in mults])
+            qs = [physical.expected_quasi(m, pm, g, probs[r], mults[r])
+                  for r, m in enumerate(mrfs)]
+        want = np.mean([float(q[: 1 << n].sum() / q.sum()) for q in qs])
+        assert abs(res.mean_delta - want) <= 0.03, (C, res.mean_delta, want)
+        assert res.mean_f > 0.9

@@ -3,6 +3,7 @@ statevector engines) writes counts that the JAX package's harness scores,
 the port's ``eval`` scores them the same, and the platform choices behave
 as documented."""
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -207,6 +208,56 @@ def _default_device_calls():
         "eval.main(--mode file)": lambda: run_eval.main(
             ["--results", "r.json", "--scale", "0.1", "--res-root",
              _file_mode_root()]),
+        **_noise_default_device_calls(),
+    }
+
+
+def _one_graph_suite():
+    suite = generate_suite(0.1, reps=2)
+    return dataclasses.replace(suite, graphs=suite.graphs[1:2],
+                               thetas={0: suite.thetas[1]})
+
+
+def _noise_default_device_calls():
+    from qcmrf_tpu_torch.models.mrf import MRF
+    from qcmrf_tpu_torch.noise import backends, density, fit, physical
+    from qcmrf_tpu_torch.viz import whisker
+
+    def lowered():
+        return physical.lowered_for_noise(
+            MRF.create([[0, 1]], theta=[-0.1] * 4, device="cpu"))
+
+    dists = [{"00000": 0.6, "00001": 0.4}] * 2
+    return {
+        "density.noisy_clbit_probs": lambda: density.noisy_clbit_probs(
+            lowered(), 0.001, 0.01),
+        "density.evolve_density_batch": lambda: density.evolve_density_batch(
+            [lowered(), lowered()], 0.001, 0.01),
+        "density.confuse_bits(host array)": lambda: density.confuse_bits(
+            np.full(4, 0.25), 0.01, 0.02, [0, 1], 2),
+        "backends.run_noisy_suite": lambda: backends.run_noisy_suite(
+            0, _one_graph_suite(), backends.preset("torino"), 10),
+        "backends.run_calibrated_suite": lambda: backends.run_calibrated_suite(
+            0, _one_graph_suite(), fit.CalibratedNoiseModel(
+                "t", 0.01, (fit.GraphCalibration(0.1, 0.1, 0.0),)), 10),
+        "physical.run_physical_suite": lambda: physical.run_physical_suite(
+            0, _one_graph_suite(), physical.PhysicalNoiseModel(
+                "t", 0.1, 0.01, (0.5,), (0.0,), (0.0,)), 10),
+        "physical.fit_physical_predictive":
+            lambda: physical.fit_physical_predictive(
+                "t", _one_graph_suite(), dists, shots=10, polish_rounds=1),
+        "fit.fit_calibrated": lambda: fit.fit_calibrated(
+            "t", _one_graph_suite(), dists, iters=2, shots=10),
+        "fit.fit_depolarizing_rate": lambda: fit.fit_depolarizing_rate(
+            _one_graph_suite(), dists),
+        "run_experiment.run_suite(noisy)": lambda: run_experiment.run_suite(
+            _one_graph_suite(), shots=10, engine="noisy:torino"),
+        "run_experiment.run_suite(calibrated)":
+            lambda: run_experiment.run_suite(
+                _one_graph_suite(), shots=10, engine="calibrated:torino"),
+        "whisker.collect": lambda: whisker.collect("noisy", _file_mode_root()),
+        "whisker.main": lambda: whisker.main(
+            ["--backend", "noisy", "--res-root", _file_mode_root()]),
     }
 
 
@@ -228,11 +279,10 @@ def test_unported_options_name_their_slice(run_dir, tmp_path):
     from qcmrf_tpu_torch.models import ais
     from qcmrf_tpu_torch.models.mrf import chain_mrf
 
-    suite = generate_suite(0.1)
-    for engine, slice_ in (("noisy:torino", "slice 5"),
-                           ("calibrated:torino", "slice 5")):
-        with pytest.raises(NotImplementedError, match=slice_):
-            run_experiment.run_suite(suite, shots=10, engine=engine)
+    # the bench command is slice 7a's: the CLI names it as not yet ported
+    assert "bench command comes to the port with a later slice" in \
+        " ".join(cli.__doc__.split())
+    assert cli.main(["bench"]) == 2
     m = chain_mrf(3, device="cpu")
     for fn in (ais.ais_log_partition, ais.ais_clique_marginals):
         with pytest.raises(NotImplementedError, match="slice 6"):
@@ -284,6 +334,17 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "import qcmrf_tpu_torch.runners.bench\n"
             "import qcmrf_tpu_torch.models.ais\n"
             "import qcmrf_tpu_torch.native.kiopto\n"
+            "import qcmrf_tpu_torch.noise.channels\n"
+            "import qcmrf_tpu_torch.noise.mitigation\n"
+            "import qcmrf_tpu_torch.noise.density\n"
+            "import qcmrf_tpu_torch.noise.backends\n"
+            "import qcmrf_tpu_torch.noise.physical\n"
+            "import qcmrf_tpu_torch.noise.fit\n"
+            "import qcmrf_tpu_torch.viz.whisker\n"
+            "try:\n"
+            "    qcmrf_tpu_torch.__main__.main(['whisker', '--help'])\n"
+            "except SystemExit:\n"
+            "    pass\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'qcmrf_tpu.')) or m == 'qcmrf_tpu']\n"
             "assert not bad, bad\n"
