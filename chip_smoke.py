@@ -52,7 +52,26 @@ kernels' launch counters reset just before it and read just after:
   ``eval``, each graph's mean delta-hat within 0.02 of its expected mean
   acceptance, the logpot and lse launches of the calibrated path counted;
   ``whisker`` from the noisy files of the three scales; the width-10
-  evolution timed alone and as a batch of 10 reps.
+  evolution timed alone and as a batch of 10 reps;
+* the state-id offset of rows 2-7 (phase offset): on K27 and the n=28
+  grid the table, lse, map, moments and fused sweeps split into 2 and 4
+  ``x0_blocks`` ranges, the pieces concatenated ``torch.equal`` to the
+  single sweep's outputs and the combined lnZ, MAP id and moments equal
+  to its; each kernel against its plain version at a nonzero offset; a
+  34-variable chain's lse and map over 2 and 4 ranges, ids past 2^33;
+* the sharded sweeps (phase sharded, launches counted): every sweep and
+  shot path of ``parallel/sharded.py`` on ``Mesh((cuda:0,) * 4)``, four
+  shards on the one card, against the same call without a mesh (MAP ids
+  equal, lnZ within 1e-5, moments 1e-6, PAM and AIS equal, shot
+  estimates within 5 binomial sigma), then ``infer --mesh 2x2`` and
+  ``train --mesh 2x2`` at the JAX pins' bars; times of one device and of
+  the four shards, labelled as shards on one card;
+* ``python -m qcmrf_tpu_torch bench --json --trace`` in a subprocess and
+  ``runners.bench.record()`` (phase bench), each printed as one JSON
+  line, every key finite and record()'s keys BENCH_r05.json's less the
+  ones the port leaves out; the device busy and idle share
+  (``profiling.device_busy``) of the headline sampler call, the K27 infer
+  batch, a K27 ``train_cli`` step and the calibrated noise run.
 
 The dense lane kernel (three TF32 products a term on the tensor cores)
 is held to the float64 product of its input at widths 8, 24 and 28: a
@@ -83,6 +102,7 @@ Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -1247,6 +1267,8 @@ def phase_infer(dev, report) -> dict:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = read_counts()
+        profiled("infer K27 batch (8 queries)", report, lambda: quiet(
+            infer_cli.main, argv))
     require(len(out.getvalue().splitlines()) == len(INFER_QUERIES),
             f"{len(INFER_QUERIES)} JSON lines printed")
     print(f"  K27 batch of {len(INFER_QUERIES)} queries through infer_cli: "
@@ -1333,7 +1355,7 @@ def time_k27_queries(cliques, theta, dev) -> list:
                                   method="exact")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        infer_cli._answer(mrf, args, 1.0)
+        infer_cli._answer(mrf, args, None, 1.0)
         torch.cuda.synchronize()
         rows.append(dict(query=q, seconds=time.perf_counter() - t0))
         print(f"  {json.dumps(q)}: {rows[-1]['seconds']:.4f} s")
@@ -1677,6 +1699,9 @@ def phase_train(dev, report) -> dict:
                                            str(TRAIN_STEPS))),
             "fitted_model.json holds the last step's loss and 1404 thetas; "
             f"ckpt/{TRAIN_STEPS} written")
+    profiled("train_cli K27, one step", report, lambda: run_train_cli(
+        ["--graph", graph, "--data", data, "--steps", "1",
+         "--outdir", os.path.join(out_dir, "one")]))
 
     # the K27 step in bench.py's meaning, and the two sweeps it replaces
     raw = mtrain._from_theta(mrf.theta, True).requires_grad_()
@@ -3497,6 +3522,9 @@ def phase_noise(dev, report) -> dict:
             if engine == "noisy:torino":
                 shutil.copy(r["path"], os.path.join(
                     root, "res_0.1", "result_noisy_torino.json"))
+            else:
+                profiled("run --engine calibrated:torino -> eval", report,
+                         lambda: run_noise_engine(engine, 0.1, root, dev))
         for scale in NOISE_SCALES[1:]:
             r = run_noise_engine("noisy:torino", scale, root, dev)
             shutil.copy(r["path"], os.path.join(
@@ -3518,6 +3546,550 @@ def phase_noise(dev, report) -> dict:
     out["wide"] = time_wide_evolution(suite, model, dev)
     report["noise"] = out
     return out
+
+
+# ---------------------------------------------------------------------------
+# The state-id offset of rows 2-7, the sharded sweeps, bench and profiles
+# ---------------------------------------------------------------------------
+
+
+def profiled(label: str, report, fn):
+    """``fn()`` under ``profiling.trace`` (a trace in a temporary
+    directory): the CUDA kernels' busy time and the idle share of the
+    traced window (``profiling.device_busy``), printed and kept in
+    ``report["busy"][label]``. Returns ``fn()``'s result."""
+    from qcmrf_tpu_torch.utils import profiling
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        with profiling.trace(d):
+            out = fn()
+        b = profiling.device_busy(profiling.trace_files(d)[-1])
+    report.setdefault("busy", {})[label] = b
+    top = ", ".join(f"{name[:40]} {ms:.3f} ms x{k}"
+                    for name, ms, k in b["top"][:3])
+    print(f"  [profile] {label}: {b['kernels']} kernels, busy "
+          f"{b['busy_ms']:.3f} ms, union {b['union_ms']:.3f} ms of a "
+          f"{b['window_ms']:.3f} ms window: idle share "
+          f"{b['idle_share']:.4f}; longest gap "
+          f"{(b['gaps'] or [[0, 0]])[0][1]:.3f} ms; top: {top} "
+          f"({time.perf_counter() - t0:.1f} s, trace written and read)")
+    require(b["kernels"] > 0, f"{label}: the trace holds the card's kernels")
+    return out
+
+
+def quiet(fn, *args):
+    """``fn(*args)`` with its standard output dropped."""
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*args)
+
+
+def ranges(n: int, pieces: int) -> list:
+    """``pieces`` equal ``(x0_blocks, blocks)`` ranges of an n-variable
+    sweep."""
+    from qcmrf_tpu_torch.ops import kernels
+
+    per = kernels.lse_geometry(1 << n)[0] // pieces
+    return [(i * per, per) for i in range(pieces)]
+
+
+def offset_outputs(mrf, lnz, rng=(0, None)) -> dict:
+    """Rows 2, 4, 5, 6 and 7 over one range (the whole sweep by default):
+    the table (n <= 28), the lse, map, moments (for ``lnz``) and fused
+    partials, each with its blocks along dimension 1."""
+    from qcmrf_tpu_torch.ops import kernels
+    from qcmrf_tpu_torch.utils import moebius
+
+    x0, b = rng
+    cl, n, beta = mrf.cliques, mrf.n, mrf.beta
+    coef = kernels.moebius_coefficients(mrf)[None]
+    masks = moebius.device_masks(cl, n, mrf.device)
+    out = dict(zip(("lse_m", "lse_s"), kernels.lse_partials(
+        cl, n, coef, beta, x0, b)))
+    out.update(zip(("map_v", "map_x"), kernels.map_partials(
+        cl, n, coef, beta, None, x0, b)))
+    out["moments"] = kernels.monomial_moment_partials(cl, n, coef, beta,
+                                                      lnz, masks, x0, b)
+    out.update(zip(("fused_m", "fused_s"), kernels.lnz_moments_partials(
+        cl, n, coef, beta, masks, x0, b)))
+    if n <= 28:
+        out["table"] = kernels.logpot_table(cl, n, coef, beta, False, x0, b)
+    return out
+
+
+def combined(o) -> tuple:
+    """(lnZ, MAP id, moments, fused lnZ) from a sweep's outputs."""
+    from qcmrf_tpu_torch.ops import kernels
+
+    fused = kernels.combine_lnz_moments(o["fused_m"], o["fused_s"])
+    return (kernels.combine_lse(o["lse_m"], o["lse_s"]),
+            kernels.combine_map(o["map_v"], o["map_x"])[1],
+            o["moments"].sum(dim=1, dtype=torch.float64), fused[0],
+            fused[1])
+
+
+def check_offset_plain(mrf, lnz, what: str) -> float:
+    """Each kernel against its plain version on one block at a nonzero
+    offset (the last block): the table bit for bit against the split's,
+    map bit for bit, lse, the moments and the fused sweep within 1e-4 /
+    1e-6 of the chain's. Returns the largest lse / moments difference."""
+    from qcmrf_tpu_torch.ops import kernels
+    from qcmrf_tpu_torch.utils import moebius
+
+    cl, n, beta = mrf.cliques, mrf.n, mrf.beta
+    coef = kernels.moebius_coefficients(mrf)[None]
+    masks = moebius.device_masks(cl, n, mrf.device)
+    x0 = kernels.lse_geometry(1 << n)[0] - 1
+    rng = (x0, 1)
+    require(torch.equal(
+        kernels.logpot_table(cl, n, coef, beta, False, *rng),
+        kernels.logpot_table_split_reference(cl, n, coef, beta, False,
+                                             *rng)),
+            f"{what}: the table at x0_blocks={x0} == its split plain "
+            "version (torch.equal)")
+    got = kernels.map_partials(cl, n, coef, beta, None, *rng)
+    want = kernels.map_partials_reference(cl, n, coef, beta, *rng)
+    require(all(torch.equal(g, w) for g, w in zip(got, want)),
+            f"{what}: map at x0_blocks={x0} == its plain version "
+            f"(id {int(got[1][0, 0])})")
+    e_lse = abs(float(kernels.combine_lse(*kernels.lse_partials(
+        cl, n, coef, beta, *rng))[0]) - float(kernels.combine_lse(
+            *kernels.lse_partials_reference(cl, n, coef, beta, *rng))[0]))
+    require(e_lse <= 1e-4, f"{what}: lse at x0_blocks={x0} within 1e-4 of "
+                           f"its plain version ({e_lse:.2e})")
+    e_mom = float((kernels.monomial_moments(cl, n, coef, beta, lnz, masks,
+                                            *rng)
+                   - kernels.monomial_moments_reference(
+                       cl, n, coef.double(), beta, lnz.double(), masks,
+                       *rng)).abs().max())
+    require(e_mom <= 1e-6, f"{what}: moments at x0_blocks={x0} within 1e-6 "
+                           f"of the chain in float64 ({e_mom:.2e})")
+    gz, gm = kernels.combine_lnz_moments(*kernels.lnz_moments_partials(
+        cl, n, coef, beta, masks, *rng))
+    wz, wm = kernels.combine_lnz_moments(
+        *kernels.lnz_moments_partials_reference(cl, n, coef, beta, masks,
+                                                *rng))
+    e_fused = max(abs(float(gz[0] - wz[0])), float((gm - wm).abs().max()))
+    require(e_fused <= 1e-5, f"{what}: the fused sweep at x0_blocks={x0} "
+                             f"within 1e-5 of its plain version "
+                             f"({e_fused:.2e})")
+    return max(e_lse, e_mom, e_fused)
+
+
+def phase_offset(dev, report) -> None:
+    """Rows 2, 4, 5, 6 and 7 with the state-id offset: on K27 and the n=28
+    grid, the sweep split into 2 and 4 block ranges by ``x0_blocks``, the
+    pieces concatenated in range order ``torch.equal`` to the single
+    sweep's outputs, and the combined lnZ, MAP id and moments equal to its;
+    each kernel against its plain version at a nonzero offset; a
+    34-variable chain's map and lse over 2 and 4 ranges (ids past 2^33)."""
+    from qcmrf_tpu_torch.models.mrf import MRF
+    from qcmrf_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    print("[offset] rows 2, 4, 5, 6, 7 over 2 and 4 x0_blocks ranges")
+    models = (("K27", MRF.create(complete_cliques(INFER_N),
+                                 theta=k27_theta(), device=dev)),
+              ("n=28 grid 4x7", grid_model(4, 7, 2, dev)))
+    err = 0.0
+    for what, mrf in models:
+        lnz = kernels.log_partition(mrf)[None]
+        whole = offset_outputs(mrf, lnz)
+        want = combined(whole)
+        for pieces in (2, 4):
+            outs = [offset_outputs(mrf, lnz, r)
+                    for r in ranges(mrf.n, pieces)]
+            cat = {k: torch.cat([o[k] for o in outs], dim=1) for k in whole}
+            same = [k for k in whole if torch.equal(cat[k], whole[k])]
+            require(len(same) == len(whole),
+                    f"{what}: {pieces} ranges concatenate to the single "
+                    f"sweep's {sorted(whole)} (torch.equal; equal: {same})")
+            got = combined(cat)
+            require(all(torch.equal(g, w) for g, w in zip(got, want)),
+                    f"{what}: {pieces} ranges give the single sweep's lnZ "
+                    f"{float(want[0][0]):.6f}, MAP id {int(want[1][0])} and "
+                    "moments (equal)")
+        err = max(err, check_offset_plain(mrf, lnz, what))
+        del whole, outs, cat
+        torch.cuda.empty_cache()
+    chain = seeded_model([[i, i + 1] for i in range(33)], 5, 0.3, dev)
+    whole = [*kernels_lse_map(chain)]
+    for pieces in (2, 4):
+        rngs = ranges(34, pieces)
+        outs = [kernels_lse_map(chain, r) for r in rngs]
+        cat = [torch.cat([o[k] for o in outs], dim=1) for k in range(4)]
+        require(all(torch.equal(c, w) for c, w in zip(cat, whole)),
+                f"34-chain: lse and map over {pieces} ranges == the single "
+                "sweep (torch.equal)")
+        lo = rngs[-1][0] * kernels.lse_geometry(1 << 34)[1]
+        ids = outs[-1][3]
+        require(bool((ids >= lo).all()) and lo >= 1 << 31,
+                f"34-chain: the upper range's ids start at {lo} (past 2^31) "
+                f"and its MAP ids lie in it (max {int(ids.max())})")
+    err = max(err, check_offset_plain(
+        chain, kernels.log_partition(chain)[None], "34-chain"))
+    report["offset"] = dict(max_plain_err=err,
+                            seconds=time.perf_counter() - t0)
+    print(f"  offset phase {report['offset']['seconds']:.1f} s")
+
+
+def kernels_lse_map(mrf, rng=(0, None)):
+    """(lse m, lse s, map v, map x) of one range."""
+    from qcmrf_tpu_torch.ops import kernels
+
+    coef = kernels.moebius_coefficients(mrf)[None]
+    args = (mrf.cliques, mrf.n, coef, mrf.beta)
+    return (*kernels.lse_partials(*args, *rng),
+            *kernels.map_partials(*args, None, *rng))
+
+
+def binomial_ok(p_hat: float, p: float, shots: int) -> bool:
+    return abs(p_hat - p) <= 5 * math.sqrt(p * (1 - p) / shots)
+
+
+def per_shard(kernel: str, shards: int, what: str, fn):
+    """``fn()``, required to launch ``kernel`` a multiple of ``shards``
+    times and at least once a shard (every shard's sweep or draw went
+    through the kernel). Returns ``fn()``'s result."""
+    before = read_counts()[kernel]
+    out = fn()
+    k = read_counts()[kernel] - before
+    require(k >= shards and k % shards == 0,
+            f"{what}: {k} {kernel} launches, one or more a shard of "
+            f"{shards}")
+    return out
+
+
+@contextlib.contextmanager
+def four_shards(dev):
+    """``sharded.visible_devices`` as four shards of ``dev`` while the
+    block runs, so that the CLIs' ``--mesh 2x2`` builds
+    ``Mesh((dev,) * 4)`` (the card is one device to the program)."""
+    from qcmrf_tpu_torch.parallel import sharded
+
+    real = sharded.visible_devices
+    sharded.visible_devices = lambda device=None: (dev,) * 4
+    try:
+        yield
+    finally:
+        sharded.visible_devices = real
+
+
+def sharded_models(dev) -> dict:
+    from qcmrf_tpu_torch.models.mrf import MRF
+
+    return {"K27": MRF.create(complete_cliques(INFER_N), theta=k27_theta(),
+                              device=dev),
+            "n=28 grid 4x7": grid_model(4, 7, 2, dev),
+            "n=24 grid 4x6": grid_model(4, 6, 3, dev),
+            "PAM n=24": pam_n24(dev),
+            "n=20 grid 4x5": grid_model(4, 5, 0, dev),
+            "n=8 blocks": MRF.create(
+                complete_cliques(8), theta=np.random.RandomState(4).randn(
+                    4 * 28).astype(np.float32) * -0.1, device=dev)}
+
+
+#: the sharded path's shot count: the n=20 grid's estimates and draws
+SHARD_SHOTS = 1 << 24
+
+
+def sharded_calls(models: dict, mesh) -> dict:
+    """Every sweep and shot path of ``parallel/sharded.py`` and the AIS
+    chains on ``mesh``, each required to launch its kernel a shard at a
+    time (:func:`per_shard`): their answers by name."""
+    from qcmrf_tpu_torch.models import ais
+    from qcmrf_tpu_torch.parallel import sharded
+
+    D, out = mesh.size, {}
+    for what in ("K27", "n=28 grid 4x7"):
+        m = models[what]
+        out[what, "lnZ"] = per_shard(
+            "lse", D, f"{what} sharded lnZ",
+            lambda: sharded.sharded_log_partition(m, mesh))
+        out[what, "MAP"] = per_shard(
+            "map", D, f"{what} sharded MAP",
+            lambda: sharded.sharded_map_state(m, mesh))
+        out[what, "moments"] = per_shard(
+            "moments", D, f"{what} sharded moments",
+            lambda: sharded.sharded_clique_moments(m, mesh,
+                                                   out[what, "lnZ"]))
+        out[what, "fused"] = per_shard(
+            "lnz_moments", D, f"{what} sharded lnZ + moments",
+            lambda: sharded.sharded_lnz_and_moments(m, mesh))
+    m24 = models["n=24 grid 4x6"]
+    out["gibbs"] = per_shard("logpot", D, "n=24 sharded Gibbs table",
+                             lambda: sharded.sharded_gibbs_probs(m24, mesh))
+    out["success"] = per_shard(
+        "lse", D, "n=24 sharded success rate",
+        lambda: float(sharded.sharded_success_rate(m24, mesh)))
+    out["pam"] = per_shard("map", D, "PAM n=24 sharded",
+                           lambda: sharded.sharded_sample_pam(
+                               3, models["PAM n=24"], mesh, 16))
+    m20 = models["n=20 grid 4x5"]
+    out["delta"] = per_shard("sampler", D, "n=20 sharded delta estimates",
+                             lambda: sharded.sharded_estimate_delta(
+                                 11, m20, mesh, SHARD_SHOTS, 3))
+    out["shot moments"] = per_shard(
+        "sampler", D, "n=20 sharded shot moments",
+        lambda: sharded.sharded_shot_moments(11, m20, mesh, SHARD_SHOTS))
+    out["postselected"] = per_shard(
+        "sampler", D, "n=20 sharded post-selected shots",
+        lambda: sharded.sharded_sample_postselected(11, m20, mesh,
+                                                    SHARD_SHOTS))
+    out["ais"] = per_shard("gibbs_ais", D, "AIS chains over the shards",
+                           lambda: ais._run(7, models["n=8 blocks"], 256,
+                                            32, 1, 0, mesh))
+    torch.cuda.synchronize()
+    return out
+
+
+def k27_files(tmp) -> list:
+    """``infer``'s K27 arguments: the graph and theta files in ``tmp``."""
+    graph = os.path.join(tmp, "k27.json")
+    theta = os.path.join(tmp, "theta.json")
+    with open(graph, "w") as f:
+        json.dump(complete_cliques(INFER_N), f)
+    with open(theta, "w") as f:
+        json.dump(k27_theta().tolist(), f)
+    return ["--graph", graph, "--theta", theta, "--platform", "gpu"]
+
+
+#: the sharded path's CLI runs: infer queries on K27, train fits on a
+#: 5-chain (exact and shot gradients)
+SHARD_QUERIES = (["--query", "lnz"],
+                 ["--query", "marginals", "--evidence", "2=1"],
+                 ["--query", "map", "--evidence", "0=1"])
+SHARD_FITS = (("exact", []),
+              ("shots", ["--grad", "shots", "--grad-shots", "8192"]))
+
+
+def sharded_clis(tmp, mesh_args) -> tuple:
+    """``infer`` (:data:`SHARD_QUERIES` on K27) and ``train``
+    (:data:`SHARD_FITS`, 60 steps of a 5-chain) with ``mesh_args``
+    appended: (answers, fitted docs, seconds of each command)."""
+    from qcmrf_tpu_torch.runners import infer_cli, train_cli
+
+    base, answers, fits, secs = k27_files(tmp), [], {}, []
+    for q in SHARD_QUERIES:
+        t0 = time.perf_counter()
+        answers.append(quiet(infer_cli.main, base + q + mesh_args))
+        secs.append(time.perf_counter() - t0)
+    for label, extra in SHARD_FITS:
+        t0 = time.perf_counter()
+        out = quiet(train_cli.main, [
+            "--graph", "chain:5", "--steps", "60", "--checkpoint-every", "60",
+            "--platform", "gpu", "--outdir", os.path.join(
+                tmp, label + str(len(mesh_args)))] + extra + mesh_args)
+        with open(out) as f:
+            fits[label] = json.load(f)
+        secs.append(time.perf_counter() - t0)
+    return answers, fits, secs
+
+
+def phase_sharded(dev, report) -> dict:
+    """The sharded path (slice 6a) alone, launch counts reset just before
+    it and read just after: every sweep and shot path of
+    ``parallel/sharded.py`` and the AIS chains on ``Mesh((cuda:0,) * 4)``,
+    four shards on the one card, each launching its kernel a shard at a
+    time, then ``infer --mesh 2x2`` and ``train --mesh 2x2`` on the same
+    four shards. Outside that window, the same calls without a mesh and
+    the comparison: MAP ids equal, lnZ within 1e-5, moments within 1e-6,
+    PAM and AIS equal (one generator, the same chains), the shot estimates
+    within 5 binomial sigma, the CLIs at the JAX pins' bars
+    (tests/test_infer_cli.py: lnZ rtol 1e-5, marginals 2e-5;
+    tests/test_train_cli.py: theta within 5e-3 exact, 0.35 and NLL under
+    3.2 with shots); then one device's and the four shards' times,
+    labelled as shards on one card, not as a multi-chip figure. Returns
+    the path's launch counts."""
+    from qcmrf_tpu_torch.models import ais, moments
+    from qcmrf_tpu_torch.models import sample as msample
+    from qcmrf_tpu_torch.ops import kernels
+    from qcmrf_tpu_torch.parallel import sharded
+
+    t_phase = time.perf_counter()
+    mesh = sharded.Mesh((dev,) * 4)
+    models = sharded_models(dev)
+    print("[sharded] Mesh((cuda:0,) * 4): four shards on one card")
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        reset_counts()
+        got = sharded_calls(models, mesh)
+        with four_shards(dev):
+            answers4, fits4, secs4 = sharded_clis(tmp, ["--mesh", "2x2"])
+        torch.cuda.synchronize()
+        launches = read_counts()
+        print(f"  the sharded path's launches: {launches}")
+        answers1, fits1, secs1 = sharded_clis(tmp, [])
+
+    for what in ("K27", "n=28 grid 4x7"):
+        m = models[what]
+        lnz1 = kernels.log_partition(m)
+        e = abs(float(got[what, "lnZ"] - lnz1))
+        require(e <= 1e-5, f"{what}: sharded lnZ {float(got[what, 'lnZ']):.6f}"
+                           f" within 1e-5 of one device's ({e:.2e})")
+        require(got[what, "MAP"] == kernels.map_state_streaming(m),
+                f"{what}: sharded MAP id == one device's")
+        e_mu = float((got[what, "moments"]
+                      - moments.clique_moments_streaming(m, lnz1))
+                     .abs().max())
+        require(e_mu <= 1e-6, f"{what}: sharded moments within 1e-6 "
+                              f"({e_mu:.2e})")
+        fz1, fm1 = kernels.lnz_and_moments(m.cliques, m.n, m.theta, m.beta)
+        fz4, fm4 = got[what, "fused"]
+        e_f = max(abs(float(fz4 - fz1)), float((fm4 - fm1).abs().max()))
+        require(e_f <= 1e-6, f"{what}: sharded fused lnZ and moments within "
+                             f"1e-6 ({e_f:.2e})")
+    m24 = models["n=24 grid 4x6"]
+    require(torch.equal(got["gibbs"], m24.gibbs_probs()),
+            "n=24: sharded Gibbs table == one device's (torch.equal)")
+    d24 = float(m24.success_rate())
+    require(abs(got["success"] - d24) <= 1e-6 * d24,
+            "n=24: sharded success rate == one device's")
+    require(torch.equal(got["pam"], msample.sample_pam_streaming(
+        3, models["PAM n=24"], 16)),
+            "PAM n=24: 16 sharded samples == one device's from one generator"
+            " seed (equal, so equal in distribution)")
+    m20 = models["n=20 grid 4x5"]
+    delta, shots = float(m20.success_rate()), SHARD_SHOTS
+    require(all(binomial_ok(float(e), delta, shots) for e in got["delta"]),
+            f"n=20 grid: 3 sharded delta estimates {got['delta'].tolist()} "
+            f"within 5 binomial sigma of Z/2^n {delta:.6e}")
+    marg, dhat = got["shot moments"]
+    mu = kernels.lnz_and_moments(m20.cliques, m20.n, m20.theta,
+                                 m20.beta)[1].double()
+    sig = torch.sqrt(mu * (1 - mu) / (dhat * shots))
+    require(binomial_ok(dhat, delta, shots)
+            and bool(((marg - mu).abs() <= 5 * sig + 1e-12).all()),
+            f"n=20 grid: sharded shot moments within 5 sigma of the exact "
+            f"marginals, delta-hat {dhat:.6e}")
+    x, a = got["postselected"]
+    require(x.shape == (shots,) and binomial_ok(float(a.float().mean()),
+                                                delta, shots),
+            "n=20 grid: sharded post-selected shots, acceptance within 5 "
+            "sigma")
+    lw1, b1 = ais._run(7, models["n=8 blocks"], 256, 32, 1, 0, None)
+    require(torch.equal(lw1, got["ais"][0]) and torch.equal(b1,
+                                                           got["ais"][1]),
+            "AIS: 256 chains over 4 shards == one launch (log-weights and "
+            "states equal)")
+
+    for q, g, w, t4, t1 in zip(SHARD_QUERIES, answers4, answers1, secs4,
+                               secs1):
+        if "lnz" in w:
+            ok = abs(g["lnz"] - w["lnz"]) <= 1e-5 * abs(w["lnz"])
+        elif "marginals" in w:
+            ok = np.allclose(g["marginals"], w["marginals"], rtol=0,
+                             atol=2e-5)
+        else:
+            ok = g["state_bits"] == w["state_bits"]
+        require(ok, f"infer {' '.join(q)} --mesh 2x2 on K27 == without a "
+                    f"mesh (JAX's bars); {t4:.3f} s on four shards of one "
+                    f"card, {t1:.3f} s on one")
+    gap = float(np.abs(np.subtract(fits4["exact"]["theta"],
+                                   fits1["exact"]["theta"])).max())
+    require(gap <= 5e-3, f"train chain:5 --mesh 2x2, 60 exact steps: theta "
+                         f"within 5e-3 of one device's ({gap:.2e}); "
+                         f"{secs4[3]:.3f} s / {secs1[3]:.3f} s")
+    sgap = float(np.abs(np.subtract(fits4["shots"]["theta"],
+                                    fits1["shots"]["theta"])).max())
+    nll = fits4["shots"]["final_nll"]
+    require(sgap <= 0.35 and nll < 3.2,
+            f"train --grad shots --mesh 2x2: theta within 0.35 ({sgap:.3f}),"
+            f" final NLL {nll:.3f} < 3.2")
+
+    rows = {}
+    for what in ("K27", "n=28 grid 4x7"):
+        m = models[what]
+        t = {"lnZ": (lambda: kernels.log_partition(m),
+                     lambda: sharded.sharded_log_partition(m, mesh)),
+             "lnZ + moments": (
+                 lambda: kernels.lnz_and_moments(m.cliques, m.n, m.theta,
+                                                 m.beta),
+                 lambda: sharded.sharded_lnz_and_moments(m, mesh)),
+             "MAP": (lambda: kernels.map_state_streaming(m),
+                     lambda: sharded.sharded_map_state(m, mesh))}
+        rows[what] = {k: dict(one_ms=cuda_ms(a, reps=5),
+                              shards4_ms=cuda_ms(b, reps=5))
+                      for k, (a, b) in t.items()}
+        print(f"  {what}: lnZ, MAP and moments as one device's; times, one "
+              "device vs four shards on one card: " + "; ".join(
+                  f"{k} {r['one_ms']:.3f} / {r['shards4_ms']:.3f} ms"
+                  for k, r in rows[what].items()))
+    report["sharded"] = dict(times=rows, launches=launches,
+                             cli_seconds=dict(shards4=secs4, one=secs1),
+                             seconds=time.perf_counter() - t_phase)
+    print(f"  sharded phase {report['sharded']['seconds']:.1f} s")
+    return launches
+
+
+def finite_leaves(v) -> bool:
+    if isinstance(v, dict):
+        return all(finite_leaves(x) for x in v.values())
+    if isinstance(v, (list, tuple)):
+        return all(finite_leaves(x) for x in v)
+    if isinstance(v, str):
+        return True
+    return isinstance(v, (int, float)) and math.isfinite(v)
+
+
+#: the keys of ``python -m qcmrf_tpu_torch bench --json --trace``
+BENCH_KEYS = ("n", "cliques", "backend", "power_limit",
+              "sampler_shots_per_sec", "trace_dir", "trace", "logpot_ms",
+              "logpot_write_gbps", "lnZ_ms", "gate_bw_n", "gate_lane_gbps",
+              "gate_row_gbps", "suite70_gate_level_ms")
+
+
+def phase_bench(dev, report) -> dict:
+    """``python -m qcmrf_tpu_torch bench --json --trace <dir>`` in a
+    subprocess and ``runners.bench.record()`` in this process, each
+    printed as one JSON line: every key present and finite, record()'s
+    key set equal to BENCH_r05.json's less the listed exclusions (and
+    fma_peak_tflops in place of vpu_peak_tflops); the headline sampler
+    call's device busy and idle share from the bench's trace."""
+    from qcmrf_tpu_torch.runners import bench
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        r = subprocess.run(
+            [sys.executable, "-m", "qcmrf_tpu_torch", "bench", "--json",
+             "--trace", d], cwd=root, capture_output=True, text=True,
+            timeout=600)
+        if r.returncode != 0:
+            raise AssertionError(f"bench exited {r.returncode}: "
+                                 f"{r.stderr[-2000:]}")
+    line = r.stdout.strip().splitlines()[-1]
+    cmd = json.loads(line)
+    print(f"[bench] python -m qcmrf_tpu_torch bench --json --trace "
+          f"({time.perf_counter() - t0:.1f} s):")
+    print(line)
+    require(set(cmd) == set(BENCH_KEYS) and finite_leaves(cmd)
+            and cmd["trace"]["kernels"] > 0,
+            "bench: JAX's bench keys (with trace_dir, trace and the power "
+            "limit), every one finite; the trace holds the sampler's "
+            "kernels")
+    report.setdefault("busy", {})["sampler headline (bench --trace)"] = \
+        cmd["trace"]
+    print(f"  [profile] the headline sampler call (bench --trace): busy "
+          f"{cmd['trace']['busy_ms']:.3f} ms of a "
+          f"{cmd['trace']['window_ms']:.3f} ms window: idle share "
+          f"{cmd['trace']['idle_share']:.4f}")
+    t0 = time.perf_counter()
+    rec = bench.record(dev)
+    print(f"[bench] runners.bench.record() ({time.perf_counter() - t0:.1f} "
+          "s):")
+    print(json.dumps(rec))
+    with open(os.path.join(root, "BENCH_r05.json")) as f:
+        r05 = set(json.load(f)["parsed"])
+    want = (r05 - set(bench.RECORD_LEFT_OUT)) | {"fma_peak_tflops"}
+    require(set(rec) == want and finite_leaves(rec),
+            f"record(): {len(rec)} keys, BENCH_r05's less "
+            f"{len(r05 - want)} left out, with fma_peak_tflops; every one "
+            "finite")
+    report["bench"] = dict(command=cmd, record=rec)
+    return rec
 
 
 def gate_entry(kind, report, launches) -> dict:
@@ -3654,6 +4226,18 @@ def print_ptxas(path) -> None:
                   + line.replace("ptxas info    :", "").strip())
 
 
+#: the script's start on the host clock
+T_START = time.perf_counter()
+#: (phase, seconds since the start) as each phase ends
+CLOCK = []
+
+
+def clock(phase: str) -> None:
+    """Note and print the seconds since the start as ``phase`` ends."""
+    CLOCK.append((phase, round(time.perf_counter() - T_START, 1)))
+    print(f"[clock] {phase} done at {CLOCK[-1][1]:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: PyTorch sees no CUDA device", file=sys.stderr)
@@ -3687,46 +4271,76 @@ def main() -> int:
           f"CUDA {torch.version.cuda}")
     print(smi)
 
+    clock("build")
     phase_sampler(dev, report, path)
+    clock("sampler")
     phase_logpot(dev, report)
     phase_lnz(dev, report)
+    clock("logpot, lnZ")
+    phase_offset(dev, report)
+    clock("offset")
     phase_suite_shapes(dev)
     launches = phase_main_path(dev, "analytic", {
         "sampler": None, "logpot": None, "lse": None})
     phase_circuit_kernel(dev, report)
     sv = phase_main_path(dev, "statevector", {
         "circuit": 1, "logpot": None, "lse": None})
+    clock("main paths, circuit kernel")
     # the table kernel's paths: both run engines, and below the train
     # CLI's own data draw and sample_exact's K27 table (phase_train)
     report["logpot"]["launches_by_path"] = {
         "run analytic": launches["logpot"], "run statevector": sv["logpot"]}
     infer = phase_infer(dev, report)
+    clock("infer")
     train = phase_train(dev, report)
+    clock("train")
     smp = phase_samplers(dev, report)
+    clock("samplers")
     ais_path = phase_ais(dev, report)
+    clock("ais")
     noise = phase_noise(dev, report)
+    clock("noise")
+    # the sharded path: every sweep, shot path and CLI of slice 6a
+    shard = phase_sharded(dev, report)
+    for k in ("logpot", "lse", "map", "moments", "lnz_moments", "sampler",
+              "gibbs_ais"):
+        require(shard[k] > 0, f"kernel {k} launched {shard[k]} times on the "
+                              "sharded path")
+    clock("sharded")
     phase_sandwich_kernels(dev, report)
     phase_gate_level(dev, report)
     gate = report["main_gate_level"]
+    clock("sandwich kernels, gate level")
     phase_gate_kernels(dev, report)
+    clock("gate kernels")
     lowered = phase_lowered_chain(dev, report)
     phase_small_circuits(dev)
+    clock("lowered chain, small circuits")
     rates = phase_rates(dev, report)
+    clock("rates")
+    phase_bench(dev, report)
+    clock("bench")
 
     kernels_line = []
     report["logpot"]["launches_by_path"]["samplers"] = smp["logpot"]
     # the noise path: run --engine calibrated:torino -> eval
     cal = noise["calibrated:torino"]["launches"]
     report["logpot"]["launches_by_path"]["noise"] = cal["logpot"]
+    report["logpot"]["launches_by_path"]["sharded"] = shard["logpot"]
     report["lse"]["launches_by_path"] = {"run analytic": launches["lse"],
-                                         "noise": cal["lse"]}
+                                         "noise": cal["lse"],
+                                         "sharded": shard["lse"]}
     launches["logpot"] = sum(report["logpot"]["launches_by_path"].values())
     launches["lse"] = sum(report["lse"]["launches_by_path"].values())
     for k, by in (("sampler", {"run analytic": launches["sampler"]}),
                   ("map", {"infer K27": infer["map"]}),
                   ("lnz_moments", {"train K27": train["lnz_moments"]})):
         by["samplers"] = smp[k]
+        by["sharded"] = shard[k]
         report[k]["launches_by_path"] = by
+    report["moments"]["launches_by_path"] = {
+        "infer K27": infer["moments"], "sharded": shard["moments"]}
+    infer["moments"] = shard["moments"] + infer["moments"]
     launches["sampler"] = sum(report["sampler"]["launches_by_path"].values())
     infer["map"] = sum(report["map"]["launches_by_path"].values())
     train["lnz_moments"] = sum(
@@ -3754,7 +4368,8 @@ def main() -> int:
     kernels_line.append(dict(launches=smp["gibbs"], library_ms=None,
                              **report["gibbs"]))
     # the AIS mode: no TPU kernel and no one PyTorch call either
-    kernels_line.append(dict(launches=ais_path["gibbs_ais"], library_ms=None,
+    kernels_line.append(dict(launches=ais_path["gibbs_ais"]
+                             + shard["gibbs_ais"], library_ms=None,
                              **report["gibbs_ais"]))
     for k, entry in zip(("sampler", "logpot", "lse", "hdh_multi",
                          "hdh_multi_uniform", "circuit", "map", "moments",
@@ -3778,8 +4393,9 @@ def main() -> int:
                      "lane_float64", "lane_sass",
                      "lane_factored_library_ms", "row_gate_library_ms",
                      "row_library_by_qubit", "train", "fma_peak",
-                     "samplers", "gibbs", "ais", "gibbs_ais", "noise")}), f,
-                  indent=1, default=str)
+                     "samplers", "gibbs", "ais", "gibbs_ais", "noise",
+                     "offset", "sharded", "bench", "busy")}, clock=CLOCK),
+                  f, indent=1, default=str)
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(f"[card] {smi}")
     print(json.dumps({"kernels": kernels_line}))

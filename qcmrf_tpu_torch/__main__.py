@@ -10,9 +10,12 @@ Commands:
               (--method ais: annealed importance sampling, no cap)
     train     MLE training (exact, shot and AIS gradients, bit-array data
               past n = 30, structure learning), with checkpoints
+    bench     micro-benchmarks on the card: sampler shots/s, table, lnZ,
+              gate rates, the suite's gate-level circuits (--json,
+              --trace DIR for a Kineto trace)
 
-The JAX package's bench command comes to the port with a later slice of
-ROADMAP.md.
+``infer`` and ``train`` take ``--mesh AxB`` (the sweeps, shots and AIS
+chains sharded over a device mesh).
 """
 
 from __future__ import annotations
@@ -44,6 +47,10 @@ def main(argv=None) -> int:
         m(rest)
     elif cmd == "train":
         from qcmrf_tpu_torch.runners.train_cli import main as m
+
+        m(rest)
+    elif cmd == "bench":
+        from qcmrf_tpu_torch.runners.bench import main as m
 
         m(rest)
     else:

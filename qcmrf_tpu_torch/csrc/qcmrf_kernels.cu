@@ -335,6 +335,24 @@ sampler_kernel(const float* __restrict__ keep, const int* __restrict__ shifts,
 // atomics: every sum has one order, and two launches on the same inputs
 // are bit-equal.
 //
+// The state-id offset (the JAX loop kernels' x0_blocks). Every split
+// kernel sweeps `parts` blocks of per_block ids (lse_geometry of the whole
+// 2^n sweep) starting at block x0_blocks, in 64 bits: its block p covers
+// ids [(x0_blocks + p) * per_block, (x0_blocks + p + 1) * per_block), and
+// its outputs are indexed by p. per_block is a multiple of 2^L (L <=
+// log2 per_block), so the offset x0_blocks * per_block is a multiple of
+// 2^L: it moves only id bits L and up, the sub-block index h = x >> L
+// (by x0_blocks * per_block >> L), never the low bits xl inside a
+// sub-block. The split's block-invariant part is a function of xl and of
+// the structure alone: the monomials' targets t, the plan's items, the
+// monomial coefficients c_g and the transform's stages. It is the same at
+// any offset. Only the tests (h & hm) == hm that pick each sub-block's P
+// (and the moments' (h & (mask >> L)) tests) see the moved bits, and they
+// take the absolute h. So a sweep split into block ranges evaluates every
+// state exactly as the whole sweep does, and its partials, in range order,
+// are the whole sweep's bit for bit (at x0_blocks = 0, the sweep of before
+// the offset existed). Ids past 2^31 stay exact: h and x are 64-bit.
+//
 // A thread holds R = 2^L / 256 values of a sub-block (R = 1 below L = 8,
 // where threads past 2^L idle): value r of thread tid is xl = r * 256 +
 // tid, so id bits 0-4 are lane bits, 5-7 warp bits and 8 up register bits.
@@ -485,8 +503,8 @@ __device__ __forceinline__ void split_values(const SplitShared& s,
 }
 
 // Replaces qcmrf_tpu/ops/kernels.py::_build_lse_loop_kernel.
-// Block p of lse_geometry sweeps the ids [p * per_block, (p + 1) *
-// per_block), sub-block by sub-block through split_values; each thread
+// Block p of a launch sweeps block x0_blocks + p of lse_geometry, the ids
+// [(x0_blocks + p) * per_block, (x0_blocks + p + 1) * per_block), sub-block by sub-block through split_values; each thread
 // carries a running (max, scaled sum) of its values in registers; the
 // block merges its threads' pairs in shared memory and writes one partial
 // pair. A CUDA block computes the monomial coefficients once and then
@@ -508,7 +526,7 @@ __device__ __forceinline__ void lse_merge(float& m, float& s, float m2,
 template <int R>
 __global__ void __launch_bounds__(kThreads)
 lse_kernel(SplitPlan pl, const float* __restrict__ coef, int ncoef,
-           int64_t per_block, int parts, float beta,
+           int64_t per_block, int64_t x0_blocks, int parts, float beta,
            float* __restrict__ m_out, float* __restrict__ s_out) {
   extern __shared__ unsigned long long smem64[];
   __shared__ float sm[kThreads];
@@ -522,7 +540,8 @@ lse_kernel(SplitPlan pl, const float* __restrict__ coef, int ncoef,
   for (int p = blockIdx.x; p < parts; p += gridDim.x) {
     float m = neg_inf();
     float s = 0.0f;
-    const unsigned long long h0 = static_cast<unsigned long long>(p) * subs;
+    const unsigned long long h0 =
+        static_cast<unsigned long long>(x0_blocks + p) * subs;
     for (int64_t i = 0; i < subs; ++i) {
       float v[R];
       split_values<R>(sp, pl, h0 + i, beta, v);
@@ -567,7 +586,8 @@ lse_kernel(SplitPlan pl, const float* __restrict__ coef, int ncoef,
 // (_split_logpot), and _build_logpot_kernel, its per-state chain for
 // small grids: the two tables differ in the last bits, each value of one
 // within 2 e_b of the other's (e_b = gamma_{N+1} |beta| sum |coef_b|,
-// kernels.py::split_gap). Block p of lse_geometry sweeps its sub-blocks
+// kernels.py::split_gap). Block p of a launch (block x0_blocks + p of
+// lse_geometry) sweeps its sub-blocks
 // through split_values, as lse_kernel, applies beta and the optional
 // amplitude epilogue 2^(-n/2) exp(v / 2), and stores each value from its
 // register: value r of a warp's 32 lanes is 128 contiguous bytes of the
@@ -588,7 +608,8 @@ __device__ __forceinline__ float table_value(float v, int fuse_amp,
 template <int R>
 __global__ void __launch_bounds__(kThreads)
 logpot_kernel(SplitPlan pl, const float* __restrict__ coef, int ncoef,
-              int64_t per_block, int parts, float beta, int fuse_amp,
+              int64_t per_block, int64_t x0_blocks, int parts, float beta,
+              int fuse_amp,
               float amp_scale, float* __restrict__ out) {
   extern __shared__ unsigned long long smem64[];
   const int b = blockIdx.y;
@@ -599,12 +620,13 @@ logpot_kernel(SplitPlan pl, const float* __restrict__ coef, int ncoef,
   float* row = out + static_cast<int64_t>(b) * parts * per_block;
   const int64_t subs = per_block >> L;
   for (int p = blockIdx.x; p < parts; p += gridDim.x) {
-    const unsigned long long h0 = static_cast<unsigned long long>(p) * subs;
+    const unsigned long long h0 =
+        static_cast<unsigned long long>(x0_blocks + p) * subs;
     for (int64_t i = 0; i < subs; ++i) {
       const unsigned long long h = h0 + i;
       float v[R];
       split_values<R>(sp, pl, h, beta, v);
-      float* dst = row + (h << L);
+      float* dst = row + ((static_cast<int64_t>(p) * subs + i) << L);
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const int x = r * kThreads + threadIdx.x;
@@ -618,7 +640,8 @@ logpot_kernel(SplitPlan pl, const float* __restrict__ coef, int ncoef,
 // 4. Streaming argmax
 // ---------------------------------------------------------------------------
 // Replaces qcmrf_tpu/ops/kernels.py::_build_map_loop_kernel.
-// Block p of lse_geometry writes the best value of beta * theta^T phi(x)
+// Block p of a launch (block x0_blocks + p of lse_geometry; ids absolute)
+// writes the best value of beta * theta^T phi(x)
 // over its ids as the per-state chain computes it (log_potential, then
 // beta, the order of the plain version), and the earliest id that holds
 // it: the plain version's answer bit for bit, ties included. The chain
@@ -665,8 +688,8 @@ template <int R>
 __global__ void __launch_bounds__(kThreads)
 map_kernel(SplitPlan pl, const float* __restrict__ coef,
            const int* __restrict__ shifts, const int* __restrict__ sizes,
-           int K, int cmax, int64_t per_block, int parts, float beta,
-           const float* __restrict__ tol, float* __restrict__ v_out,
+           int K, int cmax, int64_t per_block, int64_t x0_blocks, int parts,
+           float beta, const float* __restrict__ tol, float* __restrict__ v_out,
            int64_t* __restrict__ x_out, long long* __restrict__ cand_out) {
   // layout: the split's tables and P, then the structure tables of
   // load_structure for the chain
@@ -701,7 +724,8 @@ map_kernel(SplitPlan pl, const float* __restrict__ coef,
         best_x = x;
       }
     };
-    const unsigned long long h0 = static_cast<unsigned long long>(p) * subs;
+    const unsigned long long h0 =
+        static_cast<unsigned long long>(x0_blocks + p) * subs;
     for (int64_t i = 0; i < subs; ++i) {
       const unsigned long long h = h0 + i;
       float v[R];
@@ -783,7 +807,7 @@ map_kernel(SplitPlan pl, const float* __restrict__ coef,
 // true replaces _build_gram_loop_kernel (and the XLA sweep qcmrf_tpu/
 // models/moments.py::_chunk_mono_partials, which covers cliques of more
 // than 4 variables there), the moments for a given lnZ.
-// Block p of lse_geometry sweeps [p * per_block, (p + 1) * per_block)
+// Block p of a launch sweeps block x0_blocks + p of lse_geometry
 // sub-block by sub-block (split_values). The fused sweep carries a running
 // max M of v = beta * lp(x). Per sub-block h: the block takes the
 // sub-block's max (warp shuffles, then one exchange of the warp maxima in
@@ -808,7 +832,8 @@ map_kernel(SplitPlan pl, const float* __restrict__ coef,
 template <int R, bool kLnzGiven>
 __global__ void __launch_bounds__(kThreads)
 lnz_moments_kernel(SplitPlan pl, const float* __restrict__ coef, int ncoef,
-                   int64_t per_block, int parts, float beta,
+                   int64_t per_block, int64_t x0_blocks, int parts,
+                   float beta,
                    const float* __restrict__ lnz,
                    const unsigned long long* __restrict__ masks, int m,
                    float* __restrict__ m_out, float* __restrict__ s_out) {
@@ -831,7 +856,8 @@ lnz_moments_kernel(SplitPlan pl, const float* __restrict__ coef, int ncoef,
   for (int p = blockIdx.x; p < parts; p += gridDim.x) {
     for (int g = threadIdx.x; g < m; g += kThreads) s_acc[g] = 0.0f;
     float M = kLnzGiven ? lnz[b] : neg_inf();
-    const unsigned long long h0 = static_cast<unsigned long long>(p) * subs;
+    const unsigned long long h0 =
+        static_cast<unsigned long long>(x0_blocks + p) * subs;
     for (int64_t i = 0; i < subs; ++i) {
       const unsigned long long h = h0 + i;
       float v[R];
@@ -978,42 +1004,46 @@ unsigned grid_blocks(int64_t items, int64_t cap) {
 
 template <int R>
 int launch_lse(const SplitPlan& pl, const float* coef, int B, int ncoef,
-               int64_t per_block, int parts, float beta, float* m_out,
-               float* s_out, void* stream) {
+               int64_t per_block, int64_t x0_blocks, int parts, float beta,
+               float* m_out, float* s_out, void* stream) {
   const size_t smem = split_smem_bytes(pl);
   const cudaError_t err = allow_shared(lse_kernel<R>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   lse_kernel<R><<<split_grid(parts, B), kThreads, smem,
                   static_cast<cudaStream_t>(stream)>>>(
-      pl, coef, ncoef, per_block, parts, beta, m_out, s_out);
+      pl, coef, ncoef, per_block, x0_blocks, parts, beta, m_out, s_out);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int R>
 int launch_logpot(const SplitPlan& pl, const float* coef, int B, int ncoef,
-                  int64_t per_block, int parts, float beta, int fuse_amp,
-                  float amp_scale, float* out, void* stream) {
+                  int64_t per_block, int64_t x0_blocks, int parts,
+                  float beta, int fuse_amp, float amp_scale, float* out,
+                  void* stream) {
   const size_t smem = split_smem_bytes(pl);
   const cudaError_t err = allow_shared(logpot_kernel<R>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   logpot_kernel<R><<<split_grid(parts, B), kThreads, smem,
                      static_cast<cudaStream_t>(stream)>>>(
-      pl, coef, ncoef, per_block, parts, beta, fuse_amp, amp_scale, out);
+      pl, coef, ncoef, per_block, x0_blocks, parts, beta, fuse_amp,
+      amp_scale, out);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int R, bool kLnzGiven>
 int launch_lnz_moments(const SplitPlan& pl, const float* coef, int B,
-                       int ncoef, int64_t per_block, int parts, float beta,
-                       const float* lnz, const unsigned long long* masks,
-                       int m, float* m_out, float* s_out, void* stream) {
+                       int ncoef, int64_t per_block, int64_t x0_blocks,
+                       int parts, float beta, const float* lnz,
+                       const unsigned long long* masks, int m, float* m_out,
+                       float* s_out, void* stream) {
   const size_t smem = lnz_moments_smem_bytes(pl, m);
   const cudaError_t err =
       allow_shared(lnz_moments_kernel<R, kLnzGiven>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   lnz_moments_kernel<R, kLnzGiven><<<split_grid(parts, B), kThreads, smem,
                                      static_cast<cudaStream_t>(stream)>>>(
-      pl, coef, ncoef, per_block, parts, beta, lnz, masks, m, m_out, s_out);
+      pl, coef, ncoef, per_block, x0_blocks, parts, beta, lnz, masks, m,
+      m_out, s_out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1049,15 +1079,16 @@ int launch_sampler(const float* keep, const int* shifts, int B, int K, int n,
 template <int R>
 int launch_map(const SplitPlan& pl, const float* coef, const int* shifts,
                const int* sizes, int B, int K, int cmax, int64_t per_block,
-               int parts, float beta, const float* tol, float* v_out,
-               int64_t* x_out, long long* cand_out, void* stream) {
+               int64_t x0_blocks, int parts, float beta, const float* tol,
+               float* v_out, int64_t* x_out, long long* cand_out,
+               void* stream) {
   const size_t smem = split_smem_bytes(pl) + structure_smem_bytes(K, cmax);
   const cudaError_t err = allow_shared(map_kernel<R>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   map_kernel<R><<<split_grid(parts, B), kThreads, smem,
                   static_cast<cudaStream_t>(stream)>>>(
-      pl, coef, shifts, sizes, K, cmax, per_block, parts, beta, tol, v_out,
-      x_out, cand_out);
+      pl, coef, shifts, sizes, K, cmax, per_block, x0_blocks, parts, beta,
+      tol, v_out, x_out, cand_out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1077,54 +1108,59 @@ int qcmrf_sample(const float* keep, const int* shifts, int B, int K,
 }
 
 int qcmrf_logpot(SplitPlan plan, const float* coef, int B, int ncoef,
-                 int64_t per_block, int parts, float beta, int fuse_amp,
-                 float amp_scale, float* out, void* stream) {
+                 int64_t per_block, int64_t x0_blocks, int parts, float beta,
+                 int fuse_amp, float amp_scale, float* out, void* stream) {
   return with_values_per_thread(plan.L, [&](auto r) {
     return launch_logpot<decltype(r)::value>(plan, coef, B, ncoef, per_block,
-                                             parts, beta, fuse_amp,
-                                             amp_scale, out, stream);
+                                             x0_blocks, parts, beta,
+                                             fuse_amp, amp_scale, out,
+                                             stream);
   });
 }
 
 int qcmrf_lse(SplitPlan plan, const float* coef, int B, int ncoef,
-              int64_t per_block, int parts, float beta, float* m_out,
-              float* s_out, void* stream) {
+              int64_t per_block, int64_t x0_blocks, int parts, float beta,
+              float* m_out, float* s_out, void* stream) {
   return with_values_per_thread(plan.L, [&](auto r) {
     return launch_lse<decltype(r)::value>(plan, coef, B, ncoef, per_block,
-                                          parts, beta, m_out, s_out, stream);
+                                          x0_blocks, parts, beta, m_out,
+                                          s_out, stream);
   });
 }
 
 int qcmrf_map(SplitPlan plan, const float* coef, const int* shifts,
               const int* sizes, int B, int K, int cmax, int64_t per_block,
-              int parts, float beta, const float* tol, float* v_out,
-              int64_t* x_out, long long* cand_out, void* stream) {
+              int64_t x0_blocks, int parts, float beta, const float* tol,
+              float* v_out, int64_t* x_out, long long* cand_out,
+              void* stream) {
   return with_values_per_thread(plan.L, [&](auto r) {
     return launch_map<decltype(r)::value>(plan, coef, shifts, sizes, B, K,
-                                          cmax, per_block, parts, beta, tol,
-                                          v_out, x_out, cand_out, stream);
+                                          cmax, per_block, x0_blocks, parts,
+                                          beta, tol, v_out, x_out, cand_out,
+                                          stream);
   });
 }
 
 int qcmrf_moments(SplitPlan plan, const float* coef, int B, int ncoef,
-                  int64_t per_block, int parts, float beta, const float* lnz,
+                  int64_t per_block, int64_t x0_blocks, int parts,
+                  float beta, const float* lnz,
                   const unsigned long long* masks, int m, float* s_out,
                   void* stream) {
   return with_values_per_thread(plan.L, [&](auto r) {
     return launch_lnz_moments<decltype(r)::value, true>(
-        plan, coef, B, ncoef, per_block, parts, beta, lnz, masks, m, nullptr,
-        s_out, stream);
+        plan, coef, B, ncoef, per_block, x0_blocks, parts, beta, lnz, masks,
+        m, nullptr, s_out, stream);
   });
 }
 
 int qcmrf_lnz_moments(SplitPlan plan, const float* coef, int B, int ncoef,
-                      int64_t per_block, int parts, float beta,
-                      const unsigned long long* masks, int m, float* m_out,
-                      float* s_out, void* stream) {
+                      int64_t per_block, int64_t x0_blocks, int parts,
+                      float beta, const unsigned long long* masks, int m,
+                      float* m_out, float* s_out, void* stream) {
   return with_values_per_thread(plan.L, [&](auto r) {
     return launch_lnz_moments<decltype(r)::value, false>(
-        plan, coef, B, ncoef, per_block, parts, beta, nullptr, masks, m,
-        m_out, s_out, stream);
+        plan, coef, B, ncoef, per_block, x0_blocks, parts, beta, nullptr,
+        masks, m, m_out, s_out, stream);
   });
 }
 

@@ -21,8 +21,10 @@ chain, on the CPU its plain version. Every estimator takes an explicit
 Philox ``seed`` (uint32) and ``stream``: chain c of stream s is keyed
 ``(seed, s * M + c)``, so successive streams of one seed draw afresh. The
 functions run on the model's device (the card unless the model was made
-with ``device="cpu"``). ``mesh`` (the chains sharded over devices) comes
-with slice 6.
+with ``device="cpu"``). With ``mesh`` the chains shard over its devices:
+shard d runs chain ids ``s * M + d * M / D ...`` in the chain kernel's AIS
+mode on its own device, so every chain draws the Philox words it draws on
+one device, and the estimates equal the single-device ones.
 """
 
 from __future__ import annotations
@@ -55,18 +57,35 @@ def logpot_bits(mrf: MRF, bits) -> torch.Tensor:
 def _run(seed: int, mrf: MRF, num_chains: int, num_temps: int,
          sweeps_per_temp: int, stream: int, mesh):
     """(log-weights float32 (M,), final bits int8 (M, n)) of the linear
-    schedule: one :func:`gibbs_kernel.ais_chains` call."""
+    schedule: one :func:`gibbs_kernel.ais_chains` call, or with ``mesh``
+    (flattened) one a shard, shard d running the chains ``d * M / D`` to
+    ``(d + 1) * M / D - 1`` of the stream on its device, gathered in chain
+    order on the model's device (JAX's ``_run_any``; ``M`` must divide
+    over the mesh)."""
     from qcmrf_tpu_torch.ops import gibbs_kernel
+    from qcmrf_tpu_torch.parallel import sharded
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "AIS chains sharded over a device mesh come to the port with "
-            "slice 6 (the multi-device layer) of ROADMAP.md")
-    M = int(num_chains)
-    return gibbs_kernel.ais_chains(
-        seed, mrf.cliques, mrf.n, mrf.theta.detach(), mrf.beta, M,
-        int(num_temps), int(sweeps_per_temp),
-        chain_ids=range(int(stream) * M, int(stream) * M + M))
+    M, base = int(num_chains), int(stream) * int(num_chains)
+    theta = mrf.theta.detach()
+
+    def chains(th, lo, count):
+        return gibbs_kernel.ais_chains(
+            seed, mrf.cliques, mrf.n, th, mrf.beta, count, int(num_temps),
+            int(sweeps_per_temp), chain_ids=range(base + lo,
+                                                  base + lo + count))
+
+    if mesh is None:
+        return chains(theta, 0, M)
+    mesh = sharded._sweep_mesh(mesh)
+    D = mesh.size
+    if M % D:
+        raise ValueError(f"num_chains={M} must divide over the {D}-device "
+                         "mesh")
+    per = M // D
+    outs = sharded._run([(dev, chains, (theta.to(dev), d * per, per))
+                         for d, dev in enumerate(mesh.devices)])
+    return (sharded._gather([o[0] for o in outs], mrf.device, dim=0),
+            sharded._gather([o[1] for o in outs], mrf.device, dim=0))
 
 
 def _ess(wn: torch.Tensor) -> torch.Tensor:

@@ -27,8 +27,13 @@ is :func:`qcmrf_tpu_torch.ops.kernels.log_partition`): under
 differentiation one fused sweep (``lnz_moments_kernel``,
 :func:`lnz_and_moments_streaming`) gives ln Z and the moments that its
 backward returns, ``beta * E_p[phi] * g``; a value-only call runs the
-streaming logsumexp alone. ``mesh`` sharding comes with slice 6 of
-ROADMAP.md.
+streaming logsumexp alone.
+
+With ``mesh`` (a :class:`qcmrf_tpu_torch.parallel.sharded.Mesh`) every
+sweep here shards its block range over the devices
+(:mod:`qcmrf_tpu_torch.parallel.sharded`); a model smaller than the mesh,
+as evidence often leaves it, runs the single-device sweep, the same
+answer (``sharded.fit_mesh``).
 """
 
 from __future__ import annotations
@@ -41,13 +46,6 @@ from qcmrf_tpu_torch.models.capability import STREAMING_MAX_N as _MAX_N
 from qcmrf_tpu_torch.models.capability import reduce_structure
 from qcmrf_tpu_torch.models.mrf import MRF
 from qcmrf_tpu_torch.utils import moebius
-
-
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharding the streaming sweeps over a device mesh comes to the "
-            "port with slice 6 (the multi-device layer) of ROADMAP.md")
 
 
 def _check_streaming_n(n: int) -> None:
@@ -100,17 +98,47 @@ def lnz_and_moments_streaming(mrf: MRF):
     return kernels.lnz_and_moments(mrf.cliques, mrf.n, mrf.theta, mrf.beta)
 
 
+class _ShardedLogPartition(torch.autograd.Function):
+    """ln Z of ``theta`` sharded over a mesh, whose backward is ``beta *
+    E_p[phi] * g`` from the forward's sharded fused sweep
+    (``sharded.sharded_lnz_and_moments``), as JAX's
+    ``_lnZ_streaming_sharded`` custom VJP."""
+
+    @staticmethod
+    def forward(ctx, theta, cliques, n, beta, mesh):
+        from qcmrf_tpu_torch.parallel import sharded
+
+        m = MRF(theta=theta.detach(), beta=beta, cliques=cliques, n=n)
+        lnz, mu = sharded.sharded_lnz_and_moments(m, mesh)
+        ctx.save_for_backward(mu)
+        ctx.beta = beta
+        return lnz
+
+    @staticmethod
+    def backward(ctx, g):
+        (mu,) = ctx.saved_tensors
+        return ctx.beta * mu * g, None, None, None, None
+
+
 def log_partition_streaming(mrf: MRF, mesh=None) -> torch.Tensor:
     """``ln Z`` for any structure, differentiable in ``mrf.theta`` with the
     gradient ``beta * E_p[phi]`` from the fused sweep instead of autograd
     through a ``2**n`` table: :func:`qcmrf_tpu_torch.ops.kernels.
     log_partition`, which picks its sweep before any runs (one fused
     sweep under differentiation, else one streaming logsumexp, as JAX's
-    primal). ``beta`` is a constant."""
+    primal). ``beta`` is a constant. With ``mesh`` both sweeps shard over
+    it (the sharded lnZ, or under differentiation the sharded fused
+    sweep)."""
     from qcmrf_tpu_torch.ops import kernels
+    from qcmrf_tpu_torch.parallel import sharded
 
-    _no_mesh(mesh)
-    return kernels.log_partition(mrf)
+    mesh = sharded.fit_mesh(mesh, mrf.n)
+    if mesh is None:
+        return kernels.log_partition(mrf)
+    if torch.is_grad_enabled() and mrf.theta.requires_grad:
+        return _ShardedLogPartition.apply(mrf.theta, mrf.cliques, mrf.n,
+                                          float(mrf.beta), mesh)
+    return sharded.sharded_log_partition(mrf, mesh)
 
 
 # --------------------------------------------------------------------------
@@ -164,20 +192,20 @@ def log_partition_clamped_streaming(mrf: MRF, evidence: dict,
                                     mesh=None) -> torch.Tensor:
     """Unnormalised log-mass of the evidence for any structure: ``ln
     sum_{x ~ e} e^{beta theta^T phi(x)}`` by :func:`reduce_evidence` and a
-    streaming ln Z sweep of the free-variable model."""
-    _no_mesh(mesh)
+    streaming ln Z sweep of the free-variable model (sharded over
+    ``mesh`` when given)."""
     red, const = reduce_evidence(mrf, evidence)
     if red is None:
         return mrf.beta * const
-    return mrf.beta * const + log_partition_streaming(red)
+    return mrf.beta * const + log_partition_streaming(red, mesh)
 
 
 def conditional_prob_streaming(mrf: MRF, v: int, value: int,
                                evidence: dict = None,
                                mesh=None) -> torch.Tensor:
     """Exact ``P(x_v = value | evidence)`` for any structure by two clamped
-    streaming sweeps; evidence on ``v`` itself gives 0 or 1."""
-    _no_mesh(mesh)
+    streaming sweeps (sharded over ``mesh`` when given); evidence on
+    ``v`` itself gives 0 or 1."""
     evidence = dict(evidence or {})
     _ve._validate_evidence(mrf.n, {**evidence, v: value})
     if int(v) in {int(u) for u in evidence}:
@@ -185,9 +213,9 @@ def conditional_prob_streaming(mrf: MRF, v: int, value: int,
                               if int(u) == int(v)][0]]) == int(value)
         return torch.tensor(1.0 if agree else 0.0, dtype=mrf.theta.dtype,
                             device=mrf.device)
-    num = log_partition_clamped_streaming(mrf, {**evidence, v: value})
-    den = (log_partition_clamped_streaming(mrf, evidence) if evidence
-           else log_partition_streaming(mrf))
+    num = log_partition_clamped_streaming(mrf, {**evidence, v: value}, mesh)
+    den = (log_partition_clamped_streaming(mrf, evidence, mesh) if evidence
+           else log_partition_streaming(mrf, mesh))
     return torch.exp(num - den)
 
 
@@ -197,16 +225,24 @@ def clique_marginals_clamped_streaming(mrf: MRF, evidence: dict = None,
     theta layout, for any structure: the reduced model's moment sweep,
     re-embedded at the evidence-consistent rows (other rows exactly 0,
     fully determined cliques one-hot at the observed row). With no
-    evidence this is the unconditioned moment sweep."""
-    _no_mesh(mesh)
+    evidence this is the unconditioned moment sweep. With ``mesh`` the
+    sweep is ``sharded.sharded_clique_moments`` (lnZ sharded too), unless
+    the (reduced) model is smaller than the mesh."""
+    from qcmrf_tpu_torch.parallel import sharded
+
     evidence = dict(evidence or {})
-    if not evidence:
-        return clique_moments_streaming(mrf)
-    _ve._validate_evidence(mrf.n, evidence)
-    red, _ = reduce_evidence(mrf, evidence)
-    rmom = (torch.zeros((0,), dtype=torch.float64) if red is None
-            else clique_moments_streaming(red))
-    return embed_clamped_marginals(mrf, evidence, rmom)
+    if evidence:
+        _ve._validate_evidence(mrf.n, evidence)
+        red, _ = reduce_evidence(mrf, evidence)
+    else:
+        red = mrf
+    if red is None:
+        rmom = torch.zeros((0,), dtype=torch.float64)
+    elif sharded.fit_mesh(mesh, red.n) is not None:
+        rmom = sharded.sharded_clique_moments(red, mesh)
+    else:
+        rmom = clique_moments_streaming(red)
+    return embed_clamped_marginals(mrf, evidence, rmom) if evidence else rmom
 
 
 def marginal_map_streaming(mrf: MRF, max_vars, evidence: dict = None,
@@ -214,9 +250,9 @@ def marginal_map_streaming(mrf: MRF, max_vars, evidence: dict = None,
     """Marginal MAP for any structure: ``(assignment, value)`` with
     ``value = max_{x_M} ln sum_{x_S} e^{beta theta^T phi(x)}`` under the
     evidence, by enumerating the ``2^|M|`` max-variable assignments, each
-    scored by one clamped streaming sweep. Ties keep the first
-    assignment in counting order; observed max variables are pinned."""
-    _no_mesh(mesh)
+    scored by one clamped streaming sweep (sharded over ``mesh`` when
+    given). Ties keep the first assignment in counting order; observed
+    max variables are pinned."""
     evidence = dict(evidence or {})
     _ve._validate_evidence(mrf.n, evidence)
     ev = {int(v): int(b) for v, b in evidence.items()}
@@ -226,7 +262,8 @@ def marginal_map_streaming(mrf: MRF, max_vars, evidence: dict = None,
     best_val, best_bits = -float("inf"), 0
     for a in range(1 << m):
         bits = {M[j]: (a >> (m - 1 - j)) & 1 for j in range(m)}
-        val = float(log_partition_clamped_streaming(mrf, {**ev, **bits}))
+        val = float(log_partition_clamped_streaming(mrf, {**ev, **bits},
+                                                    mesh))
         if val > best_val:
             best_val, best_bits = val, a
     assignment = {

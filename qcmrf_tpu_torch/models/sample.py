@@ -128,12 +128,14 @@ def map_state_clamped(mrf: MRF, evidence: dict, mesh=None):
     """Exact evidence-constrained MAP for any clique structure:
     ``(state_id, beta * theta^T phi(x))`` as host numbers. The evidence
     clamps by exact clique-table reduction, the free-variable model runs
-    the streaming argmax (:func:`kernels.map_state_streaming`), and the
-    winner's bits re-embed around the evidence."""
+    the streaming argmax (:func:`kernels.map_state_streaming`; with
+    ``mesh``, :func:`sharded.sharded_map_state`, unless the reduced model
+    is smaller than the mesh), and the winner's bits re-embed around the
+    evidence."""
     from qcmrf_tpu_torch.models import moments
     from qcmrf_tpu_torch.ops import kernels
+    from qcmrf_tpu_torch.parallel import sharded
 
-    moments._no_mesh(mesh)
     red, const = moments.reduce_evidence(mrf, evidence)
     ev = {int(v): int(b) for v, b in evidence.items()}
     n = mrf.n
@@ -143,7 +145,9 @@ def map_state_clamped(mrf: MRF, evidence: dict, mesh=None):
     offset = float(mrf.beta) * float(const)
     if red is None:
         return base, offset
-    rid, val = kernels.map_state_streaming(red)
+    mesh = sharded.fit_mesh(mesh, red.n)
+    rid, val = (kernels.map_state_streaming(red) if mesh is None
+                else sharded.sharded_map_state(red, mesh))
     free = [v for v in range(n) if v not in ev]
     nf = len(free)
     for j, v in enumerate(free):
@@ -223,15 +227,20 @@ def sample_gibbs(generator, mrf: MRF, num_samples: int, thin: int = 10,
 _PAM_CHUNK = 1 << 22
 
 
-def _pam_ids(generator, mrf: MRF, num_samples: int) -> torch.Tensor:
+def _pam_ids(generator, mrf: MRF, num_samples: int,
+             mesh=None) -> torch.Tensor:
     """int64 ids ``(num_samples,)``: for each sample, IID standard Gumbel
     noise on every entry of ``beta * theta``, and the MAP state of that
     perturbed model (at beta 1): the perturbed models are the coefficient
     rows of :func:`kernels.map_partials` (the map kernel on the card, the
     chain's table on the CPU), the first maximum on ties. Rows go to the
     kernel in chunks whose outputs stay within ``_PAM_CHUNK`` pairs (table
-    values on the CPU), the noise drawn chunk by chunk in sample order."""
+    values on the CPU), the noise drawn chunk by chunk in sample order.
+    With a 1-D ``mesh`` each chunk's sweep is sharded over it
+    (``sharded._map_partials``); the noise and the answer are the
+    same."""
     from qcmrf_tpu_torch.ops import kernels
+    from qcmrf_tpu_torch.parallel import sharded
 
     dev = mrf.device
     gen = _generator(generator, dev)
@@ -247,8 +256,9 @@ def _pam_ids(generator, mrf: MRF, num_samples: int) -> torch.Tensor:
             rows = min(per, num_samples - lo)
             g = _gumbel(gen, (rows, mrf.dimension), dev)
             coef = kernels.coefficient_table(cl, n, g.add_(base))
-            out[lo:lo + rows] = kernels.combine_map(
-                *kernels.map_partials(cl, n, coef, 1.0))[1]
+            parts = (kernels.map_partials(cl, n, coef, 1.0) if mesh is None
+                     else sharded._map_partials(mesh, cl, n, coef, 1.0))
+            out[lo:lo + rows] = kernels.combine_map(*parts)[1]
     return out
 
 
@@ -299,12 +309,16 @@ def sample_conditional(generator, mrf: MRF, num_samples: int,
       the map kernel's streaming sweep otherwise; wide and past
       ``capability.STREAMING_MAX_N`` raises. A free variable in no reduced
       clique is an independent uniform bit, drawn after the PAM samples.
+      With ``mesh`` (and a reduced model no smaller than it) the argmax
+      sweeps shard over it (:func:`sharded.sharded_sample_pam`), in place
+      of elimination's PAM too, as the JAX package routes it.
 
-    The caps are read from :mod:`capability` at call time."""
+    The caps are read from :mod:`capability` at call time; ``mesh``
+    serves ``"pam"`` only."""
     from qcmrf_tpu_torch.models import elimination, moments
     from qcmrf_tpu_torch.ops import kernels
+    from qcmrf_tpu_torch.parallel import sharded
 
-    moments._no_mesh(mesh)
     dev = mrf.device
     red, _ = moments.reduce_evidence(mrf, evidence)
     ev = {int(v): int(b) for v, b in evidence.items()}
@@ -332,7 +346,10 @@ def sample_conditional(generator, mrf: MRF, num_samples: int,
                 f"{width} > cap {_PAM_ELIM_WIDTH}: per-sample traceback "
                 f"tables are steps x 2^width); add evidence to shrink the "
                 f"free set or use method='gibbs' on a narrower submodel")
-        if red.n >= kernels.MIN_KERNEL_N and width <= _PAM_ELIM_WIDTH:
+        mesh = sharded.fit_mesh(mesh, red.n)
+        if mesh is not None:
+            rbits = sharded.sharded_sample_pam(gen, red, mesh, num_samples)
+        elif red.n >= kernels.MIN_KERNEL_N and width <= _PAM_ELIM_WIDTH:
             rbits = elimination.sample_pam(gen, red, num_samples)
         else:
             rbits = sample_pam_streaming(gen, red, num_samples)

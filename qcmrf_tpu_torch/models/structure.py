@@ -163,7 +163,7 @@ def fit_structure(candidates: Sequence[Sequence[int]], data, n: int,
     ``prune_tol`` and refits singletons + survivors penalty-free. ``data``
     is state ids (1-D) or bit rows (2-D ``(S, n)``, any n). Runs on
     ``device``: the current CUDA device unless one is named. ``mesh``
-    (the sharded streaming sweep) comes with slice 6."""
+    shards the streaming lnZ sweep (``make_lnz_fn``'s wide branch)."""
     cands = [sorted(set(int(v) for v in C)) for C in candidates]
     if any(len(C) < 2 for C in cands):
         raise ValueError("candidates must have size >= 2; singletons "

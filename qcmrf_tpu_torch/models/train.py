@@ -26,8 +26,11 @@ does. ``theta <= 0`` is kept by a softplus reparameterisation when
 ``nonpositive``. :func:`adam_from_numpy` carries an optax Adam state
 across.
 
-Not ported here: the sharded step (:func:`make_sharded_train_step`,
-:func:`fit_mle_sharded`, slice 6); they raise.
+Over a device mesh (:mod:`qcmrf_tpu_torch.parallel.sharded`):
+:func:`make_sharded_train_step` on a 2-D ``(amp, data)`` mesh (lnZ sharded
+over ``amp``, the batch over ``data``), the shot step's draws sharded over
+every device, the AIS step's chains likewise, and the streaming lnZ of
+:func:`make_lnz_fn` sharded over the flattened mesh.
 """
 
 from __future__ import annotations
@@ -146,18 +149,60 @@ def fit_mle(mrf0: MRF, data, steps: int = 300, learning_rate: float = 0.1,
     return mrf0.with_theta(_to_theta(raw, nonpositive).detach()), loss
 
 
-def make_sharded_train_step(*args, **kwargs):
-    """``make_sharded_train_step`` of the JAX package: slice 6."""
-    raise NotImplementedError(
-        "make_sharded_train_step (the amp x data mesh) comes to the port "
-        "with slice 6 (the multi-device layer) of ROADMAP.md")
+def make_sharded_train_step(template: MRF, optimizer: torch.optim.Optimizer,
+                            mesh, nonpositive: bool = True) -> Callable:
+    """Training step over a 2-D ``(amp, data)`` mesh: ``step(batch) ->
+    loss``, as :func:`make_train_step`. lnZ shards its sweep over the
+    ``amp`` axis (differentiable: the sharded fused sweep's moments are
+    its backward), the batch's mean log-potential over the ``data`` axis
+    (equal slices, each averaged on its device, then the mean of the
+    means, JAX's ``pmean``). ``raw`` stays on its device. JAX's amp shards
+    each evaluate a slice of the enumerated table; the port's sweep takes
+    no table."""
+    from qcmrf_tpu_torch.models import moments
+    from qcmrf_tpu_torch.parallel import sharded
+
+    amp_axis, data_axis = mesh.axis_names
+    amp = sharded.Mesh(mesh.axis_devices(amp_axis))
+    sharded._dlog(amp)
+    data_devs = mesh.axis_devices(data_axis)
+    raw = _raw_of(optimizer)
+
+    def step(batch):
+        batch = _state_ids(batch, raw.device)
+        if batch.shape[0] % len(data_devs):
+            raise ValueError(
+                f"batch of {batch.shape[0]} does not split over the "
+                f"{len(data_devs)} devices of the {data_axis!r} axis")
+        optimizer.zero_grad()
+        theta = _to_theta(raw, nonpositive)
+        m = template.with_theta(theta)
+        lnZ = moments.log_partition_streaming(m, amp)
+        means = [(m.beta * sharded._on(m, dev).log_potential(
+            chunk.to(dev)).mean()).to(raw.device)
+            for dev, chunk in zip(data_devs,
+                                  batch.chunk(len(data_devs)))]
+        loss = lnZ - torch.stack(means).mean()
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step
 
 
-def fit_mle_sharded(*args, **kwargs):
-    """``fit_mle_sharded`` of the JAX package: slice 6."""
-    raise NotImplementedError(
-        "fit_mle_sharded comes to the port with slice 6 (the multi-device "
-        "layer) of ROADMAP.md")
+def fit_mle_sharded(mrf0: MRF, data, mesh, steps: int = 100,
+                    learning_rate: float = 0.1,
+                    nonpositive: bool = True) -> Tuple[MRF, torch.Tensor]:
+    """:func:`fit_mle` with :func:`make_sharded_train_step` on the 2-D
+    ``(amp, data)`` ``mesh``: (fitted MRF, final loss)."""
+    raw = _from_theta(mrf0.theta, nonpositive).requires_grad_()
+    step = make_sharded_train_step(mrf0, adam([raw], learning_rate), mesh,
+                                   nonpositive)
+    data = _state_ids(data, mrf0.device)
+    loss = torch.tensor(float("inf"))
+    for _ in range(steps):
+        loss = step(data)
+    return mrf0.with_theta(_to_theta(raw, nonpositive).detach()), loss
 
 
 # --------------------------------------------------------------------------
@@ -174,15 +219,15 @@ def make_shots_train_step(template: MRF, optimizer: torch.optim.Optimizer,
     shots drawn by the sampler kernel at the pre-update theta, with the
     Philox key ``(seed, stream)``; the step applies that gradient
     through the reparameterisation and returns the shots' acceptance
-    rate. ``mesh`` (sharded shots) comes with slice 6."""
+    rate. With ``mesh`` (any mesh whose size divides ``shots``; a 2-D one
+    flattened) the draws and their clique counts shard over every device
+    (:func:`sharded.sharded_shot_moments`, shard d on Philox stream
+    ``stream * D + d``)."""
     from qcmrf_tpu_torch.evaluation.estimators import (
         clique_marginals_from_samples)
+    from qcmrf_tpu_torch.parallel import sharded
     from qcmrf_tpu_torch.sim import analytic
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded shot moments come to the port with slice 6 (the "
-            "multi-device layer) of ROADMAP.md")
     raw = _raw_of(optimizer)
     data_marg = torch.as_tensor(data_marg, dtype=torch.float32,
                                 device=raw.device)
@@ -190,13 +235,18 @@ def make_shots_train_step(template: MRF, optimizer: torch.optim.Optimizer,
     def step(seed: int, stream: int = 0) -> float:
         with torch.no_grad():
             m = template.with_theta(_to_theta(raw, nonpositive))
-            x, acc = analytic.sample_postselected(seed, m, shots, stream)
-            model_marg = clique_marginals_from_samples(m, x, acc).float()
+            if mesh is not None:
+                model_marg, delta = sharded.sharded_shot_moments(
+                    seed, m, mesh, shots, stream)
+            else:
+                x, acc = analytic.sample_postselected(seed, m, shots, stream)
+                model_marg = clique_marginals_from_samples(m, x, acc)
+                delta = float(acc.float().mean())
         optimizer.zero_grad()
         _to_theta(raw, nonpositive).backward(
-            template.beta * (model_marg - data_marg))
+            template.beta * (model_marg.float() - data_marg))
         optimizer.step()
-        return float(acc.float().mean())
+        return delta
 
     return step
 
@@ -244,14 +294,11 @@ def make_ais_train_step(template: MRF, optimizer: torch.optim.Optimizer,
     ESS gate: where ``ess < ess_min_frac * num_chains`` the step is
     skipped, ``raw`` and the optimizer state untouched (a collapsed weight
     set gives a gradient closer to noise than signal; more rungs are the
-    remedy). ``info`` is ``{"ess", "skipped"}``. ``mesh`` (the chains
-    sharded) comes with slice 6."""
+    remedy). ``info`` is ``{"ess", "skipped"}``. With ``mesh`` the chains
+    shard over its devices (:func:`qcmrf_tpu_torch.models.ais.
+    ais_clique_marginals`), the same chains as without."""
     from qcmrf_tpu_torch.models import ais as mais
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "AIS moments sharded over a device mesh come to the port with "
-            "slice 6 (the multi-device layer) of ROADMAP.md")
     raw = _raw_of(optimizer)
     data_marg = torch.as_tensor(data_marg, dtype=torch.float32,
                                 device=raw.device)
@@ -263,7 +310,7 @@ def make_ais_train_step(template: MRF, optimizer: torch.optim.Optimizer,
             model_marg, diag = mais.ais_clique_marginals(
                 seed, m, num_chains=num_chains, num_temps=num_temps,
                 sweeps_per_temp=sweeps_per_temp, return_diagnostics=True,
-                stream=stream)
+                mesh=mesh, stream=stream)
         ess = float(diag["ess"])
         if ess < ess_min:
             return {"ess": ess, "skipped": True}
@@ -317,8 +364,9 @@ def make_lnz_fn(template: MRF, mesh=None,
     (:meth:`MRF.log_partition`), variable elimination for induced width up
     to ``capability.ELIM_WIDTH_CAP`` (read at call time) at any n, else
     the streaming fused sweep up to ``capability.STREAMING_MAX_N``;
-    ``ValueError`` past both exact backends. ``mesh`` applies to the
-    streaming branch only, and comes with slice 6."""
+    ``ValueError`` past both exact backends. ``mesh`` shards the
+    streaming branch only (flattened when 2-D), the reach of the other
+    two not being a ``2**n`` sweep."""
     from qcmrf_tpu_torch.models import capability, elimination, moments
 
     beta = float(template.beta)
@@ -336,11 +384,9 @@ def make_lnz_fn(template: MRF, mesh=None,
                 f"no exact lnZ: induced width > {capability.ELIM_WIDTH_CAP}"
                 f" and n={template.n} > streaming cap "
                 f"{capability.STREAMING_MAX_N}")
-        moments._no_mesh(mesh)
-
         def lnZ_fn(theta):
             return moments.log_partition_streaming(
-                template.with_theta(theta))
+                template.with_theta(theta), mesh)
 
     return lnZ_fn
 

@@ -75,23 +75,25 @@ _SIGNATURES = {
     # a_out, count_out, stream
     "qcmrf_sample": (_P, _P, _I, _I, _I, _I, _I64, _U32, _U32, _I, _P, _P,
                      _P, _P),
-    # plan, coef, B, ncoef, per_block, parts, beta, fuse_amp, amp_scale,
-    # out, stream
-    "qcmrf_logpot": (SplitTables, _P, _I, _I, _I64, _I, _F, _I, _F, _P, _P),
-    # plan, coef, B, ncoef, per_block, parts, beta, m_out, s_out, stream
-    "qcmrf_lse": (SplitTables, _P, _I, _I, _I64, _I, _F, _P, _P, _P),
-    # plan, coef, shifts, sizes, B, K, cmax, per_block, parts, beta, tol,
-    # v_out, x_out, cand_out, stream
-    "qcmrf_map": (SplitTables, _P, _P, _P, _I, _I, _I, _I64, _I, _F, _P, _P,
-                  _P, _P, _P),
-    # plan, coef, B, ncoef, per_block, parts, beta, lnz, masks, m, s_out,
+    # plan, coef, B, ncoef, per_block, x0_blocks, parts, beta, fuse_amp,
+    # amp_scale, out, stream
+    "qcmrf_logpot": (SplitTables, _P, _I, _I, _I64, _I64, _I, _F, _I, _F,
+                     _P, _P),
+    # plan, coef, B, ncoef, per_block, x0_blocks, parts, beta, m_out, s_out,
     # stream
-    "qcmrf_moments": (SplitTables, _P, _I, _I, _I64, _I, _F, _P, _P, _I, _P,
-                      _P),
-    # plan, coef, B, ncoef, per_block, parts, beta, masks, m, m_out, s_out,
-    # stream
-    "qcmrf_lnz_moments": (SplitTables, _P, _I, _I, _I64, _I, _F, _P, _I, _P,
-                          _P, _P),
+    "qcmrf_lse": (SplitTables, _P, _I, _I, _I64, _I64, _I, _F, _P, _P, _P),
+    # plan, coef, shifts, sizes, B, K, cmax, per_block, x0_blocks, parts,
+    # beta, tol, v_out, x_out, cand_out, stream
+    "qcmrf_map": (SplitTables, _P, _P, _P, _I, _I, _I, _I64, _I64, _I, _F,
+                  _P, _P, _P, _P, _P),
+    # plan, coef, B, ncoef, per_block, x0_blocks, parts, beta, lnz, masks,
+    # m, s_out, stream
+    "qcmrf_moments": (SplitTables, _P, _I, _I, _I64, _I64, _I, _F, _P, _P,
+                      _I, _P, _P),
+    # plan, coef, B, ncoef, per_block, x0_blocks, parts, beta, masks, m,
+    # m_out, s_out, stream
+    "qcmrf_lnz_moments": (SplitTables, _P, _I, _I, _I64, _I64, _I, _F, _P,
+                          _I, _P, _P, _P),
     # table, n_terms, k, re, im, num_anchors, a_lo, stream
     "qcmrf_hdh_multi": (_P, _I, _I, _P, _P, _I64, _I, _P),
     # table, n_terms, k, re, im, num_anchors, a_lo, comp, amp, stream

@@ -30,6 +30,13 @@ chain's, bit for bit.
   per block (``lnz_moments_kernel``); :func:`combine_lnz_moments` gives
   ``(lnZ, E_p[monomials])``.
 
+Each of these sweeps, and its plain versions, takes ``x0_blocks`` and
+``blocks`` (a :func:`sweep_range`): it covers only those blocks of the
+whole sweep's geometry, and its outputs are the whole sweep's for those
+blocks bit for bit (the JAX loop kernels' ``x0_blocks``; the sharded
+sweeps of :mod:`qcmrf_tpu_torch.parallel.sharded` give each shard its
+range).
+
 On a CUDA tensor each launches its kernel of ``csrc/qcmrf_kernels.cu``; on a
 CPU tensor it runs its plain PyTorch version (``*_reference``, the chain),
 which any device can run. Rows of a coefficient batch are separate models of one
@@ -155,60 +162,96 @@ def _amplitudes(lp: torch.Tensor, n: int) -> torch.Tensor:
     return torch.exp(0.5 * lp) * (2.0 ** (-0.5 * n))
 
 
-def logpot_table_reference(cliques: tuple, n: int, coef: torch.Tensor,
-                           beta: float, fuse_amp: bool = False):
-    """Plain PyTorch version of :func:`logpot_table` by the chain, on any
-    device: the CPU route, and the card's oracle independent of its
-    kernel. In ``coef``'s dtype: float64 coefficients give the chain in
-    float64."""
-    x = torch.arange(1 << n, dtype=torch.int64, device=coef.device)
-    acc = _clique_sum(cliques, n, coef, x) * beta
-    return _amplitudes(acc, n) if fuse_amp else acc
-
-
-def logpot_table_split_reference(cliques: tuple, n: int, coef: torch.Tensor,
-                                 beta: float, fuse_amp: bool = False):
-    """Plain PyTorch version of ``logpot_kernel``, on any device, equal to
-    it bit for bit: :func:`split_log_potentials_reference` over every
-    sub-block at ``L = split_bits(n)``, then the epilogue. Each value lies
-    within :func:`split_gap` of :func:`logpot_table_reference`'s."""
-    plan = split_plan(cliques, n, split_bits(n))
-    lp = split_log_potentials_reference(
-        plan, coef, beta, range(1 << (n - plan.L))).reshape(
-            coef.shape[0], 1 << n)
-    return _amplitudes(lp, n) if fuse_amp else lp
-
-
-def logpot_table(cliques: tuple, n: int, coef: torch.Tensor, beta: float,
-                 fuse_amp: bool = False) -> torch.Tensor:
-    """``beta * theta^T phi(x)`` for all ``2**n`` states and every row of
-    ``coef`` ((B, K << cmax)); float32 (B, 2**n). ``fuse_amp`` returns the
-    post-selected amplitudes ``2^(-n/2) * exp(lp / 2)`` instead. On the
-    card the states go through the split (``logpot_kernel``,
-    :func:`logpot_table_split_reference` bit for bit), as the JAX
-    package's loop kernel: each value within :func:`split_gap` of the
-    chain's, which the CPU route computes."""
-    _build.refuse_grad(coef, "coef")
-    if coef.device.type == "cpu":
-        return logpot_table_reference(cliques, n, coef, beta, fuse_amp)
-    dev = coef.device
-    plan = split_plan(cliques, n, split_bits(n))
-    tables, B, parts, per_part = _split_args(cliques, n, coef,
-                                             split_shared_bytes(plan))
-    out = torch.empty((B, 1 << n), dtype=torch.float32, device=dev)
-    _build.launch("qcmrf_logpot", dev, tables, _build.ptr(coef), B,
-                  coef.shape[1], per_part, parts, beta, int(fuse_amp),
-                  2.0 ** (-0.5 * n), _build.ptr(out))
-    LAUNCHES["logpot"] += 1
-    return out
-
-
 def lse_geometry(num_states: int):
     """(parts, states per part) of the streaming logsumexp: every part
     holds at least one state."""
     parts = min(MAX_LSE_PARTS, -(-num_states // MIN_LSE_BLOCK_STATES))
     per_part = -(-num_states // parts)
     return -(-num_states // per_part), per_part
+
+
+def sweep_range(n: int, x0_blocks: int = 0, blocks: int = None):
+    """``(x0_blocks, blocks, per_part)`` of a sweep over the blocks
+    ``[x0_blocks, x0_blocks + blocks)`` of ``lse_geometry(2**n)``, the
+    state ids ``[x0_blocks * per_part, (x0_blocks + blocks) * per_part)``
+    (``blocks`` defaults to the rest of the sweep). The offset is in block
+    units, as the JAX package's loop kernels take it, and a Python int:
+    ids past 2^31 are exact. Raises outside the sweep or when empty."""
+    parts, per_part = lse_geometry(1 << n)
+    x0 = int(x0_blocks)
+    count = parts - x0 if blocks is None else int(blocks)
+    if x0 < 0 or count < 1 or x0 + count > parts:
+        raise ValueError(f"blocks [{x0}, {x0 + count}) outside the "
+                         f"{parts} blocks of a {n}-variable sweep")
+    return x0, count, per_part
+
+
+def _range_ids(n: int, x0_blocks: int, blocks, device) -> torch.Tensor:
+    """int64 state ids of a :func:`sweep_range`."""
+    x0, count, per_part = sweep_range(n, x0_blocks, blocks)
+    return torch.arange(x0 * per_part, (x0 + count) * per_part,
+                        dtype=torch.int64, device=device)
+
+
+def _range_sub_blocks(n: int, L: int, x0_blocks: int, blocks) -> range:
+    """The sub-blocks of ``2**L`` ids of a :func:`sweep_range`."""
+    x0, count, per_part = sweep_range(n, x0_blocks, blocks)
+    return range((x0 * per_part) >> L, ((x0 + count) * per_part) >> L)
+
+
+def logpot_table_reference(cliques: tuple, n: int, coef: torch.Tensor,
+                           beta: float, fuse_amp: bool = False,
+                           x0_blocks: int = 0, blocks: int = None):
+    """Plain PyTorch version of :func:`logpot_table` by the chain, on any
+    device: the CPU route, and the card's oracle independent of its
+    kernel. In ``coef``'s dtype: float64 coefficients give the chain in
+    float64."""
+    x = _range_ids(n, x0_blocks, blocks, coef.device)
+    acc = _clique_sum(cliques, n, coef, x) * beta
+    return _amplitudes(acc, n) if fuse_amp else acc
+
+
+def logpot_table_split_reference(cliques: tuple, n: int, coef: torch.Tensor,
+                                 beta: float, fuse_amp: bool = False,
+                                 x0_blocks: int = 0, blocks: int = None):
+    """Plain PyTorch version of ``logpot_kernel``, on any device, equal to
+    it bit for bit: :func:`split_log_potentials_reference` over every
+    sub-block of the range at ``L = split_bits(n)``, then the epilogue.
+    Each value lies within :func:`split_gap` of
+    :func:`logpot_table_reference`'s."""
+    plan = split_plan(cliques, n, split_bits(n))
+    subs = _range_sub_blocks(n, plan.L, x0_blocks, blocks)
+    lp = split_log_potentials_reference(plan, coef, beta, subs).reshape(
+        coef.shape[0], len(subs) << plan.L)
+    return _amplitudes(lp, n) if fuse_amp else lp
+
+
+def logpot_table(cliques: tuple, n: int, coef: torch.Tensor, beta: float,
+                 fuse_amp: bool = False, x0_blocks: int = 0,
+                 blocks: int = None) -> torch.Tensor:
+    """``beta * theta^T phi(x)`` for all ``2**n`` states and every row of
+    ``coef`` ((B, K << cmax)); float32 (B, 2**n). ``fuse_amp`` returns the
+    post-selected amplitudes ``2^(-n/2) * exp(lp / 2)`` instead. On the
+    card the states go through the split (``logpot_kernel``,
+    :func:`logpot_table_split_reference` bit for bit), as the JAX
+    package's loop kernel: each value within :func:`split_gap` of the
+    chain's, which the CPU route computes. ``x0_blocks`` and ``blocks``
+    write only the slice of a :func:`sweep_range` (its columns, in
+    order)."""
+    _build.refuse_grad(coef, "coef")
+    if coef.device.type == "cpu":
+        return logpot_table_reference(cliques, n, coef, beta, fuse_amp,
+                                      x0_blocks, blocks)
+    dev = coef.device
+    plan = split_plan(cliques, n, split_bits(n))
+    tables, B, x0, count, per_part = _split_args(
+        cliques, n, coef, split_shared_bytes(plan), x0_blocks, blocks)
+    out = torch.empty((B, count * per_part), dtype=torch.float32, device=dev)
+    _build.launch("qcmrf_logpot", dev, tables, _build.ptr(coef), B,
+                  coef.shape[1], per_part, x0, count, beta, int(fuse_amp),
+                  2.0 ** (-0.5 * n), _build.ptr(out))
+    LAUNCHES["logpot"] += 1
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -421,20 +464,21 @@ def split_moment_sums_reference(w: torch.Tensor, L: int, sub_blocks,
     return acc[:, 0] if per_part is None else acc
 
 
-def _padded_table(cliques: tuple, n: int, coef: torch.Tensor, beta: float):
-    """The plain table cut into the sweeps' blocks, ``-inf`` past the
-    last state: ((B, parts, per_part), per_part)."""
-    parts, per_part = lse_geometry(1 << n)
-    lp = logpot_table_reference(cliques, n, coef, beta)
-    lp = torch.nn.functional.pad(lp, (0, parts * per_part - (1 << n)),
-                                 value=-math.inf)
-    return lp.reshape(coef.shape[0], parts, per_part), per_part
+def _block_table(cliques: tuple, n: int, coef: torch.Tensor, beta: float,
+                 x0_blocks: int = 0, blocks: int = None):
+    """The plain table of a :func:`sweep_range` cut into its blocks:
+    ((B, blocks, per_part), per_part)."""
+    _, count, per_part = sweep_range(n, x0_blocks, blocks)
+    lp = logpot_table_reference(cliques, n, coef, beta, False, x0_blocks,
+                                blocks)
+    return lp.reshape(coef.shape[0], count, per_part), per_part
 
 
 def lse_partials_reference(cliques: tuple, n: int, coef: torch.Tensor,
-                           beta: float):
+                           beta: float, x0_blocks: int = 0,
+                           blocks: int = None):
     """Plain PyTorch version of :func:`lse_partials`, on any device."""
-    lp, _ = _padded_table(cliques, n, coef, beta)
+    lp, _ = _block_table(cliques, n, coef, beta, x0_blocks, blocks)
     m = lp.amax(dim=-1)
     return m, torch.exp(lp - m[..., None]).sum(dim=-1)
 
@@ -465,34 +509,40 @@ def _device_plan(cliques: tuple, n: int, L: int, device: torch.device):
         len(plan.c_items) - 1, len(plan.m_items) - 1, len(plan.targets))
 
 
-def _split_args(cliques: tuple, n: int, coef: torch.Tensor, need: int):
-    """Checked arguments of a split kernel: ``(tables, B, parts,
-    per_part)``. Raises when ``need`` bytes of shared memory, static
-    included, do not fit a block."""
+def _split_args(cliques: tuple, n: int, coef: torch.Tensor, need: int,
+                x0_blocks: int = 0, blocks: int = None):
+    """Checked arguments of a split kernel: ``(tables, B, x0_blocks,
+    blocks, per_part)`` of a :func:`sweep_range`. Raises when ``need``
+    bytes of shared memory, static included, do not fit a block."""
     B = _build.check_rows(coef, len(cliques), max(len(C) for C in cliques),
                           need, "the split plan and kernel")
-    parts, per_part = lse_geometry(1 << n)
+    x0, count, per_part = sweep_range(n, x0_blocks, blocks)
     _, tables = _device_plan(cliques, n, split_bits(n), coef.device)
-    return tables, B, parts, per_part
+    return tables, B, x0, count, per_part
 
 
-def lse_partials(cliques: tuple, n: int, coef: torch.Tensor, beta: float):
+def lse_partials(cliques: tuple, n: int, coef: torch.Tensor, beta: float,
+                 x0_blocks: int = 0, blocks: int = None):
     """Per-block (max, scaled sum) of ``beta * theta^T phi(x)`` over all
     ``2**n`` states, for every row of ``coef``: two float32 (B, parts)
     tensors (``lse_geometry`` gives ``parts``). No table is written; on
     the card the states are evaluated through the split
-    (:func:`split_plan`)."""
+    (:func:`split_plan`). ``x0_blocks`` and ``blocks`` sweep only those
+    blocks of a :func:`sweep_range`: (B, blocks), the whole sweep's
+    partials of those blocks."""
     _build.refuse_grad(coef, "coef")
     if coef.device.type == "cpu":
-        return lse_partials_reference(cliques, n, coef, beta)
+        return lse_partials_reference(cliques, n, coef, beta, x0_blocks,
+                                      blocks)
     dev = coef.device
     plan = split_plan(cliques, n, split_bits(n))
-    tables, B, parts, per_part = _split_args(
-        cliques, n, coef, split_shared_bytes(plan) + _LSE_STATIC_BYTES)
+    tables, B, x0, parts, per_part = _split_args(
+        cliques, n, coef, split_shared_bytes(plan) + _LSE_STATIC_BYTES,
+        x0_blocks, blocks)
     m = torch.empty((B, parts), dtype=torch.float32, device=dev)
     s = torch.empty((B, parts), dtype=torch.float32, device=dev)
     _build.launch("qcmrf_lse", dev, tables, _build.ptr(coef), B,
-                  coef.shape[1], per_part, parts, beta, _build.ptr(m),
+                  coef.shape[1], per_part, x0, parts, beta, _build.ptr(m),
                   _build.ptr(s))
     LAUNCHES["lse"] += 1
     return m, s
@@ -552,12 +602,13 @@ MAX_LAUNCH_ROWS = 65535
 
 
 def map_partials_reference(cliques: tuple, n: int, coef: torch.Tensor,
-                           beta: float):
+                           beta: float, x0_blocks: int = 0,
+                           blocks: int = None):
     """Plain PyTorch version of :func:`map_partials`, on any device."""
-    lp, per_part = _padded_table(cliques, n, coef, beta)
+    lp, per_part = _block_table(cliques, n, coef, beta, x0_blocks, blocks)
     best = lp.amax(dim=-1)
-    ids = torch.arange(lp.shape[1] * per_part, dtype=torch.int64,
-                       device=coef.device).reshape(lp.shape[1:])
+    ids = _range_ids(n, x0_blocks, blocks, coef.device).reshape(
+        lp.shape[1:])
     hit = torch.where(lp == best[..., None], ids, _NO_STATE)
     return best, hit.amin(dim=-1)
 
@@ -648,7 +699,8 @@ def map_partials_split_reference(cliques: tuple, n: int, coef: torch.Tensor,
 
 
 def map_partials(cliques: tuple, n: int, coef: torch.Tensor, beta: float,
-                 candidates: torch.Tensor = None):
+                 candidates: torch.Tensor = None, x0_blocks: int = 0,
+                 blocks: int = None):
     """Per-block best value of ``beta * theta^T phi(x)`` over all ``2**n``
     states and the earliest state id that holds it, for every row of
     ``coef``: float32 and int64 (B, parts) tensors (``lse_geometry`` gives
@@ -659,13 +711,18 @@ def map_partials(cliques: tuple, n: int, coef: torch.Tensor, beta: float,
     each row the same in any launch. ``candidates``, an int64 (B, parts)
     tensor, receives each block's candidates; on a CPU tensor it makes the
     plain version that of the split algorithm
-    (:func:`map_partials_split_reference`)."""
+    (:func:`map_partials_split_reference`). ``x0_blocks`` and ``blocks``
+    sweep only those blocks of a :func:`sweep_range` ((B, blocks); ids
+    stay absolute)."""
     _build.refuse_grad(coef, "coef")
     if coef.device.type == "cpu":
         if candidates is None:
-            return map_partials_reference(cliques, n, coef, beta)
-        return map_partials_split_reference(cliques, n, coef, beta,
-                                            candidates=candidates)
+            return map_partials_reference(cliques, n, coef, beta, x0_blocks,
+                                          blocks)
+        x0, count, _ = sweep_range(n, x0_blocks, blocks)
+        return map_partials_split_reference(
+            cliques, n, coef, beta, parts=range(x0, x0 + count),
+            candidates=candidates)
     dev = coef.device
     L = split_bits(n)
     B = coef.shape[0]
@@ -675,7 +732,7 @@ def map_partials(cliques: tuple, n: int, coef: torch.Tensor, beta: float,
         + _MAP_STATIC_BYTES)
     _build.check(coef, "coef", torch.float32, (B, K << cmax), dev)
     _, tables = _device_plan(cliques, n, L, dev)
-    parts, per_part = lse_geometry(1 << n)
+    x0, parts, per_part = sweep_range(n, x0_blocks, blocks)
     if candidates is not None:
         _build.check(candidates, "candidates", torch.int64, (B, parts), dev)
     tol = map_tolerance(coef, beta)
@@ -686,7 +743,7 @@ def map_partials(cliques: tuple, n: int, coef: torch.Tensor, beta: float,
         rows = slice(lo, min(B, lo + MAX_LAUNCH_ROWS))
         _build.launch("qcmrf_map", dev, tables, _build.ptr(coef[rows]),
                       _build.ptr(shifts), _build.ptr(sizes),
-                      rows.stop - lo, K, cmax, per_part, parts, beta,
+                      rows.stop - lo, K, cmax, per_part, x0, parts, beta,
                       _build.ptr(tol[rows]), _build.ptr(v[rows]),
                       _build.ptr(x[rows]),
                       _build.ptr(candidates[rows]) if candidates is not None
@@ -720,15 +777,17 @@ def map_state_streaming(mrf: MRF):
 
 def monomial_moments_reference(cliques: tuple, n: int, coef: torch.Tensor,
                                beta: float, lnz: torch.Tensor,
-                               masks: torch.Tensor) -> torch.Tensor:
+                               masks: torch.Tensor, x0_blocks: int = 0,
+                               blocks: int = None) -> torch.Tensor:
     """Plain PyTorch version of :func:`monomial_moments` by the chain, on
     any device: the table's weights summed in float64 over each
     monomial's states. The CPU route; with float64 coefficients (the chain
     in float64), the card's oracle."""
-    x = torch.arange(1 << n, dtype=torch.int64, device=coef.device)
-    lp = logpot_table_reference(cliques, n, coef, beta)
+    x = _range_ids(n, x0_blocks, blocks, coef.device)
+    lp = logpot_table_reference(cliques, n, coef, beta, False, x0_blocks,
+                                blocks)
     w = torch.exp(lp - lnz[:, None]).double()
-    chunk = max(1, (1 << 24) >> n)
+    chunk = max(1, (1 << 24) // x.numel())
     out = []
     for s in range(0, masks.numel(), chunk):
         mk = masks[s:s + chunk]
@@ -739,7 +798,8 @@ def monomial_moments_reference(cliques: tuple, n: int, coef: torch.Tensor,
 def monomial_moments_split_reference(cliques: tuple, n: int,
                                      coef: torch.Tensor, beta: float,
                                      lnz: torch.Tensor,
-                                     masks: torch.Tensor) -> torch.Tensor:
+                                     masks: torch.Tensor, x0_blocks: int = 0,
+                                     blocks: int = None) -> torch.Tensor:
     """Plain PyTorch version of the moments kernel's algorithm, on any
     device: :func:`split_log_potentials_reference` over every sub-block,
     the weights ``exp(v - lnz)``, :func:`split_moment_sums_reference` per
@@ -747,7 +807,7 @@ def monomial_moments_split_reference(cliques: tuple, n: int,
     added in float64 as the wrapper adds them: float64 (B, m)."""
     L = split_bits(n)
     per_part = lse_geometry(1 << n)[1]
-    subs = range(1 << (n - L))
+    subs = _range_sub_blocks(n, L, x0_blocks, blocks)
     v = split_log_potentials_reference(split_plan(cliques, n, L), coef,
                                        beta, subs)
     w = torch.exp(v - lnz[:, None, None])
@@ -764,9 +824,80 @@ def moments_per_launch(cliques: tuple, n: int) -> int:
             // _MOMENT_BYTES)
 
 
+def _block_mask_sums(w: torch.Tensor, x: torch.Tensor,
+                     masks: torch.Tensor) -> torch.Tensor:
+    """Per block, ``w`` (B, blocks, per_part) summed over the states ``x``
+    (blocks, per_part) of each monomial mask, in float64: (B, blocks, m)."""
+    chunk = max(1, (1 << 24) // x.numel())
+    out = []
+    for s in range(0, masks.numel(), chunk):
+        mk = masks[s:s + chunk, None, None]
+        out.append(torch.einsum("bpl,cpl->bpc", w.double(),
+                                ((x & mk) == mk).double()))
+    return torch.cat(out, dim=-1)
+
+
+def monomial_moment_partials_reference(cliques: tuple, n: int,
+                                       coef: torch.Tensor, beta: float,
+                                       lnz: torch.Tensor,
+                                       masks: torch.Tensor,
+                                       x0_blocks: int = 0,
+                                       blocks: int = None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`monomial_moment_partials` by the
+    chain, on any device: each block's weights ``exp(v - lnz)`` summed in
+    float64 over each monomial's states, rounded to float32."""
+    lp, _ = _block_table(cliques, n, coef, beta, x0_blocks, blocks)
+    x = _range_ids(n, x0_blocks, blocks, coef.device).reshape(lp.shape[1:])
+    return _block_mask_sums(torch.exp(lp - lnz[:, None, None]), x,
+                            masks).float()
+
+
+def monomial_moment_partials(cliques: tuple, n: int, coef: torch.Tensor,
+                             beta: float, lnz: torch.Tensor,
+                             masks: torch.Tensor, x0_blocks: int = 0,
+                             blocks: int = None) -> torch.Tensor:
+    """The moments kernel's per-block sums, float32 (B, blocks, m), of a
+    :func:`sweep_range`: one launch for every :func:`moments_per_launch`
+    monomials, each ``lnz_moments_kernel`` with ``lnz`` given (on a CPU
+    tensor, :func:`monomial_moment_partials_reference`).
+    :func:`monomial_moments` adds them in float64."""
+    _build.refuse_grad(coef, "coef")
+    if coef.device.type == "cpu":
+        return monomial_moment_partials_reference(cliques, n, coef, beta,
+                                                  lnz, masks, x0_blocks,
+                                                  blocks)
+    dev = coef.device
+    m = masks.numel()
+    step = moments_per_launch(cliques, n)
+    if step < 1:
+        raise ValueError("the split plan leaves no shared memory for a "
+                         "monomial")
+    plan = split_plan(cliques, n, split_bits(n))
+    tables, B, x0, parts, per_part = _split_args(
+        cliques, n, coef,
+        split_shared_bytes(plan, min(m, step)) + _LNZ_STATIC_BYTES,
+        x0_blocks, blocks)
+    _build.check(lnz, "lnz", torch.float32, (B,), dev)
+    _build.check(masks, "masks", torch.int64, (m,), dev)
+    out = torch.empty((B, parts, m), dtype=torch.float32, device=dev)
+    for lo in range(0, m, step):
+        hi = min(m, lo + step)
+        part = out if (lo, hi) == (0, m) else torch.empty(
+            (B, parts, hi - lo), dtype=torch.float32, device=dev)
+        _build.launch("qcmrf_moments", dev, tables, _build.ptr(coef), B,
+                      coef.shape[1], per_part, x0, parts, beta,
+                      _build.ptr(lnz), _build.ptr(masks[lo:hi]), hi - lo,
+                      _build.ptr(part))
+        LAUNCHES["moments"] += 1
+        if part is not out:
+            out[:, :, lo:hi] = part
+    return out
+
+
 def monomial_moments(cliques: tuple, n: int, coef: torch.Tensor,
                      beta: float, lnz: torch.Tensor,
-                     masks: torch.Tensor) -> torch.Tensor:
+                     masks: torch.Tensor, x0_blocks: int = 0,
+                     blocks: int = None) -> torch.Tensor:
     """``E_p[prod_{v in S} x_v]`` for every monomial ``S`` and every row of
     ``coef``, with ``p(x) = exp(beta * theta^T phi(x) - lnz)``: float64
     (B, m). ``lnz`` is float32 (B,); ``masks`` int64 (m,), monomial ``S``
@@ -775,34 +906,16 @@ def monomial_moments(cliques: tuple, n: int, coef: torch.Tensor,
     :func:`moments_per_launch` monomials, no table; on the card the split
     and its superset sums (``lnz_moments_kernel`` with ``lnz`` given,
     :func:`monomial_moments_split_reference`'s algorithm); the float32
-    per-block partials are added in float64."""
+    per-block partials (:func:`monomial_moment_partials`) are added in
+    float64. ``x0_blocks`` and ``blocks`` sum only the states of a
+    :func:`sweep_range`."""
     _build.refuse_grad(coef, "coef")
     if coef.device.type == "cpu":
         return monomial_moments_reference(cliques, n, coef, beta, lnz,
-                                          masks)
-    dev = coef.device
-    m = masks.numel()
-    step = moments_per_launch(cliques, n)
-    if step < 1:
-        raise ValueError("the split plan leaves no shared memory for a "
-                         "monomial")
-    plan = split_plan(cliques, n, split_bits(n))
-    tables, B, parts, per_part = _split_args(
-        cliques, n, coef,
-        split_shared_bytes(plan, min(m, step)) + _LNZ_STATIC_BYTES)
-    _build.check(lnz, "lnz", torch.float32, (B,), dev)
-    _build.check(masks, "masks", torch.int64, (m,), dev)
-    out = torch.empty((B, m), dtype=torch.float64, device=dev)
-    for lo in range(0, m, step):
-        hi = min(m, lo + step)
-        part = torch.empty((B, parts, hi - lo), dtype=torch.float32,
-                           device=dev)
-        _build.launch("qcmrf_moments", dev, tables, _build.ptr(coef), B,
-                      coef.shape[1], per_part, parts, beta, _build.ptr(lnz),
-                      _build.ptr(masks[lo:hi]), hi - lo, _build.ptr(part))
-        LAUNCHES["moments"] += 1
-        out[:, lo:hi] = part.sum(dim=1, dtype=torch.float64)
-    return out
+                                          masks, x0_blocks, blocks)
+    return monomial_moment_partials(cliques, n, coef, beta, lnz, masks,
+                                    x0_blocks, blocks).sum(
+                                        dim=1, dtype=torch.float64)
 
 
 # --------------------------------------------------------------------------
@@ -810,27 +923,19 @@ def monomial_moments(cliques: tuple, n: int, coef: torch.Tensor,
 # --------------------------------------------------------------------------
 
 
-
 def lnz_moments_partials_reference(cliques: tuple, n: int,
                                    coef: torch.Tensor, beta: float,
-                                   masks: torch.Tensor):
+                                   masks: torch.Tensor, x0_blocks: int = 0,
+                                   blocks: int = None):
     """Plain PyTorch version of one launch of
     :func:`lnz_moments_partials`, on any device: the table cut into the
     sweep's blocks, each block's max ``M_b``, and its weights ``exp(v -
     M_b)`` summed in float64 over each monomial's states."""
-    lp, per_part = _padded_table(cliques, n, coef, beta)
+    lp, _ = _block_table(cliques, n, coef, beta, x0_blocks, blocks)
     M = lp.amax(dim=-1)
-    w = torch.where(lp == -math.inf, 0.0,
-                    torch.exp(lp - M[..., None])).double()
-    x = torch.arange(lp.shape[1] * per_part, dtype=torch.int64,
-                     device=coef.device).reshape(lp.shape[1:])
-    chunk = max(1, (1 << 24) >> n)
-    S = []
-    for s in range(0, masks.numel(), chunk):
-        mk = masks[s:s + chunk, None, None]
-        S.append(torch.einsum("bpl,cpl->bpc", w,
-                              ((x & mk) == mk).double()))
-    return M, torch.cat(S, dim=-1).float()
+    w = torch.where(lp == -math.inf, 0.0, torch.exp(lp - M[..., None]))
+    x = _range_ids(n, x0_blocks, blocks, coef.device).reshape(lp.shape[1:])
+    return M, _block_mask_sums(w, x, masks).float()
 
 
 def lnz_moments_reserve(cliques: tuple, n: int) -> int:
@@ -842,26 +947,29 @@ def lnz_moments_reserve(cliques: tuple, n: int) -> int:
 
 
 def _lnz_moments_launch(cliques: tuple, n: int, coef: torch.Tensor,
-                        beta: float, masks: torch.Tensor):
+                        beta: float, masks: torch.Tensor, x0_blocks: int = 0,
+                        blocks: int = None):
     """One launch of ``lnz_moments_kernel``: the (M, S) partials of
     :func:`lnz_moments_partials_reference` for a mask list that fits."""
     dev = coef.device
     m = masks.numel()
     plan = split_plan(cliques, n, split_bits(n))
-    tables, B, parts, per_part = _split_args(
-        cliques, n, coef, split_shared_bytes(plan, m) + _LNZ_STATIC_BYTES)
+    tables, B, x0, parts, per_part = _split_args(
+        cliques, n, coef, split_shared_bytes(plan, m) + _LNZ_STATIC_BYTES,
+        x0_blocks, blocks)
     _build.check(masks, "masks", torch.int64, (m,), dev)
     M = torch.empty((B, parts), dtype=torch.float32, device=dev)
     S = torch.empty((B, parts, m), dtype=torch.float32, device=dev)
     _build.launch("qcmrf_lnz_moments", dev, tables, _build.ptr(coef), B,
-                  coef.shape[1], per_part, parts, beta, _build.ptr(masks), m,
-                  _build.ptr(M), _build.ptr(S))
+                  coef.shape[1], per_part, x0, parts, beta,
+                  _build.ptr(masks), m, _build.ptr(M), _build.ptr(S))
     LAUNCHES["lnz_moments"] += 1
     return M, S
 
 
 def lnz_moments_partials(cliques: tuple, n: int, coef: torch.Tensor,
-                         beta: float, masks: torch.Tensor):
+                         beta: float, masks: torch.Tensor, x0_blocks: int = 0,
+                         blocks: int = None):
     """One sweep of all ``2**n`` states, no table and no lnZ needed:
     per block ``b`` of states (``lse_geometry``), the running max ``M_b``
     of ``v = beta * theta^T phi(x)`` and, per monomial ``g``, ``S_b[g] =
@@ -877,7 +985,9 @@ def lnz_moments_partials(cliques: tuple, n: int, coef: torch.Tensor,
     columns, block by block, by its own scaled Z onto the first launch's
     (``S_0[0] / S_j[0]``), so no two launches need to agree on ``M_b``.
     On a CUDA tensor each launch is ``lnz_moments_kernel``; on a CPU
-    tensor the plain version."""
+    tensor the plain version. ``x0_blocks`` and ``blocks`` sweep only
+    those blocks of a :func:`sweep_range`: ``(B, blocks)`` and ``(B,
+    blocks, m)``, the whole sweep's partials of those blocks."""
     _build.refuse_grad(coef, "coef")
     m = masks.numel()
     # a mask list on the card is not read back (a sync a step):
@@ -889,11 +999,12 @@ def lnz_moments_partials(cliques: tuple, n: int, coef: torch.Tensor,
     step = moments_per_launch(cliques, n)
     if step < 2:
         raise ValueError(f"a launch takes {step} monomials; it needs 2")
-    M, S = run(cliques, n, coef, beta, masks[:step])
+    M, S = run(cliques, n, coef, beta, masks[:step], x0_blocks, blocks)
     cols = [S]
     for lo in range(step, m, step - 1):
         _, Sj = run(cliques, n, coef, beta,
-                    torch.cat([masks[:1], masks[lo:lo + step - 1]]))
+                    torch.cat([masks[:1], masks[lo:lo + step - 1]]),
+                    x0_blocks, blocks)
         z = Sj[..., :1]
         cols.append(Sj[..., 1:] * torch.where(z > 0, S[..., :1] / z, 0.0))
     return M, torch.cat(cols, dim=-1)

@@ -26,8 +26,11 @@ file.jsonl`` answers a batch of per-query overrides in one process (JSONL
 out, ``index`` echoes the line order).
 
 ``--platform default`` means the card, as for ``run``: the JAX package's
-``default`` serves n <= 26 on the host, the port does not. ``--mesh``
-comes with slice 6 of ROADMAP.md.
+``default`` serves n <= 26 on the host, the port does not. ``--mesh AxB``
+shards the streaming sweeps (and routes every query there, as the JAX
+CLI does), the ``pam`` sampler and the AIS chains over A * B devices
+(:func:`qcmrf_tpu_torch.parallel.sharded.mesh_from_spec`); a
+model that evidence leaves smaller than the mesh answers on one device.
 """
 
 from __future__ import annotations
@@ -103,13 +106,24 @@ def _floats(t) -> list:
     return t.detach().cpu().double().numpy().tolist()
 
 
-def _ais_report(args, diag, stderr: bool = False) -> dict:
+def _ais_report(chains: int, args, diag, stderr: bool = False) -> dict:
     """``result["ais"]``: the JAX CLI's keys, ``stderr`` for lnz only."""
-    out = {"chains": int(args.ais_chains), "temps": args.ais_temps,
+    out = {"chains": chains, "temps": args.ais_temps,
            "seed": args.sample_seed, "ess": float(diag["ess"])}
     if stderr:
         out["stderr"] = float(diag["stderr"])
     return out
+
+
+def _ais_chains(args, mesh) -> tuple:
+    """(chains, note): the chain count actually run, rounded up to a
+    multiple of the mesh's device count (JAX's rule)."""
+    chains = int(args.ais_chains)
+    if mesh is None or chains % mesh.size == 0:
+        return chains, None
+    rounded = -(-chains // mesh.size) * mesh.size
+    return rounded, (f"--ais-chains {chains} rounded up to {rounded} "
+                     f"(a multiple of the {mesh.size}-device mesh)")
 
 
 def main(argv: Optional[List[str]] = None):
@@ -155,7 +169,8 @@ def main(argv: Optional[List[str]] = None):
     parser.add_argument("--ais-temps", type=int, default=128)
     parser.add_argument("--sample-seed", type=int, default=0)
     parser.add_argument("--mesh", type=str, default=None,
-                        help="AxB device mesh (slice 6)")
+                        help="shard the streaming sweeps over an AxB "
+                             "device mesh")
     parser.add_argument("--queries", type=str, default=None,
                         help="JSONL file of per-query overrides (keys: "
                              "query/evidence/of/max_vars/num_samples/"
@@ -245,17 +260,15 @@ def main(argv: Optional[List[str]] = None):
         _emit([report], args.out)
         return report
 
-    if args.mesh is not None:
-        raise SystemExit("--mesh comes to the port with slice 6 (the "
-                         "multi-device layer) of ROADMAP.md")
-
     device = resolve_platform(args.platform)
     from qcmrf_tpu_torch.models.mrf import MRF
+    from qcmrf_tpu_torch.parallel import sharded
 
     mrf = MRF.create(cliques, theta=theta, beta=beta, device=device)
+    mesh = sharded.mesh_from_spec(args.mesh, device) if args.mesh else None
 
     if not args.queries:
-        result = _answer(mrf, args, beta)
+        result = _answer(mrf, args, mesh, beta)
         _emit([result], args.out)
         return result
     results = []
@@ -271,7 +284,7 @@ def main(argv: Optional[List[str]] = None):
                      if isinstance(v, dict)
                      else ",".join(str(u) for u in v))
             setattr(qargs, k, v)
-        res = _answer(mrf, qargs, beta)
+        res = _answer(mrf, qargs, mesh, beta)
         res["index"] = i
         results.append(res)
     _emit(results, args.out)
@@ -288,7 +301,7 @@ def _emit(results, out) -> None:
             f.write("".join(line + "\n" for line in lines))
 
 
-def _answer(mrf, args, beta) -> dict:
+def _answer(mrf, args, mesh, beta) -> dict:
     """Answer one query namespace against a loaded model. The caps are
     read from :mod:`capability` at call time."""
     from qcmrf_tpu_torch.models import ais as mais
@@ -302,7 +315,7 @@ def _answer(mrf, args, beta) -> dict:
     cap = capability.ELIM_WIDTH_CAP
     max_n = capability.STREAMING_MAX_N
     width = elimination.induced_width(mrf.cliques, mrf.n)
-    use_streaming = width > cap
+    use_streaming = width > cap or mesh is not None
     ais_q = args.method == "ais" and args.query in ("lnz", "marginals",
                                                     "prob")
     if (use_streaming and mrf.n > max_n
@@ -324,20 +337,24 @@ def _answer(mrf, args, beta) -> dict:
         if ais_q:
             # AIS on the evidence-reduced model: log mass = beta * const +
             # lnZ(reduced); every variable observed leaves the constant
+            chains, chains_note = _ais_chains(args, mesh)
             red, const = (moments.reduce_evidence(mrf, evidence)
                           if evidence else (mrf, 0.0))
             if red is not None:
                 lnz_red, diag = mais.ais_log_partition(
-                    args.sample_seed, red, num_chains=args.ais_chains,
-                    num_temps=args.ais_temps, return_diagnostics=True)
+                    args.sample_seed, red, num_chains=chains,
+                    num_temps=args.ais_temps, return_diagnostics=True,
+                    mesh=mesh)
             else:
-                lnz_red, diag = 0.0, {"ess": float(args.ais_chains),
-                                      "stderr": 0.0}
+                lnz_red, diag = 0.0, {"ess": float(chains), "stderr": 0.0}
             val = float(beta) * float(const) + float(lnz_red)
             result["backend"] = "ais"
-            result["ais"] = _ais_report(args, diag, stderr=True)
+            result["ais"] = _ais_report(chains, args, diag, stderr=True)
+            if chains_note:
+                result["note"] = chains_note
         elif use_streaming:
-            val = moments.log_partition_clamped_streaming(mrf, evidence)
+            val = moments.log_partition_clamped_streaming(mrf, evidence,
+                                                          mesh)
         else:
             val = elimination.log_partition_clamped(mrf, evidence)
         result["lnz" if not evidence else "log_mass"] = float(val)
@@ -350,10 +367,11 @@ def _answer(mrf, args, beta) -> dict:
         (v, b), = of.items()
         if ais_q:
             # the final states' weighted indicator on the reduced model
+            chains, chains_note = _ais_chains(args, mesh)
             result["backend"] = "ais"
             if v in evidence:
                 p = 1.0 if evidence[v] == b else 0.0
-                diag = {"ess": float(args.ais_chains)}
+                diag = {"ess": float(chains)}
             else:
                 red, _ = (moments.reduce_evidence(mrf, evidence)
                           if evidence else (mrf, 0.0))
@@ -365,18 +383,21 @@ def _answer(mrf, args, beta) -> dict:
                         if u not in {int(w) for w in evidence}]
                 p, diag = mais.ais_event_prob(
                     args.sample_seed, red, free.index(v), b,
-                    num_chains=args.ais_chains, num_temps=args.ais_temps,
-                    return_diagnostics=True)
-            result["ais"] = _ais_report(args, diag)
+                    num_chains=chains, num_temps=args.ais_temps,
+                    return_diagnostics=True, mesh=mesh)
+            result["ais"] = _ais_report(chains, args, diag)
+            if chains_note:
+                result["note"] = chains_note
+        elif use_streaming:
+            p = moments.conditional_prob_streaming(mrf, v, b, evidence,
+                                                   mesh)
         else:
-            fn = (moments.conditional_prob_streaming if use_streaming
-                  else elimination.conditional_prob)
-            p = fn(mrf, v, b, evidence)
+            p = elimination.conditional_prob(mrf, v, b, evidence)
         result["of"] = f"{v}={b}"
         result["prob"] = float(p)
     elif args.query == "map":
         if use_streaming:
-            sid, val = msample.map_state_clamped(mrf, evidence)
+            sid, val = msample.map_state_clamped(mrf, evidence, mesh)
             bits = [(sid >> (mrf.n - 1 - v)) & 1 for v in range(mrf.n)]
         else:
             red, _ = moments.reduce_evidence(mrf, evidence)
@@ -411,6 +432,9 @@ def _answer(mrf, args, beta) -> dict:
         cw = elimination.mmap_width(mrf.cliques, mrf.n, M, evidence)
         if cw <= cap:
             result["backend"] = "elimination"
+            if mesh is not None:
+                result["note"] = ("--mesh unused: constrained width "
+                                  f"{cw} fits single-pass elimination")
             assignment, val = elimination.marginal_map(mrf, req, evidence)
         else:
             # 2^|M| clamped sweeps, each over n - |ev| - |M| variables
@@ -430,27 +454,32 @@ def _answer(mrf, args, beta) -> dict:
                     "--max-vars")
             result["backend"] = "streaming"
             assignment, val = moments.marginal_map_streaming(mrf, req,
-                                                             evidence)
+                                                             evidence, mesh)
         result["max_vars"] = {str(v): b for v, b in assignment.items()}
         result["log_mass"] = float(val)
     elif args.query == "marginals":
         if ais_q:
             # the weighted scatter of the final states, re-embedded through
             # the evidence reduction as on the exact routes
+            chains, chains_note = _ais_chains(args, mesh)
             red, _ = (moments.reduce_evidence(mrf, evidence)
                       if evidence else (mrf, 0.0))
             if red is not None:
                 rmom, diag = mais.ais_clique_marginals(
-                    args.sample_seed, red, num_chains=args.ais_chains,
-                    num_temps=args.ais_temps, return_diagnostics=True)
+                    args.sample_seed, red, num_chains=chains,
+                    num_temps=args.ais_temps, return_diagnostics=True,
+                    mesh=mesh)
             else:
-                rmom, diag = np.zeros((0,)), {"ess": float(args.ais_chains)}
+                rmom, diag = np.zeros((0,)), {"ess": float(chains)}
             mu = (moments.embed_clamped_marginals(mrf, evidence, rmom)
                   if evidence else rmom)
             result["backend"] = "ais"
-            result["ais"] = _ais_report(args, diag)
+            result["ais"] = _ais_report(chains, args, diag)
+            if chains_note:
+                result["note"] = chains_note
         elif use_streaming:
-            mu = moments.clique_marginals_clamped_streaming(mrf, evidence)
+            mu = moments.clique_marginals_clamped_streaming(mrf, evidence,
+                                                            mesh)
         elif evidence:
             # clamp exactly, then bounded-width marginals on the reduced
             # model, re-embedded the same way
@@ -464,16 +493,20 @@ def _answer(mrf, args, beta) -> dict:
     elif args.query == "sample":
         method, note = capability.sample_method(mrf.cliques, mrf.n,
                                                 evidence, args.method)
+        notes = [note] if note else []
+        if mesh is not None and method != "pam":
+            notes.append(f"--mesh shards the 'pam' sampler only; "
+                         f"'{method}' runs single-device")
         try:
             bits = msample.sample_conditional(
                 args.sample_seed, mrf, args.num_samples, evidence,
-                method=method)
+                method=method, mesh=mesh if method == "pam" else None)
         except ValueError as e:
             # a sampler with no feasible backend explains its limits
             raise SystemExit(str(e))
         result["method"] = method
-        if note:
-            result["note"] = note
+        if notes:
+            result["note"] = "; ".join(notes)
         result["samples"] = bits.cpu().numpy().astype(np.int32).tolist()
     return result
 

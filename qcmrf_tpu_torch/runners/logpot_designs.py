@@ -62,17 +62,18 @@ def _designs(lib, torch, K, cliques, n, coef, beta):
     from qcmrf_tpu_torch.ops import _build
 
     plan = K.split_plan(cliques, n, K.split_bits(n))
-    tables, B, parts, per_part = K._split_args(cliques, n, coef,
-                                               K.split_shared_bytes(plan))
+    tables, B, x0, parts, per_part = K._split_args(
+        cliques, n, coef, K.split_shared_bytes(plan))
 
-    def call(fn, *head):
+    def call(fn, *head, offset=()):
+        # the library's entry point takes the sweep's first block
         out = torch.empty((B, 1 << n), dtype=torch.float32,
                           device=coef.device)
 
         def run():
             stream = torch.cuda.current_stream().cuda_stream
             err = fn(*head, tables, ctypes.c_void_p(coef.data_ptr()), B,
-                     coef.shape[1], per_part, parts, beta, 0,
+                     coef.shape[1], per_part, *offset, parts, beta, 0,
                      2.0 ** (-0.5 * n), ctypes.c_void_p(out.data_ptr()),
                      ctypes.c_void_p(stream))
             if err:
@@ -83,7 +84,7 @@ def _designs(lib, torch, K, cliques, n, coef, beta):
 
     return {
         "i: stores from registers (library logpot_kernel)":
-            call(_build.library().qcmrf_logpot),
+            call(_build.library().qcmrf_logpot, offset=(x0,)),
         "i': the same stores, evict-first (st.global.cs)":
             call(lib.design_logpot, 0),
         "ii: cp.async.bulk of each sub-block, two 2^L-float buffers":

@@ -32,7 +32,16 @@ Without ``--data`` the CLI draws its data from a random ground-truth
 model: ``sample_exact`` up to n = 22, one Gibbs chain (thin 10, burn 100,
 the chain kernel) past it; past the threshold, as bit arrays, elimination's
 perturb-and-MAP, or the chain where the structure is wider than the
-elimination cap. ``--mesh`` comes with slice 6.
+elimination cap.
+
+``--mesh AxB`` builds a 2-D ``(amp, data)`` mesh of A * B devices
+(``sharded.mesh_from_spec``): the exact NLL step up to the threshold
+shards lnZ over ``amp`` and the batch over ``data``
+(``make_sharded_train_step``; a batch that does not split over ``data``
+loses its tail, with a warning); the wide moment step and structure
+learning shard their streaming sweep over every device; ``--grad shots``
+its draws and ``--grad ais`` its chains.
+Elimination training is single-device and refuses ``--mesh``.
 """
 
 from __future__ import annotations
@@ -162,7 +171,9 @@ def main(argv: Optional[List[str]] = None) -> str:
                              "--ais-chains (collapsed weights give "
                              "noise-dominated gradients)")
     parser.add_argument("--mesh", type=str, default=None,
-                        help="AxB device mesh (slice 6)")
+                        help="run on an AxB (amp=A, data=B) device mesh; "
+                             "with --grad shots, all A*B devices share the "
+                             "shots")
     parser.add_argument("--platform", type=str, default="default",
                         choices=["cpu", "gpu", "default"],
                         help="'default' means 'gpu' at every size (the JAX "
@@ -187,9 +198,6 @@ def main(argv: Optional[List[str]] = None) -> str:
     # ---- host-side routing and refusals, before any device -------------
     from qcmrf_tpu_torch.models import capability, elimination
 
-    if args.mesh:
-        raise SystemExit("--mesh comes to the port with slice 6 (the "
-                         "multi-device layer) of ROADMAP.md")
     cliques = parse_graph(args.graph)
     n = 1 + max(v for C in cliques for v in C)
     big = n > capability.big_n_threshold()
@@ -202,6 +210,14 @@ def main(argv: Optional[List[str]] = None) -> str:
             f"streaming sweep, which tops out at n={max_n} (the JAX "
             "package's int32 block ids) — pass --grad ais to train on AIS "
             "moment estimates (ESS-gated, no structural cap)")
+    if (big and args.mesh and not wide and args.grad != "ais"
+            and not args.learn_structure):
+        # structure learning is exempt: its width is the candidate
+        # template's, whose selection sweep shards when that is wide
+        raise SystemExit("--mesh is for the enumerated state table "
+                         "(n <= 30), wide structures (streaming sweep), "
+                         "or --grad ais (sharded chains); elimination "
+                         "training is single-device")
     if big and args.grad == "shots":
         raise SystemExit("--grad shots needs the circuit sampler's int32 "
                          f"state ids (n <= {capability.CIRCUIT_SAMPLER_MAX_N})")
@@ -216,8 +232,11 @@ def main(argv: Optional[List[str]] = None) -> str:
     from qcmrf_tpu_torch.models import sample as msample
     from qcmrf_tpu_torch.models import train as mtrain
     from qcmrf_tpu_torch.models.mrf import MRF
+    from qcmrf_tpu_torch.parallel import sharded
 
     template = MRF.create(cliques, device=device)
+    mesh = (sharded.mesh_from_spec(args.mesh, device) if args.mesh
+            else None)
     os.makedirs(args.outdir, exist_ok=True)
     dump_effective_config(args, os.path.join(args.outdir, "train_config.json"))
 
@@ -273,7 +292,7 @@ def main(argv: Optional[List[str]] = None) -> str:
             fit = mstruct.fit_structure(
                 cands, data, n, lam=args.l1, steps=args.steps,
                 learning_rate=args.lr, prune_tol=args.prune_tol,
-                device=device)
+                mesh=mesh, device=device)
         except ValueError as e:
             # the lnZ router's past-both-caps refusal, as a clean CLI error
             raise SystemExit(str(e))
@@ -326,7 +345,8 @@ def main(argv: Optional[List[str]] = None) -> str:
                   else clique_marginals_from_samples(template, data))
         ais_step = mtrain.make_ais_train_step(
             template, opt, mu_hat, num_chains=args.ais_chains,
-            num_temps=args.ais_temps, ess_min_frac=args.ais_ess_frac)
+            num_temps=args.ais_temps, ess_min_frac=args.ais_ess_frac,
+            mesh=mesh)
         loss_label = "ess"
 
         def step_fn(batch, s):
@@ -342,18 +362,40 @@ def main(argv: Optional[List[str]] = None) -> str:
                       "--ais-temps)", file=sys.stderr)
             return info["ess"]
     elif big:
+        # a wide structure's streaming sweep shards over the flattened
+        # mesh
         moment_step = mtrain.make_moment_train_step(
-            template, opt, mtrain.empirical_moments_from_bits(template, data))
+            template, opt, mtrain.empirical_moments_from_bits(template, data),
+            mesh=mesh)
 
         def step_fn(batch, s):
             return moment_step()
+    elif mesh is not None and args.grad != "shots":
+        if data.shape[0] % mesh.shape["data"]:
+            kept = data.shape[0] - data.shape[0] % mesh.shape["data"]
+            print(f"warning: --mesh data axis {mesh.shape['data']} does not "
+                  f"divide the {data.shape[0]} samples; training on the "
+                  f"first {kept} (the dropped tail changes the objective "
+                  "slightly vs a single-device fit)", file=sys.stderr)
+            data = data[:kept]
+            # the provenance records what was trained on
+            args.effective_samples = kept
+            dump_effective_config(
+                args, os.path.join(args.outdir, "train_config.json"))
+        train_step = mtrain.make_sharded_train_step(template, opt, mesh)
+
+        def step_fn(batch, s):
+            return train_step(batch)
     elif args.grad == "shots":
         from qcmrf_tpu_torch.evaluation.estimators import (
             clique_marginals_from_samples)
 
+        if mesh is not None and args.grad_shots % mesh.size:
+            raise SystemExit(f"--grad-shots ({args.grad_shots}) must be "
+                             f"divisible by the mesh size ({mesh.size})")
         shots_step = mtrain.make_shots_train_step(
             template, opt, args.grad_shots,
-            clique_marginals_from_samples(template, data))
+            clique_marginals_from_samples(template, data), mesh=mesh)
         log2 = n * math.log(2.0)
 
         def step_fn(batch, s):

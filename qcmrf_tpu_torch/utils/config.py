@@ -1,24 +1,80 @@
-"""Configuration for the drivers (the part of :mod:`qcmrf_tpu.utils.config`
-that ``run`` and ``eval`` use).
+"""Typed configuration for the command-line runners (port of
+:mod:`qcmrf_tpu.utils.config`).
 
-:data:`CONFIG_KEYS` are the keys a JAX ``--config`` file may hold (the
-field names of ``qcmrf_tpu.utils.config.Config``), so one file serves both
-packages. A key that names no flag of the command is ignored with a
-warning; ``platform`` here is ``cpu | gpu | default``.
+:class:`Config` is JAX's dataclass, field for field, so that one JSON file
+serves both packages (:meth:`Config.to_json`, :meth:`Config.from_json`);
+:data:`CONFIG_KEYS` are its field names, the keys a ``--config`` file may
+hold. A key that names no flag of the command is ignored with a warning;
+``platform`` here is ``cpu | gpu | default``. JAX's
+``enable_compilation_cache`` (XLA's persistent cache for the TPU's
+remote compiles) has no counterpart: the port's kernels are built once
+into ``build/`` (``ops/_build.py``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import sys
+from typing import Optional, Tuple
 
 import torch
 
-CONFIG_KEYS = frozenset({
-    "scale", "reps", "seed", "models_path", "engine", "shots",
-    "sample_seed", "data_seed", "platform", "mesh_shape", "mesh_axes",
-    "outdir",
-})
+
+@dataclasses.dataclass
+class Config:
+    # suite
+    scale: float = 0.5
+    reps: int = 10
+    seed: int = 1984          # suite-generation seed (the reference's)
+    models_path: Optional[str] = None   # load instead of regenerate
+
+    # execution
+    engine: str = "analytic"  # analytic | statevector | noisy:<preset> ...
+    shots: int = 10_000
+    sample_seed: int = 0      # shot-sampling stream (run)
+    data_seed: int = 0        # training-data generation (train)
+    platform: str = "default"  # cpu | gpu | default
+
+    # sharding
+    mesh_shape: Tuple[int, ...] = ()    # () = one device
+    mesh_axes: Tuple[str, ...] = ("amp",)
+
+    # io
+    outdir: str = "."
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2)
+
+    @staticmethod
+    def from_json(s: str) -> "Config":
+        d = json.loads(s)
+        d["mesh_shape"] = tuple(d.get("mesh_shape", ()))
+        d["mesh_axes"] = tuple(d.get("mesh_axes", ("amp",)))
+        fields = {f.name for f in dataclasses.fields(Config)}
+        return Config(**{k: v for k, v in d.items() if k in fields})
+
+    def apply_platform(self) -> torch.device:
+        """The device ``platform`` names (:func:`resolve_platform`: raises
+        for ``gpu`` and ``default`` where PyTorch sees no CUDA device).
+        PyTorch has no global platform switch, so the device is returned
+        for the caller to pass on."""
+        return resolve_platform(self.platform)
+
+    def make_mesh(self):
+        """The mesh of ``mesh_shape`` over the first of
+        ``sharded.visible_devices`` on :meth:`apply_platform`'s device,
+        axes named by ``mesh_axes``; None for ``mesh_shape == ()``."""
+        if not self.mesh_shape:
+            return None
+        from qcmrf_tpu_torch.parallel import sharded
+
+        return sharded.device_mesh(self.mesh_shape,
+                                   self.mesh_axes[:len(self.mesh_shape)],
+                                   self.apply_platform())
+
+
+CONFIG_KEYS = frozenset(f.name for f in dataclasses.fields(Config))
 
 
 def parse_with_config(parser, argv=None):

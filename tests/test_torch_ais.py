@@ -29,6 +29,7 @@ from qcmrf_tpu_torch.models import sample as msample  # noqa: E402
 from qcmrf_tpu_torch.models import train as mtrain  # noqa: E402
 from qcmrf_tpu_torch.models.mrf import MRF, chain_mrf, grid_mrf  # noqa: E402
 from qcmrf_tpu_torch.ops import gibbs_kernel  # noqa: E402
+from qcmrf_tpu_torch.parallel import sharded  # noqa: E402
 from qcmrf_tpu_torch.runners import infer_cli, train_cli  # noqa: E402
 
 
@@ -198,8 +199,10 @@ def test_arguments_are_checked():
         gibbs_kernel.ais_chains(0, m.cliques, 3, m.theta, 1.0, 0, 4, 1)
     with pytest.raises(ValueError, match="shape"):
         gibbs_kernel.ais_chains(0, m.cliques, 3, m.theta[:4], 1.0, 4, 4, 1)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        ais.ais_log_partition(0, m, 4, 4, mesh=object())
+    # the chains must divide over a mesh (JAX's rule)
+    with pytest.raises(ValueError, match="must divide over the 4-device"):
+        ais.ais_log_partition(0, m, 6, 4, mesh=sharded.make_mesh(
+            4, device="cpu"))
     with pytest.raises(ValueError, match="card"):
         gibbs_kernel.ais_resident_blocks(m.cliques, 3, "cpu")
 
@@ -420,9 +423,10 @@ def test_ais_step_ess_gate_skips(monkeypatch):
     info = step(0)
     assert info["skipped"] and info["ess"] == 1.0
     assert torch.equal(raw.detach(), before) and not opt.state
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        mtrain.make_ais_train_step(template, opt, np.zeros(8),
-                                   mesh=object())
+    monkeypatch.undo()
+    with pytest.raises(ValueError, match="must divide over the 4-device"):
+        mtrain.make_ais_train_step(template, opt, np.zeros(8), num_chains=6,
+                                   mesh=sharded.make_mesh(4, device="cpu"))(0)
 
 
 @pytest.fixture()

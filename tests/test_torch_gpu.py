@@ -1253,3 +1253,72 @@ def test_noise_engines_on_card(dev, tmp_path, engine):
         want = np.mean([float(q[: 1 << n].sum() / q.sum()) for q in qs])
         assert abs(res.mean_delta - want) <= 0.03, (C, res.mean_delta, want)
         assert res.mean_f > 0.9
+
+
+# ---- the state-id offset of rows 2-7, and one sweep over a mesh ----------
+
+
+def split_ranges(n, pieces):
+    parts = kernels.lse_geometry(1 << n)[0]
+    per = parts // pieces
+    return [(i * per, per) for i in range(pieces)]
+
+
+@pytest.mark.parametrize("pieces", [2, 4])
+def test_offset_ranges_concatenate_to_the_whole_sweep(dev, pieces):
+    """Rows 2, 4, 5, 6 and 7 split into block ranges by ``x0_blocks``:
+    the pieces, concatenated in range order, are the single sweep's
+    outputs bit for bit (n = 16, 64 blocks), and each piece equals its
+    plain version at its offset."""
+    m = model(dev, 4, 4)
+    cl, n, beta = m.cliques, m.n, m.beta
+    coef = kernels.moebius_coefficients(m)[None]
+    masks = moebius.device_masks(cl, n, dev)
+    lnz = kernels.combine_lse(*kernels.lse_partials(cl, n, coef, beta))
+    rng = split_ranges(n, pieces)
+    whole = [kernels.logpot_table(cl, n, coef, beta),
+             *kernels.lse_partials(cl, n, coef, beta),
+             *kernels.map_partials(cl, n, coef, beta),
+             kernels.monomial_moment_partials(cl, n, coef, beta, lnz, masks),
+             *kernels.lnz_moments_partials(cl, n, coef, beta, masks)]
+    parts = [[kernels.logpot_table(cl, n, coef, beta, False, x0, b),
+              *kernels.lse_partials(cl, n, coef, beta, x0, b),
+              *kernels.map_partials(cl, n, coef, beta, None, x0, b),
+              kernels.monomial_moment_partials(cl, n, coef, beta, lnz,
+                                               masks, x0, b),
+              *kernels.lnz_moments_partials(cl, n, coef, beta, masks, x0,
+                                            b)]
+             for x0, b in rng]
+    for k, w in enumerate(whole):
+        assert torch.equal(torch.cat([p[k] for p in parts], dim=1), w), k
+    x0, b = rng[-1]
+    assert torch.equal(parts[-1][0], kernels.logpot_table_split_reference(
+        cl, n, coef, beta, False, x0, b))
+    v, x = kernels.map_partials_reference(cl, n, coef, beta, x0, b)
+    assert torch.equal(parts[-1][3], v) and torch.equal(parts[-1][4], x)
+
+
+def test_offset_table_slice_past_2_31(dev):
+    """A 34-variable chain's table slice of its last block (ids past 2^33)
+    equals the split plain version there."""
+    m = chain_mrf(34, device=dev).with_theta(
+        -np.abs(np.random.RandomState(5).randn(4 * 33)).astype(np.float32)
+        * 0.3)
+    coef = kernels.moebius_coefficients(m)[None]
+    last = kernels.lse_geometry(1 << 34)[0] - 1
+    got = kernels.logpot_table(m.cliques, 34, coef, 1.0, False, last, 1)
+    want = kernels.logpot_table_split_reference(m.cliques, 34, coef, 1.0,
+                                                False, last, 1)
+    assert torch.equal(got, want)
+
+
+def test_mesh_sweep_on_one_card(dev):
+    """Four shards on the one card: lnZ and MAP equal the single sweep."""
+    from qcmrf_tpu_torch.parallel import sharded
+
+    m = model(dev, 4, 5)
+    mesh = sharded.Mesh((dev,) * 4)
+    assert torch.equal(sharded.sharded_log_partition(m, mesh),
+                       kernels.log_partition(m))
+    assert sharded.sharded_map_state(m, mesh) == \
+        kernels.map_state_streaming(m)

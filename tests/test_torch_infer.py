@@ -141,9 +141,19 @@ def test_cli_dispatch(k10, capsys):
 
 
 def test_unported_options_name_their_slices(k10, tmp_path):
-    cases = ((["--query", "lnz", "--mesh", "2x1"], "slice 6"),
-             (["--query", "marginals", "--method", "ais", "--mesh", "2x1"],
-              "slice 6"),
+    """``--mesh`` (slice 6a) answers as without it; a mesh that is not
+    AxB or not a power of two is refused."""
+    lnz, mp = (infer_cli.main(k10 + argv + ["--mesh", "2x1", "--platform",
+                                            "cpu"])
+               for argv in (["--query", "lnz"], ["--query", "map"]))
+    assert lnz["backend"] == mp["backend"] == "streaming"
+    assert lnz["lnz"] == pytest.approx(infer_cli.main(
+        k10 + ["--platform", "cpu"])["lnz"], rel=1e-6)
+    assert mp["state_bits"] == infer_cli.main(
+        k10 + ["--query", "map", "--platform", "cpu"])["state_bits"]
+    with pytest.raises(ValueError, match="power-of-two mesh"):
+        infer_cli.main(k10 + ["--mesh", "3x1", "--platform", "cpu"])
+    cases = ((["--query", "lnz", "--mesh", "2"], "expected AxB"),
              (batch(tmp_path, [{"query": "lnz"},
                                {"query": "map", "method": "ais"}]),
               "line 2: --method ais serves --query lnz, marginals and "

@@ -23,6 +23,7 @@ from qcmrf_tpu.ops import kernels as jkernels  # noqa: E402
 from qcmrf_tpu_torch.models import moments, sample  # noqa: E402
 from qcmrf_tpu_torch.models.mrf import MRF, chain_mrf  # noqa: E402
 from qcmrf_tpu_torch.ops import kernels  # noqa: E402
+from qcmrf_tpu_torch.parallel import sharded  # noqa: E402
 from qcmrf_tpu_torch.utils import moebius  # noqa: E402
 
 TOL = 1e-5
@@ -256,16 +257,25 @@ def test_embed_clamped_marginals_matches_jax():
 
 
 def test_unported_options_name_their_slices():
+    """The mesh arguments (slice 6a) answer as without a mesh: the lnZ,
+    MAP and PAM sweeps bit for bit, the moments within 1e-6 (the sharded
+    route takes lnZ, then the moments for it, as JAX's; the single route
+    one fused sweep); the gate-level sharded engine still names slice 6b."""
     _, m = models("K10")
+    mesh = sharded.make_mesh(4, device="cpu")
     for fn, args in ((moments.log_partition_streaming, (m,)),
-                     (moments.log_partition_clamped_streaming, (m, {})),
-                     (moments.clique_marginals_clamped_streaming, (m, {})),
+                     (moments.log_partition_clamped_streaming, (m, {1: 0})),
                      (moments.marginal_map_streaming, (m, [0])),
-                     (sample.map_state_clamped, (m, {}))):
-        with pytest.raises(NotImplementedError, match="slice 6"):
-            fn(*args, mesh=object())
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        moments.conditional_prob_streaming(m, 0, 1, {}, mesh=object())
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        sample.sample_conditional(0, m, 4, {0: 1}, method="pam",
-                                  mesh=object())
+                     (sample.map_state_clamped, (m, {2: 1}))):
+        assert fn(*args, mesh=mesh) == fn(*args)
+    np.testing.assert_allclose(
+        moments.clique_marginals_clamped_streaming(m, {0: 1}, mesh=mesh),
+        moments.clique_marginals_clamped_streaming(m, {0: 1}),
+        rtol=0, atol=1e-6)
+    assert moments.conditional_prob_streaming(m, 0, 1, {}, mesh=mesh) == \
+        moments.conditional_prob_streaming(m, 0, 1, {})
+    assert torch.equal(
+        sample.sample_conditional(0, m, 4, {0: 1}, method="pam", mesh=mesh),
+        sample.sample_conditional(0, m, 4, {0: 1}, method="pam"))
+    with pytest.raises(NotImplementedError, match="slice 6b"):
+        sharded.run_statevector_sharded(None, mesh)

@@ -160,7 +160,12 @@ def _default_device_calls():
     from qcmrf_tpu_torch.runners import bench, train_cli
     from qcmrf_tpu_torch.sim import batch, dense, planes
 
+    from qcmrf_tpu_torch.parallel import sharded
+
     return {
+        "bench.main": lambda: bench.main(["--json", "--n", "12"]),
+        "bench.record": bench.record,
+        "sharded.make_mesh": lambda: sharded.make_mesh(),
         "bench.copy_kernel_gbps": lambda: bench.copy_kernel_gbps(12),
         "bench.fma_peak_tflops": lambda: bench.fma_peak_tflops(),
         "train.fit_mle": lambda: train.fit_mle(
@@ -278,15 +283,20 @@ def test_entry_points_default_to_the_card(entry):
 def test_unported_options_name_their_slice(run_dir, tmp_path):
     from qcmrf_tpu_torch.models import ais
     from qcmrf_tpu_torch.models.mrf import chain_mrf
+    from qcmrf_tpu_torch.parallel import sharded
 
-    # the bench command is slice 7a's: the CLI names it as not yet ported
-    assert "bench command comes to the port with a later slice" in \
-        " ".join(cli.__doc__.split())
-    assert cli.main(["bench"]) == 2
+    # the bench command (slice 7a) measures the card: it raises without one
+    assert "bench     " in cli.__doc__
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["bench"])
+    # the AIS chains shard over a mesh (slice 6a): the same chains
     m = chain_mrf(3, device="cpu")
+    mesh = sharded.make_mesh(2, device="cpu")
     for fn in (ais.ais_log_partition, ais.ais_clique_marginals):
-        with pytest.raises(NotImplementedError, match="slice 6"):
-            fn(0, m, 4, 2, mesh=object())
+        assert torch.equal(fn(0, m, 4, 2, mesh=mesh), fn(0, m, 4, 2))
+    # the gate-level sharded engine is slice 6b's
+    with pytest.raises(NotImplementedError, match="slice 6b"):
+        sharded.sharded_outcome_probs(None, mesh)
     # file mode ignores --native, as the JAX harness does
     results = run_eval.main(["--results", "result_analytic_0.1.json",
                              "--scale", "0.1", "--res-root", str(run_dir),
@@ -296,7 +306,7 @@ def test_unported_options_name_their_slice(run_dir, tmp_path):
 
 def test_cli_dispatch_and_config(tmp_path, capsys):
     assert cli.main([]) == 0
-    assert cli.main(["bench"]) == 2
+    assert cli.main(["nonesuch"]) == 2
     cfg = tmp_path / "cfg.json"
     cfg.write_text(json.dumps({"shots": 32, "platform": "cpu",
                                "mesh_shape": [4, 2]}))
@@ -341,10 +351,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "import qcmrf_tpu_torch.noise.physical\n"
             "import qcmrf_tpu_torch.noise.fit\n"
             "import qcmrf_tpu_torch.viz.whisker\n"
-            "try:\n"
-            "    qcmrf_tpu_torch.__main__.main(['whisker', '--help'])\n"
-            "except SystemExit:\n"
-            "    pass\n"
+            "import qcmrf_tpu_torch.parallel.sharded\n"
+            "import qcmrf_tpu_torch.utils.profiling\n"
+            "import qcmrf_tpu_torch.utils.config\n"
+            "for cmd in ('whisker', 'bench'):\n"
+            "    try:\n"
+            "        qcmrf_tpu_torch.__main__.main([cmd, '--help'])\n"
+            "    except SystemExit:\n"
+            "        pass\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'qcmrf_tpu.')) or m == 'qcmrf_tpu']\n"
             "assert not bad, bad\n"

@@ -123,10 +123,10 @@ def test_fused_split_over_launches_matches_one_launch(monkeypatch, step):
     calls = []
     plain = kernels.lnz_moments_partials_reference
 
-    def counted(cl, n, coef, beta, masks):
+    def counted(cl, n, coef, beta, masks, *sweep_range):
         calls.append(masks.numel())
         assert int(masks[0]) == 0
-        return plain(cl, n, coef, beta, masks)
+        return plain(cl, n, coef, beta, masks, *sweep_range)
 
     monkeypatch.setattr(kernels, "lnz_moments_partials_reference", counted)
     monkeypatch.setattr(kernels, "moments_per_launch",
@@ -496,20 +496,23 @@ def test_sample_exact_two_stage_moments_at_n12(monkeypatch):
 
 
 def test_unported_routes_name_their_slices():
-    for fn, slice_ in ((train.make_sharded_train_step, "slice 6"),
-                       (train.fit_mle_sharded, "slice 6")):
-        with pytest.raises(NotImplementedError, match=slice_):
+    """The sharded routes of slice 6a run; the gate-level sharded engine
+    (slice 6b) still raises, naming its slice. A mesh whose size divides
+    no shot count or is not a power of two is refused."""
+    from qcmrf_tpu_torch.parallel import sharded
+
+    for fn in (sharded.run_statevector_sharded,
+               sharded.sharded_outcome_probs):
+        with pytest.raises(NotImplementedError, match="slice 6b"):
             fn(None, None)
     raw = torch.zeros(4, requires_grad=True)
     m = MRF.create([[0, 1]], device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        train.make_ais_train_step(m, torch.optim.SGD([raw], lr=0.1),
-                                  np.zeros(4), mesh=object())
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    mesh3 = sharded.Mesh((torch.device("cpu"),) * 3)
+    with pytest.raises(ValueError, match="divisible by the mesh size"):
         train.make_shots_train_step(m, torch.optim.SGD([raw], lr=0.1), 8,
-                                    np.zeros(4), mesh=object())
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        train.make_lnz_fn(_wide(), mesh=object())
+                                    np.zeros(4), mesh=mesh3)(0)
+    with pytest.raises(ValueError, match="power-of-two mesh"):
+        train.make_lnz_fn(_wide(), mesh=mesh3)(_wide().theta)
 
 
 def _wide():

@@ -214,18 +214,22 @@ def test_shots_gradient_mode(tmp_path):
 
 
 def test_unported_options_name_their_slices(tmp_path, monkeypatch, ids5):
-    for argv, match in ((["--mesh", "2x1"], "slice 6"),
-                        (["--grad", "ais", "--mesh", "2x1"], "slice 6"),
-                        (["--graph", "chain:24", "--grad", "ais", "--mesh",
-                          "1x1"], "slice 6")):
+    """``--mesh`` (slice 6a) runs; what JAX refuses, the port refuses
+    alike: a bad AxB, shots that do not split over the mesh, and
+    elimination training past the threshold on a mesh."""
+    for argv, match in ((["--mesh", "2"], "expected AxB"),
+                        (["--grad", "shots", "--grad-shots", "4097",
+                          "--mesh", "2x1"], "divisible by the mesh")):
         with pytest.raises(SystemExit, match=match):
             train_cli.main(["--steps", "1", "--platform", "cpu",
                             "--outdir", str(tmp_path)] + argv)
+    out = train_cli.main(["--steps", "1", "--platform", "cpu", "--mesh",
+                          "2x1", "--outdir", str(tmp_path / "m")])
+    assert np.isfinite(json.loads(open(out).read())["final_nll"])
     monkeypatch.setenv("QCMRF_BIG_N_THRESHOLD", "5")
-    with pytest.raises(SystemExit, match="slice 6"):
+    with pytest.raises(SystemExit, match="elimination training is single"):
         train_cli.main(["--graph", "chain:7", "--steps", "1", "--platform",
-                        "cpu", "--grad", "ais", "--mesh", "2x1",
-                        "--outdir", str(tmp_path)])
+                        "cpu", "--mesh", "2x1", "--outdir", str(tmp_path)])
 
 
 def test_guards_match_jax(tmp_path):
