@@ -66,10 +66,23 @@ kernels' launch counters reset just before it and read just after:
   estimates within 5 binomial sigma), then ``infer --mesh 2x2`` and
   ``train --mesh 2x2`` at the JAX pins' bars; times of one device and of
   the four shards, labelled as shards on one card;
+* the gate-level sharded engine (phase gate sharded, launches counted):
+  bench.py's qcmrf28 chain through ``run_statevector_sharded`` on one
+  shard and on ``Mesh((cuda:0,) * 4)``, equal to the single-card plane
+  engine within 1e-6; ``sharded_outcome_probs`` of a 14-qubit permuted
+  wiring and a measured subset on four shards against
+  ``planes.simulate_probs`` (1e-6); the 16-variable chain at 32 qubits on
+  four shards (32 GiB of planes): norm 1e-4, accepted mass Z/2^n 1e-5,
+  2^20 sampled amplitudes within 1e-6 of the single-card engine's; then
+  ``parallel.dryrun.dryrun_multichip`` on the four shards, the times of
+  both engines and of one exchange, and every port example at full size
+  and ``scaling --n 28 --devices 1 --gate-level`` as subprocesses;
 * ``python -m qcmrf_tpu_torch bench --json --trace`` in a subprocess and
   ``runners.bench.record()`` (phase bench), each printed as one JSON
   line, every key finite and record()'s keys BENCH_r05.json's less the
-  ones the port leaves out; the device busy and idle share
+  ones the port leaves out (the two ``qcmrf{24,28}_sharded_gate_level_ms``
+  printed beside ``qcmrf{24,28}_gate_level_ms`` as a ratio); the device
+  busy and idle share
   (``profiling.device_busy``) of the headline sampler call, the K27 infer
   batch, a K27 ``train_cli`` step and the calibrated noise run.
 
@@ -4024,6 +4037,320 @@ def phase_sharded(dev, report) -> dict:
     return launches
 
 
+def permuted_wiring(n: int):
+    """A circuit of ``n`` qubits whose qubits go to clbits in a random
+    order: on four shards its rz, cp and cx gates take the fused path's
+    diag, lane, row and sandwich passes and an exchange (sx on a device
+    qubit)."""
+    from qcmrf_tpu_torch.circuits.ir import Circuit
+
+    c = Circuit(n, num_clbits=n)
+    rng = np.random.RandomState(2)
+    for q in range(n):
+        c.h(q)
+    for q in (n - 1, n - 2, 3, 9):
+        c.rz(float(rng.uniform(-np.pi, np.pi)), q)
+    c.cx(n - 1, 0).cp(0.6, n - 2, 1).cx(2, n - 3).sx(n - 2).cx(n - 2, 8)
+    for q, k in enumerate(rng.permutation(n)):
+        c.measure(q, int(k))
+    return c
+
+
+def measured_subset(n: int):
+    """``n`` qubits, a superposed unmeasured qubit and five measured into
+    a 5-bit register out of order: the keyed reduce-scatter."""
+    from qcmrf_tpu_torch.circuits.ir import Circuit
+
+    c = Circuit(n, num_clbits=5)
+    for q in range(n):
+        c.h(q)
+    c.cx(n - 1, 1).rz(0.4, n - 2).sx(10).cp(0.7, 4, n - 1)
+    for q, k in ((n - 1, 0), (1, 2), (3, 1), (n - 2, 4), (10, 3)):
+        c.measure(q, k)
+    return c
+
+
+#: the sharded engine's kernels: each must launch in its window
+GATE_SHARDED_KERNELS = ("hdh_multi", "hdh_multi_uniform", "diag",
+                        "row_gate", "lane_factored")
+#: sampled amplitudes of the width-32 sharded state held against the
+#: single-card engine's
+SAMPLED_AMPLITUDES = 1 << 20
+
+
+def sharded_max_diff(parts, want) -> float:
+    """Max |gather(parts) - want| shard by shard (no gathered copy)."""
+    flat, off, worst = want.reshape(-1), 0, 0.0
+    for p in parts:
+        worst = max(worst, float((p - flat[off:off + p.numel()]).abs()
+                                 .max()))
+        off += p.numel()
+    return worst
+
+
+def exchange_ms(mesh, re, im, dev_j: int, loc_p: int, local_n: int) -> dict:
+    """One targeted exchange on the shards ``re``, ``im`` by CUDA events,
+    beside its bound: each pair reads and writes both of its half-shards
+    once, per plane (the scratch's third copy is over it)."""
+    from qcmrf_tpu_torch.parallel import sharded
+
+    re, im = list(re), list(im)
+
+    def run():
+        streams = sharded._shard_streams(mesh)
+        sharded._exchange(re, im, streams, dev_j, loc_p, local_n)
+        sharded._join(streams, zip(re, im))
+
+    ms = cuda_ms(run, reps=5)
+    half = (1 << (local_n - 1)) * 4
+    return dict(ms=ms, **bound(2 * mesh.size * half * 2, 0.0))
+
+
+def example_runs(root) -> dict:
+    """Every port example at full size on the card, and ``scaling --n 28
+    --devices 1 --gate-level --json``, as subprocesses five at a time, with
+    a temporary directory of their own (example 05 writes its figure
+    there): seconds and the last output line of each; raises where one
+    fails. ``fit_physical.py`` needs the reference's hardware tables, which
+    the repository does not hold: its tests run ``--help``."""
+    import concurrent.futures
+
+    ex = os.path.join(root, "qcmrf_tpu_torch", "examples")
+    tmp = tempfile.mkdtemp()
+    env = {k: v for k, v in os.environ.items()
+           if k != "QCMRF_EXAMPLE_SMOKE"}
+    env["TMPDIR"] = tmp
+    cmds = {name: [sys.executable, os.path.join(ex, name)]
+            for name in sorted(os.listdir(ex))
+            if name.endswith(".py") and name[:2].isdigit()}
+    cmds["scaling"] = [sys.executable, "-m", "qcmrf_tpu_torch.runners."
+                       "scaling", "--n", "28", "--devices", "1",
+                       "--gate-level", "--json"]
+
+    def run(item):
+        name, cmd = item
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
+                           text=True, timeout=600)
+        return name, r, time.perf_counter() - t0
+
+    out = {}
+    try:
+        with concurrent.futures.ThreadPoolExecutor(max_workers=5) as pool:
+            for name, r, secs in pool.map(run, cmds.items()):
+                if r.returncode != 0:
+                    raise AssertionError(f"{name} exited {r.returncode}: "
+                                         f"{r.stderr[-2000:]}")
+                last = r.stdout.strip().splitlines()[-1]
+                out[name] = dict(seconds=secs, last=last)
+                print(f"  {name}: {secs:.1f} s; {last[:150]}")
+        pdf = os.path.join(tmp, "torch_success_torino.pdf")
+        require(os.path.exists(pdf), "example 05 wrote its whisker figure "
+                                     "into its TMPDIR")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def phase_gate_sharded(dev, report) -> dict:
+    """The gate-level sharded engine (slice 6b) on the card, its launches
+    counted in its own window: bench.py's qcmrf28 chain on one shard and
+    on four shards of the card, ``sharded_outcome_probs`` of a 14-qubit
+    permuted wiring and a measured subset on four shards, and the full
+    16-variable chain (32 qubits, 32 GiB of planes) on four shards. After
+    the window: qcmrf28 on 1 and 4 shards equal to the single-card engine
+    within 1e-6 (4 shards exchange >= 2 times); the distributions equal to
+    ``planes.simulate_probs`` within 1e-6; the width-32 state's norm within
+    1e-4, its accepted mass Z / 2^n within 1e-5, and 2^20 amplitudes at
+    fixed random global indices within 1e-6 of the single-card engine's
+    (read before the shards are freed and that engine runs). Then, each in
+    its own window, ``dryrun_multichip(Mesh((dev,) * 4))``; times of the
+    engines and of one exchange; the examples at full size and ``scaling
+    --gate-level`` as subprocesses. Returns the engine window's launch
+    counts and the dry run's."""
+    from qcmrf_tpu_torch.circuits.compiler import compile_qcmrf
+    from qcmrf_tpu_torch.parallel import dryrun, sharded
+    from qcmrf_tpu_torch.sim import planes
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    mesh1, mesh4 = sharded.Mesh((dev,)), sharded.Mesh((dev,) * 4)
+    m28, m32 = chain_model(14, dev), chain_model(16, dev)
+    c28 = compile_qcmrf(m28, with_measurements=False)
+    c32 = compile_qcmrf(m32, with_measurements=False)
+    c_perm, c_sub = permuted_wiring(14), measured_subset(14)
+    idx = torch.from_numpy(np.sort(np.random.RandomState(5).randint(
+        0, 1 << c32.num_qubits, SAMPLED_AMPLITUDES,
+        dtype=np.int64))).to(dev)
+    print("[gate sharded] the gate-level sharded engine: Mesh((cuda:0,)) "
+          "and Mesh((cuda:0,) * 4), shards on one card")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    s28 = {1: sharded.run_statevector_sharded(c28, mesh1)}
+    remaps = {"qcmrf28 x1": sharded.LAST_REMAP_COUNT}
+    s28[4] = sharded.run_statevector_sharded(c28, mesh4)
+    remaps["qcmrf28 x4"] = sharded.LAST_REMAP_COUNT
+    probs = {"permuted": sharded.sharded_outcome_probs(c_perm, mesh4)}
+    remaps["permuted x4"] = sharded.LAST_REMAP_COUNT
+    probs["subset"] = sharded.sharded_outcome_probs(c_sub, mesh4)
+    remaps["subset x4"] = sharded.LAST_REMAP_COUNT
+    t32 = time.perf_counter()
+    re32, im32 = sharded.run_statevector_sharded(c32, mesh4)
+    remaps["qcmrf32 x4"] = sharded.LAST_REMAP_COUNT
+    torch.cuda.synchronize()
+    s32_first = time.perf_counter() - t32
+    window_s = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  the engine's window: {window_s:.3f} s (qcmrf32 on 4 shards, "
+          f"planner included, {s32_first:.3f} s); peak {peak:.2f} GiB; "
+          f"remaps {remaps}; launches {launches}")
+    for k in GATE_SHARDED_KERNELS:
+        require(launches[k] > 0, f"kernel {k} launched {launches[k]} times "
+                                 "on the gate-level sharded path")
+    require(remaps["qcmrf28 x4"] >= 2 and remaps["qcmrf32 x4"] >= 2
+            and remaps["qcmrf28 x1"] == 0,
+            "qcmrf28 and qcmrf32 on 4 shards exchange >= 2 times, none on "
+            "one")
+
+    # qcmrf32: norm, accepted mass, sampled amplitudes; then the shards go
+    L = re32[0].numel().bit_length() - 1
+    norm = sum(norm_float64(r, i_) for r, i_ in zip(re32, im32))
+    acc = norm_float64(re32[0][: 1 << m32.n], im32[0][: 1 << m32.n])
+    delta = float(m32.success_rate())
+    sh, loc = idx >> L, idx & ((1 << L) - 1)
+    got_re = torch.empty(idx.shape, device=dev)
+    got_im = torch.empty(idx.shape, device=dev)
+    for d in range(4):
+        sel = sh == d
+        got_re[sel] = re32[d][loc[sel]]
+        got_im[sel] = im32[d][loc[sel]]
+    del re32, im32
+    torch.cuda.empty_cache()
+    require(abs(norm - 1.0) <= 1e-4, f"qcmrf32 on 4 shards: norm {norm:.8f}"
+                                     " within 1e-4 of 1")
+    require(abs(acc - delta) <= 1e-5, f"qcmrf32 on 4 shards: accepted mass "
+                                      f"{acc:.8f} within 1e-5 of Z/2^n "
+                                      f"{delta:.8f}")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    wr, wi = planes.run_statevector(c32, device=dev)
+    torch.cuda.synchronize()
+    one32 = time.perf_counter() - t1
+    e32 = max(float((got_re - wr.view(-1)[idx]).abs().max()),
+              float((got_im - wi.view(-1)[idx]).abs().max()))
+    del wr, wi, got_re, got_im
+    torch.cuda.empty_cache()
+    require(e32 <= 1e-6, f"qcmrf32: {SAMPLED_AMPLITUDES} amplitudes at "
+                         f"fixed random indices within 1e-6 of the single-"
+                         f"card engine's ({e32:.2e})")
+    # qcmrf32 on 4 shards apart: the planner alone on the host clock, then
+    # the cached call by CUDA events (each call frees its 32 GiB on return)
+    t1 = time.perf_counter()
+    sharded._plan_fused(c32, L, 2)
+    plan32_s = time.perf_counter() - t1
+    s32_ms = cuda_ms(lambda: sharded.run_statevector_sharded(c32, mesh4),
+                     reps=2)
+
+    wr, wi = planes.run_statevector(c28, device=dev)
+    for D in (1, 4):
+        e = max(sharded_max_diff(s28[D][0], wr), sharded_max_diff(
+            s28[D][1], wi))
+        require(e <= 1e-6, f"qcmrf28 on {D} shard(s) == the single-card "
+                           f"engine within 1e-6 ({e:.2e})")
+    del wr, wi
+    for what, c in (("permuted", c_perm), ("subset", c_sub)):
+        want = planes.simulate_probs(c, device=dev)
+        e = float((sharded.gather(probs[what]) - want).abs().max())
+        require(e <= 1e-6, f"sharded_outcome_probs, {what} wiring on 4 "
+                           f"shards ({len(probs[what])} parts) == "
+                           f"planes.simulate_probs within 1e-6 ({e:.2e})")
+
+    # times, outside the window
+    ops28 = planes.fuse_ops(c28)
+    times = dict(
+        single_ms=cuda_ms(lambda: planes.run_ops(ops28, c28.num_qubits,
+                                                 dev), reps=5),
+        shards1_ms=cuda_ms(lambda: sharded.run_statevector_sharded(
+            c28, mesh1), reps=5),
+        shards4_ms=cuda_ms(lambda: sharded.run_statevector_sharded(
+            c28, mesh4), reps=5))
+    local28 = s28[4][0][0].numel().bit_length() - 1
+    ex = exchange_ms(mesh4, *s28[4], 0, local28 - 6, local28)
+    del s28
+    torch.cuda.empty_cache()
+    # the mesh of one beside the plane engine at width 24, where a call's
+    # passes take ~0.2 ms: ten calls of each traced, the idle share shows
+    # the host work between them
+    c24 = compile_qcmrf(chain_model(12, dev), with_measurements=False)
+    ops24 = planes.fuse_ops(c24)
+
+    def calls(fn):
+        def run():
+            for _ in range(10):
+                out = fn()
+            torch.cuda.synchronize()
+            return out
+        return run
+
+    times["qcmrf24_single_ms"] = cuda_ms(
+        lambda: planes.run_ops(ops24, c24.num_qubits, dev), reps=10)
+    times["qcmrf24_shards1_ms"] = cuda_ms(
+        lambda: sharded.run_statevector_sharded(c24, mesh1), reps=10)
+    # the same plan run without the entry point's cache key and lookup
+    plan24 = sharded._plan_fused(c24, c24.num_qubits, 0)[0]
+    sym24 = [sharded._has_sym(item) for item in plan24]
+    times["qcmrf24_shards1_plan_run_ms"] = cuda_ms(
+        lambda: sharded._run_plan("fused", plan24, sym24, c24, mesh1),
+        reps=10)
+    profiled("qcmrf24 plane engine, 10 calls", report, calls(
+        lambda: planes.run_ops(ops24, c24.num_qubits, dev)))
+    profiled("qcmrf24 sharded engine, mesh of one, 10 calls", report, calls(
+        lambda: sharded.run_statevector_sharded(c24, mesh1)))
+    print(f"  qcmrf28: single card {times['single_ms']:.3f} ms, one shard "
+          f"{times['shards1_ms']:.3f} ms, four shards of the card "
+          f"{times['shards4_ms']:.3f} ms ({remaps['qcmrf28 x4']} exchanges);"
+          f" qcmrf24: single card {times['qcmrf24_single_ms']:.3f} ms, one "
+          f"shard {times['qcmrf24_shards1_ms']:.3f} ms (its cached plan "
+          f"run alone {times['qcmrf24_shards1_plan_run_ms']:.3f} ms);"
+          f" one exchange on 4 shards {ex['ms']:.3f} ms (bound "
+          f"{ex['bound_ms']:.3f} ms, {ex['bound_by']}); qcmrf32 single card "
+          f"{one32 * 1e3:.1f} ms, 4 shards {s32_first * 1e3:.1f} ms with "
+          f"the planner (host clock), its planner alone {plan32_s:.3f} s, "
+          f"its cached call {s32_ms:.3f} ms")
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    dr = dryrun.dryrun_multichip(mesh4)
+    torch.cuda.synchronize()
+    dr_s = time.perf_counter() - t0
+    dr_launches = read_counts()
+    print(f"  dryrun_multichip(Mesh((cuda:0,) * 4)): {dr_s:.2f} s, {dr}; "
+          f"launches {dr_launches}")
+    require(dr["outcome_max_abs_err"] <= 1e-5, "dry run: every part passed,"
+                                               " the oracle within 1e-5")
+    runs = example_runs(root)
+    sc = json.loads(runs["scaling"]["last"])
+    require(sc["lnZ_abs_err"] < 0.1 and sc["gate_level_norm_err"] < 1e-4,
+            f"scaling --n 28 --devices 1 --gate-level: lnZ_abs_err "
+            f"{sc['lnZ_abs_err']} < 0.1, gate_level_norm_err "
+            f"{sc['gate_level_norm_err']:.2e} < 1e-4")
+    report["gate_sharded"] = dict(
+        launches=launches, remaps=remaps, window_s=window_s, peak_gib=peak,
+        qcmrf32_first_s=s32_first, qcmrf32_single_s=one32,
+        qcmrf32_plan_s=plan32_s, qcmrf32_cached_ms=s32_ms,
+        sampled_max_abs_err=e32, times=times, exchange=ex,
+        dryrun=dict(dr, seconds=dr_s, launches=dr_launches),
+        runs={k: v["seconds"] for k, v in runs.items()}, scaling=sc,
+        seconds=time.perf_counter() - t_phase)
+    print(f"  gate sharded phase {report['gate_sharded']['seconds']:.1f} s")
+    return launches, dr_launches
+
+
 def finite_leaves(v) -> bool:
     if isinstance(v, dict):
         return all(finite_leaves(x) for x in v.values())
@@ -4088,6 +4415,12 @@ def phase_bench(dev, report) -> dict:
             f"record(): {len(rec)} keys, BENCH_r05's less "
             f"{len(r05 - want)} left out, with fma_peak_tflops; every one "
             "finite")
+    for w in (24, 28):
+        sh, one = (rec[f"qcmrf{w}_sharded_gate_level_ms"],
+                   rec[f"qcmrf{w}_gate_level_ms"])
+        print(f"  qcmrf{w}_sharded_gate_level_ms {sh} against "
+              f"qcmrf{w}_gate_level_ms {one}: ratio {sh / one:.3f} (the "
+              "root bench.py's bar: ~1.2x)")
     report["bench"] = dict(command=cmd, record=rec)
     return rec
 
@@ -4311,6 +4644,8 @@ def main() -> int:
     phase_gate_level(dev, report)
     gate = report["main_gate_level"]
     clock("sandwich kernels, gate level")
+    gs, dr = phase_gate_sharded(dev, report)
+    clock("gate sharded")
     phase_gate_kernels(dev, report)
     clock("gate kernels")
     lowered = phase_lowered_chain(dev, report)
@@ -4327,9 +4662,11 @@ def main() -> int:
     cal = noise["calibrated:torino"]["launches"]
     report["logpot"]["launches_by_path"]["noise"] = cal["logpot"]
     report["logpot"]["launches_by_path"]["sharded"] = shard["logpot"]
+    report["logpot"]["launches_by_path"]["dryrun"] = dr["logpot"]
     report["lse"]["launches_by_path"] = {"run analytic": launches["lse"],
                                          "noise": cal["lse"],
-                                         "sharded": shard["lse"]}
+                                         "sharded": shard["lse"],
+                                         "dryrun": dr["lse"]}
     launches["logpot"] = sum(report["logpot"]["launches_by_path"].values())
     launches["lse"] = sum(report["lse"]["launches_by_path"].values())
     for k, by in (("sampler", {"run analytic": launches["sampler"]}),
@@ -4337,10 +4674,12 @@ def main() -> int:
                   ("lnz_moments", {"train K27": train["lnz_moments"]})):
         by["samplers"] = smp[k]
         by["sharded"] = shard[k]
+        by["dryrun"] = dr[k]
         report[k]["launches_by_path"] = by
     report["moments"]["launches_by_path"] = {
-        "infer K27": infer["moments"], "sharded": shard["moments"]}
-    infer["moments"] = shard["moments"] + infer["moments"]
+        "infer K27": infer["moments"], "sharded": shard["moments"],
+        "dryrun": dr["moments"]}
+    infer["moments"] = sum(report["moments"]["launches_by_path"].values())
     launches["sampler"] = sum(report["sampler"]["launches_by_path"].values())
     infer["map"] = sum(report["map"]["launches_by_path"].values())
     train["lnz_moments"] = sum(
@@ -4349,7 +4688,9 @@ def main() -> int:
         kernels_line.append(dict(launches=launches[k], library_ms=None,
                                  **report[k]))
     for k in ("hdh_multi", "hdh_multi_uniform"):
-        kernels_line.append(dict(launches=gate[k], library_ms=None,
+        kernels_line.append(dict(launches=gate[k] + gs[k], library_ms=None,
+                                 launches_by_path={"width-32 chain": gate[k],
+                                                   "gate sharded": gs[k]},
                                  **sandwich_entry(k, report)))
     kernels_line.append(dict(launches=sv["circuit"], library_ms=None,
                              **report["circuit"]))
@@ -4360,7 +4701,9 @@ def main() -> int:
     kernels_line.append(dict(launches=train["lnz_moments"], library_ms=None,
                              **report["lnz_moments"]))
     for k in ("lane_factored", "lane", "row_gate", "diag"):
-        kernels_line.append(gate_entry(k, report, lowered[k]))
+        kernels_line.append(gate_entry(k, report, lowered[k] + gs[k]))
+        kernels_line[-1]["launches_by_path"] = {
+            "lowered chain": lowered[k], "gate sharded": gs[k]}
     kernels_line.append(gate_entry("copy", report, rates["copy"]))
     kernels_line.append(dict(launches=rates["fma_peak"], library_ms=None,
                              **report["fma_peak"]))
@@ -4369,8 +4712,8 @@ def main() -> int:
                              **report["gibbs"]))
     # the AIS mode: no TPU kernel and no one PyTorch call either
     kernels_line.append(dict(launches=ais_path["gibbs_ais"]
-                             + shard["gibbs_ais"], library_ms=None,
-                             **report["gibbs_ais"]))
+                             + shard["gibbs_ais"] + dr["gibbs_ais"],
+                             library_ms=None, **report["gibbs_ais"]))
     for k, entry in zip(("sampler", "logpot", "lse", "hdh_multi",
                          "hdh_multi_uniform", "circuit", "map", "moments",
                          "lnz_moments", "lane_factored", "lane", "row_gate",
@@ -4394,7 +4737,8 @@ def main() -> int:
                      "lane_factored_library_ms", "row_gate_library_ms",
                      "row_library_by_qubit", "train", "fma_peak",
                      "samplers", "gibbs", "ais", "gibbs_ais", "noise",
-                     "offset", "sharded", "bench", "busy")}, clock=CLOCK),
+                     "offset", "sharded", "gate_sharded", "bench",
+                     "busy")}, clock=CLOCK),
                   f, indent=1, default=str)
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(f"[card] {smi}")

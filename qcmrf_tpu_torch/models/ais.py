@@ -84,8 +84,8 @@ def _run(seed: int, mrf: MRF, num_chains: int, num_temps: int,
     per = M // D
     outs = sharded._run([(dev, chains, (theta.to(dev), d * per, per))
                          for d, dev in enumerate(mesh.devices)])
-    return (sharded._gather([o[0] for o in outs], mrf.device, dim=0),
-            sharded._gather([o[1] for o in outs], mrf.device, dim=0))
+    return (sharded.gather([o[0] for o in outs], mrf.device, dim=0),
+            sharded.gather([o[1] for o in outs], mrf.device, dim=0))
 
 
 def _ess(wn: torch.Tensor) -> torch.Tensor:

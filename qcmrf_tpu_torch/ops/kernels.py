@@ -1187,15 +1187,31 @@ def _profile_table(profiles, device: torch.device):
 
 
 @functools.lru_cache(maxsize=64)
+def _uploaded(blob: bytes, device: torch.device):
+    """``(copy, event)``: a device copy of ``blob`` that leaves from pinned
+    host memory without waiting, and the event recorded after it on the
+    stream that made it (None off CUDA)."""
+    host = torch.frombuffer(bytearray(blob), dtype=torch.uint8)
+    if device.type != "cuda":
+        return host.to(device), None
+    copy = host.pin_memory().to(device, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(device))
+    return copy, done
+
+
 def _device_bytes(blob: bytes, device: torch.device) -> torch.Tensor:
     """A read-only device copy of ``blob``, kept so that a repeated pass
-    does not copy again. The copy leaves from pinned host memory without
-    waiting, so a stream of passes with new tables never stalls the
-    host on the card."""
-    host = torch.frombuffer(bytearray(blob), dtype=torch.uint8)
-    if device.type == "cuda":
-        host = host.pin_memory()
-    return host.to(device, non_blocking=True)
+    does not copy again; a stream of passes with new tables never stalls
+    the host on the card. The current stream waits for the upload's event
+    (another stream may have made the copy: a shard's of the sharded
+    engine) and is noted as a user of the copy for the allocator."""
+    copy, done = _uploaded(blob, device)
+    if done is not None:
+        stream = torch.cuda.current_stream(device)
+        stream.wait_event(done)
+        copy.record_stream(stream)
+    return copy
 
 
 def _anchor_ids(nq: int, a_lo: int, k: int, device) -> torch.Tensor:
@@ -1343,18 +1359,29 @@ def plane_shape(num_qubits: int):
     return (1, 1 << num_qubits)
 
 
-def uniform_planes(num_qubits: int, folded, out=None, device=None):
-    """Planes of ``H^{folded}|0...0>``: amplitude ``2^{-|folded|/2}`` where
-    every bit outside ``folded`` is 0, else 0. Written into ``out`` (a
-    pair of planes) in place when given, else into new planes on
-    ``device`` (the current CUDA device unless one is named)."""
+def _uniform_amp(folded, carrier: float) -> float:
+    """The uniform state's amplitude ``2^{-|folded|/2}`` in float32, times
+    ``carrier`` in float32 (JAX's ``amp * carrier``)."""
+    return float(np.float32(2.0 ** (-0.5 * len(folded)))
+                 * np.float32(carrier))
+
+
+def uniform_planes(num_qubits: int, folded, out=None, device=None,
+                   carrier: float = 1.0):
+    """Planes of ``carrier * H^{folded}|0...0>``: amplitude ``carrier *
+    2^{-|folded|/2}`` where every bit outside ``folded`` is 0, else 0.
+    Written into ``out`` (a pair of planes) in place when given, else into
+    new planes on ``device`` (the current CUDA device unless one is
+    named). The sharded engine's shards take the rest of the global
+    uniform amplitude as ``carrier``, 0 on a shard the state does not
+    reach."""
     re, im = _output_planes(num_qubits, out, device)
     re.zero_()
     im.zero_()
     idx = torch.zeros(1, dtype=torch.int64, device=re.device)
     for q in sorted(set(folded)):
         idx = torch.cat([idx, idx + (1 << q)])
-    re.view(-1)[idx] = float(np.float32(2.0 ** (-0.5 * len(folded))))
+    re.view(-1)[idx] = _uniform_amp(folded, carrier)
     return re, im
 
 
@@ -1386,38 +1413,42 @@ def _output_planes(num_qubits, out, device):
 def apply_hdh_sandwich_multi_uniform_reference(
         num_qubits: int, folded, anc_lo: int, nu_terms_k, nu_angles_k,
         nu_bases_k, mu_terms=(), mu_angles=(), mu_base=0.0, out=None,
-        device=None):
+        device=None, carrier: float = 1.0):
     """Plain PyTorch version of :func:`apply_hdh_sandwich_multi_uniform`:
     the uniform planes, then the read-write pass."""
     nus, mu, folded = _uniform_args(num_qubits, folded, anc_lo, nu_terms_k,
                                     nu_angles_k, nu_bases_k, mu_terms,
                                     mu_angles, mu_base)
     re, im = uniform_planes(num_qubits, folded,
-                            _output_planes(num_qubits, out, device))
+                            _output_planes(num_qubits, out, device),
+                            carrier=carrier)
     return _multi_reference(re, im, anc_lo, nus, mu)
 
 
 def apply_hdh_sandwich_multi_uniform(num_qubits: int, folded, anc_lo: int,
                                      nu_terms_k, nu_angles_k, nu_bases_k,
                                      mu_terms=(), mu_angles=(), mu_base=0.0,
-                                     out=None, device=None):
-    """k sandwiches applied to the uniform H-wall state ``H^{folded}|0>``
-    (the planner's ``fold_uniform_prefix`` fold followed by
-    :func:`apply_hdh_sandwich_multi`) in one write-only pass, without
+                                     out=None, device=None,
+                                     carrier: float = 1.0):
+    """k sandwiches applied to the uniform H-wall state ``carrier *
+    H^{folded}|0>`` (the planner's ``fold_uniform_prefix`` fold followed
+    by :func:`apply_hdh_sandwich_multi`) in one write-only pass, without
     making the uniform planes. Writes into ``out`` (a pair of planes,
     whatever they hold) when given, else into new planes on ``device``
     (the current CUDA device unless one is named); returns the planes.
-    ``folded`` must not hold any of the k ancillas."""
+    ``folded`` must not hold any of the k ancillas. ``carrier`` scales the
+    amplitude (:func:`uniform_planes`): 0 writes an all-zero state."""
     nus, mu, folded = _uniform_args(num_qubits, folded, anc_lo, nu_terms_k,
                                     nu_angles_k, nu_bases_k, mu_terms,
                                     mu_angles, mu_base)
     re, im = _output_planes(num_qubits, out, device)
     if re.device.type == "cpu":
-        re, im = uniform_planes(num_qubits, folded, (re, im))
+        re, im = uniform_planes(num_qubits, folded, (re, im),
+                                carrier=carrier)
         return _multi_reference(re, im, anc_lo, nus, mu)
     k = len(nus)
     comp = ((1 << num_qubits) - 1) ^ sum(1 << q for q in set(folded))
-    amp = float(np.float32(2.0 ** (-0.5 * len(folded))))
+    amp = _uniform_amp(folded, carrier)
     table, n_terms = _profile_table((mu,) + nus, re.device)
     _build.launch("qcmrf_hdh_multi_uniform", re.device, _build.ptr(table),
                   n_terms, k, _build.ptr(re), _build.ptr(im),

@@ -26,8 +26,6 @@ its reason (``RECORD_LEFT_OUT``):
 * ``vpu_peak_tflops``: the TPU's vector unit; ``fma_peak_tflops`` (row 18,
   ``fma_peak_kernel``) takes its place, and ``sampler_ceiling_flops_util``
   is held against it;
-* ``qcmrf24_sharded_gate_level_ms``, ``qcmrf28_sharded_gate_level_ms``:
-  the gate-level sharded engine, slice 6b of ROADMAP.md;
 * ``kl_suite_max_10k_shots_reference_floor``: it reads the reference's
   stored result files, which this repository does not hold.
 
@@ -169,10 +167,6 @@ RECORD_LEFT_OUT = {
     "lnZ_n28_flops_util": "TPU-only: held against the MXU peak",
     "moments_k24_flops_util": "TPU-only: held against the MXU peak",
     "vpu_peak_tflops": "the TPU's vector unit: fma_peak_tflops in its place",
-    "qcmrf24_sharded_gate_level_ms": "the gate-level sharded engine: "
-                                     "slice 6b",
-    "qcmrf28_sharded_gate_level_ms": "the gate-level sharded engine: "
-                                     "slice 6b",
     "kl_suite_max_10k_shots_reference_floor": "reads the reference's "
                                               "stored result files, which "
                                               "this repository lacks",
@@ -189,6 +183,7 @@ RECORD_KEYS = (
     "sampler_ceiling_flops_util",
     *(f"qcmrf{w}_{k}" for w in (20, 24, 26, 28, 30)
       for k in ("gate_level_ms", "fused_passes", "gates")),
+    "qcmrf24_sharded_gate_level_ms", "qcmrf28_sharded_gate_level_ms",
     "qcmrf28_class_ms", "qcmrf28_class_sum_ms", "qcmrf28_unattributed_ms",
     "suite70_gate_level_ms", "kl_suite_max_10k_shots",
     "kl_suite_max_1m_shots", "est_n28_shots_per_sec",
@@ -419,7 +414,28 @@ def _gate_level_record(dev) -> dict:
     out["qcmrf28_class_sum_ms"] = round(total, 3)
     out["qcmrf28_unattributed_ms"] = round(
         out["qcmrf28_gate_level_ms"] - total, 3)
+    out.update(_sharded_gate_level_record(dev))
     torch.cuda.empty_cache()
+    return out
+
+
+def _sharded_gate_level_record(dev) -> dict:
+    """The chains of 12 and 14 variables through the gate-level sharded
+    engine on a mesh of the one device, timed as the plane engine's: no
+    exchange runs, so the ratio to ``qcmrf{w}_gate_level_ms`` isolates the
+    sharding layer (the root bench.py's bar: within ~1.2x)."""
+    from qcmrf_tpu_torch.circuits.compiler import compile_qcmrf
+    from qcmrf_tpu_torch.parallel import sharded
+
+    mesh1 = sharded.Mesh((dev,))
+    out = {}
+    for nn in (12, 14):
+        chain = _model([[i, i + 1] for i in range(nn - 1)], 0, 0.3, dev)
+        circ = compile_qcmrf(chain, with_measurements=False)
+        torch.cuda.empty_cache()
+        out[f"qcmrf{2 * nn}_sharded_gate_level_ms"] = round(_best_s(
+            lambda: sharded.run_statevector_sharded(circ, mesh1),
+            reps=3 if nn == 14 else 5, trials=2) * 1e3, 3)
     return out
 
 

@@ -7,6 +7,7 @@ one session on one card (run the variants as A, B, B, A).
     python3 qcmrf_tpu_torch/runners/host_ab.py streaming27 [--root DIR]
     python3 qcmrf_tpu_torch/runners/host_ab.py lane_circuit [--root DIR]
     python3 qcmrf_tpu_torch/runners/host_ab.py gibbs [--root DIR]
+    python3 qcmrf_tpu_torch/runners/host_ab.py sharded24 [--root DIR]
 
 ``sandwich24`` runs ``chip_smoke.py``'s width-24 sandwich cases (k = 1, 2
 and 7, and the write-only k = 7 form: each held against its plain version,
@@ -41,7 +42,11 @@ chains at ``eval --mode gibbs``'s 10 000 samples, thin 10, burn 10 (one
 ``gibbs_chains_multi`` call where the package has it, else one
 ``gibbs_chains`` call a graph; CUDA events, 3 calls after a warm-up), and
 ``evaluate_suite(mode="gibbs")`` at 10 000 samples (host clock, 5 runs
-after a warm-up: the middle value and every run). Prints one JSON
+after a warm-up: the middle value and every run). ``sharded24`` times,
+with the package under ``DIR``, bench.py's 12-variable chain (24 qubits)
+through ``run_statevector_sharded`` on a mesh of the one card and through
+the plane engine's ``run_ops`` (CUDA events around 10 calls, 7 rounds in
+turns: the middle value and every round). Prints one JSON
 line. Needs a CUDA device; the script file is run by its path, not with
 ``-m``.
 """
@@ -229,10 +234,32 @@ def _gibbs(smoke, dev) -> dict:
     return ms
 
 
+def _sharded24(smoke, dev) -> dict:
+    """Milliseconds a call of the width-24 chain on a mesh of one and on
+    the plane engine (see the module docstring)."""
+    from qcmrf_tpu_torch.circuits.compiler import compile_qcmrf
+    from qcmrf_tpu_torch.parallel import sharded
+    from qcmrf_tpu_torch.sim import planes
+
+    c24 = compile_qcmrf(smoke.chain_model(12, dev), with_measurements=False)
+    ops24 = planes.fuse_ops(c24)
+    mesh1 = sharded.Mesh((dev,))
+    calls = {"sharded": lambda: sharded.run_statevector_sharded(c24, mesh1),
+             "planes": lambda: planes.run_ops(ops24, c24.num_qubits, dev)}
+    runs = {k: [] for k in calls}
+    for _ in range(7):
+        for k, fn in calls.items():
+            runs[k].append(smoke.cuda_ms(fn, reps=10))
+    ms = {k: sorted(v)[3] for k, v in runs.items()}
+    ms.update({f"{k}_runs": v for k, v in runs.items()})
+    return ms
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("case", choices=("sandwich24", "lowered28",
-                                     "streaming27", "lane_circuit", "gibbs"))
+                                     "streaming27", "lane_circuit", "gibbs",
+                                     "sharded24"))
     ap.add_argument("--root", type=Path, default=CHECKOUT,
                     help="tree whose qcmrf_tpu_torch package is timed")
     ap.add_argument("--sync-upload", action="store_true")
@@ -262,6 +289,8 @@ def main(argv=None) -> int:
         out["ms"] = _lane_circuit(smoke, K, dev)
     elif args.case == "gibbs":
         out["ms"] = _gibbs(smoke, dev)
+    elif args.case == "sharded24":
+        out["ms"] = _sharded24(smoke, dev)
     else:
         from qcmrf_tpu_torch.sim import planes
 

@@ -1322,3 +1322,172 @@ def test_mesh_sweep_on_one_card(dev):
                        kernels.log_partition(m))
     assert sharded.sharded_map_state(m, mesh) == \
         kernels.map_state_streaming(m)
+
+
+def scrambled_wide(n):
+    """An H wall, then 1q gates on both device qubits of a 4-shard mesh, a
+    sweep of sx and rz over every row qubit, twice, and two cx: Belady's
+    victims leave a general permutation of the local bits to restore (a
+    3-cycle through bits 7, local_n - 3 and local_n - 1)."""
+    from qcmrf_tpu_torch.circuits.ir import Circuit
+
+    c = Circuit(n)
+    rng = np.random.RandomState(7)
+    for q in range(n):
+        c.h(q)
+    for _ in range(2):
+        c.sx(n - 1).sx(n - 2)
+        for q in range(7, n - 2):
+            c.sx(q).rz(float(rng.uniform(-np.pi, np.pi)), q)
+    c.cx(n - 1, 3).cx(n - 2, n - 3)
+    return c
+
+
+def test_table_upload_waits_across_streams(dev):
+    """A diagonal pass's profile table uploaded first on one stream, behind
+    a sleep of about half a second, and read at once by the same pass on
+    another stream (as the shards of the sharded engine share one cached
+    table): the reading stream waits for the upload's event, so its pass
+    equals the plain version within 1e-5, as the gate kernels' tests ask.
+    Without that wait it reads the copy before it lands."""
+    kernels._uploaded.cache_clear()
+    rng = np.random.RandomState(11)
+    terms = tuple(((q, 1), (q + 1, 0)) for q in range(12))
+    angles = tuple(float(a) for a in rng.uniform(-3, 3, len(terms)))
+    base = float(rng.uniform(-3, 3))
+    shape = kernels.plane_shape(16)
+    re, im = (torch.randn(shape, device=dev) for _ in range(2))
+    want = kernels.apply_diagonal_profile_reference(re.clone(), im.clone(),
+                                                    terms, angles, base)
+    first, second = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
+    first.wait_stream(torch.cuda.current_stream(dev))
+    second.wait_stream(torch.cuda.current_stream(dev))
+    scratch = tuple(torch.zeros(shape, device=dev) for _ in range(2))
+    # a table of the same size first: a new pinned host block is allocated
+    # by a call that waits for the card, which would let the sleep end
+    # before the upload is queued; after this one the block is reused
+    with torch.cuda.stream(first):
+        kernels.apply_diagonal_profile(*scratch, terms, angles[::-1], base)
+    torch.cuda.synchronize()
+    with torch.cuda.stream(first):
+        torch.cuda._sleep(1_000_000_000)
+        kernels.apply_diagonal_profile(*scratch, terms, angles, base)
+    with torch.cuda.stream(second):
+        kernels.apply_diagonal_profile(re, im, terms, angles, base)
+    torch.cuda.synchronize()
+    for g, w in zip((re, im), want):
+        assert float((g - w).abs().max()) <= 1e-5
+
+
+def test_sharded_engine_qcmrf28_equals_single_card(dev):
+    """bench.py's 14-variable chain (28 qubits) through the gate-level
+    sharded engine on one shard and on four shards of the card equals the
+    single-card plane engine within 1e-6; four shards exchange >= 2
+    times."""
+    from qcmrf_tpu_torch.parallel import sharded
+
+    theta = -np.abs(np.random.RandomState(0).randn(4 * 13)) * 0.3
+    m = MRF.create([[i, i + 1] for i in range(13)], theta=theta, device=dev)
+    circ = compile_qcmrf(m, with_measurements=False)
+    wr, wi = planes.run_statevector(circ, device=dev)
+    for D in (1, 4):
+        re, im = sharded.run_statevector_sharded(
+            circ, sharded.Mesh((dev,) * D))
+        if D == 4:
+            assert sharded.LAST_REMAP_COUNT >= 2
+        for got, want in ((re, wr), (im, wi)):
+            assert float((sharded.gather(got) - want.view(-1)).abs()
+                         .max()) <= 1e-6
+        del re, im
+
+
+def test_sharded_engine_general_permutation_at_local_28(dev):
+    """A 30-qubit circuit on four shards (local_n = 28) whose restore ends
+    in a general permutation of the 28 local bits (a view of 28 axes
+    passes the card's copy kernels' 25-dimension limit; the engine swaps
+    bits through 5-axis views): equal to the single-card engine within
+    1e-5."""
+    from qcmrf_tpu_torch.parallel import sharded
+
+    c = scrambled_wide(30)
+    plan, _ = sharded._plan_fused(c, 28, 2)
+    axes = [p for p in plan if p[0] == "perm"][0][1]
+    assert sum(a != k for k, a in enumerate(axes)) >= 3
+    mesh = sharded.Mesh((dev,) * 4)
+    re, im = sharded.run_statevector_sharded(c, mesh)
+    torch.cuda.synchronize()
+    got_re, got_im = sharded.gather(re), sharded.gather(im)
+    del re, im
+    wr, wi = planes.run_statevector(c, device=dev)
+    assert float((got_re - wr.view(-1)).abs().max()) <= 1e-5
+    assert float((got_im - wi.view(-1)).abs().max()) <= 1e-5
+
+
+def test_uniform_carrier_on_card(dev):
+    """The write-only uniform sandwich kernel takes the carrier: 0 writes
+    an all-zero state over whatever the planes held, 0.5 halves the
+    carrier-1 state, each equal to the plain version within 1e-7."""
+    args = (20, (0, 1, 2, 3, 4), 9, ((((0, 1),), ((2, 0), (3, 1))),
+                                     (((1, 1),),)),
+            ((0.3, -0.2), (0.7,)), (0.1, -0.4), (((5, 1),),), (0.25,), 0.05)
+    full = kernels.apply_hdh_sandwich_multi_uniform(*args, device=dev)
+    for carrier in (0.0, 0.5):
+        out = tuple(torch.randn(full[0].shape, device=dev) for _ in range(2))
+        got = kernels.apply_hdh_sandwich_multi_uniform(
+            *args, out=out, carrier=carrier)
+        want = kernels.apply_hdh_sandwich_multi_uniform_reference(
+            *args, device=dev, carrier=carrier)
+        for g, w, f in zip(got, want, full):
+            assert float((g - w).abs().max()) <= 1e-7
+            assert float((g - carrier * f).abs().max()) <= 1e-7
+        if carrier == 0.0:
+            assert not got[0].any() and not got[1].any()
+
+
+def test_sharded_outcome_probs_qcmrf32_identity_path(dev):
+    """The 16-variable chain with its measurements (32 qubits, identity
+    wiring, the workspace qubit unmeasured) on four shards of the card
+    takes the identity fast path: four parts of 2^30, total mass within
+    1e-4 of 1, the accepted mass within 1e-5 of Z / 2^n. Its peak stays
+    within 40 GiB: 32 GiB of planes, each freed as it is squared, and a
+    stray-mass check by strided views (no index tensor of 2^30)."""
+    from qcmrf_tpu_torch.parallel import sharded
+
+    theta = -np.abs(np.random.RandomState(0).randn(4 * 15)) * 0.3
+    m = MRF.create([[i, i + 1] for i in range(15)], theta=theta, device=dev)
+    circ = compile_qcmrf(m)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    parts = sharded.sharded_outcome_probs(circ, sharded.Mesh((dev,) * 4))
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    assert len(parts) == 4 and all(p.numel() == 1 << 30 for p in parts)
+    total = sum(float(p.double().sum()) for p in parts)
+    acc = float(parts[0][: 1 << m.n].double().sum())
+    del parts
+    torch.cuda.empty_cache()
+    assert abs(total - 1.0) <= 1e-4
+    assert abs(acc - float(m.success_rate())) <= 1e-5
+    assert peak <= 40, peak
+
+
+def test_sharded_outcome_probs_on_card(dev):
+    """``sharded_outcome_probs`` on four shards of the card (a keyed
+    reduce-scatter over key space) equals the plane engine's outcome
+    distribution within 1e-6 for a permuted wiring of 14 qubits."""
+    from qcmrf_tpu_torch.circuits.ir import Circuit
+    from qcmrf_tpu_torch.parallel import sharded
+
+    n = 14
+    c = Circuit(n, num_clbits=n)
+    for q in range(n):
+        c.h(q)
+    c.rz(0.9, 13).cx(13, 0).cp(0.6, 12, 1).cx(2, 11).sx(12).cx(12, 8)
+    for q, k in enumerate(np.random.RandomState(2).permutation(n)):
+        c.measure(q, int(k))
+    parts = sharded.sharded_outcome_probs(c, sharded.Mesh((dev,) * 4))
+    want = planes.simulate_probs(c, device=dev)
+    assert len(parts) == 4
+    assert float((sharded.gather(parts) - want).abs().max()) <= 1e-6

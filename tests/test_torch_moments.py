@@ -260,7 +260,8 @@ def test_unported_options_name_their_slices():
     """The mesh arguments (slice 6a) answer as without a mesh: the lnZ,
     MAP and PAM sweeps bit for bit, the moments within 1e-6 (the sharded
     route takes lnZ, then the moments for it, as JAX's; the single route
-    one fused sweep); the gate-level sharded engine still names slice 6b."""
+    one fused sweep); the gate-level sharded engine (slice 6b) runs on the
+    same mesh: an H wall's shards gather to the uniform state."""
     _, m = models("K10")
     mesh = sharded.make_mesh(4, device="cpu")
     for fn, args in ((moments.log_partition_streaming, (m,)),
@@ -277,5 +278,13 @@ def test_unported_options_name_their_slices():
     assert torch.equal(
         sample.sample_conditional(0, m, 4, {0: 1}, method="pam", mesh=mesh),
         sample.sample_conditional(0, m, 4, {0: 1}, method="pam"))
-    with pytest.raises(NotImplementedError, match="slice 6b"):
-        sharded.run_statevector_sharded(None, mesh)
+    from qcmrf_tpu_torch.circuits.ir import Circuit
+
+    wall = Circuit(6)
+    for q in range(6):
+        wall.h(q)
+    re, im = sharded.run_statevector_sharded(wall, mesh)
+    assert len(re) == 4
+    torch.testing.assert_close(sharded.gather(re),
+                               torch.full((64,), 0.125), rtol=0, atol=1e-7)
+    assert not sharded.gather(im).any()

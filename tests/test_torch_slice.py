@@ -120,7 +120,7 @@ def test_gpu_platform_raises_without_cuda(platform, tmp_path):
 
 
 @pytest.mark.parametrize("case", ["sandwich24", "lowered28",
-                                  "lane_circuit", "gibbs"])
+                                  "lane_circuit", "gibbs", "sharded24"])
 def test_host_ab_needs_the_card(case, capsys):
     """The A/B timing script exits 1, printing no result, without CUDA."""
     if torch.cuda.is_available():
@@ -294,9 +294,17 @@ def test_unported_options_name_their_slice(run_dir, tmp_path):
     mesh = sharded.make_mesh(2, device="cpu")
     for fn in (ais.ais_log_partition, ais.ais_clique_marginals):
         assert torch.equal(fn(0, m, 4, 2, mesh=mesh), fn(0, m, 4, 2))
-    # the gate-level sharded engine is slice 6b's
-    with pytest.raises(NotImplementedError, match="slice 6b"):
-        sharded.sharded_outcome_probs(None, mesh)
+    # the gate-level sharded engine (slice 6b): a Bell pair across the
+    # mesh's device bit, one part a shard
+    from qcmrf_tpu_torch.circuits.ir import Circuit
+
+    bell = Circuit(2)
+    bell.h(1).cx(1, 0)
+    parts = sharded.sharded_outcome_probs(bell, mesh)
+    assert len(parts) == 2
+    torch.testing.assert_close(sharded.gather(parts),
+                               torch.tensor([0.5, 0.0, 0.0, 0.5]),
+                               rtol=0, atol=1e-6)
     # file mode ignores --native, as the JAX harness does
     results = run_eval.main(["--results", "result_analytic_0.1.json",
                              "--scale", "0.1", "--res-root", str(run_dir),
@@ -352,6 +360,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "import qcmrf_tpu_torch.noise.fit\n"
             "import qcmrf_tpu_torch.viz.whisker\n"
             "import qcmrf_tpu_torch.parallel.sharded\n"
+            "import qcmrf_tpu_torch.parallel.dryrun\n"
+            "import qcmrf_tpu_torch.runners.scaling\n"
             "import qcmrf_tpu_torch.utils.profiling\n"
             "import qcmrf_tpu_torch.utils.config\n"
             "for cmd in ('whisker', 'bench'):\n"

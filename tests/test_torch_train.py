@@ -496,18 +496,21 @@ def test_sample_exact_two_stage_moments_at_n12(monkeypatch):
 
 
 def test_unported_routes_name_their_slices():
-    """The sharded routes of slice 6a run; the gate-level sharded engine
-    (slice 6b) still raises, naming its slice. A mesh whose size divides
-    no shot count or is not a power of two is refused."""
+    """The sharded routes of slices 6a and 6b run. A mesh whose size
+    divides no shot count or is not a power of two is refused, by the
+    gate-level sharded engine too."""
+    from qcmrf_tpu_torch.circuits.ir import Circuit
     from qcmrf_tpu_torch.parallel import sharded
 
-    for fn in (sharded.run_statevector_sharded,
-               sharded.sharded_outcome_probs):
-        with pytest.raises(NotImplementedError, match="slice 6b"):
-            fn(None, None)
     raw = torch.zeros(4, requires_grad=True)
     m = MRF.create([[0, 1]], device="cpu")
     mesh3 = sharded.Mesh((torch.device("cpu"),) * 3)
+    wall = Circuit(4)
+    wall.h(0)
+    for fn in (sharded.run_statevector_sharded,
+               sharded.sharded_outcome_probs):
+        with pytest.raises(ValueError, match="power-of-two mesh"):
+            fn(wall, mesh3)
     with pytest.raises(ValueError, match="divisible by the mesh size"):
         train.make_shots_train_step(m, torch.optim.SGD([raw], lr=0.1), 8,
                                     np.zeros(4), mesh=mesh3)(0)
