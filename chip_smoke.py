@@ -580,22 +580,17 @@ def phase_suite_shapes(dev):
                 "1e-6")
 
 
-def counters():
-    from qcmrf_tpu_torch.ops import (circuit_kernel, gibbs_kernel, kernels,
-                                     sampler_kernel)
-
-    return (sampler_kernel.LAUNCHES, kernels.LAUNCHES, circuit_kernel.LAUNCHES,
-            gibbs_kernel.LAUNCHES)
-
-
 def reset_counts() -> None:
-    for c in counters():
-        for k in c:
-            c[k] = 0
+    from qcmrf_tpu_torch.utils.profiling import LAUNCHES
+
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 def read_counts() -> dict:
-    return {k: v for c in counters() for k, v in c.items()}
+    from qcmrf_tpu_torch.utils.profiling import LAUNCHES
+
+    return dict(LAUNCHES)
 
 
 def phase_main_path(dev, engine: str, needs):
@@ -3581,12 +3576,15 @@ def profiled(label: str, report, fn):
     report.setdefault("busy", {})[label] = b
     top = ", ".join(f"{name[:40]} {ms:.3f} ms x{k}"
                     for name, ms, k in b["top"][:3])
+    spans = ", ".join(f"{name} {ms:.3f} ms"
+                      for name, ms in list(b["gap_spans"].items())[:3])
     print(f"  [profile] {label}: {b['kernels']} kernels, busy "
           f"{b['busy_ms']:.3f} ms, union {b['union_ms']:.3f} ms of a "
           f"{b['window_ms']:.3f} ms window: idle share "
           f"{b['idle_share']:.4f}; longest gap "
-          f"{(b['gaps'] or [[0, 0]])[0][1]:.3f} ms; top: {top} "
-          f"({time.perf_counter() - t0:.1f} s, trace written and read)")
+          f"{(b['gaps'] or [[0, 0]])[0][1]:.3f} ms; top: {top}; idle by "
+          f"span: {spans} ({time.perf_counter() - t0:.1f} s, trace written "
+          "and read)")
     require(b["kernels"] > 0, f"{label}: the trace holds the card's kernels")
     return out
 

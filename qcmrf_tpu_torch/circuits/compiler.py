@@ -28,10 +28,13 @@ from qcmrf_tpu_torch.circuits.ir import Circuit
 from qcmrf_tpu_torch.circuits.lower import lower
 from qcmrf_tpu_torch.models import pauli
 from qcmrf_tpu_torch.models.mrf import MRF
+from qcmrf_tpu_torch.utils import profiling
 
 
 def _theta64(mrf: MRF) -> np.ndarray:
-    return mrf.theta.detach().cpu().numpy().astype(np.float64)
+    with profiling.span("qcmrf.wait"):
+        theta = mrf.theta.detach().cpu()
+    return theta.numpy().astype(np.float64)
 
 
 @dataclasses.dataclass
@@ -192,6 +195,7 @@ class QCMRF:
         return [n + 1 + ii for ii in range(self.mrf.num_cliques)]
 
 
+@profiling.spanned("qcmrf.circuit.compile")
 def compile_qcmrf(
     mrf: MRF,
     with_measurements: bool = True,

@@ -45,7 +45,7 @@ from qcmrf_tpu_torch.models import elimination as _ve
 from qcmrf_tpu_torch.models.capability import STREAMING_MAX_N as _MAX_N
 from qcmrf_tpu_torch.models.capability import reduce_structure
 from qcmrf_tpu_torch.models.mrf import MRF
-from qcmrf_tpu_torch.utils import moebius
+from qcmrf_tpu_torch.utils import moebius, profiling
 
 
 def _check_streaming_n(n: int) -> None:
@@ -147,6 +147,7 @@ def log_partition_streaming(mrf: MRF, mesh=None) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 
+@profiling.spanned("qcmrf.moments.reduce")
 def reduce_evidence(mrf: MRF, evidence: dict):
     """(reduced MRF over the free variables, clamped log-potential
     constant): exact evidence clamping by clique-table slicing.
@@ -283,7 +284,9 @@ def embed_clamped_marginals(mrf: MRF, evidence: dict,
     row. Computed on the host in float64; returned in theta's dtype on
     ``mrf``'s device."""
     ev = {int(v): int(b) for v, b in evidence.items()}
-    rmom = torch.as_tensor(red_moments).detach().cpu().double().numpy()
+    with profiling.span("qcmrf.wait"):
+        rmom = torch.as_tensor(red_moments).detach().cpu()
+    rmom = rmom.double().numpy()
     out = np.zeros((mrf.dimension,), np.float64)
     off = roff = 0
     for C in mrf.cliques:
@@ -304,4 +307,6 @@ def embed_clamped_marginals(mrf: MRF, evidence: dict,
                 out[off + idx] = rmom[roff + j]
             roff += 1 << m
         off += 1 << c
-    return torch.as_tensor(out, dtype=mrf.theta.dtype, device=mrf.device)
+    with profiling.span("qcmrf.wait"):
+        return torch.as_tensor(out, dtype=mrf.theta.dtype,
+                               device=mrf.device)

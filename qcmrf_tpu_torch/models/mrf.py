@@ -27,6 +27,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from qcmrf_tpu_torch.utils import profiling
 from qcmrf_tpu_torch.utils.config import resolve_device
 
 
@@ -84,8 +85,10 @@ class MRF:
         if theta is None:
             theta = torch.zeros((dim,), dtype=torch.float32, device=device)
         else:
-            theta = torch.as_tensor(theta, dtype=torch.float32,
-                                    device=device)
+            theta = torch.as_tensor(theta, dtype=torch.float32)
+            if theta.device != device:
+                with profiling.span("qcmrf.wait"):
+                    theta = theta.to(device)
             if tuple(theta.shape) != (dim,):
                 raise ValueError(
                     "The parameter vector has an incorrect dimension. "
@@ -172,8 +175,9 @@ class MRF:
         shifts, places, _ = self._index_tables
         dev = self.device
         x = torch.as_tensor(x, dtype=torch.int64, device=dev)
-        sh = torch.from_numpy(shifts).to(dev)
-        pl = torch.from_numpy(places).to(dev)
+        with profiling.span("qcmrf.wait"):
+            sh = torch.from_numpy(shifts).to(dev)
+            pl = torch.from_numpy(places).to(dev)
         bits = (x[..., None, None] >> sh) & 1  # (..., K, cmax)
         contrib = torch.where(pl >= 0, bits << pl.clamp(min=0),
                               torch.zeros_like(bits))
@@ -182,8 +186,10 @@ class MRF:
     def suff_stat_flat_indices(self, x) -> torch.Tensor:
         """Flat indices into ``theta`` of the active clique-states of ``x``."""
         _, _, offsets = self._index_tables
-        return (self.clique_state_indices(x)
-                + torch.from_numpy(offsets).to(self.device))
+        idx = self.clique_state_indices(x)
+        with profiling.span("qcmrf.wait"):
+            offsets = torch.from_numpy(offsets).to(self.device)
+        return idx + offsets
 
     def phi(self, x) -> torch.Tensor:
         """Dense one-hot sufficient-statistics vector(s), shape (..., d)."""

@@ -33,6 +33,7 @@ import torch
 
 from qcmrf_tpu_torch.models import capability
 from qcmrf_tpu_torch.models.mrf import MRF
+from qcmrf_tpu_torch.utils import profiling
 
 #: sample_conditional's PAM routing: max-product elimination up to this
 #: induced width (per-sample traceback tables of ``2^width`` entries),
@@ -142,7 +143,8 @@ def map_state_clamped(mrf: MRF, evidence: dict, mesh=None):
     base = 0
     for v, b in ev.items():
         base |= b << (n - 1 - v)
-    offset = float(mrf.beta) * float(const)
+    with profiling.span("qcmrf.wait"):
+        offset = float(mrf.beta) * float(const)
     if red is None:
         return base, offset
     mesh = sharded.fit_mesh(mesh, red.n)

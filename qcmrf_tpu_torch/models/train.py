@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from qcmrf_tpu_torch.models.mrf import MRF
+from qcmrf_tpu_torch.utils import profiling
 
 
 def _nll(mrf: MRF, theta: torch.Tensor, data) -> torch.Tensor:
@@ -119,11 +120,15 @@ def make_train_step(template: MRF, optimizer: torch.optim.Optimizer,
     -> loss``, the mean NLL of the state ids ``batch`` before the update."""
     raw = _raw_of(optimizer)
 
+    @profiling.spanned("qcmrf.train.step")
     def step(batch):
         optimizer.zero_grad()
-        loss = _nll(template, _to_theta(raw, nonpositive), batch)
-        loss.backward()
-        optimizer.step()
+        with profiling.span("qcmrf.train.loss"):
+            loss = _nll(template, _to_theta(raw, nonpositive), batch)
+        with profiling.span("qcmrf.train.backward"):
+            loss.backward()
+        with profiling.span("qcmrf.train.optimizer"):
+            optimizer.step()
         return loss.detach()
 
     return step

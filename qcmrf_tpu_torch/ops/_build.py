@@ -27,6 +27,7 @@ from typing import Tuple
 import torch
 
 from qcmrf_tpu_torch.sim.analytic import _moebius_layout
+from qcmrf_tpu_torch.utils import profiling
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "qcmrf_tpu_torch"
@@ -298,5 +299,6 @@ def _device_layout(cliques: tuple, n: int, device: torch.device):
     """(shifts (K, cmax) int32, sizes (K,) int32) on ``device``."""
     _, shifts, _ = _moebius_layout(cliques, n)
     sizes = [len(C) for C in cliques]
-    return (torch.from_numpy(shifts.T.copy()).to(device),
-            torch.tensor(sizes, dtype=torch.int32, device=device))
+    with profiling.span("qcmrf.wait"):
+        return (torch.from_numpy(shifts.T.copy()).to(device),
+                torch.tensor(sizes, dtype=torch.int32, device=device))

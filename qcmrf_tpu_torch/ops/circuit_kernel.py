@@ -38,10 +38,11 @@ from qcmrf_tpu_torch.circuits.params import validate_theta_domain
 from qcmrf_tpu_torch.models.mrf import MRF, _normalize_cliques
 from qcmrf_tpu_torch.ops import _build
 from qcmrf_tpu_torch.sim import dense
+from qcmrf_tpu_torch.utils import profiling
 from qcmrf_tpu_torch.utils.config import resolve_device
 
-#: launches of the CUDA kernel, bumped where it is launched
-LAUNCHES = {"circuit": 0}
+#: launches of the CUDA kernels (the port's one launch counter)
+LAUNCHES = profiling.LAUNCHES
 
 #: widest circuit the kernel takes: a block holds its whole state
 _MAX_WIDTH = 16
@@ -256,7 +257,7 @@ def launch(pack: CircuitPack, buffers, beta: float,
                   len(pack.circuits), float(beta), pack.shared_bytes,
                   None if scratch is None else _build.ptr(scratch),
                   _build.ptr(out))
-    LAUNCHES["circuit"] += 1
+    profiling.launch("circuit")
 
 
 def batched_circuit_probs(cliques, thetas, beta: float = 1.0,

@@ -49,10 +49,11 @@ import torch
 
 from qcmrf_tpu_torch.ops import _build
 from qcmrf_tpu_torch.ops.sampler_kernel import philox4x32_10
+from qcmrf_tpu_torch.utils import profiling
 
-#: launches of the CUDA kernel (Gibbs mode, AIS mode), bumped where it is
-#: launched
-LAUNCHES = {"gibbs": 0, "gibbs_ais": 0}
+#: launches of the CUDA kernels (the port's one launch counter: Gibbs
+#: mode ``gibbs``, AIS mode ``gibbs_ais``)
+LAUNCHES = profiling.LAUNCHES
 
 #: the kernel holds a chain's state as one 64-bit word up to this n
 REG_STATE_MAX_N = 64
@@ -575,7 +576,7 @@ def gibbs_chains_multi(seed: int, models, beta: float, num_samples: int,
                   else _build.ptr(delta), _build.ptr(out), float(beta),
                   seed & _MASK32, sweeps, burn, thin, num_samples,
                   int(pack.reg_state), smem)
-    LAUNCHES["gibbs"] += 1
+    profiling.launch("gibbs")
     views = out.split((Cs * num_samples * ns).tolist())
     return [b.view(int(C), num_samples, int(n))
             for b, C, n in zip(views, Cs, ns)]
@@ -837,7 +838,7 @@ def ais_chains(seed: int, cliques: tuple, n: int, theta: torch.Tensor,
                   int(packed), num_temps,
                   sweeps_per_temp, _build.ptr(logw),
                   seed & _MASK32, int(pack.reg_state), smem)
-    LAUNCHES["gibbs_ais"] += 1
+    profiling.launch("gibbs_ais")
     return logw, out
 
 

@@ -97,14 +97,11 @@ import torch
 from qcmrf_tpu_torch.models.mrf import MRF
 from qcmrf_tpu_torch.ops import _build
 from qcmrf_tpu_torch.sim.analytic import _moebius_layout
-from qcmrf_tpu_torch.utils import moebius
+from qcmrf_tpu_torch.utils import moebius, profiling
 from qcmrf_tpu_torch.utils.config import resolve_device
 
-#: launches of the CUDA kernels, bumped where each is launched
-LAUNCHES = {"logpot": 0, "lse": 0, "map": 0, "moments": 0,
-            "lnz_moments": 0, "hdh_multi": 0, "hdh_multi_uniform": 0,
-            "diag": 0, "row_gate": 0, "lane": 0, "lane_factored": 0,
-            "copy": 0, "fma_peak": 0}
+#: launches of the CUDA kernels (the port's one launch counter)
+LAUNCHES = profiling.LAUNCHES
 
 #: the streaming logsumexp writes at most this many partial pairs a row
 MAX_LSE_PARTS = 4096
@@ -133,7 +130,8 @@ def coefficient_table(cliques: tuple, n: int,
     clique: subset ``s`` with bit ``i`` <-> clique slot ``i``; cliques
     smaller than cmax alias the extra slots, whose coefficients vanish."""
     idx_map, _, cmax = _moebius_layout(cliques, n)
-    idx = torch.from_numpy(idx_map).to(thetas.device)
+    with profiling.span("qcmrf.wait"):
+        idx = torch.from_numpy(idx_map).to(thetas.device)
     tab = thetas[..., idx].to(torch.float32)
     return moebius.transform(tab, cmax).reshape(*thetas.shape[:-1], -1)
 
@@ -226,6 +224,7 @@ def logpot_table_split_reference(cliques: tuple, n: int, coef: torch.Tensor,
     return _amplitudes(lp, n) if fuse_amp else lp
 
 
+@profiling.spanned("qcmrf.kernels.sweep")
 def logpot_table(cliques: tuple, n: int, coef: torch.Tensor, beta: float,
                  fuse_amp: bool = False, x0_blocks: int = 0,
                  blocks: int = None) -> torch.Tensor:
@@ -243,14 +242,14 @@ def logpot_table(cliques: tuple, n: int, coef: torch.Tensor, beta: float,
         return logpot_table_reference(cliques, n, coef, beta, fuse_amp,
                                       x0_blocks, blocks)
     dev = coef.device
-    plan = split_plan(cliques, n, split_bits(n))
-    tables, B, x0, count, per_part = _split_args(
+    plan, tables = _plan(cliques, n, dev)
+    B, x0, count, per_part = _split_args(
         cliques, n, coef, split_shared_bytes(plan), x0_blocks, blocks)
     out = torch.empty((B, count * per_part), dtype=torch.float32, device=dev)
     _build.launch("qcmrf_logpot", dev, tables, _build.ptr(coef), B,
                   coef.shape[1], per_part, x0, count, beta, int(fuse_amp),
                   2.0 ** (-0.5 * n), _build.ptr(out))
-    LAUNCHES["logpot"] += 1
+    profiling.launch("logpot")
     return out
 
 
@@ -327,9 +326,11 @@ def _segments(counts) -> tuple:
 @functools.lru_cache(maxsize=256)
 def split_plan(cliques: tuple, n: int, L: int) -> SplitPlan:
     """The :class:`SplitPlan` of ``cliques`` over ``n`` variables at ``L``
-    low id bits (``1 <= L <= n``)."""
+    low id bits (``1 <= L <= n``). Each build (a miss of its cache) is
+    counted as ``plan_build``."""
     if not 1 <= L <= n:
         raise ValueError(f"L={L} outside 1..{n}")
+    profiling.count("plan_build")
     cmax = max(len(C) for C in cliques)
     layout = moebius.monomial_layout(cliques)
     masks = moebius.monomial_masks(cliques, n).astype(np.uint64)
@@ -501,26 +502,36 @@ def _device_plan(cliques: tuple, n: int, L: int, device: torch.device):
     """The plan's tables on ``device`` and the ``SplitTables`` that point
     at them (the tensors stay cached beside it)."""
     plan = split_plan(cliques, n, L)
-    tabs = [torch.from_numpy(a).to(device) for a in (
-        plan.hm, plan.coef_index, plan.c_items, plan.c_heads, plan.m_items,
-        plan.m_heads, plan.targets)]
+    with profiling.span("qcmrf.wait"):
+        tabs = [torch.from_numpy(a).to(device) for a in (
+            plan.hm, plan.coef_index, plan.c_items, plan.c_heads,
+            plan.m_items, plan.m_heads, plan.targets)]
     return tabs, _build.SplitTables(
         *(t.data_ptr() for t in tabs), L, len(plan.hm),
         len(plan.c_items) - 1, len(plan.m_items) - 1, len(plan.targets))
 
 
+def _plan(cliques: tuple, n: int, device: torch.device):
+    """``(plan, tables)``: the :class:`SplitPlan` of a sweep over ``2**n``
+    states and the ``SplitTables`` of its copy on ``device``, both
+    cached."""
+    with profiling.span("qcmrf.kernels.plan"):
+        L = split_bits(n)
+        return split_plan(cliques, n, L), _device_plan(cliques, n, L,
+                                                       device)[1]
+
+
 def _split_args(cliques: tuple, n: int, coef: torch.Tensor, need: int,
                 x0_blocks: int = 0, blocks: int = None):
-    """Checked arguments of a split kernel: ``(tables, B, x0_blocks,
-    blocks, per_part)`` of a :func:`sweep_range`. Raises when ``need``
-    bytes of shared memory, static included, do not fit a block."""
+    """Checked arguments of a split kernel: ``(B, x0_blocks, blocks,
+    per_part)`` of a :func:`sweep_range`. Raises when ``need`` bytes of
+    shared memory, static included, do not fit a block."""
     B = _build.check_rows(coef, len(cliques), max(len(C) for C in cliques),
                           need, "the split plan and kernel")
-    x0, count, per_part = sweep_range(n, x0_blocks, blocks)
-    _, tables = _device_plan(cliques, n, split_bits(n), coef.device)
-    return tables, B, x0, count, per_part
+    return (B,) + sweep_range(n, x0_blocks, blocks)
 
 
+@profiling.spanned("qcmrf.kernels.sweep")
 def lse_partials(cliques: tuple, n: int, coef: torch.Tensor, beta: float,
                  x0_blocks: int = 0, blocks: int = None):
     """Per-block (max, scaled sum) of ``beta * theta^T phi(x)`` over all
@@ -535,8 +546,8 @@ def lse_partials(cliques: tuple, n: int, coef: torch.Tensor, beta: float,
         return lse_partials_reference(cliques, n, coef, beta, x0_blocks,
                                       blocks)
     dev = coef.device
-    plan = split_plan(cliques, n, split_bits(n))
-    tables, B, x0, parts, per_part = _split_args(
+    plan, tables = _plan(cliques, n, dev)
+    B, x0, parts, per_part = _split_args(
         cliques, n, coef, split_shared_bytes(plan) + _LSE_STATIC_BYTES,
         x0_blocks, blocks)
     m = torch.empty((B, parts), dtype=torch.float32, device=dev)
@@ -544,7 +555,7 @@ def lse_partials(cliques: tuple, n: int, coef: torch.Tensor, beta: float,
     _build.launch("qcmrf_lse", dev, tables, _build.ptr(coef), B,
                   coef.shape[1], per_part, x0, parts, beta, _build.ptr(m),
                   _build.ptr(s))
-    LAUNCHES["lse"] += 1
+    profiling.launch("lse")
     return m, s
 
 
@@ -583,8 +594,10 @@ def log_partition(mrf: MRF) -> torch.Tensor:
     if torch.is_grad_enabled() and mrf.theta.requires_grad:
         return _LogPartition.apply(mrf.theta, mrf.cliques, mrf.n,
                                    float(mrf.beta))
-    coef = moebius_coefficients(mrf)[None]
-    return combine_lse(*lse_partials(mrf.cliques, mrf.n, coef, mrf.beta))[0]
+    with profiling.span("qcmrf.kernels.sweep"):
+        coef = moebius_coefficients(mrf)[None]
+        return combine_lse(*lse_partials(mrf.cliques, mrf.n, coef,
+                                         mrf.beta))[0]
 
 
 # --------------------------------------------------------------------------
@@ -698,6 +711,7 @@ def map_partials_split_reference(cliques: tuple, n: int, coef: torch.Tensor,
     return best.reshape(B, -1), first.reshape(B, -1)
 
 
+@profiling.spanned("qcmrf.kernels.sweep")
 def map_partials(cliques: tuple, n: int, coef: torch.Tensor, beta: float,
                  candidates: torch.Tensor = None, x0_blocks: int = 0,
                  blocks: int = None):
@@ -724,14 +738,12 @@ def map_partials(cliques: tuple, n: int, coef: torch.Tensor, beta: float,
             cliques, n, coef, beta, parts=range(x0, x0 + count),
             candidates=candidates)
     dev = coef.device
-    L = split_bits(n)
     B = coef.shape[0]
+    plan, tables = _plan(cliques, n, dev)
     shifts, sizes, _, K, cmax = _build.structure_args(
         cliques, n, coef[:MAX_LAUNCH_ROWS],
-        extra=split_shared_bytes(split_plan(cliques, n, L))
-        + _MAP_STATIC_BYTES)
+        extra=split_shared_bytes(plan) + _MAP_STATIC_BYTES)
     _build.check(coef, "coef", torch.float32, (B, K << cmax), dev)
-    _, tables = _device_plan(cliques, n, L, dev)
     x0, parts, per_part = sweep_range(n, x0_blocks, blocks)
     if candidates is not None:
         _build.check(candidates, "candidates", torch.int64, (B, parts), dev)
@@ -748,7 +760,7 @@ def map_partials(cliques: tuple, n: int, coef: torch.Tensor, beta: float,
                       _build.ptr(x[rows]),
                       _build.ptr(candidates[rows]) if candidates is not None
                       else _build.ctypes.c_void_p(0))
-        LAUNCHES["map"] += 1
+        profiling.launch("map")
     return v, x
 
 
@@ -770,9 +782,12 @@ def map_state_streaming(mrf: MRF):
         lp = mrf.beta * mrf.all_log_potentials()
         i = int(torch.argmax(lp))
         return i, float(lp[i])
-    coef = moebius_coefficients(mrf)[None]
-    v, x = combine_map(*map_partials(mrf.cliques, mrf.n, coef, mrf.beta))
-    return int(x[0]), float(v[0])
+    with profiling.span("qcmrf.kernels.sweep"):
+        coef = moebius_coefficients(mrf)[None]
+        v, x = combine_map(*map_partials(mrf.cliques, mrf.n, coef,
+                                         mrf.beta))
+        with profiling.span("qcmrf.wait"):
+            return int(x[0]), float(v[0])
 
 
 def monomial_moments_reference(cliques: tuple, n: int, coef: torch.Tensor,
@@ -852,6 +867,7 @@ def monomial_moment_partials_reference(cliques: tuple, n: int,
                             masks).float()
 
 
+@profiling.spanned("qcmrf.kernels.sweep")
 def monomial_moment_partials(cliques: tuple, n: int, coef: torch.Tensor,
                              beta: float, lnz: torch.Tensor,
                              masks: torch.Tensor, x0_blocks: int = 0,
@@ -868,12 +884,12 @@ def monomial_moment_partials(cliques: tuple, n: int, coef: torch.Tensor,
                                                   blocks)
     dev = coef.device
     m = masks.numel()
+    plan, tables = _plan(cliques, n, dev)
     step = moments_per_launch(cliques, n)
     if step < 1:
         raise ValueError("the split plan leaves no shared memory for a "
                          "monomial")
-    plan = split_plan(cliques, n, split_bits(n))
-    tables, B, x0, parts, per_part = _split_args(
+    B, x0, parts, per_part = _split_args(
         cliques, n, coef,
         split_shared_bytes(plan, min(m, step)) + _LNZ_STATIC_BYTES,
         x0_blocks, blocks)
@@ -888,7 +904,7 @@ def monomial_moment_partials(cliques: tuple, n: int, coef: torch.Tensor,
                       coef.shape[1], per_part, x0, parts, beta,
                       _build.ptr(lnz), _build.ptr(masks[lo:hi]), hi - lo,
                       _build.ptr(part))
-        LAUNCHES["moments"] += 1
+        profiling.launch("moments")
         if part is not out:
             out[:, :, lo:hi] = part
     return out
@@ -946,15 +962,15 @@ def lnz_moments_reserve(cliques: tuple, n: int) -> int:
             + _LNZ_STATIC_BYTES)
 
 
-def _lnz_moments_launch(cliques: tuple, n: int, coef: torch.Tensor,
-                        beta: float, masks: torch.Tensor, x0_blocks: int = 0,
-                        blocks: int = None):
-    """One launch of ``lnz_moments_kernel``: the (M, S) partials of
+def _lnz_moments_launch(plan: SplitPlan, tables, cliques: tuple, n: int,
+                        coef: torch.Tensor, beta: float, masks: torch.Tensor,
+                        x0_blocks: int = 0, blocks: int = None):
+    """One launch of ``lnz_moments_kernel`` on the split ``plan`` and its
+    ``tables`` (:func:`_plan`): the (M, S) partials of
     :func:`lnz_moments_partials_reference` for a mask list that fits."""
     dev = coef.device
     m = masks.numel()
-    plan = split_plan(cliques, n, split_bits(n))
-    tables, B, x0, parts, per_part = _split_args(
+    B, x0, parts, per_part = _split_args(
         cliques, n, coef, split_shared_bytes(plan, m) + _LNZ_STATIC_BYTES,
         x0_blocks, blocks)
     _build.check(masks, "masks", torch.int64, (m,), dev)
@@ -963,10 +979,11 @@ def _lnz_moments_launch(cliques: tuple, n: int, coef: torch.Tensor,
     _build.launch("qcmrf_lnz_moments", dev, tables, _build.ptr(coef), B,
                   coef.shape[1], per_part, x0, parts, beta,
                   _build.ptr(masks), m, _build.ptr(M), _build.ptr(S))
-    LAUNCHES["lnz_moments"] += 1
+    profiling.launch("lnz_moments")
     return M, S
 
 
+@profiling.spanned("qcmrf.kernels.sweep")
 def lnz_moments_partials(cliques: tuple, n: int, coef: torch.Tensor,
                          beta: float, masks: torch.Tensor, x0_blocks: int = 0,
                          blocks: int = None):
@@ -995,7 +1012,8 @@ def lnz_moments_partials(cliques: tuple, n: int, coef: torch.Tensor,
     if m == 0 or (masks.device.type == "cpu" and int(masks[0]) != 0):
         raise ValueError("masks[0] must be 0, the empty monomial")
     run = (lnz_moments_partials_reference if coef.device.type == "cpu"
-           else _lnz_moments_launch)
+           else functools.partial(_lnz_moments_launch,
+                                  *_plan(cliques, n, coef.device)))
     step = moments_per_launch(cliques, n)
     if step < 2:
         raise ValueError(f"a launch takes {step} monomials; it needs 2")
@@ -1024,6 +1042,7 @@ def combine_lnz_moments(M: torch.Tensor, S: torch.Tensor):
     return top[..., 0] + torch.log(z[..., 0]), sums / z
 
 
+@profiling.spanned("qcmrf.kernels.sweep")
 def lnz_and_moments(cliques: tuple, n: int, theta: torch.Tensor,
                     beta: float):
     """``(lnZ, E_p[phi])`` of the model ``(cliques, n, theta, beta)`` in one
@@ -1323,7 +1342,7 @@ def apply_hdh_sandwich_multi(re, im, anc_lo: int, nu_terms_k, nu_angles_k,
     _build.launch("qcmrf_hdh_multi", re.device, _build.ptr(table), n_terms,
                   k, _build.ptr(re), _build.ptr(im), (1 << nq) >> k,
                   int(anc_lo))
-    LAUNCHES["hdh_multi"] += 1
+    profiling.launch("hdh_multi")
     return re, im
 
 
@@ -1453,7 +1472,7 @@ def apply_hdh_sandwich_multi_uniform(num_qubits: int, folded, anc_lo: int,
     _build.launch("qcmrf_hdh_multi_uniform", re.device, _build.ptr(table),
                   n_terms, k, _build.ptr(re), _build.ptr(im),
                   (1 << num_qubits) >> k, int(anc_lo), comp, amp)
-    LAUNCHES["hdh_multi_uniform"] += 1
+    profiling.launch("hdh_multi_uniform")
     return re, im
 
 
@@ -1519,7 +1538,7 @@ def apply_diagonal_profile(re, im, terms, angles, base=0.0):
     table, n_terms = _profile_table((prof,), re.device)
     _build.launch("qcmrf_diag", re.device, _build.ptr(table), n_terms,
                   *_launch_ptrs(re, im), (1 << nq) >> 2)
-    LAUNCHES["diag"] += 1
+    profiling.launch("diag")
     return re, im
 
 
@@ -1573,7 +1592,7 @@ def _row_gate(re, im, U, q_lo: int, k: int):
     m.im[:flat.size] = flat.imag.tolist()
     _build.launch("qcmrf_row_gate", re.device, m, k, *_launch_ptrs(re, im),
                   (1 << nq) >> (k + 2), q_lo)
-    LAUNCHES["row_gate"] += 1
+    profiling.launch("row_gate")
     return re, im
 
 
@@ -1607,7 +1626,7 @@ def apply_lane(re, im, M):
                       + np.ascontiguousarray(M.imag).tobytes(), re.device)
     _build.launch("qcmrf_lane", re.device, _build.ptr(m),
                   *_launch_ptrs(re, im), (1 << nq) >> 7)
-    LAUNCHES["lane"] += 1
+    profiling.launch("lane")
     return re, im
 
 
@@ -1680,7 +1699,7 @@ def apply_lane_factored(re, im, factors):
     f.im[:] = F.imag.reshape(-1).tolist()
     _build.launch("qcmrf_lane_factored", re.device, f, mask,
                   *_launch_ptrs(re, im), (1 << nq) >> 7)
-    LAUNCHES["lane_factored"] += 1
+    profiling.launch("lane_factored")
     return re, im
 
 
@@ -1752,7 +1771,7 @@ def copy_planes(re, im, out):
         return copy_planes_reference(re, im, out)
     _build.launch("qcmrf_copy", re.device, *_launch_ptrs(re, im, *out),
                   (1 << nq) >> 2)
-    LAUNCHES["copy"] += 1
+    profiling.launch("copy")
     return out
 
 
@@ -1779,5 +1798,5 @@ def fma_chain_max(x: torch.Tensor, b: float = 1e-9, steps: int = FMA_CHAIN,
     _build.launch("qcmrf_fma_peak", x.device, *_launch_ptrs(x), b, steps,
                   quads, _build.ptr(block_max),
                   None if out is None else _launch_ptrs(out)[0])
-    LAUNCHES["fma_peak"] += 1
+    profiling.launch("fma_peak")
     return block_max.max()

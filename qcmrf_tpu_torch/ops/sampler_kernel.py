@@ -36,10 +36,10 @@ import torch
 from qcmrf_tpu_torch.models.mrf import MRF
 from qcmrf_tpu_torch.ops import _build
 from qcmrf_tpu_torch.sim.analytic import _moebius_layout, check_theta_domain
-from qcmrf_tpu_torch.utils import moebius
+from qcmrf_tpu_torch.utils import moebius, profiling
 
-#: launches of the CUDA kernel, bumped where it is launched
-LAUNCHES = {"sampler": 0}
+#: launches of the CUDA kernels (the port's one launch counter)
+LAUNCHES = profiling.LAUNCHES
 
 #: output modes: (x, ancilla mask) | (x, accept flag) | flags | count
 MODES = {"parts": 0, "flags_x": 1, "flags": 2, "count": 3}
@@ -189,7 +189,7 @@ def sample_call(seed: int, cliques: tuple, n: int, values: torch.Tensor,
         _build.ptr(x) if x is not None else nul,
         _build.ptr(a) if a is not None else nul,
         _build.ptr(count) if count is not None else nul)
-    LAUNCHES["sampler"] += 1
+    profiling.launch("sampler")
     if mode == "count":
         return count
     if mode == "flags":
@@ -204,7 +204,8 @@ def keep_prob_values(cliques: tuple, n: int, thetas: torch.Tensor,
     word (bit i <-> slot i; a smaller clique's table repeats over the
     unused slots): ``(..., K << cmax)``, what :func:`sample_call` takes."""
     idx_map, _, _ = _moebius_layout(cliques, n)
-    idx = torch.from_numpy(idx_map).to(thetas.device)
+    with profiling.span("qcmrf.wait"):
+        idx = torch.from_numpy(idx_map).to(thetas.device)
     return torch.exp(beta * thetas[..., idx]).reshape(
         *thetas.shape[:-1], -1)
 
@@ -227,9 +228,12 @@ def keep_prob_coefficients(mrf: MRF) -> torch.Tensor:
     return keep_prob_table(mrf.cliques, mrf.n, mrf.theta, mrf.beta)
 
 
+@profiling.spanned("qcmrf.sampler")
 def _sample(seed: int, mrf: MRF, shots: int, mode: str, stream: int):
     check_theta_domain(mrf)
-    values = keep_prob_values(mrf.cliques, mrf.n, mrf.theta, mrf.beta)[None]
+    with profiling.span("qcmrf.sampler.table"):
+        values = keep_prob_values(mrf.cliques, mrf.n, mrf.theta,
+                                  mrf.beta)[None]
     out = sample_call(seed, mrf.cliques, mrf.n, values, shots, mode, stream)
     if isinstance(out, tuple):
         return tuple(o[0] for o in out)

@@ -11,7 +11,8 @@ gate rates (``gate_bw_n`` = max(n, 24), ``gate_lane_gbps``,
 (``suite70_gate_level_ms``); ``backend`` is the card's name and
 ``power_limit`` its limit. ``--trace DIR`` runs one sampler call under
 :func:`qcmrf_tpu_torch.utils.profiling.trace` and adds ``trace_dir``
-and that call's device busy and idle share (``trace``). The shots default
+and that call's device busy and idle share, with its idle time by
+program span (``trace``). The shots default
 to 2^27. A section that fails raises, so the command exits non-zero
 (the root ``bench.py`` writes ``*_error`` keys and exits 0). JAX's
 ``lane_precision_study`` (the MXU's bf16 pass counts) is TPU-only.
@@ -304,7 +305,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
         busy = profiling.device_busy(profiling.trace_files(args.trace)[-1])
         out["trace_dir"] = args.trace
         out["trace"] = {k: busy[k] for k in (
-            "busy_ms", "union_ms", "window_ms", "idle_share", "kernels")}
+            "busy_ms", "union_ms", "window_ms", "idle_share", "kernels",
+            "gap_spans")}
 
     dt = _best_s(lambda: kernels.all_log_potentials(mrf), reps=10)
     out["logpot_ms"] = round(dt * 1e3, 4)

@@ -43,6 +43,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from qcmrf_tpu_torch.utils import profiling
 from qcmrf_tpu_torch.utils.config import parse_with_config, resolve_platform
 
 
@@ -103,7 +104,9 @@ def _validate_method(query: str, method: str, where: str = "") -> None:
 
 
 def _floats(t) -> list:
-    return t.detach().cpu().double().numpy().tolist()
+    with profiling.span("qcmrf.wait"):
+        t = t.detach().cpu()
+    return t.double().numpy().tolist()
 
 
 def _ais_report(chains: int, args, diag, stderr: bool = False) -> dict:
@@ -126,7 +129,7 @@ def _ais_chains(args, mesh) -> tuple:
                      f"(a multiple of the {mesh.size}-device mesh)")
 
 
-def main(argv: Optional[List[str]] = None):
+def _parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="qcmrf_tpu_torch infer")
     parser.add_argument("--model", type=str, default=None,
                         help="model JSON with {'cliques', 'theta'}: the "
@@ -187,11 +190,14 @@ def main(argv: Optional[List[str]] = None):
                         choices=["cpu", "gpu", "default"],
                         help="'default' means 'gpu'; both raise where "
                              "PyTorch sees no CUDA device")
-    args = parse_with_config(parser, argv)
+    return parser
 
+
+def _load_model(args) -> tuple:
+    """``(cliques, theta, beta)`` of ``--model`` or ``--graph``: host-side
+    JSON and numpy only, before any device."""
     from qcmrf_tpu_torch.runners.train_cli import parse_graph
 
-    # ---- model spec: host-side JSON and numpy only, before any device --
     beta = args.beta
     if args.model:
         with open(args.model) as f:
@@ -225,24 +231,39 @@ def main(argv: Optional[List[str]] = None):
             beta = 1.0
     else:
         raise SystemExit("pass --model fitted_model.json or --graph ...")
+    return cliques, theta, beta
 
+
+def _batch_specs(args) -> list:
+    """The ``--queries`` lines, every one validated before any is
+    answered (none without the flag)."""
     _validate_method(args.query, args.method)
-    batch_specs = []
-    if args.queries:
-        # validate every batch line before answering any
-        with open(args.queries) as f:
-            batch_specs = [json.loads(line) for line in f if line.strip()]
-        allowed = {"query", "evidence", "of", "max_vars", "num_samples",
-                   "method", "sample_seed"}
-        for i, spec in enumerate(batch_specs):
-            bad = set(spec) - allowed
-            if bad:
-                raise SystemExit(
-                    f"--queries line {i + 1}: unknown keys {sorted(bad)} "
-                    f"(allowed: {sorted(allowed)})")
-            _validate_method(spec.get("query", args.query),
-                             spec.get("method", args.method),
-                             where=f"--queries line {i + 1}: ")
+    if not args.queries:
+        return []
+    with open(args.queries) as f:
+        batch_specs = [json.loads(line) for line in f if line.strip()]
+    allowed = {"query", "evidence", "of", "max_vars", "num_samples",
+               "method", "sample_seed"}
+    for i, spec in enumerate(batch_specs):
+        bad = set(spec) - allowed
+        if bad:
+            raise SystemExit(
+                f"--queries line {i + 1}: unknown keys {sorted(bad)} "
+                f"(allowed: {sorted(allowed)})")
+        _validate_method(spec.get("query", args.query),
+                         spec.get("method", args.method),
+                         where=f"--queries line {i + 1}: ")
+    return batch_specs
+
+
+@profiling.spanned("qcmrf.infer")
+def main(argv: Optional[List[str]] = None):
+    with profiling.span("qcmrf.infer.parse"):
+        args = parse_with_config(_parser(), argv)
+    with profiling.span("qcmrf.infer.load"):
+        cliques, theta, beta = _load_model(args)
+    with profiling.span("qcmrf.infer.parse"):
+        batch_specs = _batch_specs(args)
 
     n_vars = 1 + max(v for C in cliques for v in C)
 
@@ -260,12 +281,14 @@ def main(argv: Optional[List[str]] = None):
         _emit([report], args.out)
         return report
 
-    device = resolve_platform(args.platform)
-    from qcmrf_tpu_torch.models.mrf import MRF
-    from qcmrf_tpu_torch.parallel import sharded
+    with profiling.span("qcmrf.infer.model"):
+        device = resolve_platform(args.platform)
+        from qcmrf_tpu_torch.models.mrf import MRF
+        from qcmrf_tpu_torch.parallel import sharded
 
-    mrf = MRF.create(cliques, theta=theta, beta=beta, device=device)
-    mesh = sharded.mesh_from_spec(args.mesh, device) if args.mesh else None
+        mrf = MRF.create(cliques, theta=theta, beta=beta, device=device)
+        mesh = (sharded.mesh_from_spec(args.mesh, device) if args.mesh
+                else None)
 
     if not args.queries:
         result = _answer(mrf, args, mesh, beta)
@@ -291,6 +314,7 @@ def main(argv: Optional[List[str]] = None):
     return results
 
 
+@profiling.spanned("qcmrf.infer.emit")
 def _emit(results, out) -> None:
     """One JSON line per result on stdout, and into ``out`` when given."""
     lines = [json.dumps(r) for r in results]
@@ -301,6 +325,7 @@ def _emit(results, out) -> None:
             f.write("".join(line + "\n" for line in lines))
 
 
+@profiling.spanned("qcmrf.infer.answer")
 def _answer(mrf, args, mesh, beta) -> dict:
     """Answer one query namespace against a loaded model. The caps are
     read from :mod:`capability` at call time."""
@@ -308,30 +333,31 @@ def _answer(mrf, args, mesh, beta) -> dict:
     from qcmrf_tpu_torch.models import capability, elimination, moments
     from qcmrf_tpu_torch.models import sample as msample
 
-    evidence = _parse_assignments(args.evidence)
-    elimination._validate_evidence(mrf.n, evidence)
+    with profiling.span("qcmrf.infer.route"):
+        evidence = _parse_assignments(args.evidence)
+        elimination._validate_evidence(mrf.n, evidence)
 
-    # ---- backend routing ------------------------------------------------
-    cap = capability.ELIM_WIDTH_CAP
-    max_n = capability.STREAMING_MAX_N
-    width = elimination.induced_width(mrf.cliques, mrf.n)
-    use_streaming = width > cap or mesh is not None
-    ais_q = args.method == "ais" and args.query in ("lnz", "marginals",
-                                                    "prob")
-    if (use_streaming and mrf.n > max_n
-            and args.query not in ("mmap", "sample") and not ais_q):
-        # mmap routes on its own (constrained) width below, a sampler's
-        # feasibility is per method on the reduced model, and AIS has no
-        # cap
-        raise SystemExit(
-            f"n={mrf.n} needs the streaming sweep (induced width {width} "
-            f"> elimination cap {cap}, or --mesh), which caps at "
-            f"n={max_n}")
+        # ---- backend routing --------------------------------------------
+        cap = capability.ELIM_WIDTH_CAP
+        max_n = capability.STREAMING_MAX_N
+        width = elimination.induced_width(mrf.cliques, mrf.n)
+        use_streaming = width > cap or mesh is not None
+        ais_q = args.method == "ais" and args.query in ("lnz", "marginals",
+                                                        "prob")
+        if (use_streaming and mrf.n > max_n
+                and args.query not in ("mmap", "sample") and not ais_q):
+            # mmap routes on its own (constrained) width below, a sampler's
+            # feasibility is per method on the reduced model, and AIS has no
+            # cap
+            raise SystemExit(
+                f"n={mrf.n} needs the streaming sweep (induced width {width} "
+                f"> elimination cap {cap}, or --mesh), which caps at "
+                f"n={max_n}")
 
-    result = {"query": args.query, "n": mrf.n,
-              "num_cliques": mrf.num_cliques, "beta": float(beta),
-              "evidence": {str(v): b for v, b in evidence.items()},
-              "backend": "streaming" if use_streaming else "elimination"}
+        result = {"query": args.query, "n": mrf.n,
+                  "num_cliques": mrf.num_cliques, "beta": float(beta),
+                  "evidence": {str(v): b for v, b in evidence.items()},
+                  "backend": "streaming" if use_streaming else "elimination"}
 
     if args.query == "lnz":
         if ais_q:
@@ -357,7 +383,8 @@ def _answer(mrf, args, mesh, beta) -> dict:
                                                           mesh)
         else:
             val = elimination.log_partition_clamped(mrf, evidence)
-        result["lnz" if not evidence else "log_mass"] = float(val)
+        with profiling.span("qcmrf.wait"):
+            result["lnz" if not evidence else "log_mass"] = float(val)
     elif args.query == "prob":
         if not args.of:
             raise SystemExit("--query prob needs --of v=b")
@@ -394,7 +421,8 @@ def _answer(mrf, args, mesh, beta) -> dict:
         else:
             p = elimination.conditional_prob(mrf, v, b, evidence)
         result["of"] = f"{v}={b}"
-        result["prob"] = float(p)
+        with profiling.span("qcmrf.wait"):
+            result["prob"] = float(p)
     elif args.query == "map":
         if use_streaming:
             sid, val = msample.map_state_clamped(mrf, evidence, mesh)

@@ -61,8 +61,8 @@ def _designs(lib, torch, K, cliques, n, coef, beta):
     times."""
     from qcmrf_tpu_torch.ops import _build
 
-    plan = K.split_plan(cliques, n, K.split_bits(n))
-    tables, B, x0, parts, per_part = K._split_args(
+    plan, tables = K._plan(cliques, n, coef.device)
+    B, x0, parts, per_part = K._split_args(
         cliques, n, coef, K.split_shared_bytes(plan))
 
     def call(fn, *head, offset=()):

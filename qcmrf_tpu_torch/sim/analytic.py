@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from qcmrf_tpu_torch.models.mrf import MRF
-from qcmrf_tpu_torch.utils import moebius
+from qcmrf_tpu_torch.utils import moebius, profiling
 
 
 def check_theta_domain(mrf: MRF) -> None:
@@ -40,7 +40,10 @@ def check_theta_domain(mrf: MRF) -> None:
 
 def check_thetas(thetas: torch.Tensor) -> None:
     """:func:`check_theta_domain` for a tensor of thetas of any shape."""
-    if bool((thetas > 0).any()):
+    positive = (thetas > 0).any()
+    with profiling.span("qcmrf.wait"):
+        positive = bool(positive)
+    if positive:
         raise ValueError(
             "theta must be <= 0 (QCMRF.py:139 domain): positive entries "
             "give clique keep-probabilities > 1 and a silently wrong "

@@ -42,6 +42,7 @@ import torch
 from qcmrf_tpu_torch.circuits.ir import Circuit, Gate
 from qcmrf_tpu_torch.ops import kernels as K
 from qcmrf_tpu_torch.sim.dense import GATES_1Q
+from qcmrf_tpu_torch.utils import profiling
 from qcmrf_tpu_torch.utils.config import resolve_device
 
 
@@ -368,6 +369,7 @@ def sandwich_fold_parts(first_op, folded_locals):
     return None
 
 
+@profiling.spanned("qcmrf.planes.fuse")
 def fuse_ops(circuit: Circuit) -> list:
     """Fused op stream of a circuit: :func:`circuit_primitives` (X-deferred
     lowering) composed with :func:`fuse_primitives` (peephole fusion). The
@@ -390,6 +392,7 @@ def fuse_ops(circuit: Circuit) -> list:
     return [("init_uniform", folded)] + ops
 
 
+@profiling.spanned("qcmrf.planes.run")
 def apply_ops(re, im, ops, num_qubits: int):
     """Run a fused op stream on the planes, updating them in place;
     returns them."""
@@ -466,6 +469,7 @@ def run_statevector(circuit: Circuit, device=None):
     return re, im
 
 
+@profiling.spanned("qcmrf.planes.outcome")
 def outcome_probs(circuit: Circuit, re, im) -> torch.Tensor:
     """Joint clbit-value distribution (QCMRF wiring: identity key map)."""
     probs = (re * re + im * im).reshape(-1)
@@ -490,6 +494,7 @@ def outcome_probs(circuit: Circuit, re, im) -> torch.Tensor:
     return out.index_add_(0, keys, probs)
 
 
+@profiling.spanned("qcmrf.planes.simulate")
 def simulate_probs(circuit: Circuit, device=None) -> torch.Tensor:
     """Run + outcome distribution, on ``device`` as for
     :func:`run_statevector`."""

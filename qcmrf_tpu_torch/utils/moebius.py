@@ -26,6 +26,8 @@ from typing import Callable, List
 import numpy as np
 import torch
 
+from qcmrf_tpu_torch.utils import profiling
+
 
 def transform(tab: torch.Tensor, cmax: int) -> torch.Tensor:
     """Fast Moebius transform along the slot bits of the last axis.
@@ -110,7 +112,9 @@ def monomial_masks(cliques: tuple, n: int) -> np.ndarray:
 def device_masks(cliques: tuple, n: int, device: torch.device):
     """:func:`monomial_masks` on ``device``, uploaded once per structure
     (a training run sweeps one structure every step)."""
-    return torch.from_numpy(monomial_masks(cliques, n)).to(device)
+    masks = torch.from_numpy(monomial_masks(cliques, n))
+    with profiling.span("qcmrf.wait"):
+        return masks.to(device)
 
 
 @functools.lru_cache(maxsize=128)
@@ -142,10 +146,12 @@ def masks_from_monomials(mono: torch.Tensor, cliques: tuple):
     out = torch.empty(sum(1 << len(C) for C in cliques), dtype=mono.dtype,
                       device=mono.device)
     for c, (gidx, pos) in _inverse_moebius_plan(cliques).items():
-        tab = mono[torch.from_numpy(gidx).to(mono.device)]
+        with profiling.span("qcmrf.wait"):
+            gidx_d = torch.from_numpy(gidx).to(mono.device)
+            pos_d = torch.from_numpy(pos).to(mono.device)
+        tab = mono[gidx_d]
         for i in range(c):
             t = tab.reshape(len(gidx), 1 << (c - 1 - i), 2, 1 << i)
             tab = torch.cat([t[:, :, :1] - t[:, :, 1:], t[:, :, 1:]], dim=2)
-        out[torch.from_numpy(pos).to(mono.device)] = tab.reshape(len(gidx),
-                                                                 -1)
+        out[pos_d] = tab.reshape(len(gidx), -1)
     return out

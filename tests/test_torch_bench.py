@@ -103,7 +103,11 @@ def test_device_busy_parses_known_intervals(tmp_path):
     [100, 300), [200, 400) (overlapping), [600, 650) and [900, 1000):
     busy 0.55 ms summed, a union of 0.45 ms, a 1 ms window, idle share
     0.55; the longest gaps 0.25 ms at 0.65 ms, 0.2 ms at 0.4 ms, 0.1 ms
-    at 0; memcpy and instant events are not kernels."""
+    at 0; memcpy and instant events are not kernels. The idle time by
+    program span: the gap at 0.4 ms under the wait span nested in the
+    answer span in the request span, the two others under the request
+    span alone; the benchmark's span and the device's copy of a program
+    span name no gap."""
     events = [
         {"ph": "X", "cat": "cpu_op", "name": "host", "ts": 0, "dur": 1000},
         {"ph": "X", "cat": "kernel", "name": "a", "ts": 100, "dur": 200},
@@ -112,6 +116,16 @@ def test_device_busy_parses_known_intervals(tmp_path):
         {"ph": "X", "cat": "gpu_memcpy", "name": "c", "ts": 700, "dur": 50},
         {"ph": "X", "cat": "kernel", "name": "b", "ts": 900, "dur": 100},
         {"ph": "i", "cat": "kernel", "name": "mark", "ts": 950},
+        {"ph": "X", "cat": "user_annotation", "name": "qcmrf.infer",
+         "ts": 0, "dur": 1000},
+        {"ph": "X", "cat": "user_annotation", "name": "qcmrf.infer.answer",
+         "ts": 350, "dur": 400},
+        {"ph": "X", "cat": "user_annotation", "name": "qcmrf.wait",
+         "ts": 480, "dur": 40},
+        {"ph": "X", "cat": "user_annotation", "name": "bench.query",
+         "ts": 10, "dur": 980},
+        {"ph": "X", "cat": "gpu_user_annotation", "name": "qcmrf.wait",
+         "ts": 700, "dur": 150},
     ]
     path = tmp_path / "x.pt.trace.json"
     path.write_text(json.dumps({"traceEvents": events}))
@@ -125,6 +139,9 @@ def test_device_busy_parses_known_intervals(tmp_path):
     assert b["top"][0][1:] == [pytest.approx(0.3), 2]
     np.testing.assert_allclose(b["gaps"], [[0.65, 0.25], [0.4, 0.2],
                                            [0.0, 0.1]])
+    assert list(b["gap_spans"]) == ["qcmrf.infer", "qcmrf.wait"]
+    assert b["gap_spans"]["qcmrf.infer"] == pytest.approx(0.35)
+    assert b["gap_spans"]["qcmrf.wait"] == pytest.approx(0.2)
     empty = tmp_path / "e.pt.trace.json"
     empty.write_text(json.dumps([]))
     with pytest.raises(ValueError, match="no timed events"):
