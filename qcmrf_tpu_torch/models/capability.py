@@ -92,15 +92,16 @@ def reduce_structure(cliques: Sequence[Sequence[int]], n: int,
     the whole clique. ``reduced`` is the reduced model's ``(cliques, n)``:
     the non-empty scopes, or ``((0,),)`` (a zero-potential clique) when
     free variables remain in no clique; ``None`` when every variable is
-    observed. ``moments.reduce_evidence`` slices theta along it."""
+    observed. ``moments.reduce_evidence`` gives its model this structure."""
     ev = {int(v) for v in evidence}
-    free = [v for v in range(n) if v not in ev]
-    rank = {v: i for i, v in enumerate(free)}
-    scopes = [tuple(rank[int(v)] for v in C if int(v) not in ev)
-              for C in cliques]
-    if not free:
+    rank, nf = [-1] * n, 0  # -1: observed
+    for v in range(n):
+        if v not in ev:
+            rank[v], nf = nf, nf + 1
+    scopes = [tuple([rank[v] for v in C if rank[v] >= 0]) for C in cliques]
+    if not nf:
         return scopes, None
-    return scopes, (tuple(C for C in scopes if C) or ((0,),), len(free))
+    return scopes, (tuple(C for C in scopes if C) or ((0,),), nf)
 
 
 def _sampler_sizes(cliques, n: int, evidence: dict):

@@ -38,6 +38,8 @@ answer (``sharded.fit_mesh``).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -147,6 +149,60 @@ def log_partition_streaming(mrf: MRF, mesh=None) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=64)
+def _clamp_tables(cliques: tuple, n: int):
+    """Host tables of the evidence clamp for a structure, one row a theta
+    entry: ``(evar, ebit, eclq, cvar)``. ``evar[e]`` is entry e's clique's
+    variables padded to ``cmax`` with ``n``, ``ebit[e]`` the clique-state
+    bits of its slots (``y[0]`` slowest, padded 0), ``eclq[e]`` its clique
+    and ``cvar`` the padded variables a clique. Each build (a miss of its
+    cache) is counted as ``clamp_table_build``."""
+    profiling.count("clamp_table_build")
+    cmax = max(len(C) for C in cliques)
+    cvar = np.full((len(cliques), cmax), n, np.int64)
+    for k, C in enumerate(cliques):
+        cvar[k, :len(C)] = C
+    sizes = np.asarray([len(C) for C in cliques], np.int64)
+    eclq = np.repeat(np.arange(len(cliques)), 1 << sizes)
+    starts = np.cumsum(1 << sizes) - (1 << sizes)
+    y = np.arange(len(eclq)) - starts[eclq]
+    shift = sizes[eclq, None] - 1 - np.arange(cmax)
+    ebit = np.where(shift >= 0, (y[:, None] >> np.maximum(shift, 0)) & 1, 0)
+    return cvar[eclq], ebit.astype(np.int8), eclq, cvar
+
+
+def _clamp_index(cliques: tuple, n: int, ev: dict):
+    """``(keep, const)``: the theta entries consistent with the evidence
+    ``ev`` (every observed slot's bit equal to its value), split into
+    those of cliques with a free slot, which in ascending order are the
+    reduced model's theta layout, and those of fully observed cliques,
+    one entry each."""
+    evar, ebit, eclq, cvar = _clamp_tables(cliques, n)
+    e = np.full((n + 1,), -1, np.int8)
+    e[list(ev)] = list(ev.values())
+    e[n] = 0  # a padded slot reads as observed at its bit 0
+    obs = e[evar]
+    consistent = ((obs < 0) | (obs == ebit)).all(axis=1)
+    free = (e[cvar] < 0).any(axis=1)[eclq]
+    return (np.flatnonzero(consistent & free),
+            np.flatnonzero(consistent & ~free))
+
+
+def _sum_in_order(vals: torch.Tensor) -> torch.Tensor:
+    """``vals``' sum added left to right from 0 in their dtype, bit for bit
+    the per-clique loop's constant (the JAX package's): on the host, one
+    read of the few entries, back as a fill (no upload). Under autograd
+    it is one differentiable sum instead, equal within its rounding."""
+    if vals.requires_grad:
+        return vals.sum()
+    if not vals.numel():
+        return torch.zeros((), dtype=vals.dtype, device=vals.device)
+    with profiling.span("qcmrf.wait"):
+        host = vals.cpu().numpy()
+    return torch.full((), float(np.add.accumulate(host)[-1]),
+                      dtype=vals.dtype, device=vals.device)
+
+
 @profiling.spanned("qcmrf.moments.reduce")
 def reduce_evidence(mrf: MRF, evidence: dict):
     """(reduced MRF over the free variables, clamped log-potential
@@ -157,36 +213,30 @@ def reduce_evidence(mrf: MRF, evidence: dict):
     constant, and the surviving scopes relabel onto the free variables in
     ascending order (``free[i]`` becomes variable ``i``). Identity: ``ln
     sum_{x ~ e} e^{beta theta^T phi(x)} = beta * const + lnZ(reduced)``.
-    The reduced model lives on ``mrf``'s device; it is ``None`` when every
-    variable is observed."""
+    The slicing is one gather of theta at :func:`_clamp_index`'s entries;
+    no evidence returns ``mrf`` itself. The reduced model lives on
+    ``mrf``'s device; it is ``None`` when every variable is observed."""
     _ve._validate_evidence(mrf.n, evidence)
     ev = {int(v): int(b) for v, b in evidence.items()}
-    scopes, structure = reduce_structure(mrf.cliques, mrf.n, ev)
-    const = torch.zeros((), dtype=mrf.theta.dtype, device=mrf.device)
-    new_thetas = []
-    off = 0
-    for C, scope in zip(mrf.cliques, scopes):
-        c = len(C)
-        tab = mrf.theta[off: off + (1 << c)].reshape((2,) * c)
-        tab = tab[tuple(ev[v] if v in ev else slice(None) for v in C)]
-        if scope:
-            new_thetas.append(tab.reshape(-1))
-        else:
-            const = const + tab.reshape(())
-        off += 1 << c
+    if not ev:
+        return mrf, torch.zeros((), dtype=mrf.theta.dtype, device=mrf.device)
+    _, structure = reduce_structure(mrf.cliques, mrf.n, ev)
+    keep, const = _clamp_index(mrf.cliques, mrf.n, ev)
+    with profiling.span("qcmrf.wait"):
+        index = torch.from_numpy(np.concatenate([keep, const])).to(
+            mrf.device)
+    picked = mrf.theta.index_select(0, index)
+    const_sum = _sum_in_order(picked[keep.size:])
     if structure is None:
-        return None, const
+        return None, const_sum
     new_cliques, nf = structure
-    if not new_thetas:
-        # every clique folded into the constant, but free variables remain:
-        # they are in no clique, so the one zero-potential clique holds them
-        new_thetas = [torch.zeros((2,), dtype=mrf.theta.dtype,
-                                  device=mrf.device)]
+    # every clique folded into the constant, but free variables remain:
+    # they are in no clique, so the one zero-potential clique holds them
+    theta = (picked[:keep.size] if keep.size else
+             torch.zeros((2,), dtype=mrf.theta.dtype, device=mrf.device))
     # n=nf explicitly: a free variable in no reduced clique still counts
-    red = MRF.create([list(C) for C in new_cliques],
-                     theta=torch.cat(new_thetas), beta=mrf.beta, n=nf,
-                     device=mrf.device)
-    return red, const
+    return MRF(theta=theta, beta=mrf.beta, cliques=new_cliques,
+               n=nf), const_sum
 
 
 def log_partition_clamped_streaming(mrf: MRF, evidence: dict,
@@ -284,29 +334,12 @@ def embed_clamped_marginals(mrf: MRF, evidence: dict,
     row. Computed on the host in float64; returned in theta's dtype on
     ``mrf``'s device."""
     ev = {int(v): int(b) for v, b in evidence.items()}
+    keep, const = _clamp_index(mrf.cliques, mrf.n, ev)
     with profiling.span("qcmrf.wait"):
         rmom = torch.as_tensor(red_moments).detach().cpu()
-    rmom = rmom.double().numpy()
     out = np.zeros((mrf.dimension,), np.float64)
-    off = roff = 0
-    for C in mrf.cliques:
-        c = len(C)
-        surv = [s for s, v in enumerate(C) if int(v) not in ev]
-        base = 0
-        for s, v in enumerate(C):
-            if int(v) in ev:
-                base |= ev[int(v)] << (c - 1 - s)
-        if not surv:
-            out[off + base] = 1.0
-        else:
-            m = len(surv)
-            for j in range(1 << m):
-                idx = base
-                for t, s in enumerate(surv):
-                    idx |= ((j >> (m - 1 - t)) & 1) << (c - 1 - s)
-                out[off + idx] = rmom[roff + j]
-            roff += 1 << m
-        off += 1 << c
+    out[keep] = rmom.double().numpy()[:keep.size]
+    out[const] = 1.0
     with profiling.span("qcmrf.wait"):
         return torch.as_tensor(out, dtype=mrf.theta.dtype,
                                device=mrf.device)

@@ -256,6 +256,186 @@ def test_embed_clamped_marginals_matches_jax():
             jm, full)))
 
 
+# ---- the evidence clamp as one gather and one scatter -----------------------
+
+
+def _loop_reduce(mrf, ev):
+    """The per-clique reduction (each clique's table sliced, a cat, the
+    constant added clique by clique), the oracle of the one gather:
+    ``(cliques, n, theta, const)``, cliques and theta None when every
+    variable is observed."""
+    free = [v for v in range(mrf.n) if v not in ev]
+    rank = {v: i for i, v in enumerate(free)}
+    const = torch.zeros((), dtype=mrf.theta.dtype)
+    cliques, thetas, off = [], [], 0
+    for C in mrf.cliques:
+        c = len(C)
+        tab = mrf.theta[off: off + (1 << c)].reshape((2,) * c)
+        tab = tab[tuple(ev[v] if v in ev else slice(None) for v in C)]
+        scope = tuple(rank[v] for v in C if v not in ev)
+        if scope:
+            cliques.append(scope)
+            thetas.append(tab.reshape(-1))
+        else:
+            const = const + tab.reshape(())
+        off += 1 << c
+    if not free:
+        return None, 0, None, const
+    if not cliques:
+        cliques, thetas = [(0,)], [torch.zeros(2)]
+    return tuple(cliques), len(free), torch.cat(thetas), const
+
+
+def _loop_embed(mrf, ev, rmom):
+    """The double loop that placed reduced moments back in the theta
+    layout, the oracle of the one scatter."""
+    out = np.zeros((mrf.dimension,), np.float64)
+    off = roff = 0
+    for C in mrf.cliques:
+        c = len(C)
+        surv = [s for s, v in enumerate(C) if v not in ev]
+        base = 0
+        for s, v in enumerate(C):
+            if v in ev:
+                base |= ev[v] << (c - 1 - s)
+        if not surv:
+            out[off + base] = 1.0
+        else:
+            m = len(surv)
+            for j in range(1 << m):
+                idx = base
+                for t, s in enumerate(surv):
+                    idx |= ((j >> (m - 1 - t)) & 1) << (c - 1 - s)
+                out[off + idx] = rmom[roff + j]
+            roff += 1 << m
+        off += 1 << c
+    return out
+
+
+def _mixed_model(seed):
+    """Cliques of every size 1-6 and a few more, variables in random slot
+    order, over 6-11 variables; on odd seeds one or two more variables in
+    no clique."""
+    rng = np.random.RandomState(seed)
+    used = int(rng.randint(6, 12))
+    n = used + (seed % 2) * int(rng.randint(1, 3))
+    sizes = list(range(1, 7)) + rng.randint(1, 7, rng.randint(0, 8)).tolist()
+    cliques = [rng.choice(used, k, replace=False).tolist()
+               for k in rng.permutation(sizes)]
+    d = sum(1 << len(C) for C in cliques)
+    theta = (rng.randn(d) * 3).astype(np.float32)
+    return MRF.create(cliques, theta=theta, beta=0.8, n=n, device="cpu")
+
+
+def _evidences(m, seed):
+    """None, one, about half, all but one and every variable observed, and
+    every clique variable observed (the free ones in no clique)."""
+    rng = np.random.RandomState(seed + 100)
+    in_cliques = sorted({v for C in m.cliques for v in C})
+    sets = [[], [int(rng.randint(m.n))],
+            rng.choice(m.n, m.n // 2, replace=False).tolist(),
+            rng.choice(m.n, m.n - 1, replace=False).tolist(),
+            list(range(m.n)), in_cliques]
+    return [{int(v): int(rng.randint(2)) for v in vs} for vs in sets]
+
+
+@pytest.mark.parametrize("seed", range(12))
+def test_reduce_evidence_equals_the_per_clique_loop(seed):
+    """One gather gives the loop's reduced theta and constant bit for bit,
+    its cliques and n, and the zero-potential clique or None where the
+    loop gives them; no evidence gives the model itself."""
+    m = _mixed_model(seed)
+    for ev in _evidences(m, seed):
+        red, const = moments.reduce_evidence(m, ev)
+        cliques, n, theta, want = _loop_reduce(m, ev)
+        assert const.dtype == torch.float32 and const.shape == ()
+        assert const.item() == want.item(), ev
+        if cliques is None:
+            assert red is None
+            continue
+        assert red.cliques == cliques and red.n == n, ev
+        assert red.beta == m.beta and torch.equal(red.theta, theta), ev
+        if not ev:
+            assert red is m
+
+
+@pytest.mark.parametrize("seed", range(12))
+def test_embed_clamped_marginals_equals_the_per_clique_loop(seed):
+    m = _mixed_model(seed)
+    rng = np.random.RandomState(seed)
+    for ev in _evidences(m, seed):
+        red, _ = moments.reduce_evidence(m, ev)
+        rmom = rng.rand(0 if red is None else red.dimension)
+        got = moments.embed_clamped_marginals(m, ev, rmom)
+        assert got.dtype == torch.float32
+        np.testing.assert_array_equal(
+            got.numpy(), _loop_embed(m, ev, rmom).astype(np.float32))
+
+
+def test_reduce_evidence_under_autograd_keeps_the_loops_gradient():
+    """With theta requiring a gradient the constant is one differentiable
+    sum: its value within float32 rounding of the loop's, the gradient
+    through the reduced theta and the constant equal to the loop's."""
+    m = _mixed_model(3)
+    ev = _evidences(m, 3)[2]
+    grads = []
+    for reduce in (moments.reduce_evidence, None):
+        theta = m.theta.clone().requires_grad_()
+        mg = MRF(theta=theta, beta=m.beta, cliques=m.cliques, n=m.n)
+        if reduce is None:
+            _, _, rt, const = _loop_reduce(mg, ev)
+        else:
+            red, const = reduce(mg, ev)
+            rt = red.theta
+        w = torch.arange(rt.numel(), dtype=torch.float32)
+        ((rt * w).sum() + 3 * const).backward()
+        grads.append((theta.grad, float(const.detach())))
+    assert torch.equal(grads[0][0], grads[1][0])
+    assert grads[0][1] == pytest.approx(grads[1][1], rel=1e-6, abs=1e-6)
+
+
+def test_clamp_tables_build_once_a_structure():
+    """The clamp's tables are built once a structure (the
+    ``clamp_table_build`` counter): a new theta on the same cliques, new
+    evidence and the scatter reuse them."""
+    from torch.autograd import profiler
+
+    from qcmrf_tpu_torch.utils import profiling
+
+    a, b = _mixed_model(0), _mixed_model(1)
+    a2 = MRF.create(a.cliques, theta=-a.theta, n=a.n, device="cpu")
+    moments._clamp_tables.cache_clear()
+    with profiler.profile(use_kineto=True):
+        for m in (a, b, a2, b, a):
+            for ev in _evidences(m, 0)[1:]:
+                red, _ = moments.reduce_evidence(m, ev)
+                moments.embed_clamped_marginals(
+                    m, ev, np.zeros(0 if red is None else red.dimension))
+    assert profiling.session_counts()["clamp_table_build"] == 2
+
+
+def _aten_calls(fn) -> int:
+    from torch.autograd import profiler
+
+    with profiler.profile(use_kineto=True) as prof:
+        fn()
+    return sum(e.name.startswith("aten::") for e in prof.function_events)
+
+
+@pytest.mark.parametrize("observed", [0, 1, 4, 13, 27])
+def test_reduce_evidence_dispatches_a_few_ops_at_k27(observed):
+    """At K27 (351 cliques) a reduction calls at most 25 of PyTorch's
+    operators whatever the evidence, where the per-clique loop called
+    over a thousand."""
+    m = MRF.create(_complete(27), theta=np.random.RandomState(0).randn(1404),
+                   device="cpu")
+    ev = {v: v % 2 for v in range(observed)}
+    moments.reduce_evidence(m, ev)
+    assert _aten_calls(lambda: moments.reduce_evidence(m, ev)) <= 25
+    if observed == 4:
+        assert _aten_calls(lambda: _loop_reduce(m, ev)) > 1000
+
+
 def test_unported_options_name_their_slices():
     """The mesh arguments (slice 6a) answer as without a mesh: the lnZ,
     MAP and PAM sweeps bit for bit, the moments within 1e-6 (the sharded
