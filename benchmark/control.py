@@ -138,14 +138,16 @@ def half_batch(loop):
 
 
 def altered(loop):
-    """One answer altered where it is produced: a shot's state, a
+    """One answer altered where it is produced: the state of an accepted
+    shot (the first 1/16 of them set to 0, the accepted count kept), a
     probability, a query's value or MAP state."""
     inner, kind = loop.system, loop.mix["loop"]
     if kind == "shots":
         def system(key, stream, theta):
             x, a = inner(key, stream, theta)
+            hit = torch.nonzero(a == 0).flatten()
             x = x.clone()
-            x[: x.shape[0] // 64] = 0
+            x[hit[: hit.numel() // 16]] = 0
             return x, a
     elif kind == "circuit":
         def system(theta):

@@ -14,13 +14,44 @@ PURPOSES = ("theta", "data", "order", "sample", "start", "warm")
 
 
 def cliques(config: dict) -> List[Tuple[int, ...]]:
-    """The configuration's cliques: ``graph`` ``chain`` (edges (i, i+1))
-    or ``complete`` (every pair i < j, in order) over ``n`` variables."""
-    n, graph = int(config["n"]), config["graph"]
+    """The configuration's cliques over ``n`` variables.
+
+    Where ``cliques`` is a list (of variable lists), it is the structure,
+    in its order; each clique holds distinct variables below ``n``. (A
+    number there is only the count, for the reader.) Otherwise ``graph``
+    gives it: ``chain`` (edges (i, i+1)), ``complete`` (every pair i < j,
+    in order) or ``grid`` (``rows`` x ``cols``, variable ``r * cols + c``;
+    for each cell row-major its right neighbour, then the one below: the
+    order of the program's ``grid_cliques``)."""
+    n = int(config["n"])
+    stated = config.get("cliques")
+    if isinstance(stated, (list, tuple)):
+        out = []
+        for C in stated:
+            if (not isinstance(C, (list, tuple)) or not C
+                    or len(set(C)) != len(C)
+                    or not all(type(v) is int and 0 <= v < n for v in C)):
+                raise ValueError(f"clique {C!r}: distinct variables "
+                                 f"below n = {n} expected")
+            out.append(tuple(C))
+        return out
+    graph = config["graph"]
     if graph == "chain":
         return [(i, i + 1) for i in range(n - 1)]
     if graph == "complete":
         return [(i, j) for i in range(n) for j in range(i + 1, n)]
+    if graph == "grid":
+        rows, cols = int(config["rows"]), int(config["cols"])
+        if rows * cols != n:
+            raise ValueError(f"a {rows}x{cols} grid has {rows * cols} "
+                             f"variables, not n = {n}")
+        out = []
+        for v in range(n):
+            if (v + 1) % cols:
+                out.append((v, v + 1))
+            if v + cols < n:
+                out.append((v, v + cols))
+        return out
     raise ValueError(f"unknown graph {graph!r}")
 
 

@@ -13,6 +13,8 @@ SMALL = {
                   {"checked_per_kind": 3}),
     "k27.train": ({"graph": "complete", "n": 8},
                   {"samples": 100, "steps_per_read": 5}),
+    "grid20.shots": ({"graph": "grid", "rows": 2, "cols": 3, "n": 6},
+                     {"shots_per_call": 1 << 14, "checked_calls": 4}),
 }
 
 

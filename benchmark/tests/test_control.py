@@ -24,7 +24,8 @@ def test_program_reads_within_the_limits(small, workload):
 
 #: a control whose readings are statistical needs the shots to see a
 #: bias of bfloat16's size (~0.3% of delta)
-CONTROL_MIX = {"chain15.shots": {"shots_per_call": 1 << 24}}
+CONTROL_MIX = {"chain15.shots": {"shots_per_call": 1 << 24},
+               "grid20.shots": {"shots_per_call": 1 << 24}}
 
 
 @pytest.mark.parametrize("workload", CELLS)

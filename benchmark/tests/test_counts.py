@@ -3,25 +3,15 @@ table at its shapes."""
 
 import pytest
 
+from benchmark import harness, inputs
 from benchmark.metrics import _counts
-
-
-def grid_cliques(rows, cols):
-    out = []
-    for r in range(rows):
-        for c in range(cols):
-            if c + 1 < cols:
-                out.append((r * cols + c, r * cols + c + 1))
-            if r + 1 < rows:
-                out.append((r * cols + c, (r + 1) * cols + c))
-    return out
-
 
 K27 = [(i, j) for i in range(27) for j in range(i + 1, 27)]
 
 
 def test_sampler_bound_at_the_n20_grid():
-    cl = grid_cliques(4, 5)
+    cl = inputs.cliques(harness.load_json(
+        harness.ROOT / "benchmark" / "configs" / "grid20.json"))
     assert len(cl) == 31
     assert _counts.philox_ops(31) == 784
     assert _counts.lookup_ops(cl) == 280
