@@ -13,6 +13,13 @@ found by name from ``BENCHMARK.json``:
   for ``<base>.<part>``, by ``metrics/<base>.py`` where the first is
   absent: ``read(run)`` returns a number, or ``None`` where there is
   nothing to read, and the metric is then left out of the line.
+
+What the tests and ``control.py`` need of a cell lives in the same files,
+so a cell comes from new files and ``BENCHMARK.json`` entries alone: each
+configuration and traffic file's ``small`` object holds the keys it
+overrides at a CPU test's size (a statistical mix's ``small_control``,
+the size at which the control's bias shows), and each loop module
+declares its ``control(loop)`` and its ``FAULTS``.
 """
 
 from __future__ import annotations

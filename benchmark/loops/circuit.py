@@ -4,11 +4,13 @@ Every call draws a new theta (``-|N(0,1)|`` at the configuration's scales
 in turn), compiles the model's QCMRF circuit (``circuits.compile_qcmrf``:
 unmeasured, as the root bench.py's gate-level record, so that the outcomes
 are the basis states of every qubit, unless the mix's ``measurements``
-asks for every qubit but the workspace measured) and runs it on the plane
-engine (``sim.planes.simulate_probs``): all ``2**(n + K + 1)`` outcome
-probabilities. The benchmark's own code keeps the post-selected ones
-(workspace and every ancilla 0: the first ``2**n`` keys) and reads their
-sum, delta, to the host, which ends the call.
+asks for every qubit but the workspace measured), where the mix names a
+``lowering`` (``"fused"`` or ``"literal"``) lowers it to the hardware basis
+``[cx, id, rz, sx, x]`` (``circuits.lower.lower``, inside the timed call),
+and runs it on the plane engine (``sim.planes.simulate_probs``): all
+``2**(n + K + 1)`` outcome probabilities. The benchmark's own code keeps
+the post-selected ones (workspace and every ancilla 0: the first ``2**n``
+keys) and reads their sum, delta, to the host, which ends the call.
 
 Correct: for a seeded sample of the calls, the post-selected probabilities
 and delta against the reference's P(x, every ancilla 0) = 2**-n exp(beta
@@ -43,11 +45,21 @@ class Loop:
         template = MRF.create(self.cliques, n=self.n, beta=self.beta,
                               device=device)
         measured = bool(mix["measurements"])
+        lowering = mix.get("lowering")
 
-        def system(theta):
-            circuit = compile_qcmrf(template.with_theta(theta),
-                                    with_measurements=measured)
-            return planes.simulate_probs(circuit, device)
+        if lowering is None:
+            def system(theta):
+                circuit = compile_qcmrf(template.with_theta(theta),
+                                        with_measurements=measured)
+                return planes.simulate_probs(circuit, device)
+        else:
+            from qcmrf_tpu_torch.circuits.lower import lower
+
+            def system(theta):
+                circuit = compile_qcmrf(template.with_theta(theta),
+                                        with_measurements=measured)
+                return planes.simulate_probs(
+                    lower(circuit, style=lowering), device)
 
         #: the program under test: theta -> outcome probabilities
         self.system = system
@@ -93,3 +105,34 @@ class Loop:
         lim = self.mix["limits"]
         return [harness.Check("post_rel", post_rel, lim["post_rel"]),
                 harness.Check("delta_rel", delta_rel, lim["delta_rel"])]
+
+
+def control(loop):
+    """The reference's post-selected law, in the control's precision, in
+    the program's place."""
+    from benchmark.control import CONTROL_DTYPE
+
+    ref = loop.ref
+
+    def system(theta):
+        model = ref.PairwiseMRF(loop.cliques, theta, loop.n,
+                                loop.beta, CONTROL_DTYPE)
+        return model.postselected(model.table())[0].float()
+
+    return system
+
+
+def altered(loop):
+    """One outcome's probability altered where it is produced."""
+    inner = loop.system
+
+    def system(theta):
+        probs = inner(theta).clone()
+        probs[0] *= 1.001
+        return probs
+
+    return system
+
+
+#: the timed path broken underneath, each way this loop's cells can break
+FAULTS = {"altered": altered}

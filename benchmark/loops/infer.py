@@ -31,6 +31,8 @@ import shutil
 import tempfile
 import time
 
+import torch
+
 from benchmark import harness, inputs
 
 
@@ -173,3 +175,67 @@ class Loop:
             gaps[name] = max(gaps[name], gap)
         lim = self.mix["limits"]
         return [harness.Check(k, v, lim[k]) for k, v in gaps.items()]
+
+
+def parse_query(argv):
+    """(kind, evidence, of) back from the CLI arguments the loop built."""
+    args = dict(zip(argv[::2], argv[1::2]))
+
+    def pairs(spec):
+        return {int(v): int(b) for v, b in
+                (p.split("=") for p in spec.split(",") if p)}
+
+    evidence = pairs(args.get("--evidence", ""))
+    of = next(iter(pairs(args["--of"]).items())) if "--of" in args else None
+    return args["--query"], evidence, of
+
+
+def control(loop):
+    """Answers from the reference's table in the control's precision, in
+    the CLI's keys, in the program's place."""
+    from benchmark.control import CONTROL_DTYPE
+
+    model = loop.ref.PairwiseMRF(loop.cliques, loop.theta, loop.n,
+                                 loop.beta, CONTROL_DTYPE)
+    table = model.table()
+
+    def system(argv):
+        kind, evidence, of = parse_query(argv)
+        _, sub = model.condition(table, evidence)
+        lnz = sub.float().logsumexp(0).to(CONTROL_DTYPE)
+        if kind == "lnz":
+            return {"lnz" if not evidence else "log_mass": float(lnz)}
+        if kind == "prob":
+            _, hit = model.condition(table, {**evidence, of[0]: of[1]})
+            hit = hit.float().logsumexp(0).to(CONTROL_DTYPE)
+            return {"prob": float(torch.exp(hit - lnz))}
+        if kind == "marginals":
+            mu = model.conditional_marginals(table, evidence)
+            return {"marginals": mu.float().tolist()}
+        sid, value = model.map_state(table, evidence)
+        return {"state_id": sid, "beta_logpot": value}
+
+    return system
+
+
+def altered(loop):
+    """A query's value or MAP state altered where it is produced."""
+    inner = loop.system
+
+    def system(argv):
+        out = dict(inner(argv))
+        for key in ("lnz", "log_mass", "prob"):
+            if key in out:
+                out[key] += 1e-3
+        if "marginals" in out:
+            out["marginals"] = [out["marginals"][0] + 1e-3] + \
+                out["marginals"][1:]
+        if "state_id" in out:
+            out["state_id"] ^= 1
+        return out
+
+    return system
+
+
+#: the timed path broken underneath, each way this loop's cells can break
+FAULTS = {"altered": altered}

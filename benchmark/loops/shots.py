@@ -135,6 +135,53 @@ class Loop:
         return torch.cat(out)
 
 
+def control(loop):
+    """The reference in the program's place, in the control's precision:
+    draw x uniformly and keep it with the acceptance probability prod_k
+    exp(beta theta_k) evaluated in that precision."""
+    from benchmark.control import CONTROL_DTYPE
+
+    ref = loop.ref
+    gen = torch.Generator(device=loop.device).manual_seed(20260)
+
+    def system(key, stream, theta):
+        model = ref.PairwiseMRF(loop.cliques, theta, loop.n,
+                                loop.beta, CONTROL_DTYPE)
+        keep = torch.exp(model.table()).float()
+        x = torch.randint(0, 1 << loop.n, (loop.shots,), generator=gen,
+                          device=loop.device, dtype=torch.int32)
+        u = torch.rand(loop.shots, generator=gen, device=loop.device)
+        return x, (u >= keep[x.long()]).to(torch.int32)
+
+    return system
+
+
+def half_batch(loop):
+    """Half of the outcomes left out."""
+    inner = loop.system
+    return lambda key, stream, theta: tuple(
+        t[:t.shape[0] // 2] for t in inner(key, stream, theta))
+
+
+def altered(loop):
+    """The state of an accepted shot altered where it is produced: the
+    first 1/16 of them set to 0, the accepted count kept."""
+    inner = loop.system
+
+    def system(key, stream, theta):
+        x, a = inner(key, stream, theta)
+        hit = torch.nonzero(a == 0).flatten()
+        x = x.clone()
+        x[hit[: hit.numel() // 16]] = 0
+        return x, a
+
+    return system
+
+
+#: the timed path broken underneath, each way this loop's cells can break
+FAULTS = {"half_batch": half_batch, "altered": altered}
+
+
 def chi_square_z(hist, shots, law) -> float:
     """Pearson's chi-square of the counts ``hist`` against ``shots`` draws
     of ``law``, as a z score: (chi2 - bins + 1) over the square root of

@@ -4,13 +4,15 @@ n <= 30: ``models.train.make_train_step`` under Adam, theta = -softplus(raw).
 Set-up draws the true theta from the configuration's law and, with the
 reference's exact law of that model, ``samples`` distinct state ids (the
 data: every row differs); it draws the start theta, ``-|N(0,1)| *
-start_scale``, builds the one training step with its model and Adam
-state, and drives it through its first ``reference_steps`` steps on the
-data, reading each step's loss, the first gradient from Adam's first
-moment (``exp_avg / (1 - beta1)``) and ``raw`` after the last. The window
-then runs the same step on the same data in rounds of ``steps_per_read``
-steps, reading the last loss of each round to the host, with ``raw`` as
-that last step took it.
+start_scale`` (again, from the same stream, while the reference's first
+gradient has an entry within ``start_gradient_floor`` of zero), builds
+the one training step with its model and Adam state, and drives it
+through its first ``reference_steps`` steps on the data, reading each
+step's loss, the first gradient from Adam's first moment (``exp_avg /
+(1 - beta1)``) and ``raw`` after the last. The window then runs the
+same step on the same data in rounds of ``steps_per_read`` steps, reading
+the last loss of each round to the host, with ``raw`` as that last step
+took it.
 
 Correct: those first steps against the reference's steps from the same
 start on the same data: each step's loss (relative gap), and by the worst
@@ -48,10 +50,8 @@ class Loop:
             table - torch.logsumexp(table, 0), int(mix["samples"]),
             inputs.generator(seed, "data", device))
         del table, true
-        self.theta0 = inputs.neg_half_normal(
-            d, float(mix["start_scale"]),
-            inputs.generator(seed, "start", device), device)
         self.lr = float(mix["learning_rate"])
+        self.theta0, self.start_draws = self._start(d, seed)
         template = MRF.create(self.cliques, n=self.n, beta=self.beta,
                               device=device)
         self.raw = train._from_theta(self.theta0, True).requires_grad_()
@@ -62,6 +62,26 @@ class Loop:
         self.losses = []
         #: (raw, the program's loss at it) of the window's last read
         self.last = None
+
+    def _start(self, d, seed):
+        """The start theta, drawn again from the same stream while an entry
+        of the reference's first gradient (float64) lies within
+        ``start_gradient_floor`` of zero: Adam's first step on an entry is
+        lr * g / (|g| + 1e-8), a step of the sign of g, and where |g| is
+        within float32's rounding of the sweep (a few 1e-7) that sign, and
+        every later step with it, is rounding's, on either side."""
+        gen = inputs.generator(seed, "start", self.device)
+        floor = float(self.mix["start_gradient_floor"])
+        for draw in range(1, 65):
+            theta0 = inputs.neg_half_normal(
+                d, float(self.mix["start_scale"]), gen, self.device)
+            g1 = self.ref.train_reference(
+                self.cliques, self.n, self.beta, theta0.double(), self.data,
+                1, self.lr)["grad1"]
+            if float(g1.abs().min()) >= floor:
+                return theta0, draw
+        raise RuntimeError(f"no start of 64 draws has every first-gradient "
+                           f"entry at {floor:g} or more")
 
     def warm_up(self):
         # the first steps, read for the comparison; the first imports
@@ -121,3 +141,56 @@ class Loop:
                               lim["final_loss_rel"]),
                 harness.Check("grad_gap", grad_gap, lim["grad_gap"]),
                 harness.Check("change_gap", change_gap, lim["change_gap"])]
+
+
+def control(loop):
+    """Read the reference's own first steps in the control's precision in
+    place of the program's, and its loss in that precision where they end
+    in place of the window's last: returns ``None`` (no system to
+    time)."""
+    from benchmark.control import CONTROL_DTYPE
+
+    k = int(loop.mix["reference_steps"])
+    ref = loop.ref.train_reference(
+        loop.cliques, loop.n, loop.beta, loop.theta0, loop.data,
+        k, loop.lr, dtype=CONTROL_DTYPE)
+    loop.losses = ref["losses"]
+    loop.grad1 = ref["grad1"].float()
+    loop.raw0 = ref["raw0"].float()
+    loop.raw_k = ref["raw"].float()
+    loop.last = (ref["raw"], loop.ref.nll(loop.cliques, loop.n, loop.beta,
+                                          ref["raw"], loop.data,
+                                          CONTROL_DTYPE))
+    return None
+
+
+def half_batch(loop):
+    """Half of the data rows left out, the mean taken over the rest."""
+    inner = loop.system
+    return lambda batch: inner(batch[:batch.shape[0] // 2])
+
+
+def altered(loop):
+    """Each step's loss altered where it is produced."""
+    inner = loop.system
+    return lambda batch: inner(batch) * 1.001
+
+
+def unchanged(loop):
+    """A training step that returns its loss and leaves the parameters as
+    they were."""
+    step, raw = loop.system, loop.raw
+
+    def system(batch):
+        before = raw.detach().clone()
+        loss = step(batch)
+        with torch.no_grad():
+            raw.copy_(before)
+        return loss
+
+    return system
+
+
+#: the timed path broken underneath, each way this loop's cells can break
+FAULTS = {"half_batch": half_batch, "altered": altered,
+          "unchanged": unchanged}

@@ -11,8 +11,10 @@ from benchmark import control, harness
 
 SPEC = harness.load_spec()
 CELLS = [w["name"] for w in SPEC["workloads"]]
-LOOP = {w["name"]: harness.cell_inputs(SPEC, w["name"])[2]["loop"]
-        for w in SPEC["workloads"]}
+#: each cell's loop module, which brings the faults its cells can have
+LOOP = {w["name"]: harness.load_module(
+    "loops", harness.cell_inputs(SPEC, w["name"])[2]["loop"])
+    for w in SPEC["workloads"]}
 
 
 @pytest.mark.parametrize("workload", CELLS)
@@ -22,16 +24,12 @@ def test_program_reads_within_the_limits(small, workload):
     assert out["over_limit"] == [], out["checks"]
 
 
-#: a control whose readings are statistical needs the shots to see a
-#: bias of bfloat16's size (~0.3% of delta)
-CONTROL_MIX = {"chain15.shots": {"shots_per_call": 1 << 24},
-               "grid20.shots": {"shots_per_call": 1 << 24}}
-
-
 @pytest.mark.parametrize("workload", CELLS)
 def test_control_fails_a_limit(small, workload):
     cfg, mix = small(workload)
-    mix = {**mix, **CONTROL_MIX.get(workload, {})}
+    # a mix whose readings are statistical carries the size at which they
+    # see a bias of bfloat16's (~0.3% of delta) under ``small_control``
+    mix = {**mix, **mix.get("small_control", {})}
     for seed in (41, 42, 43):
         out = control.read(SPEC, workload, seed, 0.3, "control", "cpu", cfg,
                            mix)
@@ -39,16 +37,16 @@ def test_control_fails_a_limit(small, workload):
 
 
 @pytest.mark.parametrize("workload,fault", [
-    (w, f) for w in CELLS for f in control.FAULTS[LOOP[w]]])
+    (w, f) for w in CELLS for f in LOOP[w].FAULTS])
 def test_a_broken_timed_path_is_not_correct(small, monkeypatch, workload,
                                             fault):
     cfg, mix = small(workload)
-    module = harness.load_module("loops", mix["loop"])
+    module = LOOP[workload]
 
     class Broken(module.Loop):
         def __init__(self, *args):
             super().__init__(*args)
-            self.system = control.FAULTS[mix["loop"]][fault](self)
+            self.system = module.FAULTS[fault](self)
 
     monkeypatch.setattr(module, "Loop", Broken)
     out = harness.run_cell(SPEC, workload, 51, 0.3, False, "cpu",

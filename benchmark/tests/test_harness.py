@@ -90,14 +90,13 @@ def test_no_cell_loads_jax_or_the_jax_package(small):
         f"sys.path.insert(0, {str(ROOT)!r})\n"
         f"sys.path.insert(0, {str(Path(__file__).parent)!r})\n"
         "from benchmark import harness\n"
-        "from conftest import SMALL\n"
+        "from conftest import small_inputs\n"
         "spec = harness.load_spec()\n"
-        "for w in SMALL:\n"
-        "    _, cfg, mix = harness.cell_inputs(spec, w)\n"
-        "    c, m = SMALL[w]\n"
+        "for w in (c['name'] for c in spec['workloads']):\n"
+        "    cfg, mix = small_inputs(spec, w)\n"
         "    for trace in (False, True):\n"
         "        r = harness.run_cell(spec, w, 7, 0.3, trace, 'cpu',\n"
-        "            time.perf_counter(), {**cfg, **c}, {**mix, **m})\n"
+        "            time.perf_counter(), cfg, mix)\n"
         "        assert r['correct'], (w, r['checks'])\n"
         "print(json.dumps(sorted({m.split('.')[0] for m in sys.modules})))\n")
     p = subprocess.run([sys.executable, "-c", code], capture_output=True,

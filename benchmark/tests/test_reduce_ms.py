@@ -4,7 +4,10 @@ k27.infer run on the CPU, where the mix clamps evidence."""
 
 import time
 
+import pytest
+
 from benchmark import harness
+from benchmark.metrics import _spans
 
 SPEC = harness.load_spec()
 
@@ -21,6 +24,23 @@ def test_reduce_ms_reads_the_reductions_of_an_infer_run(small, monkeypatch):
     assert out["correct"] is True, out["checks"]
     m = {k: v["value"] for k, v in out["metrics"].items()}
     assert 0.0 < m["reduce_ms.query"] < m["host_ms.query"]
+
+    # the window's spans in their integer ns, which no rounding of the ms
+    # can tie
+    s = _spans.session()
+
+    def self_ns(match):
+        return sum(t for span, t in zip(s.spans, s.self_ns)
+                   if match(span.name))
+
+    reduce_ns = self_ns(lambda name: name == "qcmrf.moments.reduce")
+    cli_ns = self_ns(lambda name: name == "qcmrf.infer"
+                     or name.startswith("qcmrf.infer."))
+    sweep_ns = self_ns(lambda name: name == "qcmrf.kernels.sweep")
+    host_ns = (sum(span.ns for span in s.spans if span.parent is None)
+               - sum(span.ns for span in s.spans if span.name == _spans.WAIT))
+    units = out["attempted"]
+    assert m["reduce_ms.query"] == pytest.approx(1e-6 * reduce_ns / units)
+    assert m["host_ms.query"] == pytest.approx(1e-6 * host_ns / units)
     # a part of the host's time beside the CLI's own code and the sweeps
-    assert (m["reduce_ms.query"] + m["cli_ms.query"] + m["sweep_ms.query"]
-            <= m["host_ms.query"])
+    assert reduce_ns + cli_ns + sweep_ns <= host_ns
