@@ -23,6 +23,11 @@ kernels' launch counters reset just before it and read just after:
 * the plane engine runs the 16-variable QCMRF chain at 32 qubits (three
   fused sandwich passes over 32 GiB of planes, in place), checked against
   the post-selected amplitudes of the log-potential kernel;
+* the probability form (phase probability form): the read-write sandwich
+  kernel's form that stores |amplitude|^2 from its registers, against its
+  plain version at width 24 and timed at width 30 beside its bound;
+  ``simulate_probs`` of the 15-variable chain (width 30) against the
+  amplitude route, its launches and peak memory;
 * the plane engine runs bench.py's 14-variable chain at 28 qubits lowered
   to the ``[cx, id, rz, sx, x]`` basis (``QCMRF.lowered``): about 2500
   diag, lane, row and sandwich passes, checked against the unlowered
@@ -810,6 +815,127 @@ def phase_sandwich_kernels(dev, report):
             max_abs_err=err, ms=ms, plain_ms=plain_ms, **b,
             shape=f"2^{nq} values, k={k}, ancillas from {a_lo}")
         del planes
+    torch.cuda.empty_cache()
+
+
+PROBS_WIDTH = 30   # chain15's circuit, the benchmark's chain15.circuit
+
+
+def phase_probability_form(dev, report):
+    """The read-write sandwich kernel's probability form: held against its
+    plain version at width 24 (k = 7), then at width 30 on chain15's stream
+    against the amplitude pass followed by ``re * re + im * im``; timed at
+    width 30 beside its bound (12 bytes a value) and beside the ops it
+    replaces; ``simulate_probs`` of the chain against the amplitude route,
+    with its launches (the kernels line's count) and peak memory."""
+    from qcmrf_tpu_torch.circuits.compiler import compile_qcmrf
+    from qcmrf_tpu_torch.ops import kernels as K
+    from qcmrf_tpu_torch.sim import planes
+
+    print("[probability form] |amplitude|^2 from the last sandwich pass's "
+          "registers")
+    nq, k, a_lo = SANDWICH_WIDTH, 7, SANDWICH_WIDTH - 11
+    nts, nas, nbs, mu = random_profiles(nq, a_lo, k, 53, True)
+
+    def fn(pl):
+        return K.apply_hdh_sandwich_multi_probs(*pl, a_lo, nts, nas, nbs,
+                                                *mu)
+
+    def plain(pl):
+        return K.apply_hdh_sandwich_multi_probs_reference(*pl, a_lo, nts,
+                                                          nas, nbs, *mu)
+
+    got, want = fn(random_planes(nq, 8, dev)), plain(random_planes(nq, 8,
+                                                                   dev))
+    # of the largest: element-wise relative error on near-zero
+    # probabilities reads float32 cancellation in re * re + im * im
+    err = float((got - want).abs().max() / want.abs().max())
+    require(err <= 1e-6, f"hdh_multi_probs at width {nq}, k={k}: kernel == "
+                         f"plain version within 1e-6 of the largest "
+                         f"({err:.2e})")
+    pl = random_planes(nq, 9, dev)
+    row = dict(max_err_of_largest=err,
+               plain_ms=cuda_ms(lambda: plain(pl), reps=3),
+               ms_at_plain_shape=cuda_ms(lambda: fn(pl), reps=20),
+               plain_shape=f"2^{nq} values, k={k}")
+    del got, want, pl
+    torch.cuda.empty_cache()
+
+    w = PROBS_WIDTH
+    N = 1 << w
+    circ = compile_qcmrf(chain_model(w // 2, dev), with_measurements=False)
+    ops = planes.fuse_ops(circ)
+    require([op[0] for op in ops] == ["sandwichku", "sandwichk"],
+            f"width {w}: chain15's stream is a write-only and a read-write "
+            "group")
+    _, a2, nts2, nas2, nbs2, mt2, ma2, mb2 = ops[1]
+    re, im = planes.run_ops(ops[:1], w, dev)
+    want = planes.apply_ops(re.clone(), im.clone(), ops[1:], w)
+    want = want[0] * want[0] + want[1] * want[1]
+    got = K.apply_hdh_sandwich_multi_probs(re, im, a2, nts2, nas2, nbs2,
+                                           mt2, ma2, mb2)
+    err = float((got - want).abs().max() / want.max())
+    require(err <= 1e-6, f"width {w}: the read-write probability form == "
+                         f"the amplitude pass then re * re + im * im within "
+                         f"1e-6 of the largest ({err:.2e})")
+    del want, got
+    torch.cuda.empty_cache()
+    ms = cuda_ms(lambda: K.apply_hdh_sandwich_multi_probs(
+        re, im, a2, nts2, nas2, nbs2, mt2, ma2, mb2), reps=10)
+    b = bound(12 * N, 3 * N)
+    row.update(ms=ms, **b, shape=f"2^{w} values, chain15's last group, k=7")
+    # what the form replaces, on the same planes: the amplitude pass (the
+    # port's own kernel) and PyTorch's re * re + im * im after it
+    amp_ms = cuda_ms(lambda: planes.apply_ops(re, im, ops[1:], w), reps=10)
+    sq_ms = cuda_ms(lambda: re * re + im * im, reps=10)
+    row.update(library_ms=sq_ms, amplitude_pass_ms=amp_ms,
+               replaced_ms=amp_ms + sq_ms)
+    print(f"  hdh_multi_probs: {ms:.3f} ms at 2^{w} values, bound "
+          f"{b['bound_ms']:.3f} ms (12 bytes a value, "
+          f"{100 * b['bound_ms'] / ms:.1f}%); replaces the amplitude pass "
+          f"{amp_ms:.3f} ms + PyTorch's re * re + im * im {sq_ms:.3f} ms = "
+          f"{amp_ms + sq_ms:.3f} ms; plain at 2^{nq} {row['plain_ms']:.3f} "
+          f"ms, kernel there {row['ms_at_plain_shape']:.4f} ms")
+    del re, im
+    torch.cuda.empty_cache()
+
+    def amplitude_route():
+        r, i = planes.run_statevector(circ, device=dev)
+        return (r * r + i * i).reshape(-1)
+
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts()
+    probs = planes.simulate_probs(circ, device=dev)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    for name, want in (("hdh_multi_uniform", 1), ("hdh_multi_probs", 1),
+                       ("hdh_multi", 0)):
+        require(launches[name] == want, f"width {w}: simulate_probs launched "
+                                        f"{name} {launches[name]} times "
+                                        f"(expected {want})")
+    row["launches"] = launches["hdh_multi_probs"]
+    old = amplitude_route()
+    err = float((probs - old).abs().max() / old.max())
+    require(err <= 1e-6, f"width {w}: simulate_probs == the amplitude route "
+                         f"within 1e-6 of the largest ({err:.2e})")
+    del probs, old
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    amplitude_route()
+    torch.cuda.synchronize()
+    old_peak = torch.cuda.max_memory_allocated() - base
+    torch.cuda.empty_cache()
+    new_ms = cuda_ms(lambda: planes.simulate_probs(circ, device=dev), reps=5)
+    old_ms = cuda_ms(amplitude_route, reps=5)
+    print(f"  simulate_probs at width {w}: {new_ms:.3f} ms, peak "
+          f"{peak / 1e9:.3f} GB; the amplitude route (run_statevector, then "
+          f"re * re + im * im) {old_ms:.3f} ms, peak {old_peak / 1e9:.3f} GB")
+    report["probability_form"] = dict(
+        rows={"hdh_multi_probs": row}, simulate_ms=new_ms,
+        amplitude_route_ms=old_ms, simulate_peak_bytes=peak,
+        amplitude_route_peak_bytes=old_peak)
     torch.cuda.empty_cache()
 
 
@@ -4468,6 +4594,9 @@ REPLACES = {
              "not a TPU kernel)",
     "gibbs_ais": "qcmrf_tpu/models/ais.py:57 (_ais_body, lax.scan; no "
                  "Pallas kernel)",
+    "hdh_multi_probs": "qcmrf_tpu/ops/kernels.py:1895 and the "
+                       "re * re + im * im after it (qcmrf_tpu/sim/tpu.py:475,"
+                       " XLA)",
 }
 ALSO_REPLACES = {
     "logpot": ["qcmrf_tpu/ops/kernels.py:257 (the split loop kernel)"],
@@ -4489,7 +4618,7 @@ SOURCES = {
     "row_gate": "gate_kernels.cu",
     "diag": "gate_kernels.cu", "copy": "gate_kernels.cu",
     "fma_peak": "gate_kernels.cu", "gibbs": "gibbs_kernels.cu",
-    "gibbs_ais": "gibbs_kernels.cu",
+    "gibbs_ais": "gibbs_kernels.cu", "hdh_multi_probs": "circuit_kernels.cu",
 }
 
 
@@ -4550,7 +4679,9 @@ def print_ptxas(path) -> None:
                          f"D in {('device', 'shared')[int(g.group(2))]} "
                          f"memory{('', ', AIS')[int(g.group(3))]}>")
             elif name and m:
-                given = {"0": ", fused", "1": ", lnZ given"}
+                given = ({"0": "", "1": ", probabilities"}
+                         if name.startswith("hdh") else
+                         {"0": ", fused", "1": ", lnZ given"})
                 name += f"<{m.group(1)}{given.get(m.group(2), '')}>"
         elif name and ("registers" in line or "spill" in line):
             print(f"  ptxas {name}: "
@@ -4641,7 +4772,8 @@ def main() -> int:
     phase_sandwich_kernels(dev, report)
     phase_gate_level(dev, report)
     gate = report["main_gate_level"]
-    clock("sandwich kernels, gate level")
+    phase_probability_form(dev, report)
+    clock("sandwich kernels, gate level, probability form")
     gs, dr = phase_gate_sharded(dev, report)
     clock("gate sharded")
     phase_gate_kernels(dev, report)
@@ -4712,11 +4844,14 @@ def main() -> int:
     kernels_line.append(dict(launches=ais_path["gibbs_ais"]
                              + shard["gibbs_ais"] + dr["gibbs_ais"],
                              library_ms=None, **report["gibbs_ais"]))
+    kernels_line.append(dict(report["probability_form"]["rows"][
+        "hdh_multi_probs"]))
     for k, entry in zip(("sampler", "logpot", "lse", "hdh_multi",
                          "hdh_multi_uniform", "circuit", "map", "moments",
                          "lnz_moments", "lane_factored", "lane", "row_gate",
                          "diag", "copy",
-                         "fma_peak", "gibbs", "gibbs_ais"), kernels_line):
+                         "fma_peak", "gibbs", "gibbs_ais", "hdh_multi_probs"),
+                        kernels_line):
         entry.update(name=k, route="cuda",
                      source=f"qcmrf_tpu_torch/csrc/{SOURCES[k]}",
                      replaces=REPLACES[k])
@@ -4728,6 +4863,7 @@ def main() -> int:
         json.dump(dict(card=smi, kernels=kernels_line, **{
             k: v for k, v in report.items()
             if k in ("gate_level", "gate_plain_width", "sandwich_w24",
+                     "probability_form",
                      "pass_w32", "infer_k27_batch_s",
                      "infer_k27_query_s", "gate_w24", "lowered", "rates",
                      "copy_w28", "lane_w28", "lane_library_ms",

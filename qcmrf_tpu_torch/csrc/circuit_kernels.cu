@@ -1,8 +1,9 @@
 // Hand-written Hopper (sm_90a) kernels of the QCMRF gate-level engine:
 // the H·D·H sandwich passes of the plane engine (k <= 7 adjacent ancillas,
 // read-write, k = 1 being the single sandwich; k ancillas on the folded
-// uniform state, write-only) and the whole-circuit kernel of
-// `run --engine statevector`.
+// uniform state, write-only; the read-write one also in a probability form
+// that stores |amplitude|^2 in place of the amplitude) and the
+// whole-circuit kernel of `run --engine statevector`.
 //
 // Built with qcmrf_kernels.cu into one library by
 // qcmrf_tpu_torch/ops/_build.py (nvcc -gencode arch=compute_90a,code=sm_90a
@@ -95,6 +96,21 @@ __device__ __forceinline__ void store_phased(float* re, float* im,
   im[idx] = cm * i + sm * r;
 }
 
+// A pass's store of value (r, i) at idx. The amplitude form writes
+// e^{i mu} (r + i i) into both planes. The probability form (kProbs)
+// writes |r + i i|^2 into the real plane alone: |e^{i mu} u|^2 = |u|^2, so
+// mu is not applied, and the imaginary plane is not written.
+template <bool kProbs>
+__device__ __forceinline__ void store_value(float* re, float* im,
+                                            uint64_t idx, float cm, float sm,
+                                            float r, float i) {
+  if constexpr (kProbs) {
+    re[idx] = r * r + i * i;
+  } else {
+    store_phased(re, im, idx, cm, sm, r, i);
+  }
+}
+
 // Index of anchor A with the k ancilla bits a_lo .. a_lo+k-1 zero: the low
 // a_lo bits of A stay, the rest move up by k.
 __device__ __forceinline__ uint64_t anchor_base(uint64_t A, int a_lo,
@@ -132,7 +148,14 @@ unsigned capped_blocks(int64_t items, int per_block) {
 //            applies the remaining levels and mu, and stores.
 // Every value is read once and written once; the block writes only what it
 // has read, so the update is in place.
-template <int K>
+// Probability form (kProbs): the last pass of a stream run for its outcome
+// distribution (sim/planes.py::simulate_probs) stores r*r + i*i of each
+// value into the real plane instead of the phased amplitude, from the
+// registers that hold it: 8 bytes read and 4 written a value, where the
+// amplitude form and the three elementwise PyTorch passes of re * re +
+// im * im after it moved 16 + 28. Bound on this card: device memory, as
+// the amplitude form. The imaginary plane is read and left as it was.
+template <int K, bool kProbs>
 __global__ void __launch_bounds__(kThreads)
 hdh_multi_kernel(const unsigned char* __restrict__ table, int n_terms,
                  float* __restrict__ re, float* __restrict__ im,
@@ -195,8 +218,8 @@ hdh_multi_kernel(const unsigned char* __restrict__ table, int n_terms,
         const float cm = cs_c[a], sm = cs_s[a];
 #pragma unroll
         for (int jl = 0; jl < NA; ++jl) {
-          store_phased(re, im, x0 + static_cast<uint64_t>(jl) * S, cm, sm,
-                       vr[jl], vi[jl]);
+          store_value<kProbs>(re, im, x0 + static_cast<uint64_t>(jl) * S,
+                              cm, sm, vr[jl], vi[jl]);
         }
       }
     } else {
@@ -232,9 +255,9 @@ hdh_multi_kernel(const unsigned char* __restrict__ table, int n_terms,
           }
 #pragma unroll
           for (int jh = 0; jh < G; ++jh) {
-            store_phased(re, im,
-                         x0 + static_cast<uint64_t>((jh << KA) | jl) * S,
-                         cm, sm, ur[jh], ui[jh]);
+            store_value<kProbs>(
+                re, im, x0 + static_cast<uint64_t>((jh << KA) | jl) * S, cm,
+                sm, ur[jh], ui[jh]);
           }
         }
       }
@@ -428,7 +451,7 @@ cudaError_t allow_shared(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <int K>
+template <int K, bool kProbs>
 cudaError_t launch_multi(const unsigned char* table, int n_terms, float* re,
                          float* im, int64_t num_anchors, int a_lo,
                          cudaStream_t stream) {
@@ -437,10 +460,11 @@ cudaError_t launch_multi(const unsigned char* table, int n_terms, float* re,
   const size_t bytes = table_bytes(K + 1, n_terms) +
                        2 * sizeof(float) * (K + 1) * T +
                        (K > 4 ? 2 * sizeof(float) * (1 << K) * T : 0);
-  cudaError_t err = allow_shared(hdh_multi_kernel<K>, bytes);
+  cudaError_t err = allow_shared(hdh_multi_kernel<K, kProbs>, bytes);
   if (err != cudaSuccess) return err;
-  hdh_multi_kernel<K><<<capped_blocks(num_anchors, T), kThreads, bytes,
-                        stream>>>(table, n_terms, re, im, num_anchors, a_lo);
+  hdh_multi_kernel<K, kProbs><<<capped_blocks(num_anchors, T), kThreads,
+                                bytes, stream>>>(table, n_terms, re, im,
+                                                 num_anchors, a_lo);
   return cudaGetLastError();
 }
 
@@ -461,6 +485,23 @@ cudaError_t launch_uniform(const unsigned char* table, int n_terms,
   return cudaGetLastError();
 }
 
+// The read-write pass at k = 1..7 ancillas, in either form.
+template <bool kProbs>
+cudaError_t multi_pass(const unsigned char* table, int n_terms, int k,
+                       float* re, float* im, int64_t num_anchors, int a_lo,
+                       cudaStream_t s) {
+  switch (k) {
+    case 1: return launch_multi<1, kProbs>(table, n_terms, re, im, num_anchors, a_lo, s);
+    case 2: return launch_multi<2, kProbs>(table, n_terms, re, im, num_anchors, a_lo, s);
+    case 3: return launch_multi<3, kProbs>(table, n_terms, re, im, num_anchors, a_lo, s);
+    case 4: return launch_multi<4, kProbs>(table, n_terms, re, im, num_anchors, a_lo, s);
+    case 5: return launch_multi<5, kProbs>(table, n_terms, re, im, num_anchors, a_lo, s);
+    case 6: return launch_multi<6, kProbs>(table, n_terms, re, im, num_anchors, a_lo, s);
+    case 7: return launch_multi<7, kProbs>(table, n_terms, re, im, num_anchors, a_lo, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -468,19 +509,18 @@ extern "C" {
 int qcmrf_hdh_multi(const unsigned char* table, int n_terms, int k,
                     float* re, float* im, int64_t num_anchors, int a_lo,
                     void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (k) {
-    case 1: err = launch_multi<1>(table, n_terms, re, im, num_anchors, a_lo, s); break;
-    case 2: err = launch_multi<2>(table, n_terms, re, im, num_anchors, a_lo, s); break;
-    case 3: err = launch_multi<3>(table, n_terms, re, im, num_anchors, a_lo, s); break;
-    case 4: err = launch_multi<4>(table, n_terms, re, im, num_anchors, a_lo, s); break;
-    case 5: err = launch_multi<5>(table, n_terms, re, im, num_anchors, a_lo, s); break;
-    case 6: err = launch_multi<6>(table, n_terms, re, im, num_anchors, a_lo, s); break;
-    case 7: err = launch_multi<7>(table, n_terms, re, im, num_anchors, a_lo, s); break;
-    default: err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(multi_pass<false>(
+      table, n_terms, k, re, im, num_anchors, a_lo,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// The read-write pass's probability form: probabilities into re.
+int qcmrf_hdh_multi_probs(const unsigned char* table, int n_terms, int k,
+                          float* re, const float* im, int64_t num_anchors,
+                          int a_lo, void* stream) {
+  return static_cast<int>(multi_pass<true>(
+      table, n_terms, k, re, const_cast<float*>(im), num_anchors, a_lo,
+      static_cast<cudaStream_t>(stream)));
 }
 
 int qcmrf_hdh_multi_uniform(const unsigned char* table, int n_terms, int k,

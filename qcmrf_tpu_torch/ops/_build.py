@@ -97,6 +97,9 @@ _SIGNATURES = {
                           _I, _P, _P, _P),
     # table, n_terms, k, re, im, num_anchors, a_lo, stream
     "qcmrf_hdh_multi": (_P, _I, _I, _P, _P, _I64, _I, _P),
+    # table, n_terms, k, re (probabilities out), im, num_anchors, a_lo,
+    # stream
+    "qcmrf_hdh_multi_probs": (_P, _I, _I, _P, _P, _I64, _I, _P),
     # table, n_terms, k, re, im, num_anchors, a_lo, comp, amp, stream
     "qcmrf_hdh_multi_uniform": (_P, _I, _I, _P, _P, _I64, _I, _U64, _F, _P),
     # circuit descriptors, structure tables, thetas, circuits, beta,

@@ -55,7 +55,10 @@ of the flat index):
   :func:`apply_hdh_sandwich_pair` and :func:`apply_hdh_sandwich_quad` are
   its k = 1, 2 and 4 calls;
 * :func:`apply_hdh_sandwich_multi_uniform`: the same k sandwiches on the
-  folded uniform H-wall state, write-only (``hdh_multi_uniform_kernel``).
+  folded uniform H-wall state, write-only (``hdh_multi_uniform_kernel``);
+* :func:`apply_hdh_sandwich_multi_probs`: the read-write pass in its
+  probability form, storing ``|amplitude|^2`` from the registers in place
+  of the amplitudes (the last pass of ``sim.planes.simulate_probs``).
 
 The generic gate passes (kernels of ``csrc/gate_kernels.cu``) take planes
 of at least 7 qubits:
@@ -1309,14 +1312,23 @@ def _multi_profiles(nu_terms_k, nu_angles_k, nu_bases_k, mu_terms,
     return nus, _profile(mu_terms, mu_angles, mu_base)
 
 
+def _multi_args(re, im, anc_lo, nu_terms_k, nu_angles_k, nu_bases_k,
+                mu_terms, mu_angles, mu_base):
+    """``(nus, mu, nq)`` of a read-write pass, checked."""
+    nus, mu = _multi_profiles(nu_terms_k, nu_angles_k, nu_bases_k,
+                              mu_terms, mu_angles, mu_base)
+    nq = plane_qubits(re, im)
+    _check_pass(nq, anc_lo, len(nus), nus + (mu,))
+    return nus, mu, nq
+
+
 def apply_hdh_sandwich_multi_reference(re, im, anc_lo: int, nu_terms_k,
                                        nu_angles_k, nu_bases_k,
                                        mu_terms=(), mu_angles=(),
                                        mu_base=0.0):
     """Plain PyTorch version of :func:`apply_hdh_sandwich_multi`."""
-    nus, mu = _multi_profiles(nu_terms_k, nu_angles_k, nu_bases_k,
-                              mu_terms, mu_angles, mu_base)
-    _check_pass(plane_qubits(re, im), anc_lo, len(nus), nus + (mu,))
+    nus, mu, _ = _multi_args(re, im, anc_lo, nu_terms_k, nu_angles_k,
+                             nu_bases_k, mu_terms, mu_angles, mu_base)
     return _multi_reference(re, im, anc_lo, nus, mu)
 
 
@@ -1331,19 +1343,56 @@ def apply_hdh_sandwich_multi(re, im, anc_lo: int, nu_terms_k, nu_angles_k,
     combined common-phase profile of all k sandwiches. No term may
     condition on any of the k ancillas; ``k <= 7``.
     """
-    nus, mu = _multi_profiles(nu_terms_k, nu_angles_k, nu_bases_k,
-                              mu_terms, mu_angles, mu_base)
-    nq = plane_qubits(re, im)
-    k = len(nus)
-    _check_pass(nq, anc_lo, k, nus + (mu,))
+    nus, mu, nq = _multi_args(re, im, anc_lo, nu_terms_k, nu_angles_k,
+                              nu_bases_k, mu_terms, mu_angles, mu_base)
     if re.device.type == "cpu":
         return _multi_reference(re, im, anc_lo, nus, mu)
+    k = len(nus)
     table, n_terms = _profile_table((mu,) + nus, re.device)
     _build.launch("qcmrf_hdh_multi", re.device, _build.ptr(table), n_terms,
                   k, _build.ptr(re), _build.ptr(im), (1 << nq) >> k,
                   int(anc_lo))
     profiling.launch("hdh_multi")
     return re, im
+
+
+def _probs_into_re(re, im):
+    """``re * re + im * im`` written into the real plane; returns it."""
+    return re.copy_(re * re + im * im)
+
+
+def apply_hdh_sandwich_multi_probs_reference(re, im, anc_lo: int,
+                                             nu_terms_k, nu_angles_k,
+                                             nu_bases_k, mu_terms=(),
+                                             mu_angles=(), mu_base=0.0):
+    """Plain PyTorch version of :func:`apply_hdh_sandwich_multi_probs`: the
+    amplitude pass, then ``re * re + im * im`` into the real plane."""
+    apply_hdh_sandwich_multi_reference(re, im, anc_lo, nu_terms_k,
+                                       nu_angles_k, nu_bases_k, mu_terms,
+                                       mu_angles, mu_base)
+    return _probs_into_re(re, im)
+
+
+def apply_hdh_sandwich_multi_probs(re, im, anc_lo: int, nu_terms_k,
+                                   nu_angles_k, nu_bases_k, mu_terms=(),
+                                   mu_angles=(), mu_base=0.0):
+    """The pass of :func:`apply_hdh_sandwich_multi` in its probability form:
+    each value's ``|amplitude|^2`` is stored, **in place**, into the real
+    plane, which is returned; the imaginary plane no longer holds the
+    state. ``mu`` changes no probability: it is checked, not applied.
+    ``hdh_multi_kernel<K, true>`` on the card: 8 bytes read and 4 written
+    a value."""
+    nus, mu, nq = _multi_args(re, im, anc_lo, nu_terms_k, nu_angles_k,
+                              nu_bases_k, mu_terms, mu_angles, mu_base)
+    if re.device.type == "cpu":
+        return _probs_into_re(*_multi_reference(re, im, anc_lo, nus, mu))
+    k = len(nus)
+    table, n_terms = _profile_table((mu,) + nus, re.device)
+    _build.launch("qcmrf_hdh_multi_probs", re.device, _build.ptr(table),
+                  n_terms, k, _build.ptr(re), _build.ptr(im),
+                  (1 << nq) >> k, int(anc_lo))
+    profiling.launch("hdh_multi_probs")
+    return re
 
 
 def apply_hdh_sandwich_pair(re, im, anc_lo: int,

@@ -18,7 +18,11 @@ of the flat index. A circuit runs as a stream of fused passes:
   sandwich passes, ``diag`` (the diagonal profile), ``lane`` (qubits 0-6:
   one butterfly a value a factor for the planner's ops, which carry their
   factors; the dense 128x128 product for a bare ``('lane', M)``), ``rowq``
-  and ``row2`` (the row gates).
+  and ``row2`` (the row gates);
+* :func:`simulate_probs` runs a stream's last read-write sandwich pass in
+  its probability form, which stores ``|amplitude|^2`` from its registers
+  into the real plane; a stream that ends in any other pass ends with
+  ``re * re + im * im`` (:func:`outcome_probs`).
 
 :func:`apply_gate` is the unfused path, one gate at a time (``cx`` as
 ``H_t · cp(pi) · H_t``, every diagonal gate a masked rotation): the oracle
@@ -452,15 +456,20 @@ def run_ops(ops, num_qubits: int, device=None):
     return apply_ops(re, im, ops, num_qubits)
 
 
-def run_statevector(circuit: Circuit, device=None):
-    """Final statevector planes ``(2**Q / 128, 128)`` with measurements
-    deferred (fused ops), on ``device``: the current CUDA device unless
-    the caller names one (``device="cpu"`` runs the plain versions)."""
+def _engine_width(circuit: Circuit) -> int:
     nq = circuit.num_qubits
     if nq < 7:
         raise ValueError(
             "the plane engine needs >= 7 qubits; use sim.dense below that"
         )
+    return nq
+
+
+def run_statevector(circuit: Circuit, device=None):
+    """Final statevector planes ``(2**Q / 128, 128)`` with measurements
+    deferred (fused ops), on ``device``: the current CUDA device unless
+    the caller names one (``device="cpu"`` runs the plain versions)."""
+    nq = _engine_width(circuit)
     re, im = run_ops(fuse_ops(circuit), nq, device)
     if circuit.global_phase:
         c = float(np.cos(circuit.global_phase))
@@ -469,10 +478,9 @@ def run_statevector(circuit: Circuit, device=None):
     return re, im
 
 
-@profiling.spanned("qcmrf.planes.outcome")
-def outcome_probs(circuit: Circuit, re, im) -> torch.Tensor:
-    """Joint clbit-value distribution (QCMRF wiring: identity key map)."""
-    probs = (re * re + im * im).reshape(-1)
+def _clbit_probs(circuit: Circuit, probs: torch.Tensor) -> torch.Tensor:
+    """The joint clbit-value distribution of the flat outcome
+    probabilities ``probs`` (QCMRF wiring: identity key map)."""
     pairs = circuit.measured_pairs
     # the identity shortcut holds only when EVERY qubit is measured to its
     # own clbit AND the clbit register is exactly the qubit register;
@@ -494,9 +502,43 @@ def outcome_probs(circuit: Circuit, re, im) -> torch.Tensor:
     return out.index_add_(0, keys, probs)
 
 
+@profiling.spanned("qcmrf.planes.outcome")
+def outcome_probs(circuit: Circuit, re, im) -> torch.Tensor:
+    """Joint clbit-value distribution (QCMRF wiring: identity key map)."""
+    return _clbit_probs(circuit, (re * re + im * im).reshape(-1))
+
+
+#: the passes of a fused stream that have a probability form
+_PROBS_KINDS = ("sandwich", "sandwichk")
+
+
+@profiling.spanned("qcmrf.planes.run")
+def _probs_pass(op, planes):
+    """A stream's last pass, a read-write sandwich pass, in its probability
+    form: every basis state's probability, into the real plane of
+    ``planes``."""
+    if op[0] == "sandwich":
+        _, a, nt, na, nb, mt, ma, mb = op
+        nts, nas, nbs = (nt,), (na,), (nb,)
+    else:
+        _, a, nts, nas, nbs, mt, ma, mb = op
+    return K.apply_hdh_sandwich_multi_probs(*planes, a, nts, nas, nbs, mt,
+                                            ma, mb)
+
+
 @profiling.spanned("qcmrf.planes.simulate")
 def simulate_probs(circuit: Circuit, device=None) -> torch.Tensor:
     """Run + outcome distribution, on ``device`` as for
-    :func:`run_statevector`."""
-    re, im = run_statevector(circuit, device)
-    return outcome_probs(circuit, re, im)
+    :func:`run_statevector`. A stream that ends in a read-write sandwich
+    pass runs that pass in its probability form, so no amplitude of the
+    final state is stored; any other stream ends with
+    :func:`outcome_probs`. The global phase changes no probability and is
+    not applied."""
+    nq = _engine_width(circuit)
+    ops = fuse_ops(circuit)
+    if not ops or ops[-1][0] not in _PROBS_KINDS:
+        return outcome_probs(circuit, *run_ops(ops, nq, device))
+    *head, last = ops
+    probs = _probs_pass(last, run_ops(head, nq, device))
+    with profiling.span("qcmrf.planes.outcome"):
+        return _clbit_probs(circuit, probs.reshape(-1))

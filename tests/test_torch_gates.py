@@ -472,6 +472,65 @@ def test_suite_circuits_with_low_ancillas(j):
                                atol=1e-5)
 
 
+def port_model(cliques, seed, scale=0.5):
+    from qcmrf_tpu_torch.models.mrf import MRF
+
+    rng = np.random.RandomState(seed)
+    dim = sum(1 << len(C) for C in cliques)
+    return MRF.create(cliques, theta=-np.abs(rng.randn(dim)) * scale,
+                      device="cpu")
+
+
+def probs_case(name):
+    """A circuit of one stream shape and the kind of its last pass."""
+    from qcmrf_tpu_torch.circuits.compiler import compile_qcmrf
+
+    chain6 = [[i, i + 1] for i in range(5)]
+    if name == "two_groups":  # nine ancillas, 7-15: sandwichku, sandwichk
+        m = port_model(chain6 + [[0], [1], [2], [3]], 1)
+        return compile_qcmrf(m, with_measurements=False), "sandwichk"
+    if name == "one_group":  # five ancillas: the write-only pass alone
+        return (compile_qcmrf(port_model(chain6, 2),
+                              with_measurements=False), "sandwichku")
+    if name == "middle_sandwich":
+        c = Circuit(9)
+        for q in range(7):
+            c.h(q)
+        c.h(7).cp(0.7, 0, 7).rz(0.3, 7).h(7).sx(2)
+        c.h(8).cp(-0.4, 1, 8).rz(0.2, 8).h(8)
+        return c, "sandwich"
+    if name == "lowered":  # diag, lane and row passes
+        return (lower(compile_qcmrf(port_model([[0, 1], [2, 3]], 1),
+                                    with_measurements=False)), "lane")
+    if name == "global_phase":
+        c = compile_qcmrf(port_model([[i, i + 1] for i in range(6)], 5),
+                          with_measurements=False)
+        c.global_phase = 0.9
+        return c, "sandwichku"
+    # measured: every qubit but the workspace, so the mass is marginalised
+    return compile_qcmrf(port_model(chain6, 4)), "sandwichku"
+
+
+@pytest.mark.parametrize("name", ["two_groups", "one_group",
+                                  "middle_sandwich", "lowered",
+                                  "global_phase", "measured"])
+def test_simulate_probs_matches_dense(name):
+    """``planes.simulate_probs`` on each stream shape (a last read-write
+    sandwich pass in its probability form, or ``re * re + im * im`` after
+    any other) against the dense engine in complex128 within 1e-6."""
+    c, last = probs_case(name)
+    ops = planes.fuse_ops(c)
+    assert ops[-1][0] == last
+    assert (len(c.measured_pairs) not in (0, c.num_qubits)) == (
+        name == "measured")
+    assert bool(c.global_phase) == (name == "global_phase")
+    got = planes.simulate_probs(c, device="cpu")
+    want = dense.simulate_probs(c, dtype=torch.complex128, device="cpu")
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.double().numpy(), want.numpy(), rtol=0,
+                               atol=1e-6)
+
+
 @pytest.mark.parametrize("lowered", [False, True])
 def test_apply_gate_matches_fused_stream(lowered):
     """The unfused per-gate path (and the JAX one) against the fused

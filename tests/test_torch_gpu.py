@@ -251,6 +251,62 @@ def test_sandwich_kernels_match_plain_versions(dev, with_mu):
                 == before["hdh_multi_uniform"] + 1)
 
 
+@pytest.mark.parametrize("k", [1, 2, 4, 7])
+def test_probability_form_matches_plain_version(dev, k):
+    """The read-write sandwich kernel's probability form at width 24
+    against its plain version (the amplitude pass, then re * re + im * im),
+    in place into the real plane; one launch."""
+    nq, a_lo = 24, 24 - 11
+    nts, nas, nbs, mu = rand_profiles(nq, a_lo, k, 10 * k + 3)
+    before = dict(kernels.LAUNCHES)
+    re, im = rand_planes(nq, k, dev)
+    got = kernels.apply_hdh_sandwich_multi_probs(re, im, a_lo, nts, nas,
+                                                 nbs, *mu)
+    assert got is re
+    want = kernels.apply_hdh_sandwich_multi_probs_reference(
+        *rand_planes(nq, k, dev), a_lo, nts, nas, nbs, *mu)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert kernels.LAUNCHES["hdh_multi_probs"] == (
+        before["hdh_multi_probs"] + 1)
+    assert kernels.LAUNCHES["hdh_multi"] == before["hdh_multi"]
+
+
+def test_simulate_probs_routes(dev):
+    """chain15's stream (width 30) ends in the read-write probability form:
+    hdh_multi_probs once, no amplitude pass after the write-only one; its
+    post-selected probabilities within 1e-4 of the analytic law. A lowered
+    stream has no probability form."""
+    from qcmrf_tpu_torch.circuits.lower import lower
+
+    if torch.cuda.mem_get_info(dev)[0] < 12 * 2**30:
+        pytest.skip("needs 12 GiB of free device memory for 2^30 values")
+    n = 15
+    m = chain_mrf(n, device=dev).with_theta(
+        -np.abs(np.random.RandomState(7).randn(4 * (n - 1))).astype(
+            np.float32) * 0.25)
+    circ = compile_qcmrf(m, with_measurements=False)
+    before = dict(kernels.LAUNCHES)
+    probs = planes.simulate_probs(circ, device=dev)
+    torch.cuda.synchronize()
+    ran = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+    assert ran["hdh_multi_uniform"] == 1 and ran["hdh_multi_probs"] == 1
+    assert ran["hdh_multi"] == 0
+    p, delta = analytic.postselected_probs(m)
+    want = p * delta
+    post_rel = float((probs[: 1 << n] - want).abs().max() / want.max())
+    assert probs.numel() == 1 << 30 and post_rel <= 1e-4, post_rel
+    del probs
+    torch.cuda.empty_cache()
+    low = lower(compile_qcmrf(MRF.create(
+        [[0, 1], [2, 3]], theta=-np.abs(np.random.RandomState(1).randn(8))
+        * 0.5, device=dev), with_measurements=False))
+    before = dict(kernels.LAUNCHES)
+    got = planes.simulate_probs(low, device=dev)
+    assert kernels.LAUNCHES["hdh_multi_probs"] == before["hdh_multi_probs"]
+    want = dense.simulate_probs(low, dtype=torch.complex128, device=dev)
+    torch.testing.assert_close(got.double(), want, rtol=0, atol=1e-5)
+
+
 def test_plane_engine_matches_dense_on_card(dev):
     for nn in (6, 8):  # widths 12 and 16
         rng = np.random.RandomState(nn)
