@@ -82,11 +82,8 @@ kernels' launch counters reset just before it and read just after:
   ``parallel.dryrun.dryrun_multichip`` on the four shards, the times of
   both engines and of one exchange, and every port example at full size
   and ``scaling --n 28 --devices 1 --gate-level`` as subprocesses;
-* ``python -m qcmrf_tpu_torch bench --json --trace`` in a subprocess and
-  ``runners.bench.record()`` (phase bench), each printed as one JSON
-  line, every key finite and record()'s keys BENCH_r05.json's less the
-  ones the port leaves out (the two ``qcmrf{24,28}_sharded_gate_level_ms``
-  printed beside ``qcmrf{24,28}_gate_level_ms`` as a ratio); the device
+* ``python -m qcmrf_tpu_torch bench --json --trace`` in a subprocess
+  (phase bench), printed as one JSON line, every key finite; the device
   busy and idle share
   (``profiling.device_busy``) of the headline sampler call, the K27 infer
   batch, a K27 ``train_cli`` step and the calibrated noise run.
@@ -133,6 +130,9 @@ import time
 
 import numpy as np
 import torch
+
+from benchmark.metrics._counts import (lookup_ops, pass_bytes, philox_ops,
+                                      split_ops)
 
 SAMPLE_SEED = 1234
 N_SHOTS_CHECK = 1 << 20      # kernel vs plain version, all four modes
@@ -196,22 +196,6 @@ def grid_model(rows: int, cols: int, seed: int, dev):
     rng = np.random.RandomState(seed)
     theta = -np.abs(rng.randn(template.dimension)).astype(np.float32) * 0.3
     return template.with_theta(theta)
-
-
-def philox_ops(K: int) -> int:
-    """Integer operations of Philox4x32-10 a shot: 1 + K // 4 calls, each
-    10 rounds of two 32x32 -> 64-bit products (low and high word, 4
-    operations) and four XORs, and the key additions of rounds 1-9 (2
-    each)."""
-    return (1 + K // 4) * (10 * (4 + 4) + 9 * 2)
-
-
-def lookup_ops(cliques) -> int:
-    """Operations of the keep-probability lookup a shot, Philox aside: x's
-    mask, then per clique the slot word (a shift, a mask and a merge a
-    slot), the uniform's shift, the compare with the table's entry and the
-    ancilla bit."""
-    return 1 + sum(3 * len(C) + 3 for C in cliques)
 
 
 def sass_instructions(path, kernel: str) -> dict:
@@ -467,29 +451,6 @@ def phase_logpot(dev, report):
         **table_row(f"K{INFER_N}", k27, reps=10),
         shape=f"(1, 2^{INFER_N}) table, K{INFER_N} pairwise")
     torch.cuda.empty_cache()
-
-
-def split_ops(cliques, n: int, masks: int = 0, per_state: int = None) -> int:
-    """Float operations of one split sweep over 2^n states: lse_kernel's,
-    or with ``masks`` monomials lnz_moments_kernel's. The monomial
-    coefficients once (an add a coefficient entry); per sub-block of 2^L
-    states the plan's tests and adds (2 a monomial), the subset-sum
-    transform (L 2^(L-1) adds) and, with masks, the superset sums and a
-    test and an add a monomial; per state beta, the max, the difference
-    and the exp (counted as one), and for lse the sum; or ``per_state``
-    (map_kernel's 3: beta, the max and the threshold's compare; the
-    table's 1, beta; the given-lnZ moments' 3: beta, the difference and
-    the exp)."""
-    from qcmrf_tpu_torch.ops import kernels
-
-    cl = tuple(tuple(C) for C in cliques)
-    L = kernels.split_bits(n)
-    plan = kernels.split_plan(cl, n, L)
-    per_sub = (2 * len(plan.hm) + (L << (L - 1)) * (2 if masks else 1)
-               + 2 * masks)
-    if per_state is None:
-        per_state = 4 if masks else 5
-    return len(plan.coef_index) + (per_sub << (n - L)) + (per_state << n)
 
 
 def lse_row(what: str, mrf, reps: int) -> dict:
@@ -961,10 +922,11 @@ def plain_ops(ops, nq, dev):
     return re, im
 
 
-def pass_bytes(ops, nq) -> int:
-    """Bytes the fused passes must move: a write-only pass writes both
-    planes, a read-write pass reads and writes them."""
-    return sum((8 if op[0] == "sandwichku" else 16) << nq for op in ops)
+def op_bytes(op, nq) -> int:
+    """Bytes a fused pass must move: the write-only pass
+    (``sandwichku``, which makes the state) writes both planes, every
+    other pass reads and writes them."""
+    return pass_bytes(nq, read=op[0] != "sandwichku")
 
 
 def diag_flops(terms, nq) -> int:
@@ -1012,7 +974,7 @@ def dense_lanes(ops) -> list:
 def stream_bound(ops, nq) -> dict:
     """The least time of a stream of passes: each pass bound by its bytes
     or its operations, summed; ``bound_by`` says which bound them."""
-    each = [bound(pass_bytes([op], nq), pass_flops([op], nq)) for op in ops]
+    each = [bound(op_bytes(op, nq), pass_flops([op], nq)) for op in ops]
     by = {b["bound_by"] for b in each}
     return dict(bound_ms=sum(b["bound_ms"] for b in each),
                 bound_by=by.pop() if len(by) == 1 else "bytes and operations")
@@ -1089,7 +1051,7 @@ def phase_gate_level(dev, report):
             for op in ops:
                 ms = cuda_ms(lambda op=op: planes.apply_ops(re, im, [op], w),
                              reps=3)
-                b = bound(pass_bytes([op], w), pass_flops([op], w))
+                b = bound(op_bytes(op, w), pass_flops([op], w))
                 print(f"  width {w} pass {op[0]}: {ms:.3f} ms, bound "
                       f"{b['bound_ms']:.3f} ms ({b['bound_by']})")
                 report.setdefault("pass_w32", {})[op[0]] = dict(ms=ms, **b)
@@ -1106,7 +1068,7 @@ def phase_gate_level(dev, report):
         torch.cuda.empty_cache()
         ms = cuda_ms(lambda: planes.run_ops(ops, w, dev),
                      reps=3 if w >= 30 else 5)
-        b = bound(pass_bytes(ops, w), pass_flops(ops, w))
+        b = bound(sum(op_bytes(op, w) for op in ops), pass_flops(ops, w))
         row = dict(ms=ms, passes=len(ops), gates=len(circ.gates),
                    plan_ms=plan_ms, **b)
         if w == plain_w:
@@ -2154,10 +2116,10 @@ def check_lane_float64(dev, ops, report) -> None:
     input at widths 8, 24 and 28, on the random M, the 7-H wall and the
     lowered stream's densest lane op given without its factors: a
     relative 2-norm error of at most 2e-6 and at most 4x that of one
-    float32 torch.matmul (no TF32) on the same input (one TF32 pass is
-    about 3e-4 off: runners/lane_designs.py)."""
+    float32 torch.matmul (no TF32) on the same input, as
+    ``kernels.lane_accurate`` holds it (one TF32 pass is about 3e-4 off:
+    PERF.md section 6, row 8)."""
     from qcmrf_tpu_torch.ops import kernels as K
-    from qcmrf_tpu_torch.runners import lane_designs as LD
 
     torch.backends.cuda.matmul.allow_tf32 = False
     M = next(c[4][0] for c in gate_cases(GATE_PASS_WIDTH)
@@ -2171,17 +2133,17 @@ def check_lane_float64(dev, ops, report) -> None:
         for label, lane_op in lanes.items():
             src = unit_planes(nq, 5, dev)
             got = K.apply_lane(src[0].clone(), src[1].clone(), lane_op)
-            rel = LD.relative_error(lane_op, src, got)
+            rel = K.lane_relative_error(lane_op, src, got)
             del got
             X = torch.cat([p.reshape(-1, 128) for p in src], 1)
-            f32 = LD.relative_error(lane_op, src,
-                                    X @ LD.stacked_w(lane_op, dev))
+            f32 = K.lane_relative_error(lane_op, src,
+                                        X @ K.lane_stacked_w(lane_op, dev))
             del X, src
             torch.cuda.empty_cache()
-            require(LD.accurate(rel, f32),
+            require(K.lane_accurate(rel, f32),
                     f"lane at width {nq}, {label}: {rel:.3e} from the "
-                    f"float64 product, <= {LD.REL_LIMIT:.0e} and <= "
-                    f"{LD.F32_FACTOR:.0f} x float32 torch.matmul's "
+                    f"float64 product, <= {K.LANE_REL_LIMIT:.0e} and <= "
+                    f"{K.LANE_F32_FACTOR:.0f} x float32 torch.matmul's "
                     f"{f32:.3e}")
             worst[f"w{nq} {label}"] = dict(rel=rel, f32_rel=f32)
     report["lane_float64"] = worst
@@ -3586,21 +3548,21 @@ def time_wide_evolution(suite, model, dev) -> dict:
     t0 = time.perf_counter()
     physical.gate_noisy_probs(host, lams[0], lowered=host_lc)
     cpu_ms = (time.perf_counter() - t0) * 1e3
-    pass_bytes = 2 * (1 << (2 * w)) * 8   # rho read once, written once
+    rho_bytes = 2 * (1 << (2 * w)) * 8    # rho read once, written once
     non_diag = sum(v for k, v in counts.items() if k != "rz")
     row = dict(width=w, gates=counts, single_ms=single_ms,
                batch10_ms=batch_ms, batch10_per_rep_ms=batch_ms / 10,
-               cpu_tensors_single_ms=cpu_ms, pass_bytes=pass_bytes,
-               batch10_pass_bytes=10 * pass_bytes,
+               cpu_tensors_single_ms=cpu_ms, pass_bytes=rho_bytes,
+               batch10_pass_bytes=10 * rho_bytes,
                non_diagonal_gates=non_diag,
-               single_floor_ms=non_diag * pass_bytes / H100_BYTES_PER_S * 1e3,
-               batch10_floor_ms=non_diag * 10 * pass_bytes
+               single_floor_ms=non_diag * rho_bytes / H100_BYTES_PER_S * 1e3,
+               batch10_floor_ms=non_diag * 10 * rho_bytes
                / H100_BYTES_PER_S * 1e3)
     print(f"  width-{w} evolution (graph {g}, {len(gates)} lowered gates "
           f"{counts}): alone {single_ms:.3f} ms, 10 reps batched "
           f"{batch_ms:.3f} ms ({batch_ms / 10:.3f} a rep) by CUDA events; a "
-          f"gate pass moves {pass_bytes / 2**20:.0f} MiB alone, "
-          f"{10 * pass_bytes / 2**20:.0f} MiB batched: {non_diag} "
+          f"gate pass moves {rho_bytes / 2**20:.0f} MiB alone, "
+          f"{10 * rho_bytes / 2**20:.0f} MiB batched: {non_diag} "
           f"non-diagonal gates, one pass each, at least "
           f"{row['single_floor_ms']:.3f} / {row['batch10_floor_ms']:.3f} ms")
     print(f"  (on CPU tensors, host clock, not a card figure: the same single "
@@ -4492,15 +4454,11 @@ BENCH_KEYS = ("n", "cliques", "backend", "power_limit",
               "gate_row_gbps", "suite70_gate_level_ms")
 
 
-def phase_bench(dev, report) -> dict:
+def phase_bench(report) -> None:
     """``python -m qcmrf_tpu_torch bench --json --trace <dir>`` in a
-    subprocess and ``runners.bench.record()`` in this process, each
-    printed as one JSON line: every key present and finite, record()'s
-    key set equal to BENCH_r05.json's less the listed exclusions (and
-    fma_peak_tflops in place of vpu_peak_tflops); the headline sampler
-    call's device busy and idle share from the bench's trace."""
-    from qcmrf_tpu_torch.runners import bench
-
+    subprocess, printed as one JSON line: every key present and finite;
+    the headline sampler call's device busy and idle share from the
+    bench's trace."""
     root = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as d:
@@ -4527,26 +4485,7 @@ def phase_bench(dev, report) -> dict:
           f"{cmd['trace']['busy_ms']:.3f} ms of a "
           f"{cmd['trace']['window_ms']:.3f} ms window: idle share "
           f"{cmd['trace']['idle_share']:.4f}")
-    t0 = time.perf_counter()
-    rec = bench.record(dev)
-    print(f"[bench] runners.bench.record() ({time.perf_counter() - t0:.1f} "
-          "s):")
-    print(json.dumps(rec))
-    with open(os.path.join(root, "BENCH_r05.json")) as f:
-        r05 = set(json.load(f)["parsed"])
-    want = (r05 - set(bench.RECORD_LEFT_OUT)) | {"fma_peak_tflops"}
-    require(set(rec) == want and finite_leaves(rec),
-            f"record(): {len(rec)} keys, BENCH_r05's less "
-            f"{len(r05 - want)} left out, with fma_peak_tflops; every one "
-            "finite")
-    for w in (24, 28):
-        sh, one = (rec[f"qcmrf{w}_sharded_gate_level_ms"],
-                   rec[f"qcmrf{w}_gate_level_ms"])
-        print(f"  qcmrf{w}_sharded_gate_level_ms {sh} against "
-              f"qcmrf{w}_gate_level_ms {one}: ratio {sh / one:.3f} (the "
-              "root bench.py's bar: ~1.2x)")
-    report["bench"] = dict(command=cmd, record=rec)
-    return rec
+    report["bench"] = dict(command=cmd)
 
 
 def gate_entry(kind, report, launches) -> dict:
@@ -4783,7 +4722,7 @@ def main() -> int:
     clock("lowered chain, small circuits")
     rates = phase_rates(dev, report)
     clock("rates")
-    phase_bench(dev, report)
+    phase_bench(report)
     clock("bench")
 
     kernels_line = []

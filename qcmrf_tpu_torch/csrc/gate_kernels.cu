@@ -233,7 +233,7 @@ row_gate_kernel(GateMatrix u, float* __restrict__ re, float* __restrict__ im,
 // bit flipped. Both CTAs of a cluster read the same tile and meet at a
 // cluster barrier before either writes its half back, so the pass is in
 // place. Designs timed beside it on the card (mma.sync with M split as
-// each fragment is read, one warpgroup a CTA, ...): runners/lane_designs.py.
+// each fragment is read, one warpgroup a CTA, ...): PERF.md section 6, row 8.
 constexpr int kLaneThreads = 256;  // two warpgroups
 constexpr int kLaneRows = 128;     // a tile: 64 rows a warpgroup
 constexpr int kLaneStride = 40;    // a slot row: 32 l and padding
@@ -593,7 +593,7 @@ lane_factored_kernel(LaneFactors f, int mask, float* __restrict__ re,
 // planes and writes both (16 bytes a value), the same-run rate the gate
 // passes are held against. Bound on this card: device memory.
 // Design, the fastest of those timed side by side on the card
-// (runners/copy_designs.py, on an H100 SXM at 700 W): each thread issues
+// (PERF.md section 6, row 17; an H100 SXM at 700 W): each thread issues
 // kCopyUnroll float4 loads, kThreads apart, before any store, on a grid
 // that covers both planes (the first half of the blocks copy the real
 // plane) with no grid-stride cap. There a grid-stride loop of one float4

@@ -593,10 +593,10 @@ lse_kernel(SplitPlan pl, const float* __restrict__ coef, int ncoef,
 // register: value r of a warp's 32 lanes is 128 contiguous bytes of the
 // row, and a sub-block is 2^L contiguous floats. A store does not hold the
 // thread, so a sub-block's writes drain while the block computes the next
-// one's P sums and transform (qcmrf_tpu_torch/runners/logpot_designs.py
-// times these plain stores beside the same stores with the evict-first
-// hint and beside a bulk copy of each sub-block from shared memory: the
-// plain stores are the fastest on K27, the table the main path writes).
+// one's P sums and transform (these plain stores were timed on the card
+// beside the same stores with the evict-first hint and beside a bulk copy
+// of each sub-block from shared memory: the plain stores are the fastest
+// on K27, the table the main path writes; PERF.md section 6, row 2).
 // Bound on this card: the larger of 4 bytes written a state and the
 // split's float work (lse_kernel's without the max, the exp and the sum;
 // with the epilogue, its exp and two products a state).

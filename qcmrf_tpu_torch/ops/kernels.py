@@ -1679,6 +1679,52 @@ def apply_lane(re, im, M):
     return re, im
 
 
+#: the accuracy contract of a dense lane pass (:func:`lane_accurate`):
+#: relative 2-norm error against the float64 product at most
+#: LANE_REL_LIMIT, and at most LANE_F32_FACTOR times float32
+#: torch.matmul's on the same input
+LANE_REL_LIMIT = 2e-6
+LANE_F32_FACTOR = 4.0
+
+
+def lane_stacked_w(M, device, dtype=torch.float32) -> torch.Tensor:
+    """The lane op as one real (256, 256) matrix on planes stacked as
+    ``[re | im]``: ``[[Mr^T, Mi^T], [-Mi^T, Mr^T]]``, from M's float32
+    parts."""
+    M = np.asarray(M, np.complex64)
+    mr = torch.from_numpy(np.ascontiguousarray(M.real)).to(device, dtype)
+    mi = torch.from_numpy(np.ascontiguousarray(M.imag)).to(device, dtype)
+    return torch.cat([torch.cat([mr.T, mi.T], 1),
+                      torch.cat([-mi.T, mr.T], 1)])
+
+
+def lane_relative_error(M, planes_in, planes_out, chunk=1 << 19) -> float:
+    """``|out - X W|_2 / |X W|_2`` with ``X W`` the float64 product of the
+    input planes, stacked as ``[re | im]``; ``planes_out`` is a pair of
+    planes or one stacked ``(rows, 256)`` tensor."""
+    W = lane_stacked_w(M, planes_in[0].device, torch.float64)
+    X = [p.reshape(-1, 128) for p in planes_in]
+    if isinstance(planes_out, torch.Tensor):
+        Y = [planes_out[:, :128], planes_out[:, 128:]]
+    else:
+        Y = [p.reshape(-1, 128) for p in planes_out]
+    num = den = 0.0
+    for lo in range(0, X[0].shape[0], chunk):
+        ref = torch.cat([x[lo:lo + chunk] for x in X], 1).double() @ W
+        got = torch.cat([y[lo:lo + chunk] for y in Y], 1).double()
+        num += float(((got - ref) ** 2).sum())
+        den += float((ref ** 2).sum())
+    return (num / den) ** 0.5
+
+
+def lane_accurate(err: float, f32_err: float) -> bool:
+    """The card's accuracy check of a dense lane pass: ``err`` (its
+    :func:`lane_relative_error`) within ``LANE_REL_LIMIT`` and within
+    ``LANE_F32_FACTOR`` times ``f32_err``, float32 ``torch.matmul``'s on
+    the same input."""
+    return err <= LANE_REL_LIMIT and err <= LANE_F32_FACTOR * f32_err
+
+
 def identity_factors() -> np.ndarray:
     """The ``(7, 2, 2)`` complex64 factors of a lane op that touches no
     qubit: one 2x2 identity a lane qubit."""

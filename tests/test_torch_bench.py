@@ -2,14 +2,12 @@
 JAX package's (JSON both ways), ``utils.profiling.timed``, ``trace`` and
 ``device_busy`` (a CPU-only profile, and a hand-written trace with known
 intervals and gaps), and ``runners.bench``: its argument parsing, its
-refusal without a CUDA device (the bench measures the card), and
-``record()``'s key list against BENCH_r05.json's less the keys the port
-leaves out. The measurements themselves run on the card
+refusal without a CUDA device (the bench measures the card), and its
+grid model. The measurements themselves run on the card
 (``chip_smoke.py``, phase bench)."""
 
 import dataclasses
 import json
-import os
 
 import numpy as np
 import pytest
@@ -22,8 +20,6 @@ from qcmrf_tpu.utils import config as jconfig  # noqa: E402
 from qcmrf_tpu_torch import __main__ as cli  # noqa: E402
 from qcmrf_tpu_torch.runners import bench  # noqa: E402
 from qcmrf_tpu_torch.utils import config, profiling  # noqa: E402
-
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.mark.parametrize("fields", [
@@ -151,7 +147,7 @@ def test_device_busy_parses_known_intervals(tmp_path):
 def test_bench_arguments_and_refusal_without_a_card(capsys):
     """bench takes JAX's flags (--n, --shots, --trace, --json; an unknown
     one exits 2) and raises without a CUDA device: the bench measures the
-    card and has no CPU fallback; so does record()."""
+    card and has no CPU fallback."""
     with pytest.raises(SystemExit) as e:
         bench.main(["--help"])
     assert e.value.code == 0
@@ -163,37 +159,14 @@ def test_bench_arguments_and_refusal_without_a_card(capsys):
     assert e.value.code == 2
     if not torch.cuda.is_available():
         for call in (lambda: bench.main(["--json", "--n", "12"]),
-                     lambda: cli.main(["bench", "--json"]), bench.record):
+                     lambda: cli.main(["bench", "--json"])):
             with pytest.raises(RuntimeError, match="CUDA"):
                 call()
 
 
-def test_record_keys_are_bench_r05_less_the_left_out():
-    """record()'s keys are BENCH_r05.json's less RECORD_LEFT_OUT, with
-    fma_peak_tflops in place of vpu_peak_tflops; every left-out key is a
-    BENCH_r05 key with its reason, and none is recorded."""
-    with open(os.path.join(REPO, "BENCH_r05.json")) as f:
-        r05 = set(json.load(f)["parsed"])
-    assert len(bench.RECORD_KEYS) == len(set(bench.RECORD_KEYS))
-    assert set(bench.RECORD_KEYS) == (r05 - set(bench.RECORD_LEFT_OUT)) | {
-        "fma_peak_tflops"}
-    assert set(bench.RECORD_LEFT_OUT) <= r05
-    assert not set(bench.RECORD_LEFT_OUT) & set(bench.RECORD_KEYS)
-    assert all(isinstance(v, str) and v for v in
-               bench.RECORD_LEFT_OUT.values())
-    assert {"lane_default_gbps", "mxu_peak_tflops", "lnZ_n28_flops_util",
-            "moments_k24_flops_util",
-            "kl_suite_max_10k_shots_reference_floor"} <= set(
-                bench.RECORD_LEFT_OUT)
-    assert {"qcmrf24_sharded_gate_level_ms",
-            "qcmrf28_sharded_gate_level_ms"} <= set(bench.RECORD_KEYS)
-
-
-def test_numpy_sampler_rate_and_grid_model():
-    """The vs_baseline denominator runs the root bench.py's numpy sampler
-    (a positive rate); grid_model(n) is JAX bench's grid, 4 x 5 at n = 20
-    and 5 x 5 at n = 28."""
+def test_grid_model():
+    """grid_model(n) is JAX bench's grid, 4 x 5 at n = 20 and 5 x 5 at
+    n = 28."""
     m = bench.grid_model(20, "cpu")
     assert m.n == 20 and m.num_cliques == 31
     assert bench.grid_model(28, "cpu").n == 25
-    assert bench.numpy_sampler_rate(m, shots=1 << 10, reps=2) > 0

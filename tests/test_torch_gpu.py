@@ -167,7 +167,6 @@ def test_dense_lane_kernel_holds_to_float64(dev, nq):
     chain's densest lane op given without its factors; and within 1e-5
     of its plain version."""
     from qcmrf_tpu_torch.circuits.compiler import QCMRF
-    from qcmrf_tpu_torch.runners import lane_designs
 
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.RandomState(24)
@@ -188,11 +187,11 @@ def test_dense_lane_kernel_holds_to_float64(dev, nq):
         before = kernels.LAUNCHES["lane"]
         got = kernels.apply_lane(src[0].clone(), src[1].clone(), lane_op)
         assert kernels.LAUNCHES["lane"] == before + 1
-        rel = lane_designs.relative_error(lane_op, src, got)
+        rel = kernels.lane_relative_error(lane_op, src, got)
         X = torch.cat([p.reshape(-1, 128) for p in src], 1)
-        f32 = lane_designs.relative_error(
-            lane_op, src, X @ lane_designs.stacked_w(lane_op, dev))
-        assert lane_designs.accurate(rel, f32), (rel, f32)
+        f32 = kernels.lane_relative_error(
+            lane_op, src, X @ kernels.lane_stacked_w(lane_op, dev))
+        assert kernels.lane_accurate(rel, f32), (rel, f32)
         want = kernels.apply_lane_reference(src[0].clone(), src[1].clone(),
                                             lane_op)
         torch.testing.assert_close(got, want, rtol=0, atol=1e-5)

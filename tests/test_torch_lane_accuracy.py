@@ -4,7 +4,7 @@ each product on the tensor cores as three TF32 products of split
 operands (3xTF32); this file emulates that arithmetic and one TF32 pass
 in torch on the CPU (operands rounded to TF32 by round-to-nearest, ties
 away, as the kernel's ``tf32_rna``; products and sums in float32) and
-holds both to the criterion ``runners/lane_designs.accurate`` applies on
+holds both to the criterion ``ops.kernels.lane_accurate`` applies on
 the card: a relative 2-norm error against the float64 product of at most
 2e-6 and at most 4x float32 ``torch.matmul``'s on the same input. The
 lane ops are the JAX planner's for lowered QCMRF circuits, and a random
@@ -21,7 +21,7 @@ from qcmrf_tpu.circuits.lower import lower as jlower  # noqa: E402
 from qcmrf_tpu.models.mrf import MRF as JMRF  # noqa: E402
 from qcmrf_tpu.sim import tpu as jtpu  # noqa: E402
 
-from qcmrf_tpu_torch.runners import lane_designs  # noqa: E402
+from qcmrf_tpu_torch.ops import kernels  # noqa: E402
 
 ROWS = 1 << 12
 
@@ -63,8 +63,8 @@ def errors(M, seed=0):
     scale = float(torch.cat([re, im]).double().norm())
     planes = (re / scale, im / scale)
     X = torch.cat(planes, 1)
-    W = lane_designs.stacked_w(M, "cpu")
-    return [lane_designs.relative_error(M, planes, Y)
+    W = kernels.lane_stacked_w(M, "cpu")
+    return [kernels.lane_relative_error(M, planes, Y)
             for Y in products(X, W)]
 
 
@@ -92,17 +92,8 @@ def test_check_passes_3xtf32_and_fails_one_pass(case):
         assert len(ops) >= 3
     for M in ops:
         f32, three, one = errors(M)
-        assert three <= lane_designs.REL_LIMIT, three
-        assert one > lane_designs.REL_LIMIT, one
+        assert three <= kernels.LANE_REL_LIMIT, three
+        assert one > kernels.LANE_REL_LIMIT, one
         if f32 > 0:
-            assert lane_designs.accurate(three, f32), (three, f32)
-            assert not lane_designs.accurate(one, f32), (one, f32)
-
-
-def test_designs_script_needs_the_card(capsys):
-    """The design timing script exits 1, printing no result, without
-    CUDA."""
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA device is present")
-    assert lane_designs.main(["--n", "8"]) == 1
-    assert capsys.readouterr().out == ""
+            assert kernels.lane_accurate(three, f32), (three, f32)
+            assert not kernels.lane_accurate(one, f32), (one, f32)

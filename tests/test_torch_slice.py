@@ -119,18 +119,6 @@ def test_gpu_platform_raises_without_cuda(platform, tmp_path):
     assert not (tmp_path / "models_0.1.json").exists()
 
 
-@pytest.mark.parametrize("case", ["sandwich24", "lowered28",
-                                  "lane_circuit", "gibbs", "sharded24"])
-def test_host_ab_needs_the_card(case, capsys):
-    """The A/B timing script exits 1, printing no result, without CUDA."""
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA device is present")
-    from qcmrf_tpu_torch.runners import host_ab
-
-    assert host_ab.main([case]) == 1
-    assert capsys.readouterr().out == ""
-
-
 def _chain12():
     from qcmrf_tpu_torch.circuits.compiler import compile_qcmrf
     from qcmrf_tpu_torch.models.mrf import MRF
@@ -164,7 +152,6 @@ def _default_device_calls():
 
     return {
         "bench.main": lambda: bench.main(["--json", "--n", "12"]),
-        "bench.record": bench.record,
         "sharded.make_mesh": lambda: sharded.make_mesh(),
         "bench.copy_kernel_gbps": lambda: bench.copy_kernel_gbps(12),
         "bench.fma_peak_tflops": lambda: bench.fma_peak_tflops(),
