@@ -17,6 +17,7 @@
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 from typing import List, Sequence
 
@@ -195,25 +196,20 @@ class QCMRF:
         return [n + 1 + ii for ii in range(self.mrf.num_cliques)]
 
 
-@profiling.spanned("qcmrf.circuit.compile")
-def compile_qcmrf(
-    mrf: MRF,
-    with_measurements: bool = True,
-    with_barriers: bool = False,
-    name: str = "QCMRF",
-) -> Circuit:
-    """Emit the QCMRF circuit IR for an MRF (see module docstring)."""
-    n = mrf.n
-    K = mrf.num_cliques
+@functools.lru_cache(maxsize=64)
+def _skeleton(cliques, n: int, with_measurements: bool, with_barriers: bool,
+              name: str, skip: bytes):
+    """The gates of the QCMRF circuit of ``cliques`` over ``n`` variables
+    with every phase angle 0, and the slots that take the angles:
+    ``(gates, slots)``, each slot ``(position in gates, gamma index,
+    negate)``. ``skip`` holds one byte a gamma, nonzero where the skip rule
+    drops it. Each build (a miss of its cache) is counted as
+    ``skeleton_build``."""
+    profiling.count("skeleton_build")
     num_main = n + 1  # variables + workspace
-    nq = n + K + 1
+    nq = n + len(cliques) + 1
     qc = Circuit(num_qubits=nq, num_clbits=nq, name=name)
-
-    theta = _theta64(mrf)
-    cparams.validate_theta_domain(theta)
-    gamma = np.asarray(
-        cparams.theta_to_gamma(theta, float(mrf.beta)), dtype=np.float64
-    )
+    slots = []
 
     for q in range(n):
         qc.h(q)
@@ -221,25 +217,26 @@ def compile_qcmrf(
         qc.barrier()
 
     i = 0
-    for ii, C in enumerate(mrf.cliques):
+    for ii, C in enumerate(cliques):
         anc = num_main + ii
         var_qubits = [(n - 1) - v for v in C]  # variable reflection
 
         # cU_C as a list of fused per-state diagonal phases
-        blocks = []  # (flags, angle)
+        blocks = []  # (flags, gamma index)
         for y in itertools.product([0, 1], repeat=len(C)):
-            if not np.isclose(gamma[i], 0):  # skip rule
-                flags = tuple(int(b) * 2 - 1 for b in y)
-                blocks.append((flags, 2.0 * gamma[i]))
+            if not skip[i]:  # skip rule
+                blocks.append((tuple(int(b) * 2 - 1 for b in y), i))
             i += 1
 
         # real part extraction: H · cU_C · X · cU_C^-1 · X · H
         qc.h(anc)
-        for flags, angle in blocks:
-            qc.flags_phase(var_qubits, flags, angle, control=anc)
+        for flags, k in blocks:
+            slots.append((len(qc.gates), k, False))
+            qc.flags_phase(var_qubits, flags, 0.0, control=anc)
         qc.x(anc)
-        for flags, angle in reversed(blocks):
-            qc.flags_phase(var_qubits, flags, -angle, control=anc)
+        for flags, k in reversed(blocks):
+            slots.append((len(qc.gates), k, True))
+            qc.flags_phase(var_qubits, flags, 0.0, control=anc)
         qc.x(anc)
         qc.h(anc)
 
@@ -252,4 +249,31 @@ def compile_qcmrf(
         for q in range(n):
             qc.measure(q, q)
 
-    return qc
+    return tuple(qc.gates), tuple(slots)
+
+
+@profiling.spanned("qcmrf.circuit.compile")
+def compile_qcmrf(
+    mrf: MRF,
+    with_measurements: bool = True,
+    with_barriers: bool = False,
+    name: str = "QCMRF",
+) -> Circuit:
+    """Emit the QCMRF circuit IR for an MRF (see module docstring). The
+    gates are a skeleton kept per structure (cliques, ``n``, the options
+    and the skip rule's mask) with this MRF's phase angles filled in."""
+    theta = _theta64(mrf)
+    cparams.validate_theta_domain(theta)
+    gamma = np.asarray(
+        cparams.theta_to_gamma(theta, float(mrf.beta)), dtype=np.float64
+    )
+    skip = np.isclose(gamma, 0)  # the skip rule, gamma by gamma
+    gates, slots = _skeleton(mrf.cliques, mrf.n, bool(with_measurements),
+                             bool(with_barriers), name, skip.tobytes())
+    angles = (2.0 * gamma).tolist()
+    gates = list(gates)
+    for pos, k, negate in slots:
+        angle = angles[k]
+        gates[pos] = gates[pos].with_params((-angle if negate else angle,))
+    nq = mrf.n + mrf.num_cliques + 1
+    return Circuit(num_qubits=nq, num_clbits=nq, gates=gates, name=name)

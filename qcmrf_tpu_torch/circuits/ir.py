@@ -47,6 +47,15 @@ class Gate:
         object.__setattr__(self, "flags", tuple(int(f) for f in self.flags))
         object.__setattr__(self, "clbits", tuple(int(c) for c in self.clbits))
 
+    def with_params(self, params: Tuple[float, ...]) -> "Gate":
+        """This gate with ``params`` in place of its own, taken as given (a
+        tuple of floats): the fields it keeps were converted when this gate
+        was made and are not converted again."""
+        g = object.__new__(Gate)
+        g.__dict__.update(self.__dict__)
+        g.__dict__["params"] = params
+        return g
+
 
 @dataclasses.dataclass
 class Circuit:

@@ -9,9 +9,10 @@ of the flat index. A circuit runs as a stream of fused passes:
   every circuit): :func:`circuit_primitives` lowers the gates with X gates
   deferred, :func:`fuse_primitives` fuses runs into ``diag`` / ``lane`` /
   ``rowq`` / ``row2`` / ``sandwich`` / ``sandwichk`` passes, and
-  :func:`fuse_ops` folds the leading Hadamard wall into a closed-form
+  :func:`plan_stream` folds the leading Hadamard wall into a closed-form
   ``init_uniform`` or into a write-only first sandwich group
-  (``sandwichku``);
+  (``sandwichku``). :func:`fuse_ops` keeps the stream per gate skeleton
+  and, for a circuit of a kept skeleton, recomputes only its angles;
 * **executor** :func:`apply_ops`: ``init_uniform`` is plain PyTorch; every
   other pass goes to a CUDA kernel of :mod:`qcmrf_tpu_torch.ops.kernels`
   (its plain version on the CPU), updating the planes in place: the
@@ -37,6 +38,7 @@ rz, sx, x]`` basis) runs through all five kinds of pass. Requires ``Q >=
 
 from __future__ import annotations
 
+import collections
 import math
 from typing import Tuple
 
@@ -59,6 +61,10 @@ def zero_planes(num_qubits: int,
                      device=resolve_device(device))
     re.view(-1)[0] = 1.0
     return re, torch.zeros_like(re)
+
+
+#: the diagonal gates: their first parameter is the one a fused stream takes
+_PARAM_GATES = ("rz", "cp", "flags_phase")
 
 
 def _diag_conds_and_angles(g: Gate):
@@ -85,7 +91,7 @@ def apply_gate(re, im, g: Gate, num_qubits: int):
         return re, im
     if g.name in ("h", "x", "sx", "sxdg"):
         return K.apply_1q(re, im, GATES_1Q[g.name], g.qubits[0], num_qubits)
-    if g.name in ("rz", "cp", "flags_phase"):
+    if g.name in _PARAM_GATES:
         conds, base, masked = _diag_conds_and_angles(g)
         return K.apply_masked_rotation(re, im, conds, base, masked)
     if g.name == "cx":
@@ -179,7 +185,7 @@ def circuit_primitives(circuit: Circuit) -> list:
             push_1q("h", t)
         elif g.name in ("h", "x", "sx", "sxdg"):
             push_1q(g.name, g.qubits[0])
-        elif g.name in ("rz", "cp", "flags_phase"):
+        elif g.name in _PARAM_GATES:
             conds, base, masked = _diag_conds_and_angles(g)
             push_diag(conds, base, masked)
         else:
@@ -373,13 +379,14 @@ def sandwich_fold_parts(first_op, folded_locals):
     return None
 
 
-@profiling.spanned("qcmrf.planes.fuse")
-def fuse_ops(circuit: Circuit) -> list:
-    """Fused op stream of a circuit: :func:`circuit_primitives` (X-deferred
-    lowering) composed with :func:`fuse_primitives` (peephole fusion). The
-    H-wall prefix folds into a closed-form ``('init_uniform', qubits)``
-    first op, or into the first sandwich group as a write-only
-    ``sandwichku`` (see :func:`fold_uniform_prefix`)."""
+def plan_stream(circuit: Circuit) -> list:
+    """Fused op stream of a circuit, planned from its gates:
+    :func:`circuit_primitives` (X-deferred lowering) composed with
+    :func:`fuse_primitives` (peephole fusion). The H-wall prefix folds into
+    a closed-form ``('init_uniform', qubits)`` first op, or into the first
+    sandwich group as a write-only ``sandwichku`` (see
+    :func:`fold_uniform_prefix`). :func:`fuse_ops` is this planner behind a
+    cache."""
     prim = circuit_primitives(circuit)
     folded, rest = fold_uniform_prefix(prim)
     if not folded:
@@ -394,6 +401,245 @@ def fuse_ops(circuit: Circuit) -> list:
         if parts is not None:
             return [("sandwichku", folded) + parts] + ops[1:]
     return [("init_uniform", folded)] + ops
+
+
+# ---- one plan a gate skeleton ----------------------------------------------
+#
+# A gate's parameter enters a fused stream only through diagonal angles, to
+# which the planner applies +, unary -, / and abs; the stream's structure
+# (kinds, qubits, conditions, matrices) comes from the parameter-free gates
+# and the layout. The one choice that reads an angle's value is a term's
+# drop at |angle| <= 1e-12 (_try_sandwich). So fuse_ops keeps, per gate
+# skeleton, the stream's structure, the tape of the float operations that
+# make its angles from the gate parameters in the planner's own order, and
+# the outcomes of its drop tests.
+
+#: fused streams kept, one a gate skeleton (least recently used evicted)
+FUSE_CACHE_SIZE = 64
+
+
+class _Angle:
+    """An angle while the planner is traced: its value and its node of the
+    :class:`_Tape` that recomputes it from the gate parameters."""
+
+    __slots__ = ("tape", "ref", "val")
+
+    def __init__(self, tape, ref, val):
+        self.tape, self.ref, self.val = tape, ref, val
+
+    def __add__(self, other):
+        return self.tape.add(self, other)
+
+    __radd__ = __add__  # float addition commutes, bit for bit
+
+    def __neg__(self):
+        return self.tape.neg(self)
+
+    def __truediv__(self, divisor):
+        return self.tape.div(self, divisor)
+
+    def __abs__(self):
+        return self.tape.abs(self)
+
+    def __gt__(self, threshold):
+        return self.tape.test(self, threshold)
+
+
+# the kinds of a tape's operations
+_ADD, _ADD_CONST, _NEG, _DIV, _ABS = range(5)
+
+
+class _Tape:
+    """The float operations that make a traced stream's angles from the gate
+    parameters ``p``.
+
+    A leaf is ``sign * (p[j] / divisor)``: a parameter negated or not and
+    divided at most once, where the order of the two changes no bit, so the
+    leaves are one numpy expression. Each operation acts on earlier nodes
+    and is replayed in the order the planner made it. A test is ``node >
+    threshold``, with the outcome the planner took. A leaf's ref is its
+    index, an operation's ``~index``; :meth:`node` numbers the leaves
+    first, then the operations."""
+
+    def __init__(self, params):
+        self.params = params
+        self.leaf_keys = []   # (j, sign, divisor) a leaf
+        self.leaf_refs = {}   # (j, sign, divisor) -> ref
+        self.ops = []         # (kind, ref, ref or constant or None)
+        self.tests = []       # (ref, threshold, outcome)
+        self.vals = []        # each leaf's value
+        self.op_vals = []     # each operation's value
+
+    def leaf(self, j: int, sign: float = 1.0,
+             divisor: float = 1.0) -> _Angle:
+        key = (j, sign, divisor)
+        ref = self.leaf_refs.get(key)
+        if ref is None:
+            ref = self.leaf_refs[key] = len(self.leaf_keys)
+            self.leaf_keys.append(key)
+            self.vals.append(sign * (self.params[j] / divisor))
+        return _Angle(self, ref, self.vals[ref])
+
+    def _op(self, kind, a, b, val) -> _Angle:
+        self.ops.append((kind, a, b))
+        self.op_vals.append(val)
+        return _Angle(self, ~(len(self.ops) - 1), val)
+
+    def add(self, x: _Angle, other) -> _Angle:
+        if isinstance(other, _Angle):
+            return self._op(_ADD, x.ref, other.ref, x.val + other.val)
+        return self._op(_ADD_CONST, x.ref, other, x.val + other)
+
+    def neg(self, x: _Angle) -> _Angle:
+        if x.ref >= 0:
+            j, sign, divisor = self.leaf_keys[x.ref]
+            return self.leaf(j, -sign, divisor)
+        return self._op(_NEG, x.ref, None, -x.val)
+
+    def div(self, x: _Angle, divisor) -> _Angle:
+        if x.ref >= 0 and self.leaf_keys[x.ref][2] == 1.0:
+            j, sign, _ = self.leaf_keys[x.ref]
+            return self.leaf(j, sign, divisor)
+        return self._op(_DIV, x.ref, divisor, x.val / divisor)
+
+    def abs(self, x: _Angle) -> _Angle:
+        return self._op(_ABS, x.ref, None, abs(x.val))
+
+    def test(self, x: _Angle, threshold) -> bool:
+        outcome = x.val > threshold
+        self.tests.append((x.ref, threshold, outcome))
+        return outcome
+
+    def node(self, ref: int) -> int:
+        return ref if ref >= 0 else len(self.leaf_keys) + ~ref
+
+
+class _Slot(int):
+    """An angle of a kept stream: the index of its node's value."""
+
+
+class _Holder(tuple):
+    """A tuple of a kept stream that holds angles."""
+
+
+def _hold(x, tape: _Tape):
+    """``x``, a piece of a traced stream, with each angle made a
+    :class:`_Slot` and each tuple that holds one a :class:`_Holder`. What
+    holds no angle (conditions, matrices) is kept as it is: every stream
+    refilled from the plan shares it."""
+    if isinstance(x, _Angle):
+        return _Slot(tape.node(x.ref))
+    if type(x) is tuple:
+        items = tuple(_hold(y, tape) for y in x)
+        if any(type(y) in (_Slot, _Holder) for y in items):
+            return _Holder(items)
+    return x
+
+
+def _fill(x, vals):
+    """A kept piece with its slots replaced by their values."""
+    kind = type(x)
+    if kind is _Holder:
+        return tuple([_fill(y, vals) for y in x])
+    if kind is _Slot:
+        return vals[x]
+    return x
+
+
+class _Plan:
+    """A fused stream kept for one gate skeleton: its ops with slots for
+    the angles, and its tape with the nodes numbered."""
+
+    __slots__ = ("ops", "leaf_j", "leaf_sign", "leaf_div", "steps", "tests")
+
+    def __init__(self, ops, tape: _Tape):
+        self.ops = [_hold(op, tape) for op in ops]
+        j, sign, div = zip(*tape.leaf_keys) if tape.leaf_keys else ((),) * 3
+        self.leaf_j = np.asarray(j, dtype=np.int64)
+        self.leaf_sign = np.asarray(sign, dtype=np.float64)
+        self.leaf_div = np.asarray(div, dtype=np.float64)
+        node = tape.node
+        self.steps = [(kind, node(a), node(b) if kind == _ADD else b)
+                      for kind, a, b in tape.ops]
+        self.tests = [(node(ref), t, outcome)
+                      for ref, t, outcome in tape.tests]
+
+    def values(self, params):
+        """Every node's value for the gate parameters ``params``, or None
+        where a drop test comes out otherwise than when the plan was
+        made."""
+        p = np.asarray(params, dtype=np.float64)
+        vals = (self.leaf_sign * (p[self.leaf_j] / self.leaf_div)).tolist()
+        push = vals.append
+        for kind, a, b in self.steps:
+            if kind == _ADD:
+                push(vals[a] + vals[b])
+            elif kind == _ADD_CONST:
+                push(vals[a] + b)
+            elif kind == _NEG:
+                push(-vals[a])
+            elif kind == _DIV:
+                push(vals[a] / b)
+            else:
+                push(abs(vals[a]))
+        for node, t, outcome in self.tests:
+            if (vals[node] > t) != outcome:
+                return None
+        return vals
+
+    def stream(self, vals) -> list:
+        return [_fill(op, vals) for op in self.ops]
+
+
+def _trace(circuit: Circuit, params) -> Tuple[_Plan, list]:
+    """(plan, stream): the planner run once on ``circuit`` with its gate
+    parameters ``params`` traced."""
+    tape = _Tape(params)
+    gates, j = [], 0
+    for g in circuit.gates:
+        if g.name in _PARAM_GATES:
+            g = g.with_params((tape.leaf(j),))
+            j += 1
+        gates.append(g)
+    traced = plan_stream(Circuit(circuit.num_qubits, gates=gates))
+    plan = _Plan(traced, tape)
+    return plan, plan.stream(tape.vals + tape.op_vals)
+
+
+#: gate skeleton -> _Plan, least recently used first
+_PLANS: "collections.OrderedDict[tuple, _Plan]" = collections.OrderedDict()
+
+
+@profiling.spanned("qcmrf.planes.fuse")
+def fuse_ops(circuit: Circuit) -> list:
+    """:func:`plan_stream` of a circuit, kept per gate skeleton (every
+    gate's name, qubits and flags; at most :data:`FUSE_CACHE_SIZE`). A
+    circuit of a kept skeleton gets the kept stream with its angles
+    recomputed from its own gate parameters, in the planner's order: the
+    stream the planner would give, bit for bit (counted as ``fuse_hit``).
+    The planner runs (counted as ``fuse_build``) on a new skeleton, and
+    where a term it dropped at a near-zero angle, or kept, would now go the
+    other way. The stream's matrices are the kept plan's own: callers read
+    them and do not write to them."""
+    skeleton, params = [], []
+    for g in circuit.gates:
+        skeleton.append((g.name, g.qubits, g.flags))
+        if g.name in _PARAM_GATES:
+            params.append(g.params[0])
+    skeleton = tuple(skeleton)
+    plan = _PLANS.get(skeleton)
+    vals = plan.values(params) if plan is not None else None
+    if vals is not None:
+        _PLANS.move_to_end(skeleton)
+        profiling.count("fuse_hit")
+        return plan.stream(vals)
+    profiling.count("fuse_build")
+    plan, ops = _trace(circuit, params)
+    _PLANS[skeleton] = plan
+    _PLANS.move_to_end(skeleton)
+    if len(_PLANS) > FUSE_CACHE_SIZE:
+        _PLANS.popitem(last=False)
+    return ops
 
 
 @profiling.spanned("qcmrf.planes.run")

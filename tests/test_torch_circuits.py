@@ -256,3 +256,53 @@ def test_dense_gate_helpers():
         dense.apply_gate(state, Gate("ccz", (0, 1, 2)), 3)
     assert math.isclose(dense.statevector_fidelity(state, state), 1.0,
                         rel_tol=1e-6)
+
+
+#: cliques of the skeleton tests: the 15-chain, the 4x5 grid, and a set
+#: with a 3-clique (and a 4-clique)
+SKELETON_CASES = {
+    "chain15": [[i, i + 1] for i in range(14)],
+    "grid4x5": None,  # grid_cliques(4, 5)
+    "mixed3": [[0, 1, 2], [2, 3], [3, 4, 5, 6]],
+}
+
+
+@pytest.mark.parametrize("measured", [True, False])
+@pytest.mark.parametrize("case", sorted(SKELETON_CASES))
+def test_compile_skeleton_hit_equals_an_empty_cache(case, measured):
+    """A compile that hits the skeleton cache gives, gate by gate, the
+    gates of a compile with the cache emptied, each float to the bit, and
+    the JAX package's gates; the circuit's gate list is its own."""
+    from torch.autograd import profiler
+
+    from qcmrf_tpu_torch.models.mrf import grid_cliques
+    from qcmrf_tpu_torch.utils import profiling
+
+    cliques = SKELETON_CASES[case] or grid_cliques(4, 5)
+    dim = sum(1 << len(C) for C in cliques)
+    rng = np.random.RandomState(7)
+    thetas = [-np.abs(rng.randn(dim)) * s for s in (0.5, 0.25, 0.1)]
+    compiler._skeleton.cache_clear()
+    with profiler.profile(use_kineto=True):
+        hits = [compiler.compile_qcmrf(pmodel(cliques, t),
+                                       with_measurements=measured)
+                for t in thetas]
+    assert profiling.session_counts() == {"skeleton_build": 1}
+    for t, got in zip(thetas, hits):
+        compiler._skeleton.cache_clear()
+        cold = compiler.compile_qcmrf(pmodel(cliques, t),
+                                      with_measurements=measured)
+        assert fields(got)[1:] == fields(cold)[1:]
+        assert len(got.gates) == len(cold.gates)
+        for g, w in zip(got.gates, cold.gates):
+            assert (g.name, g.qubits, g.flags, g.clbits) == \
+                (w.name, w.qubits, w.flags, w.clbits)
+            assert [p.hex() for p in g.params] == [p.hex() for p in w.params]
+            assert all(type(p) is float for p in g.params)
+        assert_same_gates(got, jcompiler.compile_qcmrf(
+            jmodel(cliques, t), with_measurements=measured))
+    # each circuit owns its list: appending to one leaves the next alone
+    hits[0].h(0)
+    again = compiler.compile_qcmrf(pmodel(cliques, thetas[0]),
+                                   with_measurements=measured)
+    assert len(again.gates) == len(hits[1].gates) == len(hits[0].gates) - 1

@@ -23,7 +23,7 @@ from qcmrf_tpu.sim import tpu as jtpu  # noqa: E402
 
 from qcmrf_tpu_torch.circuits.compiler import compile_qcmrf  # noqa: E402
 from qcmrf_tpu_torch.circuits.ir import Circuit  # noqa: E402
-from qcmrf_tpu_torch.models.mrf import MRF  # noqa: E402
+from qcmrf_tpu_torch.models.mrf import MRF, grid_cliques  # noqa: E402
 from qcmrf_tpu_torch.ops import kernels  # noqa: E402
 from qcmrf_tpu_torch.sim import dense, planes  # noqa: E402
 
@@ -339,3 +339,200 @@ def test_init_uniform_matches_jax():
         np.testing.assert_array_equal(to_complex(*got), to_complex(*want))
     re, im = planes.run_ops([("init_uniform", (0, 1, 2))], 8, "cpu")
     assert float(re.sum()) == pytest.approx(8 * 2 ** -1.5)
+
+
+# ---- the planner's cache: one plan a gate skeleton --------------------------
+
+
+def assert_bits(got, want, path="op"):
+    """Two op streams equal to the bit: the same structure and types, every
+    float the same bit pattern, every array the same dtype and values."""
+    if isinstance(want, np.ndarray):
+        assert isinstance(got, np.ndarray) and got.dtype == want.dtype, path
+        np.testing.assert_array_equal(got, want, err_msg=path)
+    elif isinstance(want, (tuple, list)):
+        assert type(got) is type(want) and len(got) == len(want), path
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert_bits(g, w, f"{path}[{i}]")
+    elif isinstance(want, float):
+        assert type(got) is float and got.hex() == want.hex(), (path, got,
+                                                                 want)
+    else:
+        assert type(got) is type(want) and got == want, path
+
+
+def floats(x):
+    """Every float of an op stream, in order."""
+    if isinstance(x, float):
+        yield x
+    elif isinstance(x, (tuple, list)):
+        for y in x:
+            yield from floats(y)
+
+
+def counted(fn):
+    """``fn()`` under PyTorch's profiler; returns (its result, the
+    session's counters)."""
+    from torch.autograd import profiler
+
+    from qcmrf_tpu_torch.utils import profiling
+
+    with profiler.profile(use_kineto=True):
+        out = fn()
+    return out, profiling.session_counts()
+
+
+def clear_plan_caches():
+    from qcmrf_tpu_torch.circuits import compiler
+
+    compiler._skeleton.cache_clear()
+    planes._PLANS.clear()
+
+
+#: (cliques, lowered): the chain15 cell's circuit, the 4x5 grid, and a
+#: 6-chain lowered to [cx, id, rz, sx, x] (rz angles and cx's pi)
+PLAN_CASES = {
+    "chain15": (chain(15), False),
+    "grid4x5": (grid_cliques(4, 5), False),
+    "chain6_lowered": (chain(6), True),
+}
+
+
+def draw_circuits(cliques, lowered, seed, draws=8):
+    """(port circuit, JAX circuit) of ``draws`` theta draws, unmeasured."""
+    from qcmrf_tpu.circuits.lower import lower as jlower
+
+    from qcmrf_tpu_torch.circuits.lower import lower
+
+    out = []
+    for k in range(draws):
+        jc, c = circuits(cliques, 100 * seed + k, scale=(0.1, 0.25, 0.5)[k % 3],
+                         with_measurements=False)
+        if lowered:
+            jc, c = jlower(jc, style="fused"), lower(c, style="fused")
+        out.append((c, jc))
+    return out
+
+
+@pytest.mark.parametrize("case", sorted(PLAN_CASES))
+def test_fuse_hit_equals_the_planner_and_jax(case):
+    """Eight theta draws of one skeleton: the first builds the plan, the
+    others hit it, and each stream equals the planner's own bit for bit
+    and the JAX package's fuse_ops as the parity tests hold it."""
+    clear_plan_caches()
+    draws = draw_circuits(*PLAN_CASES[case], seed=1)
+
+    def run():
+        return [planes.fuse_ops(c) for c, _ in draws]
+
+    streams, counts = counted(run)
+    assert counts.get("fuse_build") == 1 and counts.get("fuse_hit") == 7
+    assert len(planes._PLANS) == 1
+    for (c, jc), got in zip(draws, streams):
+        assert_bits(got, planes.plan_stream(c))
+        assert_same(got, jtpu.fuse_ops(jc))
+    # the angles did change from draw to draw
+    assert any(a.hex() != b.hex()
+               for a, b in zip(floats(streams[1]), floats(streams[2])))
+
+
+def test_fuse_skeleton_change_misses():
+    """A theta entry of exactly 0 makes the compiler skip its gamma: a new
+    skeleton, so both caches miss, and the stream is the planner's. Zeroing
+    the next entry instead leaves the same names and qubits, other flags:
+    a skeleton of its own again."""
+    clear_plan_caches()
+    theta = (-np.abs(np.random.RandomState(2).randn(4 * 14))
+             * 0.3).astype(np.float32)
+    zeroed, other = theta.copy(), theta.copy()
+    zeroed[5] = 0.0
+    other[6] = 0.0
+
+    def run():
+        out = []
+        for t in (theta, zeroed, theta * 0.5, other):
+            c = compile_qcmrf(MRF.create(chain(15), theta=t, device="cpu"),
+                              with_measurements=False)
+            out.append((c, planes.fuse_ops(c)))
+        return out
+
+    out, counts = counted(run)
+    assert counts == {"skeleton_build": 3, "fuse_build": 3, "fuse_hit": 1}
+    assert len(out[1][0].gates) == len(out[0][0].gates) - 2
+    assert ([(g.name, g.qubits) for g in out[1][0].gates]
+            == [(g.name, g.qubits) for g in out[3][0].gates])
+    for c, got in out:
+        assert_bits(got, planes.plan_stream(c))
+    jc = jcompile(JMRF.create(chain(15), theta=jnp.asarray(zeroed)),
+                  with_measurements=False)
+    assert_same(out[1][1], jtpu.fuse_ops(jc))
+
+
+def test_fuse_mutated_circuit_is_planned_anew():
+    """A gate appended after compilation changes the skeleton: the circuit
+    gets its own stream, not the one kept for the compiled circuit."""
+    clear_plan_caches()
+    jc, c = circuits(chain(7), 3, with_measurements=False)
+    before = planes.fuse_ops(c)
+    c.rz(0.375, 9)
+    jc.rz(0.375, 9)
+    after, counts = counted(lambda: planes.fuse_ops(c))
+    assert counts == {"fuse_build": 1}
+    assert len(after) == len(before) + 1 and after[-1][0] == "diag"
+    assert_bits(after, planes.plan_stream(c))
+    assert_same(after, jtpu.fuse_ops(jc))
+
+
+def test_fuse_drop_pattern_change_is_planned_anew():
+    """H · cp(a) · cp(b) · H on a row qubit: the sandwich keeps its term
+    while a + b is not 0 and drops it where b = -a. A draw that turns a
+    drop test the other way is planned anew; one that keeps the kept
+    pattern hits."""
+    clear_plan_caches()
+
+    def probe(a, b, cls=Circuit):
+        return cls(9).h(7).cp(a, 1, 7).cp(b, 1, 7).h(7)
+
+    from qcmrf_tpu.circuits.ir import Circuit as JCircuit
+
+    pairs = [(0.3, 0.2), (0.3, -0.3), (0.1, 0.4), (0.2, 0.5), (-0.7, 0.7)]
+
+    def run():
+        return [planes.fuse_ops(probe(a, b)) for a, b in pairs]
+
+    streams, counts = counted(run)
+    assert counts == {"fuse_build": 4, "fuse_hit": 1}
+    assert len(planes._PLANS) == 1
+    for (a, b), got in zip(pairs, streams):
+        assert_bits(got, planes.plan_stream(probe(a, b)))
+        assert_same(got, jtpu.fuse_ops(probe(a, b, JCircuit)))
+    assert streams[1][0][2] == () and streams[0][0][2] != ()
+
+
+def test_plan_caches_count_and_stay_bounded():
+    """One skeleton_build and one fuse_build on the first circuit of a
+    shape, then fuse_hit only; more skeletons than the caches hold evict
+    the oldest."""
+    from qcmrf_tpu_torch.circuits import compiler
+
+    clear_plan_caches()
+    mrf = MRF.create(chain(6), device="cpu")
+    rng = np.random.RandomState(4)
+
+    def run(m, k):
+        for _ in range(k):
+            planes.fuse_ops(compile_qcmrf(
+                m.with_theta(-np.abs(rng.randn(m.dimension)) - 0.1)))
+
+    _, counts = counted(lambda: run(mrf, 1))
+    assert counts == {"skeleton_build": 1, "fuse_build": 1}
+    _, counts = counted(lambda: run(mrf, 5))
+    assert counts == {"fuse_hit": 5}
+    size = planes.FUSE_CACHE_SIZE
+    for n in range(2, size + 12):
+        m = MRF.create([[0, v] for v in range(1, n + 1)], device="cpu")
+        run(m, 1)
+    assert len(planes._PLANS) == size
+    assert compiler._skeleton.cache_info().currsize <= size
+    _, counts = counted(lambda: run(mrf, 1))  # evicted: built again
+    assert counts == {"skeleton_build": 1, "fuse_build": 1}
