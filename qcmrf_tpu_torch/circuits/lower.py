@@ -26,6 +26,7 @@ from typing import List, Sequence
 import numpy as np
 
 from qcmrf_tpu_torch.circuits.ir import Circuit, Gate
+from qcmrf_tpu_torch.utils import profiling
 
 BASIS = ("cx", "id", "rz", "sx", "x")
 
@@ -195,6 +196,7 @@ def _flags_phase_runs(gates):
     return out
 
 
+@profiling.spanned("qcmrf.circuit.lower")
 def lower(circuit: Circuit, style: str = "fused",
           workspace: int | None = None, optimize: int = 0) -> Circuit:
     """Lower a circuit to the ``[cx, id, rz, sx, x]`` basis.
@@ -207,6 +209,9 @@ def lower(circuit: Circuit, style: str = "fused",
     ``style='literal'``; by default the lowest qubit no gate touches
     (measure and barrier excluded), which for a QCMRF circuit is qubit
     ``mrf.n``. With no idle qubit the caller must pass it.
+
+    Each call is the span ``qcmrf.circuit.lower`` and counts the gates it
+    emits as ``basis_gate`` (both only while PyTorch's profiler runs).
     """
     if style not in ("fused", "literal"):
         raise ValueError(f"unknown lowering style {style!r}")
@@ -236,9 +241,10 @@ def lower(circuit: Circuit, style: str = "fused",
                 _emit_fused_diagonal(out, item)
             else:
                 _lower_gate(out, item, style, workspace)
-        return out
-    for g in gates:
-        _lower_gate(out, g, style, workspace)
+    else:
+        for g in gates:
+            _lower_gate(out, g, style, workspace)
+    profiling.count("basis_gate", len(out.gates))
     return out
 
 
