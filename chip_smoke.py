@@ -21,13 +21,17 @@ kernels' launch counters reset just before it and read just after:
   a 32-variable chain's streaming MAP and lnZ (ids past 2^31) are held
   against elimination;
 * the plane engine runs the 16-variable QCMRF chain at 32 qubits (three
-  fused sandwich passes over 32 GiB of planes, in place), checked against
-  the post-selected amplitudes of the log-potential kernel;
-* the probability form (phase probability form): the read-write sandwich
-  kernel's form that stores |amplitude|^2 from its registers, against its
-  plain version at width 24 and timed at width 30 beside its bound;
-  ``simulate_probs`` of the 15-variable chain (width 30) against the
-  amplitude route, its launches and peak memory;
+  fused sandwich passes, run as one write-only pass over its 15 fresh
+  ancillas and 32 GiB of planes), checked against the post-selected
+  amplitudes of the log-potential kernel;
+* the probability forms (phase probability form): the read-write sandwich
+  kernel's form that stores |amplitude|^2 from its registers, and the
+  write-only kernel's over 14 ancillas, each against its plain version at
+  width 24 and timed at width 30 beside its bound, the write-only one
+  also against the two launches it replaces there; ``simulate_probs`` of
+  the 15-variable chain (width 30): one ``hdh_multi_uniform_probs``
+  launch, against the amplitude route, and its peak memory; of a 3x4
+  grid (width 30), whose last group does not fold: the read-write form;
 * the plane engine runs bench.py's 14-variable chain at 28 qubits lowered
   to the ``[cx, id, rz, sx, x]`` basis (``QCMRF.lowered``): about 2500
   diag, lane, row and sandwich passes, checked against the unlowered
@@ -783,18 +787,25 @@ PROBS_WIDTH = 30   # chain15's circuit, the benchmark's chain15.circuit
 
 
 def phase_probability_form(dev, report):
-    """The read-write sandwich kernel's probability form: held against its
-    plain version at width 24 (k = 7), then at width 30 on chain15's stream
-    against the amplitude pass followed by ``re * re + im * im``; timed at
-    width 30 beside its bound (12 bytes a value) and beside the ops it
-    replaces; ``simulate_probs`` of the chain against the amplitude route,
-    with its launches (the kernels line's count) and peak memory."""
+    """The sandwich kernels' probability forms. The read-write one: held
+    against its plain version at width 24 (k = 7), then at width 30 on
+    chain15's last group against the amplitude pass followed by ``re * re
+    + im * im``; timed there beside its bound (12 bytes a value) and the
+    ops it replaces. The write-only one over chain15's 14 fresh ancillas
+    (``planes.fold_fresh``): held against its plain version at width 24
+    and, at width 30, against the two launches it replaces (the write-only
+    amplitude pass, then the read-write probability form); timed beside
+    its bound (4 bytes a value) and those two; its amplitude form over 14
+    and 15 ancillas against its plain version at width 24.
+    ``simulate_probs`` of the chain against the amplitude route, with its
+    launches (the write-only row's count) and peak memory; of a 3x4 grid
+    (width 30), whose last group does not fold, the same, its launches
+    the read-write row's count."""
     from qcmrf_tpu_torch.circuits.compiler import compile_qcmrf
     from qcmrf_tpu_torch.ops import kernels as K
     from qcmrf_tpu_torch.sim import planes
 
-    print("[probability form] |amplitude|^2 from the last sandwich pass's "
-          "registers")
+    print("[probability form] |amplitude|^2 from the last sandwich pass")
     nq, k, a_lo = SANDWICH_WIDTH, 7, SANDWICH_WIDTH - 11
     nts, nas, nbs, mu = random_profiles(nq, a_lo, k, 53, True)
 
@@ -820,6 +831,46 @@ def phase_probability_form(dev, report):
                ms_at_plain_shape=cuda_ms(lambda: fn(pl), reps=20),
                plain_shape=f"2^{nq} values, k={k}")
     del got, want, pl
+    # the write-only form at width 24 over 14 ancillas, mu != 0
+    ku, au = 14, nq - 14
+    *nu_u, mu_u = random_profiles(nq, au, ku, 59, True)
+    uni = (nq, tuple(q for q in range(au) if q % 3), au, *nu_u, *mu_u)
+
+    def fn_u():
+        return K.apply_hdh_sandwich_multi_uniform_probs(*uni, device=dev)
+
+    def plain_u():
+        return K.apply_hdh_sandwich_multi_uniform_probs_reference(
+            *uni, device=dev)
+
+    got, want = fn_u(), plain_u()
+    err = float((got - want).abs().max() / want.abs().max())
+    require(err <= 1e-6, f"hdh_multi_uniform_probs at width {nq}, k={ku}: "
+                         f"kernel == plain version within 1e-6 of the "
+                         f"largest ({err:.2e})")
+    del got, want
+    urow = dict(max_err_of_largest=err,
+                plain_ms=cuda_ms(plain_u, reps=3),
+                ms_at_plain_shape=cuda_ms(fn_u, reps=20),
+                plain_shape=f"2^{nq} values, k={ku}")
+    # the amplitude form over 14 and 15 ancillas (items split over the
+    # high patterns), every amplitude against its plain version
+    for ka in (14, 15):
+        *nu_a, mu_a = random_profiles(nq, nq - ka, ka, 61 + ka, True)
+        amp = (nq, tuple(q for q in range(nq - ka) if q % 3), nq - ka,
+               *nu_a, *mu_a)
+        got = K.apply_hdh_sandwich_multi_uniform(*amp, device=dev)
+        want = K.apply_hdh_sandwich_multi_uniform_reference(*amp,
+                                                            device=dev)
+        got, want = torch.complex(*got), torch.complex(*want)
+        e = float((got - want).abs().max())
+        err = e / float(want.abs().max())
+        require(err <= 1e-6, f"hdh_multi_uniform at width {nq}, k={ka}: "
+                             f"kernel == plain version within 1e-6 of the "
+                             f"largest ({err:.2e})")
+        report.setdefault("sandwich_w24", {})[f"hdh_multi_uniform_k{ka}"] = (
+            dict(max_abs_err=e, max_err_of_largest=err))
+        del got, want
     torch.cuda.empty_cache()
 
     w = PROBS_WIDTH
@@ -829,6 +880,11 @@ def phase_probability_form(dev, report):
     require([op[0] for op in ops] == ["sandwichku", "sandwichk"],
             f"width {w}: chain15's stream is a write-only and a read-write "
             "group")
+    folded = planes.fold_fresh(ops)
+    require(len(folded) == 1 and len(folded[0][3]) == 14,
+            f"width {w}: chain15's stream runs as one write-only pass over "
+            "14 fresh ancillas")
+    merged = folded[0][1:]
     _, a2, nts2, nas2, nbs2, mt2, ma2, mb2 = ops[1]
     re, im = planes.run_ops(ops[:1], w, dev)
     want = planes.apply_ops(re.clone(), im.clone(), ops[1:], w)
@@ -839,12 +895,22 @@ def phase_probability_form(dev, report):
     require(err <= 1e-6, f"width {w}: the read-write probability form == "
                          f"the amplitude pass then re * re + im * im within "
                          f"1e-6 of the largest ({err:.2e})")
-    del want, got
+    del want
+    one = K.apply_hdh_sandwich_multi_uniform_probs(w, *merged, device=dev)
+    got = got.reshape(-1)
+    err = float((one - got).abs().max() / got.max())
+    require(err <= 1e-6, f"width {w}: the write-only probability form over "
+                         f"14 ancillas == the two launches it replaces within"
+                         f" 1e-6 of the largest ({err:.2e})")
+    urow["max_err_of_largest_vs_two_launches"] = err
+    del one, got
     torch.cuda.empty_cache()
     ms = cuda_ms(lambda: K.apply_hdh_sandwich_multi_probs(
         re, im, a2, nts2, nas2, nbs2, mt2, ma2, mb2), reps=10)
     b = bound(12 * N, 3 * N)
-    row.update(ms=ms, **b, shape=f"2^{w} values, chain15's last group, k=7")
+    row.update(ms=ms, **b, shape=f"2^{w} values, chain15's second group "
+                                 "(k=7) alone; its launches from the 3x4 "
+                                 "grid's simulate_probs")
     # what the form replaces, on the same planes: the amplitude pass (the
     # port's own kernel) and PyTorch's re * re + im * im after it
     amp_ms = cuda_ms(lambda: planes.apply_ops(re, im, ops[1:], w), reps=10)
@@ -857,11 +923,29 @@ def phase_probability_form(dev, report):
           f"{amp_ms:.3f} ms + PyTorch's re * re + im * im {sq_ms:.3f} ms = "
           f"{amp_ms + sq_ms:.3f} ms; plain at 2^{nq} {row['plain_ms']:.3f} "
           f"ms, kernel there {row['ms_at_plain_shape']:.4f} ms")
+    # the write-only form over chain15's 14 ancillas, beside the two
+    # launches it replaces on the same shape
+    first_ms = cuda_ms(lambda: planes.apply_ops(re, im, ops[:1], w),
+                       reps=10)
     del re, im
     torch.cuda.empty_cache()
+    ums = cuda_ms(lambda: K.apply_hdh_sandwich_multi_uniform_probs(
+        w, *merged, device=dev), reps=10)
+    ub = bound(4 * N, 2 * N)
+    urow.update(ms=ums, **ub, shape=f"2^{w} values, chain15's 14 ancillas",
+                library_ms=None, write_only_pass_ms=first_ms,
+                replaced_ms=first_ms + ms)
+    print(f"  hdh_multi_uniform_probs: {ums:.3f} ms at 2^{w} values, bound "
+          f"{ub['bound_ms']:.3f} ms (4 bytes a value, "
+          f"{100 * ub['bound_ms'] / ums:.1f}%); replaces the write-only pass "
+          f"{first_ms:.3f} ms + the read-write probability form {ms:.3f} ms "
+          f"= {first_ms + ms:.3f} ms; plain at 2^{nq} "
+          f"{urow['plain_ms']:.3f} ms, kernel there "
+          f"{urow['ms_at_plain_shape']:.4f} ms")
+    torch.cuda.empty_cache()
 
-    def amplitude_route():
-        r, i = planes.run_statevector(circ, device=dev)
+    def amplitude_route(c):
+        r, i = planes.run_statevector(c, device=dev)
         return (r * r + i * i).reshape(-1)
 
     torch.cuda.reset_peak_memory_stats()
@@ -871,32 +955,64 @@ def phase_probability_form(dev, report):
     torch.cuda.synchronize()
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated() - base
-    for name, want in (("hdh_multi_uniform", 1), ("hdh_multi_probs", 1),
+    for name, want in (("hdh_multi_uniform_probs", 1),
+                       ("hdh_multi_uniform", 0), ("hdh_multi_probs", 0),
                        ("hdh_multi", 0)):
         require(launches[name] == want, f"width {w}: simulate_probs launched "
                                         f"{name} {launches[name]} times "
                                         f"(expected {want})")
-    row["launches"] = launches["hdh_multi_probs"]
-    old = amplitude_route()
+    urow["launches"] = launches["hdh_multi_uniform_probs"]
+    old = amplitude_route(circ)
     err = float((probs - old).abs().max() / old.max())
     require(err <= 1e-6, f"width {w}: simulate_probs == the amplitude route "
                          f"within 1e-6 of the largest ({err:.2e})")
     del probs, old
     torch.cuda.empty_cache()
+    # a 3x4 grid (width 30, 17 ancillas): its first 14 fold into the
+    # write-only pass, the last 3 would pass 16, so the stream ends in the
+    # read-write probability form
+    grid = compile_qcmrf(grid_model(3, 4, 5, dev), with_measurements=False)
+    run = planes.fold_fresh(planes.fuse_ops(grid))
+    require([op[0] for op in run] == ["sandwichku", "sandwichk"]
+            and len(run[0][3]) == 14 and len(run[1][2]) == 3,
+            f"width {w}: the 3x4 grid's stream runs as a write-only pass "
+            "over 14 ancillas and a read-write pass over 3")
+    reset_counts()
+    probs = planes.simulate_probs(grid, device=dev)
+    torch.cuda.synchronize()
+    glaunches = read_counts()
+    for name, want in (("hdh_multi_uniform", 1), ("hdh_multi_probs", 1),
+                       ("hdh_multi_uniform_probs", 0), ("hdh_multi", 0)):
+        require(glaunches[name] == want, f"width {w}: simulate_probs of the "
+                                         f"3x4 grid launched {name} "
+                                         f"{glaunches[name]} times "
+                                         f"(expected {want})")
+    row["launches"] = glaunches["hdh_multi_probs"]
+    old = amplitude_route(grid)
+    err = float((probs - old).abs().max() / old.max())
+    require(err <= 1e-6, f"width {w}: simulate_probs of the 3x4 grid == the "
+                         f"amplitude route within 1e-6 of the largest "
+                         f"({err:.2e})")
+    row["simulate_max_err_of_largest"] = err
+    print(f"  simulate_probs of the 3x4 grid at width {w}: launches "
+          f"hdh_multi_uniform 1, hdh_multi_probs 1; {err:.2e} of the largest "
+          "from the amplitude route")
+    del probs, old
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    amplitude_route()
+    amplitude_route(circ)
     torch.cuda.synchronize()
     old_peak = torch.cuda.max_memory_allocated() - base
     torch.cuda.empty_cache()
     new_ms = cuda_ms(lambda: planes.simulate_probs(circ, device=dev), reps=5)
-    old_ms = cuda_ms(amplitude_route, reps=5)
+    old_ms = cuda_ms(lambda: amplitude_route(circ), reps=5)
     print(f"  simulate_probs at width {w}: {new_ms:.3f} ms, peak "
           f"{peak / 1e9:.3f} GB; the amplitude route (run_statevector, then "
           f"re * re + im * im) {old_ms:.3f} ms, peak {old_peak / 1e9:.3f} GB")
     report["probability_form"] = dict(
-        rows={"hdh_multi_probs": row}, simulate_ms=new_ms,
-        amplitude_route_ms=old_ms, simulate_peak_bytes=peak,
-        amplitude_route_peak_bytes=old_peak)
+        rows={"hdh_multi_probs": row, "hdh_multi_uniform_probs": urow},
+        simulate_ms=new_ms, amplitude_route_ms=old_ms,
+        simulate_peak_bytes=peak, amplitude_route_peak_bytes=old_peak)
     torch.cuda.empty_cache()
 
 
@@ -1040,15 +1156,17 @@ def phase_gate_level(dev, report):
             peak = torch.cuda.max_memory_allocated()
             print(f"  width {w}: main-path run, launches {launches}, peak "
                   f"memory {peak / 2**30:.3f} GiB")
-            # sandwichku, then sandwichk (k=7) and sandwich (k=1)
-            for name, want in (("hdh_multi_uniform", 1), ("hdh_multi", 2)):
+            # sandwichku, sandwichk (k=7) and sandwich (k=1): one
+            # write-only pass over the 15 fresh ancillas (fold_fresh)
+            for name, want in (("hdh_multi_uniform", 1), ("hdh_multi", 0)):
                 require(launches[name] == want,
                         f"kernel {name} launched {launches[name]} times in "
                         f"the width-{w} run (expected {want})")
             report["main_gate_level"] = launches
             check_width32(mrf, re, im, dev)
-            # each pass alone at the main path's shape, on these planes
-            for op in ops:
+            # on these planes, each alone: the main path's one write-only
+            # pass (k=15), and the read-write passes it absorbed (k=7, 1)
+            for op in planes.fold_fresh(ops) + ops[1:]:
                 ms = cuda_ms(lambda op=op: planes.apply_ops(re, im, [op], w),
                              reps=3)
                 b = bound(op_bytes(op, w), pass_flops([op], w))
@@ -1068,8 +1186,9 @@ def phase_gate_level(dev, report):
         torch.cuda.empty_cache()
         ms = cuda_ms(lambda: planes.run_ops(ops, w, dev),
                      reps=3 if w >= 30 else 5)
-        b = bound(sum(op_bytes(op, w) for op in ops), pass_flops(ops, w))
-        row = dict(ms=ms, passes=len(ops), gates=len(circ.gates),
+        run = planes.fold_fresh(ops)
+        b = bound(sum(op_bytes(op, w) for op in run), pass_flops(run, w))
+        row = dict(ms=ms, passes=len(run), gates=len(circ.gates),
                    plan_ms=plan_ms, **b)
         if w == plain_w:
             torch.cuda.empty_cache()
@@ -1077,8 +1196,8 @@ def phase_gate_level(dev, report):
                                       reps=1)
         rows[w] = row
         print(f"  qcmrf{w}_gate_level_ms {ms:.3f} (bound {b['bound_ms']:.3f}"
-              f" ms, {b['bound_by']}); passes {len(ops)} "
-              f"{[op[0] for op in ops]}; gates {len(circ.gates)}; planner "
+              f" ms, {b['bound_by']}); passes {len(run)} "
+              f"{[op[0] for op in run]}; gates {len(circ.gates)}; planner "
               f"{plan_ms:.1f} ms on the host"
               + (f"; plain {row['plain_ms']:.3f} ms" if "plain_ms" in row
                  else ""))
@@ -4536,6 +4655,10 @@ REPLACES = {
     "hdh_multi_probs": "qcmrf_tpu/ops/kernels.py:1895 and the "
                        "re * re + im * im after it (qcmrf_tpu/sim/tpu.py:475,"
                        " XLA)",
+    "hdh_multi_uniform_probs": "qcmrf_tpu/ops/kernels.py:1895 (the "
+                               "write-only form, then the read-write one on "
+                               "the next group) and the re * re + im * im "
+                               "after it (qcmrf_tpu/sim/tpu.py:475, XLA)",
 }
 ALSO_REPLACES = {
     "logpot": ["qcmrf_tpu/ops/kernels.py:257 (the split loop kernel)"],
@@ -4558,25 +4681,33 @@ SOURCES = {
     "diag": "gate_kernels.cu", "copy": "gate_kernels.cu",
     "fma_peak": "gate_kernels.cu", "gibbs": "gibbs_kernels.cu",
     "gibbs_ais": "gibbs_kernels.cu", "hdh_multi_probs": "circuit_kernels.cu",
+    "hdh_multi_uniform_probs": "circuit_kernels.cu",
 }
 
 
-#: sandwich kernel -> (its passes in the width-32 chain, its width-24
-#: cases whose plain versions are timed, its width-24 cases held against
-#: their plain versions)
+#: sandwich kernel -> (its passes of the width-32 chain, timed alone, and
+#: what they are; its width-24 cases whose plain versions are timed; its
+#: width-24 cases held against their plain versions)
 SANDWICH_PARTS = {
-    "hdh_multi": (("sandwichk", "sandwich"), ("hdh_multi", "hdh_single"),
+    "hdh_multi": (("sandwichk", "sandwich"),
+                  "the width-32 chain's read-write passes (k=7, k=1), each "
+                  "alone, summed; the main path folds them into its "
+                  "write-only pass", ("hdh_multi", "hdh_single"),
                   ("hdh_single", "hdh_pair", "hdh_multi")),
-    "hdh_multi_uniform": (("sandwichku",), ("hdh_multi_uniform",),
-                          ("hdh_multi_uniform",)),
+    "hdh_multi_uniform": (("sandwichku",),
+                          "the width-32 chain's one write-only pass over its"
+                          " 15 fresh ancillas (fold_fresh), as the main "
+                          "path runs it", ("hdh_multi_uniform",),
+                          ("hdh_multi_uniform", "hdh_multi_uniform_k14",
+                           "hdh_multi_uniform_k15")),
 }
 
 
 def sandwich_entry(name, report) -> dict:
     """A sandwich kernel's line: the summed time and bound of its passes
-    at the width-32 main path's shape; its plain version, held against
-    it, at width 24 on the same k."""
-    passes, timed, held = SANDWICH_PARTS[name]
+    at the width-32 chain's shape (2^32 values); its plain version, held
+    against it, at width 24."""
+    passes, what, timed, held = SANDWICH_PARTS[name]
     w32 = [report["pass_w32"][p] for p in passes]
     w24 = [report["sandwich_w24"][c] for c in timed]
     by = {e["bound_by"] for e in w32}
@@ -4587,8 +4718,7 @@ def sandwich_entry(name, report) -> dict:
         plain_ms=sum(e["plain_ms"] for e in w24),
         bound_ms=sum(e["bound_ms"] for e in w32),
         bound_by=by.pop() if len(by) == 1 else "bytes and operations",
-        shape=f"its passes {list(passes)} of the width-32 chain (2^32 "
-              "values), summed",
+        shape=f"{what} (2^32 values)",
         plain_shape="; ".join(e["shape"] for e in w24),
         ms_at_plain_shape=sum(e["ms"] for e in w24),
         bound_ms_at_plain_shape=sum(e["bound_ms"] for e in w24))
@@ -4783,13 +4913,14 @@ def main() -> int:
     kernels_line.append(dict(launches=ais_path["gibbs_ais"]
                              + shard["gibbs_ais"] + dr["gibbs_ais"],
                              library_ms=None, **report["gibbs_ais"]))
-    kernels_line.append(dict(report["probability_form"]["rows"][
-        "hdh_multi_probs"]))
+    for k in ("hdh_multi_probs", "hdh_multi_uniform_probs"):
+        kernels_line.append(dict(report["probability_form"]["rows"][k]))
     for k, entry in zip(("sampler", "logpot", "lse", "hdh_multi",
                          "hdh_multi_uniform", "circuit", "map", "moments",
                          "lnz_moments", "lane_factored", "lane", "row_gate",
                          "diag", "copy",
-                         "fma_peak", "gibbs", "gibbs_ais", "hdh_multi_probs"),
+                         "fma_peak", "gibbs", "gibbs_ais", "hdh_multi_probs",
+                         "hdh_multi_uniform_probs"),
                         kernels_line):
         entry.update(name=k, route="cuda",
                      source=f"qcmrf_tpu_torch/csrc/{SOURCES[k]}",

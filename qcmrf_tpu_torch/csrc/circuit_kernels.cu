@@ -1,8 +1,8 @@
 // Hand-written Hopper (sm_90a) kernels of the QCMRF gate-level engine:
 // the H·D·H sandwich passes of the plane engine (k <= 7 adjacent ancillas,
-// read-write, k = 1 being the single sandwich; k ancillas on the folded
-// uniform state, write-only; the read-write one also in a probability form
-// that stores |amplitude|^2 in place of the amplitude) and the
+// read-write, k = 1 being the single sandwich; k <= 16 ancillas on the
+// folded uniform state, write-only; each also in a probability form that
+// stores |amplitude|^2 in place of the amplitude) and the
 // whole-circuit kernel of `run --engine statevector`.
 //
 // Built with qcmrf_kernels.cu into one library by
@@ -267,79 +267,190 @@ hdh_multi_kernel(const unsigned char* __restrict__ table, int n_terms,
 }
 
 // ---------------------------------------------------------------------------
-// 2. k adjacent sandwiches on the folded uniform state, write-only
+// 2. K adjacent sandwiches on the folded uniform state, write-only
 // ---------------------------------------------------------------------------
 // Replaces the write-only form of _build_hdh_multi_kernel
-// (_hdh_multi_uniform_call). The input is H^{folded}|0>: amplitude amp
-// where (x & comp) == 0, else 0, and its K ancilla bits are 0 (ancillas
-// are never folded), so value j of anchor x0 is
+// (_hdh_multi_uniform_call) at K <= 7. The input is H^{folded}|0>:
+// amplitude amp where (x & comp) == 0, else 0, and its K ancilla bits are 0
+// (ancillas are never folded), so value j of anchor x0 is
 //   e^{i mu} * amp(x0) * (-i)^popcount(j) * prod_t (bit t of j ? sin : cos)
-// (column 0 of the Rx tensor power). Nothing is read.
-// Bound on this card: device memory, 8 bytes written per value against
-// K + 6 float operations. T anchors per block (consecutive low bits, so a
-// warp's stores coalesce), G = min(2^K, 8) values of an anchor in flight
-// per pass; (cos, sin) of every profile is computed once per anchor.
-template <int K>
+// (column 0 of the Rx tensor power). Nothing is read. K runs to 16: a run
+// of sandwich groups whose ancillas are all still |0> when it starts, and
+// whose profiles condition on none of them, is one such pass over all
+// their ancillas (sim/planes.py::fold_fresh), since each group's input on
+// its own ancillas is then (psi, 0, ..., 0).
+// Probability form (kProbs): the stream's last pass, run for its outcome
+// distribution (sim/planes.py::simulate_probs), writes
+//   amp(x0)^2 * prod_t (bit t of j ? sin^2 : cos^2)
+// into one float32 buffer of 2^w values (re; im is not touched): mu and
+// the phases change no probability. 4 bytes written a value, where the
+// amplitude form writes 8.
+// Bound on this card: device memory, the bytes written. The product of a
+// value's K factors splits into its low KL = min(K, 5) ancilla bits and the
+// KH = K - KL high ones. A tile is T anchors (consecutive low index bits),
+// and a work item a tile's share of the high patterns (all of them up to
+// 64; past 64, items of 64, so that many items keep the last wave short);
+// per item the block tabulates each anchor's 2^KL low products in shared
+// memory. The block's G groups of threads take the low patterns in turn;
+// each thread takes 4 consecutive anchors, so that a warp stores 128
+// consecutive values of one pattern (512 bytes, one 16-byte store a thread:
+// long runs keep the scattered rows' writes near the rate of a sequential
+// fill). For one high pattern at a time a thread forms its anchors' high
+// products (KH multiplies each, from shared memory) and stores 2^KL / G
+// vectors, each value one multiply (a complex one in the amplitude form)
+// from the table. Streaming stores: nothing reads the values back in the
+// pass. Where the 4 anchors are not 4 adjacent values (a_lo < 2, or a tile
+// runs past the last anchor), the thread stores them one by one.
+template <int K, bool kProbs>
+struct UniformShape {
+  static constexpr int KL = K < 5 ? K : 5;
+  static constexpr int KH = K - KL;
+  static constexpr int NL = 1 << KL;
+  static constexpr int G = NL < 8 ? NL : 8;  // thread groups
+  static constexpr int V = 4;                // anchors a thread
+  static constexpr int T = V * (kThreads / G);
+  static constexpr int NP = K + 1;
+  // high patterns a work item: a tile's are split into NC items so that
+  // the last wave of blocks is short
+  static constexpr int JC = KH > 6 ? 64 : 1 << KH;
+  static constexpr int NC = (1 << KH) / JC;
+  // floats of shared memory after the profile table: (cos, sin) of every
+  // profile, the anchors' amplitudes, the low products' table(s)
+  static constexpr int kFloats = 2 * NP * T + T + (kProbs ? 1 : 2) * NL * T;
+};
+
+__device__ __forceinline__ int align16(int bytes) {
+  return (bytes + 15) & ~15;
+}
+
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 mul4(float4 a, float4 b) {
+  return make_float4(a.x * b.x, a.y * b.y, a.z * b.z, a.w * b.w);
+}
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+__device__ __forceinline__ float4 sub4(float4 a, float4 b) {
+  return make_float4(a.x - b.x, a.y - b.y, a.z - b.z, a.w - b.w);
+}
+__device__ __forceinline__ float4 neg4(float4 a) {
+  return make_float4(-a.x, -a.y, -a.z, -a.w);
+}
+
+template <int K, bool kProbs>
 __global__ void __launch_bounds__(kThreads)
 hdh_multi_uniform_kernel(const unsigned char* __restrict__ table,
                          int n_terms, float* __restrict__ re,
                          float* __restrict__ im, int64_t num_anchors,
                          int a_lo, unsigned long long comp, float amp) {
-  constexpr int NJ = 1 << K;
-  constexpr int G = NJ < 8 ? NJ : 8;
-  constexpr int T = kThreads / G;
-  constexpr int NP = K + 1;
+  using U = UniformShape<K, kProbs>;
+  constexpr int KL = U::KL, KH = U::KH, NL = U::NL, G = U::G, V = U::V;
+  constexpr int T = U::T, NP = U::NP, JC = U::JC, NC = U::NC;
   extern __shared__ __align__(16) unsigned char smem[];
   const int table_bytes = NP * sizeof(Profile) + n_terms * sizeof(Term);
   load_words(smem, table, table_bytes);
   const Profile* prof = reinterpret_cast<const Profile*>(smem);
   const Term* terms =
       reinterpret_cast<const Term*>(smem + NP * sizeof(Profile));
-  float* cs_c = reinterpret_cast<float*>(smem + table_bytes);
+  float* cs_c = reinterpret_cast<float*>(smem + align16(table_bytes));
   float* cs_s = cs_c + NP * T;
   float* a_amp = cs_s + NP * T;
+  float* lo_r = a_amp + T;      // (NL, T): the low products, or squares
+  float* lo_i = lo_r + NL * T;  // amplitude form only
   __syncthreads();
 
   const uint64_t S = uint64_t(1) << a_lo;
-  const int a = threadIdx.x % T;
-  const int r = threadIdx.x / T;
-  const int64_t num_tiles = (num_anchors + T - 1) / T;
-  for (int64_t tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
-    const int64_t tile0 = tile * T;
+  const int u = V * (threadIdx.x % (kThreads / G));  // first anchor's slot
+  const int g = threadIdx.x / (kThreads / G);
+  const int64_t num_items = (num_anchors + T - 1) / T * NC;
+  for (int64_t item = blockIdx.x; item < num_items; item += gridDim.x) {
+    const int64_t tile0 = item / NC * T;
+    const int jh0 = item % NC * JC;
     for (int i = threadIdx.x; i < NP * T; i += kThreads) {
       const uint64_t x = anchor_base(tile0 + i % T, a_lo, K);
       profile_cs(prof, terms, i / T, x, cs_c[i], cs_s[i]);
       if (i < T) a_amp[i] = (x & comp) == 0 ? amp : 0.0f;
     }
     __syncthreads();
-    const int64_t A = tile0 + a;
-    if (A < num_anchors) {
-      const uint64_t x0 = anchor_base(A, a_lo, K);
-      const float cm = cs_c[a], sm = cs_s[a];
-      float c[K], s[K];
+    for (int i = threadIdx.x; i < NL * T; i += kThreads) {
+      const int jl = i / T, t = i % T;
+      float m = 1.0f;
 #pragma unroll
-      for (int b = 0; b < K; ++b) {
-        c[b] = cs_c[(1 + b) * T + a];
-        s[b] = cs_s[(1 + b) * T + a];
+      for (int b = 0; b < KL; ++b) {
+        m *= ((jl >> b) & 1) ? cs_s[(1 + b) * T + t] : cs_c[(1 + b) * T + t];
       }
-#pragma unroll
-      for (int q = 0; q < NJ / G; ++q) {
-        const int j = r + q * G;
-        float p = a_amp[a];
-#pragma unroll
-        for (int b = 0; b < K; ++b) p *= ((j >> b) & 1) ? s[b] : c[b];
-        float rv, iv;
-        switch (__popc(j) & 3) {
-          case 0: rv = p; iv = 0.0f; break;
-          case 1: rv = 0.0f; iv = -p; break;
-          case 2: rv = -p; iv = 0.0f; break;
-          default: rv = 0.0f; iv = p; break;
-        }
-        store_phased(re, im, x0 + static_cast<uint64_t>(j) * S, cm, sm, rv,
-                     iv);
+      if constexpr (kProbs) {
+        lo_r[i] = m * m;
+      } else {  // (-i)^popcount(jl) m
+        const int ph = __popc(jl) & 3;
+        lo_r[i] = ph == 0 ? m : (ph == 2 ? -m : 0.0f);
+        lo_i[i] = ph == 1 ? -m : (ph == 3 ? m : 0.0f);
       }
     }
-    __syncthreads();  // the next tile reuses cs_* and a_amp
+    __syncthreads();
+    const int64_t A0 = tile0 + u;
+    if (A0 < num_anchors) {
+      // 4 consecutive anchors are 4 consecutive floats where a_lo >= 2;
+      // the wrapper holds every output to a 16-byte boundary
+      const bool vec = a_lo >= 2 && A0 + V <= num_anchors;
+      const uint64_t x0 = anchor_base(A0, a_lo, K);
+      const float4 am = load4(a_amp + u);
+      const float4 cm = load4(cs_c + u), sm = load4(cs_s + u);  // mu
+#pragma unroll 1
+      for (int jh = jh0; jh < jh0 + JC; ++jh) {
+        float4 m = am;  // amp * the high product, each anchor
+#pragma unroll
+        for (int b = 0; b < KH; ++b) {
+          m = mul4(m, load4((((jh >> b) & 1) ? cs_s : cs_c) +
+                            (1 + KL + b) * T + u));
+        }
+        const uint64_t row = x0 + static_cast<uint64_t>(jh << KL) * S;
+        float4 wr, wi;  // the high part of each value (probs: wr alone)
+        if constexpr (kProbs) {
+          wr = wi = mul4(m, m);
+        } else {  // e^{i mu} amp (-i)^popcount(jh) high product
+          const float4 hr = mul4(m, cm), hi = mul4(m, sm);
+          switch (__popc(jh) & 3) {
+            case 0: wr = hr; wi = hi; break;
+            case 1: wr = hi; wi = neg4(hr); break;
+            case 2: wr = neg4(hr); wi = neg4(hi); break;
+            default: wr = neg4(hi); wi = hr; break;
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < NL / G; ++q) {
+          const int jl = g + q * G;
+          const uint64_t off = row + static_cast<uint64_t>(jl) * S;
+          const float4 lr = load4(lo_r + jl * T + u);
+          float4 vr, vi;
+          if constexpr (kProbs) {
+            vr = vi = mul4(wr, lr);
+          } else {
+            const float4 li = load4(lo_i + jl * T + u);
+            vr = sub4(mul4(wr, lr), mul4(wi, li));
+            vi = add4(mul4(wr, li), mul4(wi, lr));
+          }
+          if (vec) {
+            __stcs(reinterpret_cast<float4*>(re + off), vr);
+            if constexpr (!kProbs) {
+              __stcs(reinterpret_cast<float4*>(im + off), vi);
+            }
+          } else {
+            const float r4[4] = {vr.x, vr.y, vr.z, vr.w};
+            const float i4[4] = {vi.x, vi.y, vi.z, vi.w};
+            const uint64_t jS = static_cast<uint64_t>((jh << KL) | jl) * S;
+            for (int v = 0; v < V && A0 + v < num_anchors; ++v) {
+              const uint64_t idx = anchor_base(A0 + v, a_lo, K) + jS;
+              __stcs(re + idx, r4[v]);
+              if constexpr (!kProbs) __stcs(im + idx, i4[v]);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // the next item reuses cs_*, a_amp and lo_*
   }
 }
 
@@ -468,21 +579,41 @@ cudaError_t launch_multi(const unsigned char* table, int n_terms, float* re,
   return cudaGetLastError();
 }
 
-template <int K>
+template <int K, bool kProbs>
 cudaError_t launch_uniform(const unsigned char* table, int n_terms,
                            float* re, float* im, int64_t num_anchors,
                            int a_lo, unsigned long long comp, float amp,
                            cudaStream_t stream) {
-  constexpr int G = (1 << K) < 8 ? (1 << K) : 8;
-  constexpr int T = kThreads / G;
-  const size_t bytes = table_bytes(K + 1, n_terms) +
-                       sizeof(float) * (2 * (K + 1) + 1) * T;
-  cudaError_t err = allow_shared(hdh_multi_uniform_kernel<K>, bytes);
+  using U = UniformShape<K, kProbs>;
+  const size_t bytes = ((table_bytes(K + 1, n_terms) + 15) & ~size_t(15)) +
+                       sizeof(float) * U::kFloats;
+  cudaError_t err = allow_shared(hdh_multi_uniform_kernel<K, kProbs>, bytes);
   if (err != cudaSuccess) return err;
-  hdh_multi_uniform_kernel<K><<<capped_blocks(num_anchors, T), kThreads,
-                                bytes, stream>>>(
+  hdh_multi_uniform_kernel<K, kProbs><<<capped_blocks(
+                                            num_anchors * U::NC, U::T),
+                                        kThreads, bytes, stream>>>(
       table, n_terms, re, im, num_anchors, a_lo, comp, amp);
   return cudaGetLastError();
+}
+
+// The write-only pass at k = 1..kMaxUniformK ancillas, in either form.
+constexpr int kMaxUniformK = 16;
+
+template <bool kProbs, int K = 1>
+cudaError_t uniform_pass(const unsigned char* table, int n_terms, int k,
+                         float* re, float* im, int64_t num_anchors, int a_lo,
+                         unsigned long long comp, float amp,
+                         cudaStream_t s) {
+  if constexpr (K > kMaxUniformK) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (k == K) {
+      return launch_uniform<K, kProbs>(table, n_terms, re, im, num_anchors,
+                                       a_lo, comp, amp, s);
+    }
+    return uniform_pass<kProbs, K + 1>(table, n_terms, k, re, im,
+                                       num_anchors, a_lo, comp, amp, s);
+  }
 }
 
 // The read-write pass at k = 1..7 ancillas, in either form.
@@ -527,19 +658,19 @@ int qcmrf_hdh_multi_uniform(const unsigned char* table, int n_terms, int k,
                             float* re, float* im, int64_t num_anchors,
                             int a_lo, unsigned long long comp, float amp,
                             void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (k) {
-    case 1: err = launch_uniform<1>(table, n_terms, re, im, num_anchors, a_lo, comp, amp, s); break;
-    case 2: err = launch_uniform<2>(table, n_terms, re, im, num_anchors, a_lo, comp, amp, s); break;
-    case 3: err = launch_uniform<3>(table, n_terms, re, im, num_anchors, a_lo, comp, amp, s); break;
-    case 4: err = launch_uniform<4>(table, n_terms, re, im, num_anchors, a_lo, comp, amp, s); break;
-    case 5: err = launch_uniform<5>(table, n_terms, re, im, num_anchors, a_lo, comp, amp, s); break;
-    case 6: err = launch_uniform<6>(table, n_terms, re, im, num_anchors, a_lo, comp, amp, s); break;
-    case 7: err = launch_uniform<7>(table, n_terms, re, im, num_anchors, a_lo, comp, amp, s); break;
-    default: err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(uniform_pass<false>(
+      table, n_terms, k, re, im, num_anchors, a_lo, comp, amp,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// The write-only pass's probability form: probabilities into out.
+int qcmrf_hdh_multi_uniform_probs(const unsigned char* table, int n_terms,
+                                  int k, float* out, int64_t num_anchors,
+                                  int a_lo, unsigned long long comp,
+                                  float amp, void* stream) {
+  return static_cast<int>(uniform_pass<true>(
+      table, n_terms, k, out, nullptr, num_anchors, a_lo, comp, amp,
+      static_cast<cudaStream_t>(stream)));
 }
 
 int qcmrf_circuit(const void* circuits, const int* structures,

@@ -102,6 +102,10 @@ _SIGNATURES = {
     "qcmrf_hdh_multi_probs": (_P, _I, _I, _P, _P, _I64, _I, _P),
     # table, n_terms, k, re, im, num_anchors, a_lo, comp, amp, stream
     "qcmrf_hdh_multi_uniform": (_P, _I, _I, _P, _P, _I64, _I, _U64, _F, _P),
+    # table, n_terms, k, out (probabilities), num_anchors, a_lo, comp, amp,
+    # stream
+    "qcmrf_hdh_multi_uniform_probs": (_P, _I, _I, _P, _I64, _I, _U64, _F,
+                                      _P),
     # circuit descriptors, structure tables, thetas, circuits, beta,
     # shared bytes, scratch, out, stream
     "qcmrf_circuit": (_P, _P, _P, _I, _D, _I, _P, _P, _P),

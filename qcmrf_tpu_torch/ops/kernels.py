@@ -54,11 +54,13 @@ of the flat index):
   ancillas (``hdh_multi_kernel``); :func:`apply_hdh_sandwich`,
   :func:`apply_hdh_sandwich_pair` and :func:`apply_hdh_sandwich_quad` are
   its k = 1, 2 and 4 calls;
-* :func:`apply_hdh_sandwich_multi_uniform`: the same k sandwiches on the
+* :func:`apply_hdh_sandwich_multi_uniform`: k <= 16 sandwiches on the
   folded uniform H-wall state, write-only (``hdh_multi_uniform_kernel``);
-* :func:`apply_hdh_sandwich_multi_probs`: the read-write pass in its
-  probability form, storing ``|amplitude|^2`` from the registers in place
-  of the amplitudes (the last pass of ``sim.planes.simulate_probs``).
+* :func:`apply_hdh_sandwich_multi_probs` and
+  :func:`apply_hdh_sandwich_multi_uniform_probs`: the read-write and the
+  write-only pass in their probability forms, storing ``|amplitude|^2``
+  in place of the amplitudes (the last pass of
+  ``sim.planes.simulate_probs``).
 
 The generic gate passes (kernels of ``csrc/gate_kernels.cu``) take planes
 of at least 7 qubits:
@@ -1106,6 +1108,9 @@ def fma_chain_max_reference(x: torch.Tensor, b: float = 1e-9,
 
 #: most ancillas one sandwich pass takes
 _MAX_SANDWICH_K = 7
+#: most ancillas the write-only pass takes: a run of sandwich groups on
+#: ancillas still |0> (sim/planes.py::fold_fresh) is one pass over all of them
+MAX_UNIFORM_K = 16
 #: most terms (all profiles of one pass together) the kernels' shared-memory
 #: table holds: 24 bytes each
 MAX_SANDWICH_TERMS = 1024
@@ -1173,10 +1178,10 @@ def _check_terms(nq: int, profiles, ancillas=range(0)) -> None:
                                      "of its own pass")
 
 
-def _check_pass(nq: int, a_lo: int, k: int, profiles) -> None:
-    if not 1 <= k <= _MAX_SANDWICH_K:
-        raise ValueError(f"{k} ancillas; a sandwich pass takes 1.."
-                         f"{_MAX_SANDWICH_K}")
+def _check_pass(nq: int, a_lo: int, k: int, profiles,
+                max_k: int = _MAX_SANDWICH_K) -> None:
+    if not 1 <= k <= max_k:
+        raise ValueError(f"{k} ancillas; a sandwich pass takes 1..{max_k}")
     if a_lo < 0 or a_lo + k > nq:
         raise ValueError(f"ancillas {a_lo}..{a_lo + k - 1} outside "
                          f"{nq} qubits")
@@ -1458,7 +1463,7 @@ def _uniform_args(num_qubits, folded, anc_lo, nu_terms_k, nu_angles_k,
     nus, mu = _multi_profiles(nu_terms_k, nu_angles_k, nu_bases_k,
                               mu_terms, mu_angles, mu_base)
     k = len(nus)
-    _check_pass(num_qubits, anc_lo, k, nus + (mu,))
+    _check_pass(num_qubits, anc_lo, k, nus + (mu,), MAX_UNIFORM_K)
     folded = tuple(int(q) for q in folded)
     if any(anc_lo <= q < anc_lo + k for q in folded):
         raise ValueError("the folded qubits hold one of the pass's ancillas")
@@ -1493,6 +1498,18 @@ def apply_hdh_sandwich_multi_uniform_reference(
     return _multi_reference(re, im, anc_lo, nus, mu)
 
 
+def _uniform_launch(entry: str, num_qubits: int, folded, anc_lo: int, nus,
+                    mu, carrier: float, *out) -> None:
+    """Launch the write-only pass's entry point ``entry`` into ``out`` (both
+    planes, or the probabilities), which it stores as float4."""
+    ptrs = _launch_ptrs(*out)
+    comp = ((1 << num_qubits) - 1) ^ sum(1 << q for q in set(folded))
+    table, n_terms = _profile_table((mu,) + nus, out[0].device)
+    _build.launch(entry, out[0].device, _build.ptr(table), n_terms, len(nus),
+                  *ptrs, (1 << num_qubits) >> len(nus), int(anc_lo), comp,
+                  _uniform_amp(folded, carrier))
+
+
 def apply_hdh_sandwich_multi_uniform(num_qubits: int, folded, anc_lo: int,
                                      nu_terms_k, nu_angles_k, nu_bases_k,
                                      mu_terms=(), mu_angles=(), mu_base=0.0,
@@ -1504,8 +1521,10 @@ def apply_hdh_sandwich_multi_uniform(num_qubits: int, folded, anc_lo: int,
     making the uniform planes. Writes into ``out`` (a pair of planes,
     whatever they hold) when given, else into new planes on ``device``
     (the current CUDA device unless one is named); returns the planes.
-    ``folded`` must not hold any of the k ancillas. ``carrier`` scales the
-    amplitude (:func:`uniform_planes`): 0 writes an all-zero state."""
+    ``folded`` must not hold any of the k ancillas, ``k <=``
+    :data:`MAX_UNIFORM_K`; on the card each plane of ``out`` starts on a
+    16-byte boundary. ``carrier`` scales the amplitude
+    (:func:`uniform_planes`): 0 writes an all-zero state."""
     nus, mu, folded = _uniform_args(num_qubits, folded, anc_lo, nu_terms_k,
                                     nu_angles_k, nu_bases_k, mu_terms,
                                     mu_angles, mu_base)
@@ -1514,15 +1533,48 @@ def apply_hdh_sandwich_multi_uniform(num_qubits: int, folded, anc_lo: int,
         re, im = uniform_planes(num_qubits, folded, (re, im),
                                 carrier=carrier)
         return _multi_reference(re, im, anc_lo, nus, mu)
-    k = len(nus)
-    comp = ((1 << num_qubits) - 1) ^ sum(1 << q for q in set(folded))
-    amp = _uniform_amp(folded, carrier)
-    table, n_terms = _profile_table((mu,) + nus, re.device)
-    _build.launch("qcmrf_hdh_multi_uniform", re.device, _build.ptr(table),
-                  n_terms, k, _build.ptr(re), _build.ptr(im),
-                  (1 << num_qubits) >> k, int(anc_lo), comp, amp)
+    _uniform_launch("qcmrf_hdh_multi_uniform", num_qubits, folded, anc_lo,
+                    nus, mu, carrier, re, im)
     profiling.launch("hdh_multi_uniform")
     return re, im
+
+
+def apply_hdh_sandwich_multi_uniform_probs_reference(
+        num_qubits: int, folded, anc_lo: int, nu_terms_k, nu_angles_k,
+        nu_bases_k, mu_terms=(), mu_angles=(), mu_base=0.0, device=None):
+    """Plain PyTorch version of
+    :func:`apply_hdh_sandwich_multi_uniform_probs`: the uniform planes, the
+    read-write pass, then ``re * re + im * im``."""
+    re, im = apply_hdh_sandwich_multi_uniform_reference(
+        num_qubits, folded, anc_lo, nu_terms_k, nu_angles_k, nu_bases_k,
+        mu_terms, mu_angles, mu_base, device=device)
+    return (re * re + im * im).reshape(-1)
+
+
+def apply_hdh_sandwich_multi_uniform_probs(num_qubits: int, folded,
+                                           anc_lo: int, nu_terms_k,
+                                           nu_angles_k, nu_bases_k,
+                                           mu_terms=(), mu_angles=(),
+                                           mu_base=0.0, device=None):
+    """The pass of :func:`apply_hdh_sandwich_multi_uniform` in its
+    probability form: every basis state's ``|amplitude|^2``, a new flat
+    float32 tensor of ``2**num_qubits`` values on ``device`` (the current
+    CUDA device unless one is named). ``mu`` changes no probability: it is
+    checked, not applied. ``hdh_multi_uniform_kernel<K, true>`` on the
+    card: 4 bytes written a value, and no planes."""
+    device = resolve_device(device)
+    if device.type == "cpu":
+        return apply_hdh_sandwich_multi_uniform_probs_reference(
+            num_qubits, folded, anc_lo, nu_terms_k, nu_angles_k, nu_bases_k,
+            mu_terms, mu_angles, mu_base, device=device)
+    nus, mu, folded = _uniform_args(num_qubits, folded, anc_lo, nu_terms_k,
+                                    nu_angles_k, nu_bases_k, mu_terms,
+                                    mu_angles, mu_base)
+    probs = torch.empty(1 << num_qubits, dtype=torch.float32, device=device)
+    _uniform_launch("qcmrf_hdh_multi_uniform_probs", num_qubits, folded,
+                    anc_lo, nus, mu, 1.0, probs)
+    profiling.launch("hdh_multi_uniform_probs")
+    return probs
 
 
 # --------------------------------------------------------------------------
@@ -1544,8 +1596,9 @@ def _gate_planes(re, im) -> int:
 
 
 def _launch_ptrs(*planes):
-    """Pointers of planes handed to a gate kernel, which moves them as
-    float4: each must start on a 16-byte boundary."""
+    """Pointers of planes handed to a kernel that moves them as float4 (the
+    gate kernels, the write-only sandwich pass): each must start on a
+    16-byte boundary."""
     for t in planes:
         if t.data_ptr() % 16:
             raise ValueError("a plane does not start on a 16-byte boundary")

@@ -13,16 +13,21 @@ of the flat index. A circuit runs as a stream of fused passes:
   ``init_uniform`` or into a write-only first sandwich group
   (``sandwichku``). :func:`fuse_ops` keeps the stream per gate skeleton
   and, for a circuit of a kept skeleton, recomputes only its angles;
-* **executor** :func:`apply_ops`: ``init_uniform`` is plain PyTorch; every
-  other pass goes to a CUDA kernel of :mod:`qcmrf_tpu_torch.ops.kernels`
-  (its plain version on the CPU), updating the planes in place: the
-  sandwich passes, ``diag`` (the diagonal profile), ``lane`` (qubits 0-6:
-  one butterfly a value a factor for the planner's ops, which carry their
-  factors; the dense 128x128 product for a bare ``('lane', M)``), ``rowq``
-  and ``row2`` (the row gates);
-* :func:`simulate_probs` runs a stream's last read-write sandwich pass in
-  its probability form, which stores ``|amplitude|^2`` from its registers
-  into the real plane; a stream that ends in any other pass ends with
+* **executor** :func:`run_ops` (and :func:`simulate_probs`) first lets a
+  leading ``sandwichku`` absorb the sandwich groups after it whose
+  ancillas are still |0> (:func:`fold_fresh`: one write-only pass over
+  up to 16 ancillas), then :func:`apply_ops` runs the stream as given:
+  ``init_uniform`` is plain PyTorch; every other pass goes to a CUDA
+  kernel of :mod:`qcmrf_tpu_torch.ops.kernels` (its plain version on the
+  CPU), updating the planes in place: the sandwich passes, ``diag`` (the
+  diagonal profile), ``lane`` (qubits 0-6: one butterfly a value a factor
+  for the planner's ops, which carry their factors; the dense 128x128
+  product for a bare ``('lane', M)``), ``rowq`` and ``row2`` (the row
+  gates);
+* :func:`simulate_probs` runs a stream's last sandwich pass in its
+  probability form, which stores ``|amplitude|^2`` in place of the
+  amplitudes: the write-only pass where it absorbed the whole stream, else
+  the last read-write pass; a stream that ends in any other pass ends with
   ``re * re + im * im`` (:func:`outcome_probs`).
 
 :func:`apply_gate` is the unfused path, one gate at a time (``cx`` as
@@ -31,9 +36,11 @@ of the fused stream.
 
 A QCMRF circuit whose ancillas all sit at qubit 7 or above (``n >= 6``)
 fuses into sandwich passes only: at 32 qubits, one write-only and two
-read-write passes over 32 GiB of planes. A lowered circuit (the ``[cx, id,
-rz, sx, x]`` basis) runs through all five kinds of pass. Requires ``Q >=
-7``; measurements are deferred as in the dense engine.
+read-write passes, which run as one write-only pass (its 15 ancillas all
+fresh) over 32 GiB of planes, or 16 GiB of probabilities. A lowered
+circuit (the ``[cx, id, rz, sx, x]`` basis) runs through all five kinds of
+pass. Requires ``Q >= 7``; measurements are deferred as in the dense
+engine.
 """
 
 from __future__ import annotations
@@ -643,9 +650,57 @@ def fuse_ops(circuit: Circuit) -> list:
 
 
 @profiling.spanned("qcmrf.planes.run")
+def fold_fresh(ops) -> list:
+    """The stream with the sandwich groups that follow its leading
+    write-only ``sandwichku`` absorbed into it, while each group's
+    ancillas are still |0> on its input: unfolded, directly after the
+    ones absorbed, extending their adjacent range to at most
+    ``kernels.MAX_UNIFORM_K``, and no profile of the merged pass (mu
+    included) conditioning on any of its ancillas
+    (:func:`_sandwich_group_independent`). Such a group's input on its
+    own ancillas is (psi, 0, ..., 0), so its output has the closed form
+    of the write-only pass: the merged pass is one write over all their
+    ancillas, its nu profiles appended and its mu terms concatenated,
+    bases added, as post-pass 1b merges, while all its terms fit the
+    kernels' table (``kernels.MAX_SANDWICH_TERMS``). Counts ``fresh_fold``
+    once an absorbed group (by 0 where a leading ``sandwichku`` absorbs
+    none). Any other stream is returned as it is."""
+    if not ops or ops[0][0] != "sandwichku":
+        return ops
+    _, folded, a, nts, nas, nbs, mt, ma, mb = ops[0]
+    i = 1
+    while i < len(ops):
+        parts = sandwich_fold_parts(ops[i], folded)
+        if parts is None:
+            break
+        b, nts2, nas2, nbs2, mt2, ma2, mb2 = parts
+        k = len(nts) + len(nts2)
+        if b == a + len(nts):
+            merged = (a, nts + nts2, nas + nas2, nbs + nbs2)
+        elif b + len(nts2) == a:
+            merged = (b, nts2 + nts, nas2 + nas, nbs2 + nbs)
+        else:
+            break
+        # each ancilla a sandwich op, mu terms on the first
+        singles = [("sandwich", merged[0] + t, merged[1][t], (), 0.0,
+                    mt + mt2 if t == 0 else (), (), 0.0) for t in range(k)]
+        n_terms = sum(map(len, merged[1])) + len(mt) + len(mt2)
+        if (k > K.MAX_UNIFORM_K or n_terms > K.MAX_SANDWICH_TERMS
+                or not _sandwich_group_independent(singles[1:], singles[0])):
+            break
+        a, nts, nas, nbs = merged
+        mt, ma, mb = mt + mt2, ma + ma2, mb + mb2
+        i += 1
+    profiling.count("fresh_fold", i - 1)
+    if i == 1:
+        return ops
+    return [("sandwichku", folded, a, nts, nas, nbs, mt, ma, mb)] + ops[i:]
+
+
+@profiling.spanned("qcmrf.planes.run")
 def apply_ops(re, im, ops, num_qubits: int):
-    """Run a fused op stream on the planes, updating them in place;
-    returns them."""
+    """Run a fused op stream on the planes, op for op as given, updating
+    them in place; returns them."""
     for op in ops:
         kind = op[0]
         if kind == "init_uniform":
@@ -687,19 +742,25 @@ def apply_ops(re, im, ops, num_qubits: int):
     return re, im
 
 
-def run_ops(ops, num_qubits: int, device=None):
-    """Planes of ``|0...0>`` after a fused op stream, on ``device`` (the
-    current CUDA device unless one is named; raises when there is none).
-    When the stream starts with a write-only op the planes are not zeroed
-    first."""
+def _start_planes(ops, num_qubits: int, device):
+    """Planes for a stream to run from ``|0...0>``: not zeroed where its
+    first op writes them whole."""
     device = resolve_device(device)
     if ops and ops[0][0] in ("init_uniform", "sandwichku"):
         shape = K.plane_shape(num_qubits)
-        re = torch.empty(shape, dtype=torch.float32, device=device)
-        im = torch.empty(shape, dtype=torch.float32, device=device)
-    else:
-        re, im = zero_planes(num_qubits, device)
-    return apply_ops(re, im, ops, num_qubits)
+        return (torch.empty(shape, dtype=torch.float32, device=device),
+                torch.empty(shape, dtype=torch.float32, device=device))
+    return zero_planes(num_qubits, device)
+
+
+def run_ops(ops, num_qubits: int, device=None):
+    """Planes of ``|0...0>`` after a fused op stream, on ``device`` (the
+    current CUDA device unless one is named; raises when there is none).
+    A leading write-only pass first absorbs the sandwich groups on fresh
+    ancillas after it (:func:`fold_fresh`)."""
+    ops = fold_fresh(ops)
+    return apply_ops(*_start_planes(ops, num_qubits, device), ops,
+                     num_qubits)
 
 
 def _engine_width(circuit: Circuit) -> int:
@@ -755,36 +816,45 @@ def outcome_probs(circuit: Circuit, re, im) -> torch.Tensor:
 
 
 #: the passes of a fused stream that have a probability form
-_PROBS_KINDS = ("sandwich", "sandwichk")
+_PROBS_KINDS = ("sandwichku", "sandwich", "sandwichk")
 
 
 @profiling.spanned("qcmrf.planes.run")
-def _probs_pass(op, planes):
-    """A stream's last pass, a read-write sandwich pass, in its probability
-    form: every basis state's probability, into the real plane of
-    ``planes``."""
+def _probs_pass(op, num_qubits: int, planes, device) -> torch.Tensor:
+    """A stream's last pass, a sandwich pass, in its probability form:
+    every basis state's probability, flat. The write-only pass (a stream
+    it absorbed whole) takes no planes; a read-write pass reads
+    ``planes``, its input, and writes the probabilities into the real
+    plane."""
+    if op[0] == "sandwichku":
+        return K.apply_hdh_sandwich_multi_uniform_probs(num_qubits, *op[1:],
+                                                        device=device)
     if op[0] == "sandwich":
         _, a, nt, na, nb, mt, ma, mb = op
         nts, nas, nbs = (nt,), (na,), (nb,)
     else:
         _, a, nts, nas, nbs, mt, ma, mb = op
     return K.apply_hdh_sandwich_multi_probs(*planes, a, nts, nas, nbs, mt,
-                                            ma, mb)
+                                            ma, mb).reshape(-1)
 
 
 @profiling.spanned("qcmrf.planes.simulate")
 def simulate_probs(circuit: Circuit, device=None) -> torch.Tensor:
     """Run + outcome distribution, on ``device`` as for
-    :func:`run_statevector`. A stream that ends in a read-write sandwich
-    pass runs that pass in its probability form, so no amplitude of the
-    final state is stored; any other stream ends with
-    :func:`outcome_probs`. The global phase changes no probability and is
-    not applied."""
+    :func:`run_statevector`. A stream that ends in a sandwich pass runs its
+    last pass in its probability form, so no amplitude of the final state
+    is stored: the write-only pass where it absorbs the whole stream
+    (:func:`fold_fresh`; then no planes are made at all), else the last
+    read-write pass; any other stream ends with :func:`outcome_probs`. The
+    global phase changes no probability and is not applied."""
     nq = _engine_width(circuit)
-    ops = fuse_ops(circuit)
+    ops = fold_fresh(fuse_ops(circuit))
     if not ops or ops[-1][0] not in _PROBS_KINDS:
-        return outcome_probs(circuit, *run_ops(ops, nq, device))
+        return outcome_probs(circuit, *apply_ops(
+            *_start_planes(ops, nq, device), ops, nq))
     *head, last = ops
-    probs = _probs_pass(last, run_ops(head, nq, device))
+    planes = (None if last[0] == "sandwichku" else
+              apply_ops(*_start_planes(head, nq, device), head, nq))
+    probs = _probs_pass(last, nq, planes, device)
     with profiling.span("qcmrf.planes.outcome"):
-        return _clbit_probs(circuit, probs.reshape(-1))
+        return _clbit_probs(circuit, probs)

@@ -221,9 +221,9 @@ def count(name: str, n: int = 1) -> None:
 #: :func:`launch` (each ops module's ``LAUNCHES`` is this dict)
 LAUNCHES: Dict[str, int] = dict.fromkeys((
     "logpot", "lse", "map", "moments", "lnz_moments", "hdh_multi",
-    "hdh_multi_probs", "hdh_multi_uniform", "diag", "row_gate", "lane",
-    "lane_factored", "copy", "fma_peak", "sampler", "circuit", "gibbs",
-    "gibbs_ais"), 0)
+    "hdh_multi_probs", "hdh_multi_uniform", "hdh_multi_uniform_probs",
+    "diag", "row_gate", "lane", "lane_factored", "copy", "fma_peak",
+    "sampler", "circuit", "gibbs", "gibbs_ais"), 0)
 
 
 def launch(kernel: str) -> None:

@@ -270,9 +270,75 @@ def test_probability_form_matches_plain_version(dev, k):
     assert kernels.LAUNCHES["hdh_multi"] == before["hdh_multi"]
 
 
+@pytest.mark.parametrize("nq,groups", [(24, (7, 7)), (26, (7, 7)),
+                                       (26, (7, 1)), (24, (1, 1)),
+                                       (24, (7, 7, 2))])
+def test_merged_uniform_kernel_matches_the_launches_it_replaces(dev, nq,
+                                                                groups):
+    """The write-only kernel over the groups' adjacent ancillas (K = their
+    sum, up to 16), in both forms, against the launches it replaces: the
+    write-only pass of the first group, then the read-write pass of each
+    other group; max|diff| / max|ref| <= 1e-6, one launch each."""
+    k = sum(groups)
+    a_lo = nq - k
+    nts, nas, nbs, mu = rand_profiles(nq, a_lo, k, nq + k)
+    folded = tuple(q for q in range(a_lo) if q % 3)
+    before = dict(kernels.LAUNCHES)
+    re, im = kernels.apply_hdh_sandwich_multi_uniform(
+        nq, folded, a_lo, nts[:groups[0]], nas[:groups[0]],
+        nbs[:groups[0]], *mu, device=dev)
+    t = groups[0]
+    for g in groups[1:]:
+        kernels.apply_hdh_sandwich_multi(re, im, a_lo + t, nts[t:t + g],
+                                         nas[t:t + g], nbs[t:t + g])
+        t += g
+    want = torch.complex(re, im).reshape(-1)
+    merged = (nq, folded, a_lo, nts, nas, nbs) + mu
+    got = kernels.apply_hdh_sandwich_multi_uniform(*merged, device=dev)
+    got = torch.complex(*got).reshape(-1)
+    err = float((got - want).abs().max() / want.abs().max())
+    assert err <= 1e-6, err
+    del got
+    probs = kernels.apply_hdh_sandwich_multi_uniform_probs(*merged,
+                                                           device=dev)
+    want = want.abs() ** 2
+    assert probs.shape == (1 << nq,)
+    err = float((probs - want).abs().max() / want.max())
+    assert err <= 1e-6, err
+    ran = {key: kernels.LAUNCHES[key] - before[key] for key in before}
+    assert ran["hdh_multi_uniform"] == 2
+    assert ran["hdh_multi"] == len(groups) - 1
+    assert ran["hdh_multi_uniform_probs"] == 1
+    assert ran["hdh_multi_probs"] == 0
+
+
+def test_write_only_pass_rejects_misaligned_planes(dev):
+    """The write-only kernel stores float4: output planes that do not start
+    on a 16-byte boundary are refused before the launch, and aligned ones
+    still run."""
+    nq, shape = 12, (1 << 12) // 128
+    buf = torch.empty(2 * (1 << nq) + 4, dtype=torch.float32, device=dev)
+    args = (nq, (0, 1), 4, ((((0, 1),),),), ((0.3,),), (0.1,))
+    before = kernels.LAUNCHES["hdh_multi_uniform"]
+    for off in (1, 2, 3):
+        re = buf[off:off + (1 << nq)].view(shape, 128)
+        im = buf[off + (1 << nq):off + (2 << nq)].view(shape, 128)
+        with pytest.raises(ValueError, match="16-byte"):
+            kernels.apply_hdh_sandwich_multi_uniform(*args, out=(re, im))
+    assert kernels.LAUNCHES["hdh_multi_uniform"] == before
+    re = buf[4:4 + (1 << nq)].view(shape, 128)
+    im = buf[4 + (1 << nq):4 + (2 << nq)].view(shape, 128)
+    got = kernels.apply_hdh_sandwich_multi_uniform(*args, out=(re, im))
+    want = kernels.apply_hdh_sandwich_multi_uniform_reference(*args,
+                                                              device=dev)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-6)
+
+
 def test_simulate_probs_routes(dev):
-    """chain15's stream (width 30) ends in the read-write probability form:
-    hdh_multi_probs once, no amplitude pass after the write-only one; its
+    """chain15's stream (width 30) runs as one write-only pass in its
+    probability form over the 14 fresh ancillas of its two groups:
+    hdh_multi_uniform_probs once, no other sandwich launch; its
     post-selected probabilities within 1e-4 of the analytic law. A lowered
     stream has no probability form."""
     from qcmrf_tpu_torch.circuits.lower import lower
@@ -288,8 +354,9 @@ def test_simulate_probs_routes(dev):
     probs = planes.simulate_probs(circ, device=dev)
     torch.cuda.synchronize()
     ran = {k: kernels.LAUNCHES[k] - before[k] for k in before}
-    assert ran["hdh_multi_uniform"] == 1 and ran["hdh_multi_probs"] == 1
-    assert ran["hdh_multi"] == 0
+    assert ran["hdh_multi_uniform_probs"] == 1
+    assert ran["hdh_multi_uniform"] == 0
+    assert ran["hdh_multi_probs"] == 0 and ran["hdh_multi"] == 0
     p, delta = analytic.postselected_probs(m)
     want = p * delta
     post_rel = float((probs[: 1 << n] - want).abs().max() / want.max())
@@ -304,6 +371,32 @@ def test_simulate_probs_routes(dev):
     assert kernels.LAUNCHES["hdh_multi_probs"] == before["hdh_multi_probs"]
     want = dense.simulate_probs(low, dtype=torch.complex128, device=dev)
     torch.testing.assert_close(got.double(), want, rtol=0, atol=1e-5)
+
+
+def test_simulate_probs_keeps_the_read_write_form(dev):
+    """Width 24: a second group whose profile conditions on the first
+    group's ancilla is not absorbed, so the stream ends in the read-write
+    probability form (hdh_multi_kernel<k, true>) after the write-only
+    amplitude pass; max|diff| / max|ref| <= 1e-6 against the dense
+    engine in complex128."""
+    from qcmrf_tpu_torch.circuits.ir import Circuit
+
+    c = Circuit(24)
+    for q in range(16):
+        c.h(q)
+    c.h(16).cp(0.7, 0, 16).rz(0.3, 16).cp(-0.4, 5, 16).h(16)
+    c.h(17).cp(-0.9, 1, 17).cp(0.5, 16, 17).h(17)
+    assert [op[0] for op in planes.fold_fresh(planes.fuse_ops(c))] == [
+        "sandwichku", "sandwich"]
+    before = dict(kernels.LAUNCHES)
+    got = planes.simulate_probs(c, device=dev)
+    torch.cuda.synchronize()
+    ran = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+    assert ran["hdh_multi_uniform"] == 1 and ran["hdh_multi_probs"] == 1
+    assert ran["hdh_multi_uniform_probs"] == 0 and ran["hdh_multi"] == 0
+    want = dense.simulate_probs(c, dtype=torch.complex128, device=dev)
+    err = float((got.double() - want).abs().max() / want.max())
+    assert err <= 1e-6, err
 
 
 def test_plane_engine_matches_dense_on_card(dev):

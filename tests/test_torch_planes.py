@@ -247,6 +247,12 @@ def test_multi_uniform_matches_pallas(with_mu):
     assert into[0] is out[0]
     np.testing.assert_allclose(to_complex(*into), to_complex(*want),
                                atol=1e-5)
+    # the probability form: |amplitude|^2, flat
+    probs = kernels.apply_hdh_sandwich_multi_uniform_probs(
+        nq, folded, a_lo, nts, nas, nbs, *mu, device="cpu")
+    assert probs.shape == (1 << nq,)
+    np.testing.assert_allclose(probs.numpy(),
+                               np.abs(to_complex(*want)) ** 2, atol=1e-6)
 
 
 def test_sandwich_guards_raise():
@@ -262,6 +268,11 @@ def test_sandwich_guards_raise():
     with pytest.raises(ValueError, match="folded"):
         kernels.apply_hdh_sandwich_multi_uniform(9, (0, 7), 7, ((),), ((),),
                                                  (0.0,))
+    for form in (kernels.apply_hdh_sandwich_multi_uniform,
+                 kernels.apply_hdh_sandwich_multi_uniform_probs):
+        with pytest.raises(ValueError, match="1..16"):
+            form(20, (0,), 2, ((),) * 17, ((),) * 17, (0.0,) * 17,
+                 device="cpu")
     with pytest.raises(ValueError, match="float32"):
         kernels.apply_hdh_sandwich(pr.double(), pi.double(), 7, (), ())
     with pytest.raises(ValueError, match="terms"):
@@ -536,3 +547,122 @@ def test_plan_caches_count_and_stay_bounded():
     assert compiler._skeleton.cache_info().currsize <= size
     _, counts = counted(lambda: run(mrf, 1))  # evicted: built again
     assert counts == {"skeleton_build": 1, "fuse_build": 1}
+
+
+# ---- the write-only pass absorbs the groups on fresh ancillas ---------------
+
+
+def assert_matches_dense(c):
+    """simulate_probs and run_statevector on the CPU against the dense
+    engine in complex128, within 1e-6."""
+    want = dense.run_statevector(c, dtype=torch.complex128, device="cpu")
+    re, im = planes.run_statevector(c, device="cpu")
+    got = torch.complex(re, im).reshape(-1).to(torch.complex128)
+    assert float((got - want).abs().max()) <= 1e-6
+    probs = planes.simulate_probs(c, device="cpu")
+    want = dense.simulate_probs(c, dtype=torch.complex128, device="cpu")
+    assert float((probs.double() - want).abs().max()) <= 1e-6
+
+
+def test_fresh_fold_engages_on_a_chain():
+    """A 9-chain (width 18: groups of 7 and 1 ancillas) runs as one
+    write-only pass over ancillas 10-17, counted as one fresh_fold in
+    each run; both results match the dense engine."""
+    _, c = circuits(chain(9), 5, with_measurements=False)
+    ops = planes.fuse_ops(c)
+    assert [op[0] for op in ops] == ["sandwichku", "sandwich"]
+    (op,) = planes.fold_fresh(ops)
+    assert op[0] == "sandwichku" and op[2] == 10 and len(op[3]) == 8
+    assert op[6] == ops[0][6] + ops[1][5]  # mu terms concatenated
+    assert op[8] == ops[0][8] + ops[1][7]  # mu bases added
+    for run in (lambda: planes.simulate_probs(c, device="cpu"),
+                lambda: planes.run_statevector(c, device="cpu")):
+        _, counts = counted(run)
+        assert counts.get("fresh_fold") == 1
+    assert_matches_dense(c)
+
+
+def test_fresh_fold_decision_on_chain15():
+    """chain15's stream (width 30) folds into one write-only pass over
+    ancillas 16-29; the stream fuse_ops gives keeps its two ops."""
+    _, c = circuits(chain(15), 8, with_measurements=False)
+    ops = planes.fuse_ops(c)
+    assert [op[0] for op in ops] == ["sandwichku", "sandwichk"]
+    assert (ops[0][2], len(ops[0][3]), ops[1][1], len(ops[1][2])) == (
+        16, 7, 23, 7)
+    (op,) = planes.fold_fresh(ops)
+    assert op[2] == 16 and len(op[3]) == 14 and op[1] == tuple(range(15))
+    assert len(planes.fuse_ops(c)) == 2
+
+
+def _two_sandwiches(second_anc, cond_on_first=False, between=False):
+    """Width 10: an H wall on qubits 0-6, a sandwich on ancilla 7, and a
+    sandwich on ``second_anc`` whose diagonal conditions on qubit 1 (and
+    on ancilla 7 with ``cond_on_first``), after an rz on its own ancilla
+    with ``between``."""
+    c = Circuit(10)
+    for q in range(7):
+        c.h(q)
+    c.h(7).cp(0.7, 0, 7).rz(0.3, 7).h(7)
+    if between:
+        c.rz(0.4, second_anc)
+    c.h(second_anc).cp(-0.9, 1, second_anc)
+    if cond_on_first:
+        c.cp(0.5, 7, second_anc)
+    return c.h(second_anc)
+
+
+@pytest.mark.parametrize("case", ["conditions_on_first", "op_between",
+                                  "not_adjacent"])
+def test_fresh_fold_needs_fresh_independent_adjacent_ancillas(case):
+    """The second group is not absorbed when it conditions on an ancilla
+    of the first, when an op on its ancilla comes between them, or when
+    its ancilla is not adjacent; each stream still matches the dense
+    engine."""
+    c = {"conditions_on_first": lambda: _two_sandwiches(8, True),
+         "op_between": lambda: _two_sandwiches(8, between=True),
+         "not_adjacent": lambda: _two_sandwiches(9)}[case]()
+    ops = planes.fuse_ops(c)
+    assert ops[0][0] == "sandwichku" and ops[-1][0] == "sandwich"
+    assert len(ops) == (3 if case == "op_between" else 2)
+    assert planes.fold_fresh(ops) is ops
+    _, counts = counted(lambda: planes.simulate_probs(c, device="cpu"))
+    assert counts["fresh_fold"] == 0  # looked at, none absorbed
+    assert_matches_dense(c)
+
+
+@pytest.mark.parametrize("second_terms,absorbed", [(424, True),
+                                                    (425, False)])
+def test_fresh_fold_stops_at_the_kernels_term_table(second_terms, absorbed):
+    """A group is absorbed only while the merged pass's terms fit the
+    kernels' table (600 + 424 = 1024 do, one more does not); either
+    stream runs, and equals the stream run op for op."""
+    rng = np.random.RandomState(second_terms)
+    first = ("sandwichku", tuple(range(7)), 7, ((((0, 1),),) * 600,),
+             (tuple(rng.randn(600) * 0.01),), (0.3,), (), (), 0.0)
+    second = ("sandwich", 8, (((2, 0), (1, 1)),) * second_terms,
+              tuple(rng.randn(second_terms) * 0.01), -0.2, (), (), 0.0)
+    ops = [first, second]
+    folded = planes.fold_fresh(ops)
+    assert (folded is ops) != absorbed
+    if absorbed:
+        assert sum(map(len, folded[0][3])) == kernels.MAX_SANDWICH_TERMS
+    got = planes.run_ops(ops, 10, "cpu")
+    want = planes.apply_ops(*planes.zero_planes(10, "cpu"), ops, 10)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-6)
+
+
+def test_fresh_fold_never_engages_on_a_lowered_chain():
+    """A lowered stream folds no H wall: no sandwichku leads it, and
+    nothing is absorbed."""
+    from qcmrf_tpu_torch.circuits.lower import lower
+
+    _, c = circuits(chain(4), 6, with_measurements=False)
+    low = lower(c)
+    ops = planes.fuse_ops(low)
+    assert ops[0][0] != "sandwichku" and planes.fold_fresh(ops) is ops
+    probs, counts = counted(lambda: planes.simulate_probs(low, device="cpu"))
+    assert "fresh_fold" not in counts
+    want = dense.simulate_probs(low, dtype=torch.complex128, device="cpu")
+    assert float((probs.double() - want).abs().max()) <= 1e-5

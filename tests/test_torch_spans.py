@@ -146,9 +146,9 @@ def test_every_ops_module_shares_the_one_launch_dict():
         assert mod.LAUNCHES is profiling.LAUNCHES
     assert set(profiling.LAUNCHES) == {
         "logpot", "lse", "map", "moments", "lnz_moments", "hdh_multi",
-        "hdh_multi_probs", "hdh_multi_uniform", "diag", "row_gate", "lane",
-        "lane_factored", "copy", "fma_peak", "sampler", "circuit", "gibbs",
-        "gibbs_ais"}
+        "hdh_multi_probs", "hdh_multi_uniform", "hdh_multi_uniform_probs",
+        "diag", "row_gate", "lane", "lane_factored", "copy", "fma_peak",
+        "sampler", "circuit", "gibbs", "gibbs_ais"}
 
 
 def test_spans_start_on_the_kineto_clock():
